@@ -1,0 +1,137 @@
+"""Dense-padded event batches (counterpart of ``graphnet_tpu/batch.py``).
+
+The layout is the JAX package's: ``x [B, L, D]`` float32 node features,
+zero-padded, and ``mask [B, L]`` bool validity.  Events are padded to
+length *buckets* so only a few shapes occur.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from graphnet_tpu_torch.device import DeviceLike
+
+
+@dataclass
+class EventBatch:
+    """A batch of padded events.
+
+    Attributes:
+        x: ``[B, L, D]`` float32 node (pulse) features, zero-padded.
+        mask: ``[B, L]`` bool; True where the node is a real pulse.
+        n_pulses: ``[B]`` int32 number of valid pulses per event.
+        labels: per-event truth tensors, each ``[B]`` or ``[B, d]``.
+        node_labels: per-node truth tensors, each ``[B, L]``.
+        edges: optional precomputed neighbour indices ``[B, L, k]`` int32.
+        edge_mask: optional ``[B, L, k]`` bool mask for ``edges``.
+    """
+
+    x: torch.Tensor
+    mask: torch.Tensor
+    n_pulses: torch.Tensor
+    labels: Dict[str, torch.Tensor] = field(default_factory=dict)
+    node_labels: Dict[str, torch.Tensor] = field(default_factory=dict)
+    edges: Optional[torch.Tensor] = None
+    edge_mask: Optional[torch.Tensor] = None
+
+    def to(self, device: DeviceLike) -> "EventBatch":
+        """Copy of the batch with every tensor on ``device``."""
+
+        def move(t):
+            return None if t is None else t.to(device, non_blocking=True)
+
+        return replace(
+            self,
+            x=move(self.x),
+            mask=move(self.mask),
+            n_pulses=move(self.n_pulses),
+            labels={k: move(v) for k, v in self.labels.items()},
+            node_labels={k: move(v) for k, v in self.node_labels.items()},
+            edges=move(self.edges),
+            edge_mask=move(self.edge_mask),
+        )
+
+    @property
+    def batch_size(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def max_length(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def num_features(self) -> int:
+        return self.x.shape[2]
+
+
+DEFAULT_BUCKETS: Tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def bucket_for_length(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    """Smallest bucket length >= n (last bucket truncates longer events)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def pad_events(
+    events: List[np.ndarray],
+    length: Optional[int] = None,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a list of ``[n_i, D]`` arrays to ``([B, L, D], [B, L], [B])``.
+
+    Events longer than ``L`` are truncated.
+    """
+    if not events:
+        raise ValueError("empty event list")
+    d = events[0].shape[1]
+    max_n = max(e.shape[0] for e in events)
+    L = length if length is not None else bucket_for_length(max_n, buckets)
+    B = len(events)
+    x = np.zeros((B, L, d), dtype=np.float32)
+    mask = np.zeros((B, L), dtype=bool)
+    n_pulses = np.zeros((B,), dtype=np.int32)
+    for i, e in enumerate(events):
+        n = min(e.shape[0], L)
+        x[i, :n] = e[:n]
+        mask[i, :n] = True
+        n_pulses[i] = n
+    return x, mask, n_pulses
+
+
+def make_batch(
+    events: List[np.ndarray],
+    labels: Optional[Dict[str, np.ndarray]] = None,
+    node_labels: Optional[List[Dict[str, np.ndarray]]] = None,
+    length: Optional[int] = None,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+) -> EventBatch:
+    """Build an :class:`EventBatch` of CPU tensors from per-event numpy
+    arrays (move it with :meth:`EventBatch.to`)."""
+    x, mask, n_pulses = pad_events(events, length=length, buckets=buckets)
+    label_dict = {
+        k: torch.as_tensor(np.asarray(v)) for k, v in (labels or {}).items()
+    }
+    nl_dict: Dict[str, torch.Tensor] = {}
+    if node_labels:
+        L = x.shape[1]
+        for key in node_labels[0]:
+            arr = np.zeros((len(events), L), dtype=np.float32)
+            for i, dct in enumerate(node_labels):
+                v = np.asarray(dct[key])
+                n = min(v.shape[0], L)
+                arr[i, :n] = v[:n]
+            nl_dict[key] = torch.from_numpy(arr)
+    return EventBatch(
+        x=torch.from_numpy(x),
+        mask=torch.from_numpy(mask),
+        n_pulses=torch.from_numpy(n_pulses),
+        labels=label_dict,
+        node_labels=nl_dict,
+    )

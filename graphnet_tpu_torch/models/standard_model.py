@@ -1,0 +1,60 @@
+"""StandardModel: backbone + task heads (counterpart of
+``graphnet_tpu/models/standard_model.py``).  The loss waits for the
+training slice of the port."""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from graphnet_tpu_torch.batch import EventBatch
+from graphnet_tpu_torch.device import DeviceLike, resolve_device
+from graphnet_tpu_torch.models.components.layers import init_parameters
+from graphnet_tpu_torch.models.gnn.gnn import GNN
+from graphnet_tpu_torch.models.task.task import Task
+
+
+class StandardModel(nn.Module):
+    """Backbone + one or more task heads.
+
+    The parameters are initialised from ``torch.Generator().manual_seed(
+    seed)`` on the CPU and then moved to ``device`` (the GPU unless the
+    caller asks for the CPU).  The tasks are registered as ``tasks_0``,
+    ``tasks_1``, ..., the JAX package's parameter names.
+    """
+
+    def __init__(
+        self,
+        backbone: GNN,
+        tasks: Sequence[Task],
+        seed: int = 0,
+        device: DeviceLike = "cuda",
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.backbone = backbone
+        self.n_tasks = len(tasks)
+        for i, task in enumerate(tasks):
+            self.add_module(f"tasks_{i}", task)
+        init_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(dev)
+
+    @property
+    def tasks(self) -> List[Task]:
+        return [getattr(self, f"tasks_{i}") for i in range(self.n_tasks)]
+
+    def forward(
+        self, batch: EventBatch, inference: bool = False
+    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        latents = self.backbone(batch)
+        return [task(latents, inference=inference) for task in self.tasks]
+
+    @property
+    def target_labels(self) -> List[str]:
+        return [l for task in self.tasks for l in task.targets]
+
+    @property
+    def prediction_labels(self) -> List[str]:
+        return [l for task in self.tasks for l in task.predictions]

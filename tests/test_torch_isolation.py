@@ -1,0 +1,124 @@
+"""The port stands alone: it imports no JAX, no flax and nothing of the
+JAX package, and its entry points default to the GPU."""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "graphnet_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "graphnet_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"
+    ]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_and_runs_without_jax():
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        for name in ("jax", "flax", "graphnet_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        import graphnet_tpu_torch
+        for mod in pkgutil.walk_packages(
+            graphnet_tpu_torch.__path__, "graphnet_tpu_torch."
+        ):
+            importlib.import_module(mod.name)
+        from graphnet_tpu_torch.deployment.deployment_module import (
+            DeploymentModule,
+        )
+        from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+        from graphnet_tpu_torch.models.graphs.graph_definition import Event
+        from graphnet_tpu_torch.models.standard_model import StandardModel
+        from graphnet_tpu_torch.models.task.reconstruction import (
+            EnergyReconstruction,
+        )
+        model = StandardModel(
+            DynEdge(nb_inputs=4, dynedge_layer_sizes=((16, 32),),
+                    post_processing_layer_sizes=(16,),
+                    readout_layer_sizes=(8,)),
+            [EnergyReconstruction(hidden_size=8)], device="cpu",
+        )
+        module = DeploymentModule(model, model.state_dict(), device="cpu")
+        rng = np.random.default_rng(0)
+        events = [Event(x=rng.standard_normal((n, 4)).astype(np.float32),
+                        features=list("xyzt")) for n in (9, 3)]
+        out = module(events)
+        assert out.shape == (2, 1) and np.isfinite(out).all(), out
+        assert not any(
+            m == "jax" or m.startswith(("jax.", "flax", "graphnet_tpu."))
+            for m in sys.modules if sys.modules[m] is not None
+        )
+        print("ok")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_entry_points_default_to_the_gpu():
+    from graphnet_tpu_torch.deployment.deployment_module import (
+        DeploymentModule,
+    )
+    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.models.task.reconstruction import (
+        EnergyReconstruction,
+    )
+
+    def build(**kw):
+        return StandardModel(
+            DynEdge(nb_inputs=4, dynedge_layer_sizes=((16, 32),),
+                    post_processing_layer_sizes=(16,),
+                    readout_layer_sizes=(8,)),
+            [EnergyReconstruction(hidden_size=8)],
+            **kw,
+        )
+
+    model = build(device="cpu")
+    if torch.cuda.is_available():
+        assert DeploymentModule(model, model.state_dict()).device.type == "cuda"
+        assert next(build().parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeploymentModule(model, model.state_dict())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        # the model was left where it was
+        assert np.all([p.device.type == "cpu" for p in model.parameters()])
