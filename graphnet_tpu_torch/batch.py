@@ -28,6 +28,13 @@ class EventBatch:
         node_labels: per-node truth tensors, each ``[B, L]``.
         edges: optional precomputed neighbour indices ``[B, L, k]`` int32.
         edge_mask: optional ``[B, L, k]`` bool mask for ``edges``.
+        event_weight: optional ``[B]`` float loss weight per event (real
+            events ``B_padded / B_real``, padding events 0, so a padded
+            batch's mean loss equals the unpadded one's).
+
+    The JAX package's packed-label transport (``packed_f``, ``unpack``)
+    is not ported: it exists for the TPU runtime's per-argument dispatch
+    cost.
     """
 
     x: torch.Tensor
@@ -37,6 +44,7 @@ class EventBatch:
     node_labels: Dict[str, torch.Tensor] = field(default_factory=dict)
     edges: Optional[torch.Tensor] = None
     edge_mask: Optional[torch.Tensor] = None
+    event_weight: Optional[torch.Tensor] = None
 
     def to(self, device: DeviceLike) -> "EventBatch":
         """Copy of the batch with every tensor on ``device``."""
@@ -53,6 +61,7 @@ class EventBatch:
             node_labels={k: move(v) for k, v in self.node_labels.items()},
             edges=move(self.edges),
             edge_mask=move(self.edge_mask),
+            event_weight=move(self.event_weight),
         )
 
     @property

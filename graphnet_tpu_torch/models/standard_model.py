@@ -1,10 +1,9 @@
-"""StandardModel: backbone + task heads (counterpart of
-``graphnet_tpu/models/standard_model.py``).  The loss waits for the
-training slice of the port."""
+"""StandardModel: backbone + task heads, with summed task losses
+(counterpart of ``graphnet_tpu/models/standard_model.py``)."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -50,6 +49,43 @@ class StandardModel(nn.Module):
     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         latents = self.backbone(batch)
         return [task(latents, inference=inference) for task in self.tasks]
+
+    def loss(
+        self,
+        outputs: List[Tuple[torch.Tensor, torch.Tensor]],
+        labels: Dict[str, torch.Tensor],
+        weights: Optional[torch.Tensor] = None,
+        node_labels: Optional[Dict[str, torch.Tensor]] = None,
+        mask: Optional[torch.Tensor] = None,
+        event_weights: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Sum of the tasks' losses."""
+        losses = [
+            task.compute_loss(
+                pred,
+                reg,
+                labels,
+                weights=weights,
+                node_labels=node_labels,
+                mask=mask,
+                event_weights=event_weights,
+            )
+            for task, (pred, reg) in zip(self.tasks, outputs)
+        ]
+        return torch.stack(losses).sum()
+
+    def loss_from_batch(
+        self, outputs: List[Tuple[torch.Tensor, torch.Tensor]], batch: EventBatch
+    ) -> torch.Tensor:
+        """Loss with the truth, node truth, mask and event weights routed
+        from the batch."""
+        return self.loss(
+            outputs,
+            batch.labels,
+            node_labels=batch.node_labels,
+            mask=batch.mask,
+            event_weights=batch.event_weight,
+        )
 
     @property
     def target_labels(self) -> List[str]:

@@ -1,6 +1,7 @@
 """Reconstruction task heads (counterpart of
 ``graphnet_tpu/models/task/reconstruction.py``).  Only the energy head
-is ported so far."""
+is ported so far; it takes ``Task``'s arguments (``loss_function``,
+``target_labels``, ``transform_prediction_and_target``, ...)."""
 
 from __future__ import annotations
 

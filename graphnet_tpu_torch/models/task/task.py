@@ -1,19 +1,21 @@
 """Task heads (counterpart of ``graphnet_tpu/models/task/task.py``).
 
 A task holds the learned affine map from backbone latents to task space
-(``affine``), a fixed output transform (``_forward``) and optional
-target/inference transforms.  ``forward(latents, inference)`` returns
-``(prediction, regularisation_loss)``.  The losses wait for the
-training slice of the port.
+(``affine``), a fixed output transform (``_forward``), optional
+target/inference transforms and a loss function.  ``forward(latents,
+inference)`` returns ``(prediction, regularisation_loss)``;
+``compute_loss`` evaluates the loss against the batch's truth.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from graphnet_tpu_torch.training.loss_functions import LossFunction
 
 EPS = 1.1920929e-07  # float32 eps
 
@@ -71,6 +73,8 @@ class Task(nn.Module):
         transform_inference: Optional[Callable] = None,
         transform_support: Optional[Tuple[float, float]] = None,
         node_level: bool = False,
+        loss_function: Optional[LossFunction] = None,
+        loss_weight: Optional[str] = None,
     ):
         super().__init__()
         validate_transforms(
@@ -84,6 +88,9 @@ class Task(nn.Module):
         self.transform_prediction_and_target = transform_prediction_and_target
         self.transform_target = transform_target
         self.transform_inference = transform_inference
+        self.loss_function = loss_function
+        # name of a per-event label that weights the loss
+        self.loss_weight = loss_weight
         # node-level tasks read per-node latents [B, L, d]
         self.node_level = node_level
         self.affine = nn.Linear(hidden_size, self.nb_inputs)
@@ -111,6 +118,13 @@ class Task(nn.Module):
             return self.transform_inference(pred)
         return pred
 
+    def _transform_target_fn(self, target: torch.Tensor) -> torch.Tensor:
+        if self.transform_prediction_and_target is not None:
+            return self.transform_prediction_and_target(target)
+        if self.transform_target is not None:
+            return self.transform_target(target)
+        return target
+
     def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Map affine outputs to task space; returns (pred, reg_loss)."""
         return x, x.new_zeros(())
@@ -120,6 +134,72 @@ class Task(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         pred, reg = self._forward(self.affine(latents))
         return self._transform_prediction(pred, inference), reg
+
+    def compute_loss(
+        self,
+        pred: torch.Tensor,
+        reg: torch.Tensor,
+        labels: Dict[str, torch.Tensor],
+        weights: Optional[torch.Tensor] = None,
+        node_labels: Optional[Dict[str, torch.Tensor]] = None,
+        mask: Optional[torch.Tensor] = None,
+        event_weights: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Stack the target label columns, transform them, evaluate the
+        loss, add the regularisation.
+
+        Node-level tasks: ``pred`` is ``[B, L, d]``, the targets come
+        from ``node_labels`` (``[B, L]`` each), and padded nodes are left
+        out through zero weights and a mean over the valid count.
+
+        ``event_weights``: optional ``[B]`` multiplier
+        (``EventBatch.event_weight``).
+        """
+        if self.loss_function is None:
+            raise ValueError("Task has no loss function")
+        if self.node_level:
+            if node_labels is None or mask is None:
+                raise ValueError("a node-level loss needs node_labels and mask")
+            target = torch.stack(
+                [node_labels[label] for label in self.targets], dim=-1
+            )
+            target = self._transform_target_fn(target)
+            B, L, d = pred.shape
+            w = mask.to(pred.dtype)
+            if event_weights is not None:
+                # the scale cancels in the normalised mean; only the
+                # zeros on padded events matter
+                w = w * event_weights[:, None].to(pred.dtype)
+            w = w.reshape(B * L)
+            elements = self.loss_function(
+                pred.reshape(B * L, d),
+                target.reshape(B * L, -1),
+                return_elements=True,
+            )
+            # elements may be [B*L] or [B*L, d]: one value per node, so
+            # the [B*L] weights pair per node (a bare broadcast of [N]
+            # against [N, 1] would build an [N, N] product that silently
+            # includes the padded nodes)
+            elements = elements.reshape(B * L, -1).mean(dim=-1)
+            return (elements * w).sum() / w.sum().clamp_min(1.0) + reg
+        cols = []
+        for label in self.targets:
+            if label not in labels:
+                raise KeyError(
+                    f"Target label {label!r} not found in batch labels; "
+                    f"available: {sorted(labels)}. Check the task's "
+                    "target_labels against the dataset's truth columns."
+                )
+            v = labels[label]
+            cols.append(v if v.dim() > 1 else v[:, None])
+        target = self._transform_target_fn(torch.cat(cols, dim=1))
+        if self.loss_weight is not None:
+            weights = labels[self.loss_weight]
+        if event_weights is not None:
+            weights = (
+                event_weights if weights is None else weights * event_weights
+            )
+        return self.loss_function(pred, target, weights=weights) + reg
 
 
 class StandardLearnedTask(Task):

@@ -1,32 +1,43 @@
-"""Fused EdgeConv forward kernel for Hopper, and its plain PyTorch version.
+"""Fused EdgeConv kernels for Hopper (forward and backward), and their
+plain PyTorch versions.
 
-Replaces ``graphnet_tpu/ops/edgeconv_pallas.py:_fwd_kernel`` (the forward
-of ``fused_edgeconv``).  Computes, per node,
+Replaces ``graphnet_tpu/ops/edgeconv_pallas.py``: ``_fwd_kernel`` (the
+forward of ``fused_edgeconv``) and ``_bwd_kernel`` (its custom VJP).
+The forward computes, per node,
 
     ``aggr_k em[i,k] act(act(a[i] + b[idx[i,k]]) @ w2 + b2)``
 
 where ``act`` is (leaky) relu with ``slope`` and ``aggr`` is "add" or
 "max" (a node with no valid edge gives 0).  "mean" is "add" divided by
 the valid-edge count outside the kernel, as in the JAX package.  The
-kernel is ``csrc/edgeconv.cu``; its header note says what bounds it on
-the H100 (the W2 product's FLOPs) and how the design keeps the
-``[B, L, k, H1]`` messages in shared memory.
+kernels are ``csrc/edgeconv.cu`` and ``csrc/edgeconv_bwd.cu``; their
+header notes say what bounds each on the H100 and what the designs do
+about it (the backward keeps every sum in a fixed order, so it is
+deterministic).
 
-:func:`fused_edgeconv` takes :func:`fused_edgeconv_plain` for tensors
-on the CPU and launches the kernel for CUDA tensors; it never falls
-back.  The backward pass is not ported yet (serving only).
+:func:`fused_edgeconv` is a ``torch.autograd.Function`` on both devices:
+tensors on the CPU take the plain forward and the plain backward
+(:func:`fused_edgeconv_plain`, :func:`fused_edgeconv_bwd_plain`), CUDA
+tensors launch the kernels.  There is no fallback from CUDA to the plain
+versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from graphnet_tpu_torch.ops.gather_reduce import gather_neighbors
 
 _NAME = "edgeconv"
+_BWD_NAME = "edgeconv_bwd"
 MAX_K = 64
 AGGRS = ("add", "max")
 HOPPER_SMEM_OPTIN = 232448  # bytes a block may opt in to on sm_90
+_ROWS = 64  # edge rows per block of both kernels
 
 
 def _act(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -45,11 +56,9 @@ def fused_edgeconv_plain(
     aggr: str = "add",
     slope: float = 0.0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with the kernel's numerics:
+    """Plain PyTorch version of the forward kernel, with its numerics:
     messages formed in fp32, rounded once to ``w2``'s dtype, multiplied
     with fp32 accumulation; output fp32."""
-    from graphnet_tpu_torch.ops.gather_reduce import gather_neighbors
-
     if aggr not in AGGRS:
         raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
     z = a.float()[:, :, None, :] + gather_neighbors(b, idx).float()
@@ -60,6 +69,64 @@ def fused_edgeconv_plain(
         return torch.where(m, out, 0.0).sum(dim=2)
     r = torch.where(m, out, -1e30).amax(dim=2)
     return torch.where(edge_mask.any(dim=2, keepdim=True), r, 0.0)
+
+
+def fused_edgeconv_bwd_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    idx: torch.Tensor,
+    edge_mask: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    g: torch.Tensor,
+    aggr: str = "add",
+    slope: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: ``(da, db, dw2,
+    db2)``, all fp32, for the output gradient ``g [B, L, H2]``.
+
+    The contract of the TPU kernel, written out: messages recomputed
+    (rounded once to ``w2``'s dtype); under "max" the gradient of each
+    (node, channel) goes to the first valid edge whose activation equals
+    the masked max (``torch.amax``'s own backward would split ties);
+    ``msgs``, ``g_msgs`` and ``w2`` enter the products in ``w2``'s dtype
+    with fp32 sums; ``da`` sums the fp32 ``g_z`` and ``db`` scatter-adds
+    ``g_z`` rounded to that dtype.  Masked edges, and edges whose index
+    lies outside ``[0, L)``, contribute nothing.
+    """
+    if aggr not in AGGRS:
+        raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
+    B, L, H1 = a.shape
+    k = idx.shape[2]
+    cdt = w2.dtype
+    em = edge_mask & (idx >= 0) & (idx < L)
+    safe = torch.where(em, idx, 0)
+    z = a.float()[:, :, None, :] + gather_neighbors(b, safe).float()
+    msgs = _act(z, slope).to(cdt).float()  # [B, L, k, H1]
+    pre2 = torch.matmul(msgs, w2.float()) + b2.float()
+    gate2 = torch.where(pre2 > 0, 1.0, slope)
+    g_rep = g.float()[:, :, None, :]
+    m = em[..., None]
+    if aggr == "add":
+        g_route = torch.where(m, g_rep, 0.0)
+    else:
+        masked = torch.where(m, _act(pre2, slope), -1e30)
+        is_max = (masked == masked.amax(dim=2, keepdim=True)) & m
+        kio = torch.arange(k, device=a.device)[None, None, :, None]
+        first = torch.where(is_max, kio, k).amin(dim=2, keepdim=True)
+        g_route = torch.where(kio == first, g_rep, 0.0)
+    g_msgs = g_route * gate2
+    g_msgs_c = g_msgs.to(cdt).float()
+    dw2 = torch.einsum("blkh,blkc->hc", msgs, g_msgs_c)
+    db2 = g_msgs.sum(dim=(0, 1, 2))
+    gate_z = torch.where(z > 0, 1.0, slope)
+    g_z = torch.matmul(g_msgs_c, w2.to(cdt).float().t()) * gate_z
+    g_z = torch.where(m, g_z, 0.0)
+    da = g_z.sum(dim=2)
+    flat = safe.reshape(B, L * k, 1).long().expand(B, L * k, H1)
+    db = torch.zeros(B, L, H1, dtype=torch.float32, device=a.device)
+    db.scatter_add_(1, flat, g_z.to(cdt).float().reshape(B, L * k, H1))
+    return da, db, dw2, db2
 
 
 def _lib() -> ctypes.CDLL:
@@ -77,7 +144,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(a, b, idx, edge_mask, w2, b2):
+def _bwd_lib() -> ctypes.CDLL:
+    from graphnet_tpu_torch.kernels import build
+
+    lib = build.load(_BWD_NAME)
+    fn = lib.edgeconv_bwd_launch
+    if fn.argtypes is None:  # first use: declare the C signature
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 19 + [I] * 6 + [ctypes.c_float, I, I, P]
+        fn.restype = ctypes.c_int
+        lib.edgeconv_bwd_smem_bytes.argtypes = [I]
+        lib.edgeconv_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.edgeconv_bwd_csr_smem_bytes.argtypes = [I]
+        lib.edgeconv_bwd_csr_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check(a, b, idx, edge_mask, w2, b2, aggr, g=None):
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(
             f"a and b must be one [B, L, H1] shape; got {tuple(a.shape)} "
@@ -98,6 +181,174 @@ def _check(a, b, idx, edge_mask, w2, b2):
             "a, b, w2 and b2 must share one dtype; got "
             f"{a.dtype}, {b.dtype}, {w2.dtype}, {b2.dtype}"
         )
+    if aggr not in AGGRS:
+        raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
+    if g is not None and g.shape != (B, L, w2.shape[1]):
+        raise ValueError(
+            f"g must be [B, L, H2] = {(B, L, w2.shape[1])}; got "
+            f"{tuple(g.shape)}"
+        )
+
+
+def _cuda_device(tensors, name: str) -> Optional[torch.device]:
+    """None when every tensor lies on the CPU; the CUDA device when all
+    lie on one; raises otherwise.  Also checks the kernels' dtypes."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return None
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name} takes tensors all on one CUDA device (or all on the "
+            f"CPU); got {[str(t.device) for t in tensors]}"
+        )
+    a, idx = tensors[0], tensors[2]
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a must be float32 or bfloat16, got {a.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    k = idx.shape[2]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} must lie in [1, {MAX_K}]")
+    return dev
+
+
+def _check_smem(need: int, dev: torch.device, what: str) -> None:
+    limit = getattr(
+        torch.cuda.get_device_properties(dev),
+        "shared_memory_per_block_optin",
+        HOPPER_SMEM_OPTIN,
+    )
+    if need > limit:
+        raise ValueError(
+            f"{what} needs {need} bytes of shared memory per block; the "
+            f"card allows {limit}"
+        )
+
+
+def _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope, dev):
+    B, L, H1 = a.shape
+    H2, k = w2.shape[1], idx.shape[2]
+    bf16 = int(a.dtype == torch.bfloat16)
+    lib = _lib()
+    _check_smem(lib.edgeconv_fwd_smem_bytes(H1, bf16), dev, f"H1={H1}")
+    with torch.cuda.device(dev):
+        args = [t.contiguous() for t in (a, b, idx, edge_mask, w2, b2)]
+        out = torch.empty((B, L, H2), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.edgeconv_fwd_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(),
+            B, L, H1, H2, k, float(slope), int(aggr == "max"), bf16, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"edgeconv kernel launch failed: CUDA error {err}")
+    fused_edgeconv.launches += 1
+    return out
+
+
+def _dw2_splits(n_edges: int) -> int:
+    """Slices of the edge rows in the split-K dW2 product: ~1024 rows
+    each, at most 128 (the partials then stay ~44 MB at H1=336, H2=256)."""
+    return max(1, min(128, -(-n_edges // 1024)))
+
+
+def fused_edgeconv_bwd(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    idx: torch.Tensor,
+    edge_mask: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    g: torch.Tensor,
+    aggr: str = "add",
+    slope: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused EdgeConv backward: ``(da, db, dw2, db2)``, all fp32, for the
+    forward's inputs and the output gradient ``g [B, L, H2]`` (any float
+    dtype and strides; it is made contiguous fp32).
+
+    Tensors on the CPU take :func:`fused_edgeconv_bwd_plain`; CUDA
+    tensors launch ``csrc/edgeconv_bwd.cu`` (nine kernels, counted as one
+    call in ``fused_edgeconv_bwd.launches``).
+    """
+    _check(a, b, idx, edge_mask, w2, b2, aggr, g)
+    tensors = (a, b, idx, edge_mask, w2, b2, g)
+    dev = _cuda_device(tensors, "fused_edgeconv_bwd")
+    if dev is None:
+        return fused_edgeconv_bwd_plain(
+            a, b, idx, edge_mask, w2, b2, g, aggr, slope
+        )
+    B, L, H1 = a.shape
+    H2, k = w2.shape[1], idx.shape[2]
+    lib = _bwd_lib()
+    _check_smem(lib.edgeconv_bwd_smem_bytes(H1), dev, f"H1={H1}")
+    _check_smem(lib.edgeconv_bwd_csr_smem_bytes(L), dev, f"L={L}")
+    n_edges = B * L * k
+    blocks = B * -(-L // (_ROWS // k))
+    splits = _dw2_splits(n_edges)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        args = [t.contiguous() for t in (a, b, idx, edge_mask, w2, b2)]
+        gc = g.to(torch.float32).contiguous()
+        da = torch.empty((B, L, H1), **f32)
+        db = torch.empty((B, L, H1), **f32)
+        dw2 = torch.zeros((H1, H2), **f32)
+        db2 = torch.zeros((H2,), **f32)
+        scratch = (
+            torch.empty((H2, H1), dtype=a.dtype, device=dev),  # W2^T
+            torch.empty((n_edges, H1), **f32),  # msgs
+            torch.empty((n_edges, H2), **f32),  # routed, gated gradient
+            torch.empty((n_edges, H1), **f32),  # g_z
+            torch.empty((splits, H1, H2), **f32),  # dW2 partials
+            torch.empty((blocks, H2), **f32),  # db2 partials
+            torch.empty((B, L + 1), **i32),  # CSR offsets
+            torch.empty((B, L * k), **i32),  # CSR edge lists
+        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.edgeconv_bwd_launch(
+            *(t.data_ptr() for t in args), gc.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            *(t.data_ptr() for t in scratch),
+            B, L, H1, H2, k, splits, float(slope), int(aggr == "max"),
+            int(a.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"edgeconv backward kernel launch failed: CUDA error {err}"
+        )
+    fused_edgeconv_bwd.launches += 1
+    return da, db, dw2, db2
+
+
+fused_edgeconv_bwd.launches = 0
+
+
+class _FusedEdgeConv(torch.autograd.Function):
+    """The fused EdgeConv with its hand-written backward (the counterpart
+    of ``jax.custom_vjp`` on ``fused_edgeconv``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, idx, edge_mask, w2, b2, aggr, slope):
+        dev = _cuda_device((a, b, idx, edge_mask, w2, b2), "fused_edgeconv")
+        if dev is None:
+            out = fused_edgeconv_plain(a, b, idx, edge_mask, w2, b2, aggr, slope)
+        else:
+            out = _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope, dev)
+        ctx.save_for_backward(a, b, idx, edge_mask, w2, b2)
+        ctx.aggr, ctx.slope = aggr, slope
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b, idx, edge_mask, w2, b2 = ctx.saved_tensors
+        da, db, dw2, db2 = fused_edgeconv_bwd(
+            a, b, idx, edge_mask, w2, b2, g, ctx.aggr, ctx.slope
+        )
+        return (
+            da.to(a.dtype), db.to(b.dtype), None, None,
+            dw2.to(w2.dtype), db2.to(b2.dtype), None, None,
+        )
 
 
 def fused_edgeconv(
@@ -110,60 +361,17 @@ def fused_edgeconv(
     aggr: str = "add",
     slope: float = 0.0,
 ) -> torch.Tensor:
-    """Fused EdgeConv forward.
+    """Fused EdgeConv, differentiable in ``a``, ``b``, ``w2`` and ``b2``.
 
     a, b: ``[B, L, H1]`` (float32, or bfloat16 for the mixed-precision
     mode); idx: ``[B, L, k]`` int32; edge_mask: ``[B, L, k]`` bool;
     w2: ``[H1, H2]``; b2: ``[H2]``, both of a's dtype.  Returns
-    ``[B, L, H2]`` float32.  Counts its kernel launches in
-    ``fused_edgeconv.launches``.
+    ``[B, L, H2]`` float32.  Counts its forward kernel launches in
+    ``fused_edgeconv.launches``; the backward counts its own in
+    ``fused_edgeconv_bwd.launches``.
     """
-    _check(a, b, idx, edge_mask, w2, b2)
-    if aggr not in AGGRS:
-        raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
-    tensors = (a, b, idx, edge_mask, w2, b2)
-    if all(t.device.type == "cpu" for t in tensors):
-        return fused_edgeconv_plain(a, b, idx, edge_mask, w2, b2, aggr, slope)
-    dev = a.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            "fused_edgeconv takes tensors all on one CUDA device (or all "
-            f"on the CPU); got {[str(t.device) for t in tensors]}"
-        )
-    if a.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"a must be float32 or bfloat16, got {a.dtype}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
-    B, L, H1 = a.shape
-    H2, k = w2.shape[1], idx.shape[2]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} must lie in [1, {MAX_K}]")
-    bf16 = int(a.dtype == torch.bfloat16)
-    lib = _lib()
-    smem = lib.edgeconv_fwd_smem_bytes(H1, bf16)
-    limit = getattr(
-        torch.cuda.get_device_properties(dev),
-        "shared_memory_per_block_optin",
-        HOPPER_SMEM_OPTIN,
-    )
-    if smem > limit:
-        raise ValueError(
-            f"H1={H1} needs {smem} bytes of shared memory per block; the "
-            f"card allows {limit}"
-        )
-
-    with torch.cuda.device(dev):
-        args = [t.contiguous() for t in tensors]
-        out = torch.empty((B, L, H2), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.edgeconv_fwd_launch(
-            *(t.data_ptr() for t in args), out.data_ptr(),
-            B, L, H1, H2, k, float(slope), int(aggr == "max"), bf16, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"edgeconv kernel launch failed: CUDA error {err}")
-    fused_edgeconv.launches += 1
-    return out
+    _check(a, b, idx, edge_mask, w2, b2, aggr)
+    return _FusedEdgeConv.apply(a, b, idx, edge_mask, w2, b2, aggr, slope)
 
 
 fused_edgeconv.launches = 0

@@ -52,8 +52,16 @@ def knn_graph_cuda(
         )
     if mask.dtype != torch.bool:
         raise TypeError(f"mask must be bool, got {mask.dtype}")
-    if coords.device.type == "cpu":
-        return knn_graph_plain(coords, mask, k, exclude_self)
+    # the output is integer and nothing differentiates it: build no
+    # autograd graph for the centring (the coordinates are latents that
+    # require grad during training)
+    with torch.no_grad():
+        if coords.device.type == "cpu":
+            return knn_graph_plain(coords, mask, k, exclude_self)
+        return _knn_cuda(coords, mask, k, exclude_self)
+
+
+def _knn_cuda(coords, mask, k, exclude_self):
     if coords.device.type != "cuda" or mask.device != coords.device:
         raise ValueError(
             f"coords on {coords.device} and mask on {mask.device}: both "

@@ -13,6 +13,7 @@ module names, so the map is mechanical:
   layout: ``out_kernel`` is the EdgeConv kernel's ``W2`` as it is.
 
 Unpickling needs no JAX: the pickle holds numpy arrays only.
+:func:`params_to_jax` is the inverse map, for writing the same pickle.
 """
 
 from __future__ import annotations
@@ -93,6 +94,32 @@ def params_from_jax(
         if wrong:
             raise ValueError(f"JAX parameter shapes do not fit: {wrong}")
     return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX parameter tree (``{"params": {...}}`` of float32 numpy
+    arrays) for the port's ``state_dict``: the inverse of
+    :func:`params_from_jax`.  A 2-D ``weight`` is an ``nn.Linear``'s
+    (``kernel``, transposed back), a 1-D one a layer norm's (``scale``).
+    """
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        *path, name = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if name == "weight":
+            if arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            elif arr.ndim == 1:
+                name = "scale"
+            else:
+                raise ValueError(f"{key}: a weight of {arr.ndim} dims")
+        elif name not in ("bias", "out_kernel", "out_bias"):
+            raise ValueError(f"{key}: a parameter of unknown kind")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 
 def load_jax_state_dict(

@@ -1,5 +1,6 @@
 """The port stands alone: it imports no JAX, no flax and nothing of the
-JAX package, and its entry points default to the GPU."""
+JAX package (serving and a training step run without them), and its
+entry points default to the GPU."""
 
 import ast
 import subprocess
@@ -74,6 +75,21 @@ def test_port_imports_and_runs_without_jax():
                         features=list("xyzt")) for n in (9, 3)]
         out = module(events)
         assert out.shape == (2, 1) and np.isfinite(out).all(), out
+        # one training step on the CPU
+        from graphnet_tpu_torch.batch import make_batch
+        from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
+        from graphnet_tpu_torch.training.trainer import Trainer
+        model.tasks_0.loss_function = LogCoshLoss()
+        model.tasks_0.target_labels = ("total_energy",)
+        model.tasks_0.transform_prediction_and_target = torch.log10
+        batch = make_batch([e.x for e in events],
+                           labels={"total_energy": np.array([10.0, 300.0])})
+        trainer = Trainer(model)
+        before = [p.detach().clone() for p in model.parameters()]
+        loss = trainer.train_step(batch)
+        assert torch.isfinite(loss) and trainer.step == 1
+        assert all(p.grad is not None for p in model.parameters())
+        assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
         assert not any(
             m == "jax" or m.startswith(("jax.", "flax", "graphnet_tpu."))
             for m in sys.modules if sys.modules[m] is not None

@@ -1,6 +1,7 @@
 """The port's plain ops against the JAX package on the CPU: kNN (XLA path
-and the Pallas kernel in interpret mode), the fused EdgeConv forward
-(Pallas interpret mode) and the masked reductions."""
+and the Pallas kernel in interpret mode), the fused EdgeConv forward and
+its gradients through the port's autograd Function (Pallas interpret
+mode on the JAX side) and the masked reductions."""
 
 import numpy as np
 import pytest
@@ -284,3 +285,110 @@ def test_gather_neighbors_matches_jax():
         tgr.gather_neighbors(torch.from_numpy(x), torch.from_numpy(idx)).numpy(),
         np.asarray(jgr.gather_neighbors(jnp.asarray(x), jnp.asarray(idx))),
     )
+
+
+def _grads_jax(inp, cot, aggr, slope, mean, dtype=None):
+    """``jax.grad`` of ``sum(out * cot)`` through the JAX fused EdgeConv
+    (Pallas interpret mode) in a, b, w2 and b2."""
+    import jax
+
+    cast = (lambda v: jnp.asarray(v).astype(dtype)) if dtype else jnp.asarray
+    a, b, w2, b2 = (cast(inp[n]) for n in ("a", "b", "w2", "b2"))
+    idx, em = jnp.asarray(inp["idx"]), jnp.asarray(inp["em"])
+
+    def loss(a, b, w2, b2):
+        out = jax_fused(a, b, idx, em, w2, b2, 32, aggr, slope)
+        if mean:
+            out = out / jnp.maximum(jnp.sum(em, axis=2)[..., None], 1)
+        return jnp.sum(out * cot)
+
+    with pltpu.force_tpu_interpret_mode():
+        grads = jax.grad(loss, argnums=(0, 1, 2, 3))(a, b, w2, b2)
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _grads_port(inp, cot, aggr, slope, mean, dtype=None):
+    """``torch.autograd`` of the same loss through the port's
+    ``fused_edgeconv`` Function on the CPU (plain forward and backward)."""
+    leaves = [
+        torch.from_numpy(inp[n]).to(dtype or torch.float32).requires_grad_()
+        for n in ("a", "b", "w2", "b2")
+    ]
+    a, b, w2, b2 = leaves
+    idx, em = torch.from_numpy(inp["idx"]), torch.from_numpy(inp["em"])
+    out = fused_edgeconv(a, b, idx, em, w2, b2, aggr=aggr, slope=slope)
+    if mean:
+        out = out / em.sum(dim=2, keepdim=True).clamp_min(1)
+    (out * torch.from_numpy(cot)).sum().backward()
+    for t in leaves:
+        assert t.grad.dtype == t.dtype
+    return [t.grad.float().numpy() for t in leaves]
+
+
+@pytest.mark.parametrize(
+    "aggr,slope,mean",
+    [("add", 0.0, False), ("max", 0.01, False), ("add", 0.0, True)],
+    ids=["add_relu", "max_leaky", "mean_relu"],
+)
+def test_fused_edgeconv_grads_match_pallas(aggr, slope, mean):
+    inp = _edge_inputs(seed=41)
+    inp["em"][1, 7] = False  # a node with no valid edge
+    cot = np.random.default_rng(42).standard_normal((2, 32, 8)).astype(np.float32)
+    got = _grads_port(inp, cot, aggr, slope, mean)
+    exp = _grads_jax(inp, cot, aggr, slope, mean)
+    for name, g, e in zip(("da", "db", "dw2", "db2"), got, exp):
+        np.testing.assert_allclose(g, e, rtol=1e-5, atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(got[0][1, 7], 0.0)
+
+
+def test_fused_edgeconv_grads_bf16_match_pallas():
+    inp = _edge_inputs(seed=43)
+    cot = np.random.default_rng(44).standard_normal((2, 32, 8)).astype(np.float32)
+    got = _grads_port(inp, cot, "add", 0.0, False, torch.bfloat16)
+    exp = _grads_jax(inp, cot, "add", 0.0, False, jnp.bfloat16)
+    for name, g, e in zip(("da", "db", "dw2", "db2"), got, exp):
+        # the same bf16 operands and rounding points with fp32 sums; the
+        # results themselves are rounded to bf16 on both sides
+        err = np.abs(g - e).max() / np.abs(e).max()
+        assert err <= 2e-2, f"{name}: {err} of the max"
+
+
+def test_fused_edgeconv_max_tie_routes_to_first_edge():
+    """Two valid edges of a node to the same neighbour give identical
+    messages, an exact tie in every channel: the gradient goes to the
+    lower kk only, as in the Pallas kernel, so masking the second edge
+    changes no gradient."""
+    inp = _edge_inputs(seed=45)
+    inp["idx"][0, :, 2] = inp["idx"][0, :, 1]
+    inp["em"][0, :, 1:3] = True
+    cot = np.random.default_rng(46).standard_normal((2, 32, 8)).astype(np.float32)
+    got = _grads_port(inp, cot, "max", 0.01, False)
+    exp = _grads_jax(inp, cot, "max", 0.01, False)
+    untied = dict(inp, em=inp["em"].copy())
+    untied["em"][0, :, 2] = False
+    alone = _grads_port(untied, cot, "max", 0.01, False)
+    for name, g, e, u in zip(("da", "db", "dw2", "db2"), got, exp, alone):
+        np.testing.assert_allclose(g, e, rtol=1e-5, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(g, u, rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+def test_fused_edgeconv_bwd_checks_inputs_and_counts_nothing_on_cpu():
+    from graphnet_tpu_torch.ops.edgeconv_cuda import (
+        fused_edgeconv_bwd,
+        fused_edgeconv_bwd_plain,
+    )
+
+    t = {k: torch.from_numpy(v) for k, v in _edge_inputs(seed=47).items()}
+    # a strided slice, as a skip-concat hands the conv's output gradient
+    g = torch.randn(2, 32, 16, generator=torch.Generator().manual_seed(0))
+    g = g[..., ::2]
+    before = fused_edgeconv_bwd.launches
+    got = fused_edgeconv_bwd(*t.values(), g)
+    exp = fused_edgeconv_bwd_plain(*t.values(), g)
+    assert fused_edgeconv_bwd.launches == before  # the plain version ran
+    for x, y in zip(got, exp):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+    with pytest.raises(ValueError, match="g must be"):
+        fused_edgeconv_bwd(*t.values(), g[:, :, :4])
+    with pytest.raises(ValueError):
+        fused_edgeconv_bwd(*t.values(), g, aggr="mean")
