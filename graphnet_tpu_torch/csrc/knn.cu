@@ -8,6 +8,8 @@
 // ties to the lower key index; edge_mask = "a real key was chosen" and
 // the query is valid.
 //
+// D is 3 (DynEdge's xyz) or 4 (TITO's xyzt), a template parameter like k.
+//
 // What bounds it on the H100: neither bytes nor FLOPs. At the serving
 // shape (B=128, L=128, k=8, D=3) it reads 0.2 MB, writes 0.65 MB and
 // does ~20 M flops, so the floor is launch latency (a few us).  The
@@ -31,29 +33,37 @@ namespace {
 constexpr float kBig = 1e30f;
 constexpr int kKeyTile = 256;
 
-template <int K>
-__global__ void knn_kernel(const float* __restrict__ xyz,       // [B, L, 3]
+// |c|^2 or a.b over D coordinates, in coordinate order, one rounding per
+// product and per sum (the plain version's order)
+template <int D>
+__device__ __forceinline__ float dot_rn(const float* a, const float* b) {
+  float s = __fmul_rn(a[0], b[0]);
+#pragma unroll
+  for (int d = 1; d < D; ++d) s = __fadd_rn(s, __fmul_rn(a[d], b[d]));
+  return s;
+}
+
+template <int K, int D>
+__global__ void knn_kernel(const float* __restrict__ coords,    // [B, L, D]
                            const uint8_t* __restrict__ mask,    // [B, L]
                            int L, int exclude_self,
                            int32_t* __restrict__ idx_out,       // [B, L, K]
                            uint8_t* __restrict__ em_out) {      // [B, L, K]
-  __shared__ float sx[kKeyTile], sy[kKeyTile], sz[kKeyTile], ssq[kKeyTile];
+  __shared__ float sc[kKeyTile][D];
+  __shared__ float ssq[kKeyTile];
   __shared__ uint8_t sval[kKeyTile];
 
   const int b = blockIdx.y;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* ev = xyz + (size_t)b * L * 3;
+  const float* ev = coords + (size_t)b * L * D;
   const uint8_t* m = mask + (size_t)b * L;
   const bool active = q < L;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f, qsq = 0.f;
-  if (active) {
-    qx = ev[q * 3 + 0];
-    qy = ev[q * 3 + 1];
-    qz = ev[q * 3 + 2];
-    qsq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
-                    __fmul_rn(qz, qz));
-  }
+  float qc[D];
+  float qsq = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) qc[d] = active ? ev[q * D + d] : 0.f;
+  if (active) qsq = dot_rn<D>(qc, qc);
 
   float bd[K];
   int bi[K];
@@ -68,12 +78,9 @@ __global__ void knn_kernel(const float* __restrict__ xyz,       // [B, L, 3]
     for (int j = threadIdx.x; j < kKeyTile; j += blockDim.x) {
       const int g = t0 + j;
       if (g < L) {
-        const float x = ev[g * 3 + 0], y = ev[g * 3 + 1], z = ev[g * 3 + 2];
-        sx[j] = x;
-        sy[j] = y;
-        sz[j] = z;
-        ssq[j] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                           __fmul_rn(z, z));
+#pragma unroll
+        for (int d = 0; d < D; ++d) sc[j][d] = ev[g * D + d];
+        ssq[j] = dot_rn<D>(sc[j], sc[j]);
         sval[j] = m[g];
       } else {
         sval[j] = 0;
@@ -84,9 +91,7 @@ __global__ void knn_kernel(const float* __restrict__ xyz,       // [B, L, 3]
     const int n = min(kKeyTile, L - t0);
     for (int j = 0; j < n; ++j) {
       if (!sval[j] || (exclude_self && t0 + j == q)) continue;
-      const float cross =
-          __fadd_rn(__fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])),
-                    __fmul_rn(qz, sz[j]));
+      const float cross = dot_rn<D>(qc, sc[j]);
       float d = __fsub_rn(__fadd_rn(qsq, ssq[j]), __fmul_rn(2.0f, cross));
       d = fmaxf(d, 0.0f);
       if (d < bd[K - 1]) {
@@ -121,38 +126,47 @@ __global__ void knn_kernel(const float* __restrict__ xyz,       // [B, L, 3]
   }
 }
 
-template <int K>
-cudaError_t launch(const float* xyz, const uint8_t* mask, int B, int L,
+template <int K, int D>
+cudaError_t launch(const float* coords, const uint8_t* mask, int B, int L,
                    int exclude_self, int32_t* idx, uint8_t* em,
                    cudaStream_t stream) {
   const int threads = L >= 128 ? 128 : ((L + 31) / 32) * 32;
   dim3 grid((L + threads - 1) / threads, B);
-  knn_kernel<K><<<grid, threads, 0, stream>>>(xyz, mask, L, exclude_self,
-                                               idx, em);
+  knn_kernel<K, D><<<grid, threads, 0, stream>>>(coords, mask, L,
+                                                  exclude_self, idx, em);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int knn_graph_launch(const void* xyz, const void* mask, int B,
-                                int L, int k, int exclude_self, void* idx,
-                                void* em, void* stream) {
-  const float* x = static_cast<const float*>(xyz);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  int32_t* i = static_cast<int32_t*>(idx);
-  uint8_t* e = static_cast<uint8_t*>(em);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || L == 0) return 0;
+template <int D>
+cudaError_t launch_k(const float* x, const uint8_t* m, int B, int L, int k,
+                     int exclude_self, int32_t* i, uint8_t* e,
+                     cudaStream_t s) {
   switch (k) {
 #define KNN_CASE(K) \
   case K:           \
-    return (int)launch<K>(x, m, B, L, exclude_self, i, e, s);
+    return launch<K, D>(x, m, B, L, exclude_self, i, e, s);
     KNN_CASE(1) KNN_CASE(2) KNN_CASE(3) KNN_CASE(4)
     KNN_CASE(5) KNN_CASE(6) KNN_CASE(7) KNN_CASE(8)
     KNN_CASE(9) KNN_CASE(10) KNN_CASE(11) KNN_CASE(12)
     KNN_CASE(13) KNN_CASE(14) KNN_CASE(15) KNN_CASE(16)
 #undef KNN_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int knn_graph_launch(const void* coords, const void* mask, int B,
+                                int L, int D, int k, int exclude_self,
+                                void* idx, void* em, void* stream) {
+  const float* x = static_cast<const float*>(coords);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  int32_t* i = static_cast<int32_t*>(idx);
+  uint8_t* e = static_cast<uint8_t*>(em);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || L == 0) return 0;
+  if (D == 3) return (int)launch_k<3>(x, m, B, L, k, exclude_self, i, e, s);
+  if (D == 4) return (int)launch_k<4>(x, m, B, L, k, exclude_self, i, e, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,9 @@
 
 All layers work on the dense-padded ``[B, L, D]`` layout.  Attribute
 names follow the flax module names of the JAX package (``self_dense``,
-``nbr_dense``, ``out_kernel``, ``dense_0`` ...), so carrying weights
-across is a matter of transposes (:mod:`graphnet_tpu_torch.utils.
-jax_params`).
+``nbr_dense``, ``out_kernel``, ``dense_0``, ``qkv``, ``norm1`` ...), so
+carrying weights across is a matter of transposes
+(:mod:`graphnet_tpu_torch.utils.jax_params`).
 
 ``dtype`` is the compute dtype of the matrix products (``None`` for
 fp32 throughout, ``torch.bfloat16`` for the mixed-precision mode); the
@@ -22,6 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from graphnet_tpu_torch.ops.edgeconv_cuda import fused_edgeconv
+from graphnet_tpu_torch.ops.flash_attention_cuda import (
+    flash_attention,
+    supported as flash_supported,
+)
 from graphnet_tpu_torch.ops.gather_reduce import edge_reduce, gather_neighbors
 from graphnet_tpu_torch.ops.knn import knn_graph
 
@@ -30,7 +34,9 @@ Activation = Callable[[torch.Tensor], torch.Tensor]
 ACTIVATIONS = {
     "relu": F.relu,
     "gelu": F.gelu,  # exact (erf) form, as the JAX package's gelu_exact
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
+    # slope 1 at exactly 0, as jax.nn.leaky_relu (torch's takes 0.01
+    # there): an event with one pulse feeds exact zeros to TITO's MLPs
+    "leaky_relu": lambda x: torch.where(x >= 0, x, 0.01 * x),
     "silu": F.silu,
     "tanh": torch.tanh,
     "identity": lambda x: x,
@@ -135,7 +141,9 @@ class EdgeConv(nn.Module):
     The first linear layer is linearised, as in the JAX package:
     ``cat[x_i, x_j - x_i] @ [W1; W2] = x_i @ (W1 - W2) + x_j @ W2`` is a
     per-node self term (``self_dense``, with bias) plus a per-node
-    neighbour term (``nbr_dense``, no bias).  A two-layer MLP without a
+    neighbour term (``nbr_dense``, no bias).  TITO's message
+    ``cat[x_i, x_j - x_i, x_j]`` folds into the same pair (``tito=True``
+    changes no arithmetic, as in the JAX package).  A two-layer MLP without a
     norm layer owns its second layer as ``out_kernel [H1, H2]`` and
     ``out_bias``; with relu or leaky relu and add, max or mean
     aggregation it runs through :func:`fused_edgeconv` (the CUDA kernel
@@ -149,9 +157,11 @@ class EdgeConv(nn.Module):
         aggr: str = "max",
         activation: str = "relu",
         add_norm_layer: bool = False,
+        tito: bool = False,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.tito = tito
         self.nn_sizes = tuple(nn_sizes)
         self.aggr = aggr
         self.activation = activation
@@ -187,14 +197,20 @@ class EdgeConv(nn.Module):
             and self.activation in _KERNEL_SLOPES
         )
 
+    def linear_terms(self, x: torch.Tensor):
+        """The linearised first layer's two per-node terms ``(a, b)``: an
+        edge's pre-activation is ``a_i + b_j``."""
+        a = linear(self.self_dense, x, self.dtype)  # x_i @ (W1 - W2) + bias
+        b = linear(self.nbr_dense, x, self.dtype)  # x_j @ W2
+        return a, b
+
     def forward(
         self,
         x: torch.Tensor,
         idx: torch.Tensor,
         edge_mask: torch.Tensor,
     ) -> torch.Tensor:
-        a = linear(self.self_dense, x, self.dtype)  # x_i @ (W1 - W2) + bias
-        b = linear(self.nbr_dense, x, self.dtype)  # x_j @ W2
+        a, b = self.linear_terms(x)
         if self.two_layer:
             w2, b2 = self.out_kernel, self.out_bias
             if self.dtype is not None:
@@ -262,3 +278,165 @@ class DynEdgeConv(nn.Module):
             x[..., self.features_subset], mask, k=self.nb_neighbors
         )
         return x, new_idx, new_edge_mask
+
+
+def _no_dropout(dropout_rate: float) -> None:
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "dropout is not ported yet (stochastic layers need an explicit "
+            "generator); dropout_rate=0 is the reference's eval behaviour"
+        )
+
+
+def dense_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    attn_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The JAX package's dense masked softmax attention over ``[B, H, L,
+    Dh]``: fp32 logits scaled after the product, padded keys at the
+    float32 minimum, the softmax in fp32 and the value product in v's
+    dtype.  Returns ``[B, H, L, Dh]`` in v's dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    logits = logits / math.sqrt(q.shape[-1])
+    if attn_bias is not None:
+        logits = logits + attn_bias
+    if key_padding_mask is not None:
+        logits = torch.where(
+            key_padding_mask[:, None, None, :], logits,
+            torch.finfo(logits.dtype).min,
+        )
+    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Masked multi-head self-attention (the JAX package's stand-in for
+    torch's ``nn.MultiheadAttention``): one ``qkv`` projection of width
+    ``3 D`` split as ``[q | k | v]`` with the heads contiguous within
+    each third, scaled dot-product attention with a key-padding mask,
+    and the ``out`` projection.
+
+    Without a bias and with a head dim the kernels take, attention runs
+    through :func:`flash_attention` (the CUDA kernels for CUDA tensors,
+    their plain versions on the CPU) at every length; otherwise through
+    :func:`dense_attention`.
+    """
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        dropout_rate: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed dim {embed_dim} not divisible by heads {num_heads}"
+            )
+        _no_dropout(dropout_rate)
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.qkv = nn.Linear(embed_dim, 3 * embed_dim)
+        self.out = nn.Linear(embed_dim, embed_dim)
+
+    def uses_flash(self, attn_bias: Optional[torch.Tensor] = None) -> bool:
+        head_dim = self.qkv.in_features // self.num_heads
+        return attn_bias is None and flash_supported(head_dim)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        key_padding_mask: Optional[torch.Tensor] = None,
+        attn_bias: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        B, L, D = x.shape
+        H = self.num_heads
+        hd = D // H
+        q, k, v = linear(self.qkv, x, self.dtype).split(D, dim=-1)
+
+        def heads(t):
+            return t.reshape(B, L, H, hd).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        if self.uses_flash(attn_bias):
+            out = flash_attention(q, k, v, key_padding_mask)
+        else:
+            out = dense_attention(q, k, v, key_padding_mask, attn_bias)
+        out = out.transpose(1, 2).reshape(B, L, D)
+        return linear(self.out, out, self.dtype)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch-style post-norm encoder layer, as DynTrans uses it:
+    ``x = norm1(x + MHA(x)); x = norm2(x + FFN(x))`` with a ReLU
+    feed-forward of width ``dim_feedforward``.  The layer norms run in
+    fp32; the dense layers in ``dtype``."""
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        dim_feedforward: int = 2048,
+        dropout_rate: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        _no_dropout(dropout_rate)
+        self.dtype = dtype
+        self.mha = MultiHeadAttention(embed_dim, num_heads, dtype=dtype)
+        self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.linear1 = nn.Linear(embed_dim, dim_feedforward)
+        self.activation = nn.ReLU()
+        self.linear2 = nn.Linear(dim_feedforward, embed_dim)
+        self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(
+        self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        x = layer_norm(self.norm1, x + self.mha(x, key_padding_mask), None)
+        h = self.activation(linear(self.linear1, x, self.dtype))
+        h = linear(self.linear2, h, self.dtype)
+        return layer_norm(self.norm2, x + h, None)
+
+
+class DynTrans(nn.Module):
+    """TITO block: EdgeConv (TITO message, leaky relu, plus a residual
+    when the widths match), LayerNorm, then one transformer encoder
+    layer over the event with the node mask as key-padding mask.  The
+    kNN graph is not recomputed.  Returns fp32."""
+
+    def __init__(
+        self,
+        layer_sizes: Sequence[int] = (256, 256, 256),
+        aggr: str = "max",
+        n_head: int = 8,
+        dropout_rate: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        _no_dropout(dropout_rate)
+        in_features, *sizes = layer_sizes
+        self.residual = sizes[-1] == in_features
+        self.conv = EdgeConv(
+            in_features, sizes, aggr=aggr, activation="leaky_relu",
+            tito=True, dtype=dtype,
+        )
+        self.norm1 = nn.LayerNorm(sizes[-1], eps=1e-5)
+        self.transformer = TransformerEncoderLayer(
+            sizes[-1], n_head, dtype=dtype
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor,
+        idx: torch.Tensor,
+        edge_mask: torch.Tensor,
+    ) -> torch.Tensor:
+        x_out = self.conv(x, idx, edge_mask)
+        x = x + x_out if self.residual else x_out
+        x = layer_norm(self.norm1, x, None)
+        return self.transformer(x, key_padding_mask=mask).float()

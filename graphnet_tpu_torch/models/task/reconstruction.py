@@ -1,7 +1,8 @@
 """Reconstruction task heads (counterpart of
-``graphnet_tpu/models/task/reconstruction.py``).  Only the energy head
-is ported so far; it takes ``Task``'s arguments (``loss_function``,
-``target_labels``, ``transform_prediction_and_target``, ...)."""
+``graphnet_tpu/models/task/reconstruction.py``).  Ported so far: the
+energy head and the 3D direction head with its concentration; both take
+``Task``'s arguments (``loss_function``, ``target_labels``,
+``transform_prediction_and_target``, ...)."""
 
 from __future__ import annotations
 
@@ -22,3 +23,22 @@ class EnergyReconstruction(StandardLearnedTask):
     def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         soft = torch.logaddexp(0.05 * x, torch.zeros_like(x))
         return soft / 0.05 + EPS, x.new_zeros(())
+
+
+class DirectionReconstructionWithKappa(StandardLearnedTask):
+    """3D unit direction and the von Mises-Fisher concentration
+    ``kappa = |x| + EPS`` of the affine output ``x [B, 3]``."""
+
+    task_nb_inputs = 3
+    default_target_labels = ("direction",)
+    default_prediction_labels = (
+        "dir_x_pred",
+        "dir_y_pred",
+        "dir_z_pred",
+        "direction_kappa",
+    )
+
+    def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        kappa = torch.linalg.vector_norm(x, dim=1) + EPS
+        vec = x / kappa[:, None]
+        return torch.cat([vec, kappa[:, None]], dim=1), x.new_zeros(())

@@ -20,6 +20,7 @@ import torch
 from graphnet_tpu_torch.ops.knn import centre_coords, knn_graph_plain
 
 MAX_K = 16
+DIMS = (3, 4)  # coordinate counts the kernel is built for (xyz, xyzt)
 _NAME = "knn"
 
 
@@ -30,7 +31,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.knn_graph_launch
     if fn.argtypes is None:  # first use: declare the C signature
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, P, P, P]
+        fn.argtypes = [P, P, I, I, I, I, I, P, P, P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -62,27 +63,29 @@ def knn_graph_cuda(
 
 
 def _knn_cuda(coords, mask, k, exclude_self):
+    B, L, D = coords.shape
+    if D not in DIMS:
+        raise ValueError(
+            f"the CUDA kNN kernel takes D in {DIMS} coordinates, got {D}"
+        )
     if coords.device.type != "cuda" or mask.device != coords.device:
         raise ValueError(
             f"coords on {coords.device} and mask on {mask.device}: both "
             "must be on one CUDA device (or on the CPU)"
         )
-    B, L, D = coords.shape
-    if D != 3:
-        raise ValueError(f"the CUDA kNN kernel takes D=3 coordinates, got {D}")
     if coords.dtype != torch.float32:
         raise TypeError(f"coords must be float32, got {coords.dtype}")
     if not 1 <= k <= min(MAX_K, L):
         raise ValueError(f"k={k} must lie in [1, min({MAX_K}, L={L})]")
 
     with torch.cuda.device(coords.device):
-        xyz = centre_coords(coords, mask).contiguous()
+        c = centre_coords(coords, mask).contiguous()
         m = mask.contiguous()
         idx = torch.empty((B, L, k), dtype=torch.int32, device=coords.device)
         em = torch.empty((B, L, k), dtype=torch.bool, device=coords.device)
         stream = torch.cuda.current_stream(coords.device).cuda_stream
         err = _lib().knn_graph_launch(
-            xyz.data_ptr(), m.data_ptr(), B, L, k, int(exclude_self),
+            c.data_ptr(), m.data_ptr(), B, L, D, k, int(exclude_self),
             idx.data_ptr(), em.data_ptr(), stream,
         )
     if err != 0:

@@ -1,10 +1,13 @@
 """Loss functions (counterpart of ``graphnet_tpu/training/
 loss_functions.py``).
 
-Ported so far: the base class and the regression losses DynEdge's
-energy task uses (``MSELoss``, ``RMSELoss``, ``LogCoshLoss``).  The
-classification and von-Mises-Fisher losses wait for the backbones that
-need them.
+Ported so far: the base class, the regression losses DynEdge's energy
+task uses (``MSELoss``, ``RMSELoss``, ``LogCoshLoss``) and the
+von Mises-Fisher losses of TITO's direction task
+(``VonMisesFisherLoss``, ``VonMisesFisher3DLoss``) with the normaliser
+``log C_m(kappa)`` for m = 2 and 3, computed on the device.  General m
+(the JAX package's ``log_iv_series``) and the classification losses wait
+for the models that need them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 _LOG_2 = math.log(2.0)
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 class LossFunction:
@@ -71,3 +75,71 @@ class LogCoshLoss(LossFunction):
         if target.dim() < prediction.dim():
             target = target[..., None]
         return self._log_cosh(prediction - target)
+
+
+# ------------------------------------------------------------ log C_m(k)
+def _log_sinh_over_x(x: torch.Tensor) -> torch.Tensor:
+    """Stable ``log(sinh(x)/x)`` for x >= 0 (series below 0.1)."""
+    small = x < 0.1
+    x_big = torch.where(small, 1.0, x)  # double where: NaN-free gradients
+    big = x_big + torch.log1p(-torch.exp(-2.0 * x_big)) - _LOG_2 - torch.log(x_big)
+    x2 = x * x
+    return torch.where(small, x2 / 6.0 - x2 * x2 / 180.0, big)
+
+
+def log_cmk_exact(m: int, kappa: torch.Tensor) -> torch.Tensor:
+    """``log C_m(kappa) = (m/2-1) log k - log I_{m/2-1}(k) - (m/2)
+    log(2 pi)``, for m = 2 (through ``i0e``) and m = 3 (closed form)."""
+    if m == 2:
+        return -(torch.log(torch.special.i0e(kappa)) + kappa) - _LOG_2PI
+    if m == 3:
+        return -math.log(4.0 * math.pi) - _log_sinh_over_x(kappa)
+    raise NotImplementedError(
+        f"log C_m for m={m}: only m = 2 and 3 are ported (the general-m "
+        "series is not)"
+    )
+
+
+def log_cmk_approx(m: int, kappa: torch.Tensor) -> torch.Tensor:
+    """Asymptotic approximation (arXiv:1812.04616 section 8.2)."""
+    v = m / 2.0 - 0.5
+    a = torch.sqrt((v + 1.0) ** 2 + kappa * kappa)
+    b = v - 1.0
+    return -a + b * torch.log(b + a)
+
+
+def log_cmk(
+    m: int, kappa: torch.Tensor, kappa_switch: float = 100.0
+) -> torch.Tensor:
+    """Exact below ``kappa_switch``, the shifted approximation above,
+    continuous at the switch."""
+    ks = torch.tensor(kappa_switch, dtype=kappa.dtype, device=kappa.device)
+    offset = log_cmk_approx(m, ks) - log_cmk_exact(m, ks)
+    kappa_lo = torch.clamp_max(kappa, kappa_switch)  # exact branch finite
+    return torch.where(
+        kappa < kappa_switch,
+        log_cmk_exact(m, kappa_lo),
+        log_cmk_approx(m, kappa) - offset,
+    )
+
+
+class VonMisesFisherLoss(LossFunction):
+    """``-log C_m(|p|) - p . t`` for a unit target ``t``."""
+
+    def _evaluate(
+        self, prediction: torch.Tensor, target: torch.Tensor
+    ) -> torch.Tensor:
+        m = target.shape[1]
+        k = torch.linalg.vector_norm(prediction, dim=1)
+        dotprod = (prediction * target).sum(dim=1)
+        return -log_cmk(m, k) - dotprod
+
+
+class VonMisesFisher3DLoss(VonMisesFisherLoss):
+    """prediction ``[N, 4] = (x, y, z, kappa)``; target a unit 3-vector."""
+
+    def _forward(self, prediction, target):
+        target = target.reshape(-1, 3)
+        kappa = prediction[:, 3]
+        p = kappa[:, None] * prediction[:, :3]
+        return self._evaluate(p, target)

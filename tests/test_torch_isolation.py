@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX, no flax and nothing of the
-JAX package (serving and a training step run without them), and its
-entry points default to the GPU."""
+JAX package (serving and a training step, of DynEdge and of TITO, run
+without them), and its entry points default to the GPU."""
 
 import ast
 import subprocess
@@ -90,6 +90,29 @@ def test_port_imports_and_runs_without_jax():
         assert torch.isfinite(loss) and trainer.step == 1
         assert all(p.grad is not None for p in model.parameters())
         assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+        # TITO direction: serving and a training step
+        from graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito import DynEdgeTITO
+        from graphnet_tpu_torch.models.task.reconstruction import (
+            DirectionReconstructionWithKappa,
+        )
+        from graphnet_tpu_torch.training.loss_functions import (
+            VonMisesFisher3DLoss,
+        )
+        tito = StandardModel(
+            DynEdgeTITO(nb_inputs=4, dyntrans_layer_sizes=((32, 32),),
+                        n_head=1, post_processing_layer_sizes=(16,),
+                        readout_layer_sizes=(8,)),
+            [DirectionReconstructionWithKappa(
+                hidden_size=8, loss_function=VonMisesFisher3DLoss())],
+            device="cpu",
+        )
+        out = DeploymentModule(tito, tito.state_dict(), device="cpu")(events)
+        assert out.shape == (2, 4) and np.isfinite(out).all(), out
+        batch = make_batch([e.x for e in events],
+                           labels={"direction": np.eye(3, dtype=np.float32)[:2]})
+        loss = Trainer(tito).train_step(batch)
+        assert torch.isfinite(loss)
+        assert all(p.grad is not None for p in tito.parameters())
         assert not any(
             m == "jax" or m.startswith(("jax.", "flax", "graphnet_tpu."))
             for m in sys.modules if sys.modules[m] is not None

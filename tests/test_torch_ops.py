@@ -128,6 +128,39 @@ def test_knn_integer_grid_ties_go_to_lower_index():
     _assert_same_graph(i_p, m_p, i_t, m_t)
 
 
+@pytest.mark.parametrize("L", [16, 64])
+def test_knn_4d_matches_jax_and_brute_force(L):
+    """TITO's graph: x, y, z, t (D=4)."""
+    rng = np.random.default_rng(40 + L)
+    events = _ragged_events(rng, B=4, L=L, d=4)
+    jb = jax_make_batch(events, length=L)
+    i_x, m_x = map(np.asarray, jax_knn_graph(jb.x, jb.mask, k=8))
+    with pltpu.force_tpu_interpret_mode():
+        i_p, m_p = map(
+            np.asarray, knn_graph_pallas(jb.x, jb.mask, k=8, tile=min(L, 128))
+        )
+    tb = make_batch(events, length=L)
+    i_t, m_t = (t.numpy() for t in knn_graph(tb.x, tb.mask, k=8))
+    i_r, m_r = _reference_knn(tb.x.numpy(), tb.mask.numpy(), 8)
+    _assert_same_graph(i_r, m_r, i_t, m_t)
+    _assert_same_graph(i_x, m_x, i_t, m_t)
+    _assert_same_graph(i_p, m_p, i_t, m_t)
+    assert not m_t[-1].any()
+
+
+def test_knn_kernel_takes_only_3_or_4_coordinates():
+    from graphnet_tpu_torch.ops.knn_cuda import DIMS, _knn_cuda
+
+    assert DIMS == (3, 4)
+    mask = torch.ones(2, 16, dtype=torch.bool)
+    for d in (2, 5):
+        with pytest.raises(ValueError, match="D in"):
+            _knn_cuda(torch.zeros(2, 16, d), mask, 8, True)
+    # on the CPU the plain version takes any D
+    idx, em = knn_graph_cuda(torch.randn(2, 16, 5), mask, 8)
+    assert idx.shape == (2, 16, 8) and bool(em.all())
+
+
 def test_knn_wrapper_routes_cpu_to_plain_and_checks_inputs():
     rng = np.random.default_rng(5)
     tb = make_batch(_ragged_events(rng, B=3, L=32), length=32)
