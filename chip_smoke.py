@@ -43,13 +43,28 @@ Phases, each printing one JSON line:
    per training step; answers, losses and step-1 gradients held
    against the CPU.  Then the bfloat16 modes, against the bfloat16
    model on the CPU;
-10. times: each kernel, its plain version and its bound; the flash
+10. rel_flash, rel_flash_bwd: the relative-bias attention forward, dq
+   and dkv kernels against their plain versions (12 heads of 32, L =
+   128, 768, 1000 and 1024, fp32 and bf16, an event with no pulse and
+   one with a single pulse), and whether two backward runs give the
+   same bits;
+11. serve_deepice, train_deepice: the same two paths for the full-width
+   DeepIce direction model at the JAX bench's DeepIce shape, B=16,
+   L=768 (serving: 16 events of 100-768 pulses, and a request with
+   events of 0 and 1 pulses): 1 rel forward and 15 flash forward
+   launches per forward, 1 rel dq, 1 rel dkv and 15 flash dq and dkv
+   more per training step; answers and a step on a few of the events
+   held against the CPU.  Then the bfloat16 modes, against the bf16
+   model on the CPU;
+12. times: each kernel, its plain version and its bound; the flash
    kernels beside the port's dense attention and
-   ``F.scaled_dot_product_attention`` at L = 128, 512 and 1024; serving
-   events/s and single-event latency; training step ms and events/s;
-   device time by kernel for serving and for training; peak memory of
-   a training step;
-11. a ``kernels`` line with every ported kernel.
+   ``F.scaled_dot_product_attention`` at L = 128, 512 and 1024; the rel
+   attention beside the port's dense biased path at L = 768, 1536 and
+   3072; serving events/s and single-event latency; training step ms and
+   events/s; device time by kernel for serving and for training; peak
+   memory of a training step;
+13. a ``kernels`` line with every ported kernel and its row of the
+   kernel table in PERF.md.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no such line; it also
@@ -110,8 +125,28 @@ FLASH_BWD_DIFFERING = 1e-2
 # and bf16 latents reorder near-ties (unmasked, the norms differ by
 # up to half)
 TITO_BF16_SERVE_TOL = 1e-2
+# DeepIce at the JAX bench's shape (bench.py:359-430): events, length
+# (the IceMix pulse budget), heads, head dim
+ICE_B, ICE_L, ICE_HEADS, ICE_HD = 16, 768, 12, 32
+ICE_FEATURES = ["sensor_pos_x", "sensor_pos_y", "sensor_pos_z", "t", "charge",
+                "auxiliary"]
+# the rel kernels against their plain versions: each output's error over
+# its max within one event, forward and backward.  fp32: both evaluate
+# the pair embedding with correctly rounded arguments and 1-2 ulp sines;
+# the sums run in another order.  bf16: as the flash kernels'
+REL_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 5e-3)}
 TITO_BF16_TRAIN = dict(loss_rtol=1e-3, grad_tol=3e-2, grad_norm="l2",
                        rel=4e-3)
+# DeepIce in bfloat16, card against the same bf16 model on the CPU, at
+# about three times the H100's readings: the answers (direction
+# components, and kappa as rtol; 5.7e-3 read), and the held step-1 loss
+# (rtol; 6.7e-4 read) and gradients (each parameter's error norm over
+# its norm; 1.04e-2 read).  The model has no max and no relu gate, so
+# nothing is masked.  In fp32 the held step-1 gradients are held within
+# 1e-4 of each parameter's max (2.3e-6 read), the loss within 1e-4
+ICE_BF16_SERVE_TOL = 2e-2
+ICE_BF16_TRAIN = dict(loss_rtol=3e-3, grad_tol=3e-2, grad_norm="l2")
+ICE_FP32_TRAIN = dict(loss_rtol=1e-4, grad_tol=1e-4)
 
 
 def emit(obj) -> None:
@@ -1350,6 +1385,348 @@ def flash_times(torch, fa, dense_attention, dev, peaks, Ls=(128, 512, 1024)):
     return out
 
 
+# ------------------------------------------------ rel attention, DeepIce
+
+
+def ice_events(rng, lengths):
+    """Event arrays by the JAX bench's DeepIce recipe
+    (``bench.py:397-408``): x, y, z from N(0, 1), time and charge
+    uniform in [0, 1), a 0/1 auxiliary flag."""
+    return [np.concatenate(
+        [rng.standard_normal((int(n), 3)), rng.random((int(n), 1)),
+         rng.random((int(n), 1)), rng.random((int(n), 1)) > 0.5],
+        axis=1).astype(np.float32) for n in lengths]
+
+
+def rel_cases(torch, rng, dev):
+    """``(label, q, k, v, w, b, x0, mask)`` for the rel phases: 12 heads
+    of 32 at L = 128, 768 (B=16: DeepIce's shape), 1000 (ragged) and
+    1024, and 2 heads of 16 (the kernels' other head dim, one head
+    group) at L = 1000; q scaled by hd^-0.5; the projection ``w [e, hd]``
+    (nn.Linear layout) and ``b``; event 0 has no valid pulse, event 1 a
+    single one, the others ragged lengths."""
+    cases = []
+    for L, B, H, hd in ((128, 4, ICE_HEADS, ICE_HD), (ICE_L, ICE_B, ICE_HEADS, ICE_HD),
+                        (1000, 4, ICE_HEADS, ICE_HD), (1024, 4, ICE_HEADS, ICE_HD),
+                        (1000, 4, 2, 16)):
+        gen = torch.Generator(device=dev).manual_seed(L + 7 + hd)
+        q, k, v = (torch.randn(B, H, L, hd, device=dev, generator=gen)
+                   for _ in range(3))
+        w = torch.randn(hd, hd, device=dev, generator=gen) / hd ** 0.5
+        b = torch.randn(hd, device=dev, generator=gen) * 0.1
+        x0 = torch.from_numpy(np.stack(ice_events(rng, [L] * B))).to(dev)
+        n = torch.from_numpy(rng.integers(L // 2, L + 1, B)).to(dev)
+        n[0], n[1] = 0, 1
+        mask = torch.arange(L, device=dev)[None, :] < n[:, None]
+        cases.append((f"L{L}_B{B}_H{H}_hd{hd}", q * hd ** -0.5, k, v, w, b,
+                      x0, mask))
+    return cases
+
+
+def rel_args(torch, case, dtype):
+    """The core's inputs ``(q, qt, qb, k, v, x0, mask)`` in ``dtype``,
+    with the folds ``qt = q @ w``, ``qb = q . b`` in fp32."""
+    _, q, k, v, w, b, x0, mask = case
+    qc, kc, vc = (t.to(dtype) for t in (q, k, v))
+    return (qc, qc.float() @ w, qc.float() @ b, kc, vc, x0, mask)
+
+
+def check_rel(torch, rc, rp, cases):
+    """Phase: the rel forward kernel against its plain version, each
+    event on its own: o and oe within ``REL_TOL`` of the event's max; the
+    no-pulse event's o the mean of v over the L keys, event 1's o that
+    key's v exactly; lse within 1e-4 of max(|lse|, 1) where a key is
+    valid, within one fp32 step at 1e5 (-1e5 + log L) in event 0."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    report = []
+    for case in cases:
+        label, mask = case[0], case[-1]
+        keyed = mask.any(dim=1)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).replace("torch.", "")
+            tol = REL_TOL[key][0]
+            args = rel_args(torch, case, dtype)
+            o, oe, lse = rc.rel_attention_fwd(*args)
+            op, oep, lsep = rp.rel_attention_plain(*args)
+            assert o.dtype == dtype and oe.dtype == lse.dtype == torch.float32
+            assert all(bool(torch.isfinite(t.float()).all()) for t in (o, oe, lse))
+            rel = {}
+            for name, t, e in (("o", o, op), ("oe", oe, oep)):
+                err, scale = _event_errors(t, e)
+                r = err / scale
+                assert bool((r <= tol).all()), (
+                    f"{label} {key}: {name} off by {r.tolist()} of each event's max")
+                rel[name] = r.tolist()
+                worst[key] = max(worst[key], float(err.max()))
+            mean_v = args[4][0].float().mean(dim=1, keepdim=True)
+            e0 = float((o[0].float() - mean_v).abs().max()) / float(
+                o[0].float().abs().max())
+            assert e0 <= tol, f"{label} {key}: no-pulse event off the mean of v by {e0}"
+            v1 = args[4][1, :, :1].expand_as(o[1])
+            assert torch.equal(o[1], v1) and torch.equal(op[1], v1), (
+                f"{label} {key}: the one-pulse event's o is not that key's v")
+            lerr, lscale = _event_errors(lse[keyed], lsep[keyed])
+            lrel = float((lerr / lscale.clamp_min(1.0)).max())
+            assert lrel <= 1e-4, f"{label} {key}: lse off by {lrel}"
+            merr = float((lse[~keyed] - lsep[~keyed]).abs().max())
+            assert merr <= float(np.spacing(np.float32(1e5))), merr
+            report.append({
+                "case": label, "dtype": key, "rel_to_event_max": rel,
+                "o_no_pulse_rel_to_mean_v": e0,
+                "o_differing_share": float((o != op).float().mean()),
+                "lse_rel_err": lrel, "lse_fully_masked_max_abs_err": merr})
+    return worst, report
+
+
+def check_rel_bwd(torch, rc, rp, cases):
+    """Phase: the rel dq and dkv kernels against the plain backward, from
+    the plain forward's o, oe, lse and random output gradients, each
+    event on its own.  In the events with two or more valid pulses each
+    of dq, dqt, dqb, dk, dv within ``REL_TOL`` of the event's max, and in
+    bf16 no more than ``FLASH_BWD_DIFFERING`` of dq, dk, dv's elements
+    differing at all.  Event 0 (no pulse) passes no gradient through the
+    logits: dq, dqt, dqb, dk exactly 0, dv (p = 1/L) within the limit.
+    Event 1 (one pulse): dv 0 exactly at the masked keys; dq, dqt, dqb,
+    dk are rounding noise, held to the limit of the other events' max.
+    dqb, the gradient of a per-row logit offset, is 0 exactly (the
+    softmax does not see the offset): both sides give rounding noise of
+    sum_j ds, held to the limit of the event's max |dqt| (the same ds
+    summed against the O(1) embedding).  The kernels run twice and the
+    bits of the two runs are compared."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    report = []
+    for case in cases:
+        label, mask = case[0], case[-1]
+        multi = mask.sum(dim=1) >= 2
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).replace("torch.", "")
+            tol = REL_TOL[key][1]
+            args = rel_args(torch, case, dtype)
+            o, oe, lse = rp.rel_attention_plain(*args)
+            gen = torch.Generator(device=o.device).manual_seed(o.shape[2])
+            do = torch.randn(o.shape, device=o.device, generator=gen).to(dtype)
+            doe = torch.randn(oe.shape, device=o.device, generator=gen)
+            full = args + (lse, do, doe, rp.rel_attention_delta(do, o, doe, oe))
+
+            def run():
+                return (*rc.rel_attention_bwd_dq(*full),
+                        *rc.rel_attention_bwd_dkv(*full))
+
+            got, again = run(), run()
+            exp = rp.rel_attention_bwd_plain(*full)
+            rel, noise, share = {}, {}, {}
+            dqt_scale = _event_errors(exp[1], exp[1])[1]
+            for name, t, e in zip(("dq", "dqt", "dqb", "dk", "dv"), got, exp):
+                assert t.dtype == e.dtype and bool(torch.isfinite(t.float()).all())
+                err, scale = _event_errors(t, e)
+                if name == "dqb":
+                    scale = dqt_scale
+                r = err / scale.clamp_min(1e-30)
+                if name == "dv":
+                    assert bool((r <= tol).all()), (
+                        f"{label} {key}: dv off by {r.tolist()} of each event's max")
+                    assert not bool(t[1, :, 1:].any()), (
+                        f"{label} {key}: dv of a masked key in the one-pulse event")
+                else:
+                    assert bool((r[multi] <= tol).all()), (
+                        f"{label} {key}: {name} off by {r.tolist()} of each "
+                        "event's max")
+                    assert not bool(t[0].any()), (
+                        f"{label} {key}: {name} of the no-pulse event is not 0")
+                    noise[name] = float(err[1] / scale[multi].max())
+                    assert noise[name] <= tol, (
+                        f"{label} {key}: {name} of the one-pulse event off by "
+                        f"{noise[name]} of the other events' max")
+                rel[name] = r.tolist()
+                if t.dtype == dtype:
+                    share[name] = float((t[multi] != e[multi]).float().mean())
+                    assert (dtype == torch.float32
+                            or share[name] <= FLASH_BWD_DIFFERING), (
+                        f"{label} {key}: {share[name]} of {name} differs from "
+                        "the plain version")
+                worst[key] = max(worst[key], float(err.max()))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            assert same, f"{label} {key}: two runs gave other bits"
+            report.append({"case": label, "dtype": key,
+                           "rel_err_to_event_max": rel,
+                           "one_pulse_rel_to_others_max": noise,
+                           "differing_share_multi_pulse": share,
+                           "same_bits_twice": same})
+    return worst, report
+
+
+def ice_jax_layout_tree(rng, model, params_to_jax):
+    """The JAX package's parameter tree for ``model`` (a port DeepIce
+    model: the layout ``params_to_jax`` writes) with random weights:
+    dense kernels N(0, 1/fan_in), biases N(0, 0.1^2), layer norm and
+    layer scales 1 + N(0, 0.1^2), the cls token and the aux table
+    N(0, 1)."""
+
+    def draw(name, a):
+        if name == "kernel":
+            return rng.standard_normal(a.shape) / np.sqrt(a.shape[0])
+        if name == "bias":
+            return rng.standard_normal(a.shape) * 0.1
+        if name in ("scale", "gamma_1", "gamma_2"):
+            return 1.0 + rng.standard_normal(a.shape) * 0.1
+        return rng.standard_normal(a.shape)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict)
+                else draw(k, v).astype(np.float32) for k, v in t.items()}
+
+    return walk(params_to_jax(model.state_dict()))
+
+
+def serve_deepice(torch, gpu, cpu, requests, held, counters, expect, tol):
+    """Phase: DeepIce serving.  Every request goes through ``gpu`` with
+    ``expect`` launches per forward; the ``held`` events (request label,
+    index) then go through ``cpu``, the same module on the CPU (the plain
+    versions), each alone: the unit direction's components within
+    ``tol`` and kappa within rtol ``tol``."""
+    answers, launches = answer(gpu, requests, counters, expect)
+    report = []
+    for label, evs in requests.items():
+        got = answers[label]
+        empty = np.array([e.n_pulses == 0 for e in evs])
+        assert got.shape == (len(evs), 4)
+        assert np.isnan(got[empty]).all() and np.isfinite(got[~empty]).all()
+        d_dir, d_kappa = [], []
+        for i in [i for lab, i in held if lab == label]:
+            ref = cpu([evs[i]])[0]
+            d_dir.append(float(np.abs(got[i, :3] - ref[:3]).max()))
+            d_kappa.append(float(abs(got[i, 3] - ref[3]) / abs(ref[3])))
+        assert max(d_dir + d_kappa) <= tol, (
+            f"{label}: held events off the CPU by {d_dir} (direction), "
+            f"{d_kappa} (kappa), beyond {tol}")
+        report.append({
+            "request": label, "events": len(evs),
+            "pulses": [e.n_pulses for e in evs],
+            "held_events": [i for lab, i in held if lab == label],
+            "max_dir_abs_err": max(d_dir), "max_kappa_rel_err": max(d_kappa),
+        })
+    return launches, report
+
+
+def train_deepice(torch, make, Trainer, batch, held_batch, counters, expect,
+                  dev, dtype=None, steps=3, loss_rtol=1e-3, grad_tol=1e-3,
+                  grad_norm="max"):
+    """Phase: DeepIce training in ``dtype`` on the card, ``steps`` steps
+    on ``batch`` with ``expect`` launches each, every gradient finite and
+    non-zero; then one step on the ``held_batch`` (a few of the events)
+    on each device: the loss within ``loss_rtol`` and each parameter's
+    gradient within ``grad_tol`` of its max (``grad_norm="max"``) or
+    with its error's norm within ``grad_tol`` of its norm (``"l2"``)."""
+    for c in counters:
+        c.launches = 0
+    gpu = run_steps(torch, Trainer(make(dev, dtype)), [batch.to(dev)] * steps,
+                    counters)
+    launches = [c.launches for c in counters]
+    assert all(r == expect for r in gpu["rose"]), gpu["rose"]
+    assert not any(gpu["nonfinite"]) and not any(gpu["zero"]), (
+        gpu["nonfinite"], gpu["zero"])
+    card = run_steps(torch, Trainer(make(dev, dtype)), [held_batch.to(dev)])
+    cpu = run_steps(torch, Trainer(make("cpu", dtype)), [held_batch])
+    loss_err = abs(card["loss"][0] - cpu["loss"][0]) / abs(cpu["loss"][0])
+    assert loss_err <= loss_rtol, f"held step-1 loss off the CPU by {loss_err}"
+    errs = {}
+    for n, g in cpu["grads1"].items():
+        d = card["grads1"][n] - g
+        if grad_norm == "max":
+            errs[n] = float(d.abs().max()) / float(g.abs().max())
+        else:
+            errs[n] = float(d.norm()) / float(g.norm())
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= grad_tol, (
+        f"held step-1 gradients beyond {grad_tol} ({grad_norm}): "
+        f"{ {n: e for n, e in errs.items() if e > grad_tol} }")
+    return gpu, {
+        "steps": steps, "B": batch.batch_size, "L": batch.max_length,
+        "losses_card": gpu["loss"], "launches_per_step": gpu["rose"],
+        "every_grad_finite_nonzero": True, "n_params": len(errs),
+        "held_B": held_batch.batch_size, "held_loss_card": card["loss"][0],
+        "held_loss_cpu": cpu["loss"][0], "held_loss_rel_err": loss_err,
+        "grad_norm": grad_norm, "max_grad_rel_err_step1": errs[worst],
+        "worst_grad_param": worst,
+    }, launches
+
+
+def rel_bound(B, H, L, hd, el, peaks, dtype_rate, t_flops, f_flops):
+    """The least time of a rel kernel: ``t_flops`` and ``f_flops`` per
+    (b, h, i, j) of products in the input dtype (its peak) and in fp32,
+    plus hd/2 sin and cos per (b, i, j), counted as one operation each,
+    over the fp32 peak; or the bytes of q, k, v (``el`` each), qt and oe
+    (fp32), qb, lse, x0, mask and o read or written once, if larger."""
+    pairs = float(B) * L * L
+    t_o = (pairs * H * t_flops / dtype_rate
+           + (pairs * H * f_flops + pairs * hd) / peaks["fp32"])
+    nbytes = B * H * L * hd * (4 * el + 2 * 4) + B * H * L * 2 * 4 + B * L * 25
+    t_b = nbytes / peaks["bytes"]
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def rel_times(torch, rc, rp, rel_flash_attention, encoder, dense, dev, peaks):
+    """Phase: the rel kernels and their plain versions at DeepIce's shape
+    (B=16, H=12, L=768, hd=32, full-length events) with their bounds
+    (``rel_bound``: forward 8*hd flops per (b, h, i, j), half of them in
+    the input dtype; dq and dkv 12*hd each); and the whole biased
+    attention, the folds and the forward kernel, beside the port's dense
+    path (``encoder(x0)`` materialised, then ``dense``) at L = 768, 1536
+    (B=16) and 3072 (B=4: at B=16 the dense path's fp32 pair tensor alone
+    is 19 GB and its temporaries do not fit)."""
+    H, hd = ICE_HEADS, ICE_HD
+    out = {}
+    for L, B in ((ICE_L, ICE_B), (1536, ICE_B), (3072, 4)):
+        gen = torch.Generator(device=dev).manual_seed(L)
+        x0 = torch.from_numpy(np.stack(
+            ice_events(np.random.default_rng(L), [L] * B))).to(dev)
+        mask = torch.ones(B, L, dtype=torch.bool, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"L{L}_B{B}_{str(dtype).replace('torch.', '')}"
+            q, k, v = (torch.randn(B, H, L, hd, device=dev, generator=gen)
+                       .to(dtype) for _ in range(3))
+            w, b = encoder.projection.weight, encoder.projection.bias
+            with torch.no_grad():
+                row = {
+                    "rel_attention_ms": cuda_ms(torch, lambda: rel_flash_attention(
+                        q, k, v, x0, w, b, mask), runs=10),
+                    "dense_path_ms": cuda_ms(torch, lambda: dense(
+                        q, k, v, mask, encoder(x0).to(dtype)), runs=5, warmup=1),
+                }
+            if L == ICE_L:
+                el = q.element_size()
+                rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
+                args = (q, q.float() @ w.detach(), q.float() @ b.detach(),
+                        k, v, x0, mask)
+                o, oe, lse = rc.rel_attention_fwd(*args)
+                do = torch.randn(o.shape, device=dev, generator=gen).to(dtype)
+                doe = torch.randn(oe.shape, device=dev, generator=gen)
+                full = args + (lse, do, doe, rp.rel_attention_delta(do, o, doe, oe))
+                plain_bwd = cuda_ms(torch, lambda: rp.rel_attention_bwd_plain(*full),
+                                    runs=5, warmup=1)
+                row.update({
+                    "fwd": dict(ms=cuda_ms(torch, lambda: rc.rel_attention_fwd(*args)),
+                                plain_ms=cuda_ms(torch, lambda: rp.rel_attention_plain(
+                                    *args), runs=5, warmup=1),
+                                **rel_bound(B, H, L, hd, el, peaks, rate, 4 * hd, 4 * hd)),
+                    "bwd_dq": dict(ms=cuda_ms(torch, lambda: rc.rel_attention_bwd_dq(*full)),
+                                   plain_ms=plain_bwd,
+                                   **rel_bound(B, H, L, hd, el, peaks, rate, 6 * hd, 6 * hd)),
+                    "bwd_dkv": dict(ms=cuda_ms(torch, lambda: rc.rel_attention_bwd_dkv(*full)),
+                                    plain_ms=plain_bwd,
+                                    **rel_bound(B, H, L, hd, el, peaks, rate, 8 * hd, 4 * hd)),
+                })
+            if B != ICE_B:
+                row["note"] = (f"B={B}: at B={ICE_B} the dense path's fp32 pair "
+                               "tensor alone is 19 GB and its temporaries do "
+                               "not fit the card")
+            out[key] = row
+            del q, k, v
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1363,9 +1740,14 @@ def main() -> int:
         DeploymentModule,
     )
     from graphnet_tpu_torch.kernels import build
-    from graphnet_tpu_torch.models.components.layers import dense_attention
+    from graphnet_tpu_torch.models.components.embedding import SpacetimeEncoder
+    from graphnet_tpu_torch.models.components.layers import (
+        _dense_rel_attention,
+        dense_attention,
+    )
     from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
     from graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito import DynEdgeTITO
+    from graphnet_tpu_torch.models.gnn.icemix import DeepIce
     from graphnet_tpu_torch.models.graphs.graph_definition import Event
     from graphnet_tpu_torch.models.standard_model import StandardModel
     from graphnet_tpu_torch.models.task.reconstruction import (
@@ -1381,12 +1763,14 @@ def main() -> int:
     )
     from graphnet_tpu_torch.ops.knn import knn_graph_plain
     from graphnet_tpu_torch.ops.knn_cuda import knn_graph_cuda
+    from graphnet_tpu_torch.ops import rel_flash_attention as rp
+    from graphnet_tpu_torch.ops import rel_flash_attention_cuda as rc
     from graphnet_tpu_torch.training.loss_functions import (
         LogCoshLoss,
         VonMisesFisher3DLoss,
     )
     from graphnet_tpu_torch.training.trainer import Trainer
-    from graphnet_tpu_torch.utils.jax_params import params_from_jax
+    from graphnet_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
 
     ops = dict(knn=knn_graph_cuda, knn_plain=knn_graph_plain,
                edgeconv=fused_edgeconv, edgeconv_plain=fused_edgeconv_plain,
@@ -1394,12 +1778,14 @@ def main() -> int:
                edgeconv_bwd_plain=fused_edgeconv_bwd_plain)
     counters = (knn_graph_cuda, fused_edgeconv, fused_edgeconv_bwd,
                 fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv)
+                fa.flash_attention_bwd_dkv, rc.rel_attention_fwd,
+                rc.rel_attention_bwd_dq, rc.rel_attention_bwd_dkv)
     names = ("knn", "edgeconv", "edgeconv_bwd", "flash_fwd", "flash_bwd_dq",
-             "flash_bwd_dkv")
-    # launches per DynEdge forward / step, per TITO forward / step
-    dynedge_fwd, dynedge_step = [5, 4, 0, 0, 0, 0], [5, 4, 4, 0, 0, 0]
-    tito_fwd, tito_step = [1, 4, 0, 4, 0, 0], [1, 4, 4, 4, 4, 4]
+             "flash_bwd_dkv", "rel_fwd", "rel_bwd_dq", "rel_bwd_dkv")
+    # launches per DynEdge, TITO and DeepIce forward / step
+    dynedge_fwd, dynedge_step = [5, 4, 0, 0, 0, 0, 0, 0, 0], [5, 4, 4, 0, 0, 0, 0, 0, 0]
+    tito_fwd, tito_step = [1, 4, 0, 4, 0, 0, 0, 0, 0], [1, 4, 4, 4, 4, 4, 0, 0, 0]
+    ice_fwd, ice_step = [0, 0, 0, 15, 0, 0, 1, 0, 0], [0, 0, 0, 15, 15, 15, 1, 1, 1]
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -1419,9 +1805,10 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = build.build(["knn", "edgeconv", "edgeconv_bwd", "flash_attention",
-                        "flash_attention_bwd"])
+                        "flash_attention_bwd", "rel_flash_attention",
+                        "rel_flash_attention_bwd"])
     ptxas = {n: [l.strip() for l in log.splitlines()
-                 if "registers" in l or "spill" in l]
+                 if "registers" in l or "spill" in l or "Compiling" in l]
              for n, log in logs.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "ptxas": ptxas})
@@ -1453,6 +1840,18 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_bwd_err, report = check_flash_bwd(torch, fa, cases)
     emit({"phase": "flash_bwd", "cases": report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    del cases
+
+    # 5c. relative-bias attention kernels vs plain
+    t0 = time.perf_counter()
+    cases = rel_cases(torch, np.random.default_rng(SEED + 6), dev)
+    rel_err, report = check_rel(torch, rc, rp, cases)
+    emit({"phase": "rel_flash", "cases": report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    rel_bwd_err, report = check_rel_bwd(torch, rc, rp, cases)
+    emit({"phase": "rel_flash_bwd", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
     del cases
 
@@ -1587,6 +1986,86 @@ def main() -> int:
           "launches": dict(zip(names, launches_tt16)),
           "seconds": round(time.perf_counter() - t0, 2)})
 
+    # 7d. DeepIce direction serving through DeploymentModule: 16 events of
+    # 100-768 pulses (bucket 1024), and a request with 0 and 1 pulses
+    def make_ice(device, compute_dtype=None):
+        return StandardModel(
+            DeepIce(n_features=6, compute_dtype=compute_dtype),
+            [DirectionReconstructionWithKappa(
+                hidden_size=384, loss_function=VonMisesFisher3DLoss())],
+            device=device,
+        )
+
+    t0 = time.perf_counter()
+    ice_tree = ice_jax_layout_tree(np.random.default_rng(SEED + 7),
+                                   make_ice("cpu"), params_to_jax)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    ice_pkl = os.path.join(tmp, "state_dict.pkl")
+    with open(ice_pkl, "wb") as f:
+        pickle.dump(ice_tree, f)
+    irng = np.random.default_rng(SEED + 8)
+    ice_requests = {
+        f"b{ICE_B}_100_{ICE_L}": [
+            Event(x=a, features=ICE_FEATURES)
+            for a in ice_events(irng, irng.integers(100, ICE_L + 1, ICE_B))],
+        "with_0_and_1_pulses": [Event(x=a, features=ICE_FEATURES)
+                                for a in ice_events(irng, [0, 1, 300, ICE_L])],
+    }
+    held = [(f"b{ICE_B}_100_{ICE_L}", 0), (f"b{ICE_B}_100_{ICE_L}", 1),
+            ("with_0_and_1_pulses", 1), ("with_0_and_1_pulses", 2)]
+    ice_gpu = DeploymentModule(make_ice("cuda"), ice_pkl)
+    ice_cpu = DeploymentModule(make_ice("cpu"), ice_pkl, device="cpu")
+    launches_i, report = serve_deepice(torch, ice_gpu, ice_cpu, ice_requests,
+                                       held, counters, ice_fwd, 1e-3)
+    emit({"phase": "serve_deepice", "dtype": "float32", "requests": report,
+          "launches": {**dict(zip(names, launches_i)),
+                       "forwards": len(ice_requests)},
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    ice_gpu16 = DeploymentModule(make_ice("cuda", "bfloat16"), ice_pkl)
+    ice_cpu16 = DeploymentModule(make_ice("cpu", "bfloat16"), ice_pkl,
+                                 device="cpu")
+    launches_i16, report = serve_deepice(torch, ice_gpu16, ice_cpu16,
+                                         ice_requests, held[::2], counters,
+                                         ice_fwd, ICE_BF16_SERVE_TOL)
+    emit({"phase": "serve_deepice_bf16", "requests": report,
+          "launches": {**dict(zip(names, launches_i16)),
+                       "forwards": len(ice_requests)},
+          "seconds": round(time.perf_counter() - t0, 2)})
+    os.remove(ice_pkl)
+    os.rmdir(tmp)
+    del ice_cpu, ice_cpu16
+
+    # 7e. DeepIce training through Trainer, B=16, L=768
+    def make_ice_trainable(device, compute_dtype=None):
+        model = make_ice(device, compute_dtype)
+        model.load_state_dict(params_from_jax(ice_tree, model.state_dict()))
+        return model
+
+    t0 = time.perf_counter()
+    ice_arrays = ice_events(irng, [ICE_L] * ICE_B)
+    ice_dirs = unit_vectors(irng, ICE_B)
+    ice_batch = make_batch(ice_arrays, labels={"direction": ice_dirs},
+                           length=ICE_L)
+
+    def held_batch(n):
+        return make_batch(ice_arrays[:n], labels={"direction": ice_dirs[:n]},
+                          length=ICE_L)
+
+    _, report, launches_it = train_deepice(
+        torch, make_ice_trainable, Trainer, ice_batch, held_batch(4), counters,
+        ice_step, dev, **ICE_FP32_TRAIN)
+    emit({"phase": "train_deepice", "dtype": "float32", **report,
+          "launches": dict(zip(names, launches_it)),
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    _, report, launches_it16 = train_deepice(
+        torch, make_ice_trainable, Trainer, ice_batch, held_batch(2), counters,
+        ice_step, dev, "bfloat16", **ICE_BF16_TRAIN)
+    emit({"phase": "train_deepice_bf16", **report,
+          "launches": dict(zip(names, launches_it16)),
+          "seconds": round(time.perf_counter() - t0, 2)})
+
     # 8. times
     t0 = time.perf_counter()
     times = kernel_times(torch, ops, rng, dev, peaks)
@@ -1601,6 +2080,13 @@ def main() -> int:
     tito_trainer16 = Trainer(make_tito_trainable(dev, "bfloat16"))
     tito_serving = tito_requests["b8_L1024"]
     flash = flash_times(torch, fa, dense_attention, dev, peaks)
+    rel = rel_times(torch, rc, rp, rc.rel_flash_attention,
+                    SpacetimeEncoder(ICE_HD).to(dev), _dense_rel_attention, dev,
+                    peaks)
+    ice_serving = ice_requests[f"b{ICE_B}_100_{ICE_L}"]
+    ice_on_card = ice_batch.to(dev)
+    ice_trainer = Trainer(make_ice_trainable(dev))
+    ice_trainer16 = Trainer(make_ice_trainable(dev, "bfloat16"))
     emit({
         "phase": "times", "card": smi, "kernels": times,
         "edgeconv_bwd_B128_L128": times_bwd,
@@ -1624,41 +2110,55 @@ def main() -> int:
             "bf16": train_times(torch, tito_trainer16, tito_on_card)},
         "profile_tito_train_fp32_B8_L1024": device_profile(
             torch, lambda: tito_trainer.train_step(tito_on_card)),
+        "rel_H12_Dh32": rel,
+        f"deepice_serving_B{ICE_B}_100_{ICE_L}": {
+            "fp32_events_per_s": ICE_B / host_s(lambda: ice_gpu(ice_serving),
+                                                runs=10),
+            "bf16_events_per_s": ICE_B / host_s(lambda: ice_gpu16(ice_serving),
+                                                runs=10),
+        },
+        f"deepice_train_step_B{ICE_B}_L{ICE_L}": {
+            "fp32": train_times(torch, ice_trainer, ice_on_card, runs=10),
+            "bf16": train_times(torch, ice_trainer16, ice_on_card, runs=10)},
+        f"profile_deepice_train_fp32_B{ICE_B}_L{ICE_L}": device_profile(
+            torch, lambda: ice_trainer.train_step(ice_on_card), calls=3),
+        f"profile_deepice_train_bf16_B{ICE_B}_L{ICE_L}": device_profile(
+            torch, lambda: ice_trainer16.train_step(ice_on_card), calls=3),
         "seconds": round(time.perf_counter() - t0, 2),
     })
 
     # 9. the kernels line
     bwd32, bwd16 = times_bwd["H1_336_float32"], times_bwd["H1_336_bfloat16"]
     kernels = [
-        dict(name="knn", route="cuda",
+        dict(name="knn", row="1", route="cuda",
              source="graphnet_tpu_torch/csrc/knn.cu",
              replaces="graphnet_tpu/ops/knn_pallas.py:35",
              launches=launches[0], launches_per="DynEdge forward: 5 (D=3)",
              max_abs_err=knn_err, **times["knn"], library_ms=None),
-        dict(name="knn_xyzt", route="cuda",
+        dict(name="knn_xyzt", row="1", route="cuda",
              source="graphnet_tpu_torch/csrc/knn.cu",
              replaces="graphnet_tpu/ops/knn_pallas.py:35",
              launches=launches_s[0], launches_per="TITO forward: 1 (D=4)",
              max_abs_err=knn_err, **times["knn_xyzt_B8_L1024"],
              library_ms=None),
-        dict(name="edgeconv_fwd", route="cuda",
+        dict(name="edgeconv_fwd", row="2", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:66",
              launches=launches[1], launches_per="serving forward: 4",
              max_abs_err=ec_err["float32"],
              **times["edgeconv_fwd"], library_ms=None),
-        dict(name="edgeconv_fwd_bf16", route="cuda",
+        dict(name="edgeconv_fwd_bf16", row="2", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:66",
              launches=launches16[1], launches_per="serving forward: 4",
              max_abs_err=ec_err["bfloat16"],
              **times["edgeconv_fwd_bf16"], library_ms=None),
-        dict(name="edgeconv_bwd", route="cuda",
+        dict(name="edgeconv_bwd", row="3", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv_bwd.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:116",
              launches=launches_t[2], launches_per="training step: 4",
              max_abs_err=bwd_err["float32"], **bwd32, library_ms=None),
-        dict(name="edgeconv_bwd_bf16", route="cuda",
+        dict(name="edgeconv_bwd_bf16", row="3", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv_bwd.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:116",
              launches=launches_t16[2], launches_per="training step: 4",
@@ -1673,19 +2173,19 @@ def main() -> int:
     ):
         lib_bwd = t["bwd_total"]["library_ms"]
         kernels += [
-            dict(name="flash_fwd" + key, route="cuda",
+            dict(name="flash_fwd" + key, route="cuda", row="5a",
                  source="graphnet_tpu_torch/csrc/flash_attention.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:71",
                  launches=fwd[3], launches_per="TITO forward: 4",
                  max_abs_err=err, **t["fwd"]),
-            dict(name="flash_bwd_dq" + key, route="cuda",
+            dict(name="flash_bwd_dq" + key, route="cuda", row="5b",
                  source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:128",
                  launches=bwd[4], launches_per="TITO training step: 4",
                  max_abs_err=bwd_e, library_ms=lib_bwd,
                  library_note="SDPA backward: dq, dk and dv in one call",
                  **t["bwd_dq"]),
-            dict(name="flash_bwd_dkv" + key, route="cuda",
+            dict(name="flash_bwd_dkv" + key, route="cuda", row="5c",
                  source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:155",
                  launches=bwd[5], launches_per="TITO training step: 4",
@@ -1695,6 +2195,32 @@ def main() -> int:
         ]
     for kern in kernels:
         assert kern["launches"] > 0, f"{kern['name']} was never launched"
+    ice32, ice16 = rel[f"L{ICE_L}_B{ICE_B}_float32"], rel[f"L{ICE_L}_B{ICE_B}_bfloat16"]
+    for key, fwd, step, t, err, bwd_e in (
+        ("", launches_i, launches_it, ice32, rel_err["float32"],
+         rel_bwd_err["float32"]),
+        ("_bf16", launches_i16, launches_it16, ice16, rel_err["bfloat16"],
+         rel_bwd_err["bfloat16"]),
+    ):
+        kernels += [
+            dict(name="rel_fwd" + key, route="cuda", row="6a",
+                 source="graphnet_tpu_torch/csrc/rel_flash_attention.cu",
+                 replaces="graphnet_tpu/ops/rel_flash_attention.py:314",
+                 launches=fwd[6], launches_per="DeepIce forward: 1",
+                 max_abs_err=err, library_ms=None,
+                 dense_path_ms=t["dense_path_ms"],
+                 rel_attention_ms=t["rel_attention_ms"], **t["fwd"]),
+            dict(name="rel_bwd_dq" + key, route="cuda", row="6b",
+                 source="graphnet_tpu_torch/csrc/rel_flash_attention_bwd.cu",
+                 replaces="graphnet_tpu/ops/rel_flash_attention.py:536",
+                 launches=step[7], launches_per="DeepIce training step: 1",
+                 max_abs_err=bwd_e, library_ms=None, **t["bwd_dq"]),
+            dict(name="rel_bwd_dkv" + key, route="cuda", row="6c",
+                 source="graphnet_tpu_torch/csrc/rel_flash_attention_bwd.cu",
+                 replaces="graphnet_tpu/ops/rel_flash_attention.py:619",
+                 launches=step[8], launches_per="DeepIce training step: 1",
+                 max_abs_err=bwd_e, library_ms=None, **t["bwd_dkv"]),
+        ]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

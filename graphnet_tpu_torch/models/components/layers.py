@@ -23,17 +23,23 @@ from torch import nn
 
 from graphnet_tpu_torch.ops.edgeconv_cuda import fused_edgeconv
 from graphnet_tpu_torch.ops.flash_attention_cuda import (
+    _scaled_q,
     flash_attention,
     supported as flash_supported,
 )
 from graphnet_tpu_torch.ops.gather_reduce import edge_reduce, gather_neighbors
+from graphnet_tpu_torch.ops.gelu import gelu_exact
 from graphnet_tpu_torch.ops.knn import knn_graph
+from graphnet_tpu_torch.ops.rel_flash_attention import (
+    supported as rel_supported,
+)
+from graphnet_tpu_torch.ops.rel_flash_attention_cuda import rel_flash_attention
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
 
 ACTIVATIONS = {
     "relu": F.relu,
-    "gelu": F.gelu,  # exact (erf) form, as the JAX package's gelu_exact
+    "gelu": gelu_exact,
     # slope 1 at exactly 0, as jax.nn.leaky_relu (torch's takes 0.01
     # there): an event with one pulse feeds exact zeros to TITO's MLPs
     "leaky_relu": lambda x: torch.where(x >= 0, x, 0.01 * x),
@@ -75,7 +81,9 @@ def lecun_normal_(
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter of ``module`` from ``generator``: dense
-    weights LeCun-normal, biases zero, layer norms to identity."""
+    weights LeCun-normal, biases zero, layer norms to identity; a module
+    with parameters of its own kind (a lookup table, a cls token)
+    initialises them in its ``init_parameters(generator)``."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
@@ -87,6 +95,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, EdgeConv) and hasattr(m, "out_kernel"):
             lecun_normal_(m.out_kernel, m.out_kernel.shape[0], generator)
             nn.init.zeros_(m.out_bias)
+        elif hasattr(m, "init_parameters"):
+            m.init_parameters(generator)
 
 
 def layer_norm(
@@ -440,3 +450,237 @@ class DynTrans(nn.Module):
         x = x + x_out if self.residual else x_out
         x = layer_norm(self.norm1, x, None)
         return self.transformer(x, key_padding_mask=mask).float()
+
+
+# ------------------------------------------------------- DeepIce blocks
+class DropPath(nn.Module):
+    """Stochastic depth; only its deterministic path (identity) is
+    ported: ``drop_prob > 0`` needs an explicit generator, as dropout
+    does."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        if drop_prob > 0.0:
+            raise NotImplementedError(
+                "DropPath with drop_prob > 0 is not ported yet (stochastic "
+                "layers need an explicit generator)"
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class Mlp(nn.Module):
+    """Two dense layers with an exact GELU between them (``fc1``,
+    ``fc2``), in ``dtype``."""
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden_features: int,
+        dropout: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        _no_dropout(dropout)
+        self.dtype = dtype
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, in_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = gelu_exact(linear(self.fc1, x, self.dtype))
+        return linear(self.fc2, x, self.dtype)
+
+
+def _dense_rel_attention(q, k, v, key_padding_mask, rel):
+    """The JAX package's materialised ``AttentionRel`` path over ``[B, H,
+    L, hd]`` with q already scaled: fp32 logits ``q.k (+ q.rel_ij)``,
+    padded keys at the float32 minimum, the softmax in fp32, the
+    weights in v's dtype for ``a.v``, and ``a.rel`` added in fp32 and
+    rounded to v's dtype.  Returns ``[B, L, H, hd]`` in v's dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if rel is not None:
+        logits = logits + torch.einsum("bhic,bijc->bhij", q.float(), rel.float())
+    if key_padding_mask is not None:
+        logits = torch.where(key_padding_mask[:, None, None, :], logits,
+                             torch.finfo(torch.float32).min)
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.matmul(attn, v).transpose(1, 2)
+    if rel is not None:
+        out = out + torch.einsum(
+            "bhij,bijc->bihc", attn.float(), rel.float()).to(out.dtype)
+    return out
+
+
+class AttentionRel(nn.Module):
+    """BEiTv2-style attention with DeepIce's relative spacetime features
+    (``proj_q`` and ``proj_v`` with a bias when ``qkv_bias``, ``proj_k``
+    never; ``q`` scaled by ``hd ** -0.5`` in its dtype).
+
+    Three paths, chosen from what the caller passes:
+
+    * ``rel_source = (encoder, x0)``: the pair features as relative key
+      and value.  Where the rel kernels take the shape (``rel_flash``
+      "auto" or "always" and the gate of
+      :func:`~graphnet_tpu_torch.ops.rel_flash_attention.supported`) they
+      run through :func:`rel_flash_attention` (the CUDA kernels for CUDA
+      tensors, the plain versions on the CPU) and nothing ``[B, L, L]``
+      is stored; otherwise ``encoder(x0)`` is materialised and the dense
+      path runs;
+    * ``rel_pos_bias [B, L, L, hd]``: the materialised dense path;
+    * neither: masked attention through :func:`flash_attention` (scale 1:
+      q is already scaled) where its kernels take the head dim, else the
+      dense path.
+
+    The chunked and cached paths of the JAX package (``rel_chunks > 1``)
+    are not ported: they raise unless the rel kernels run.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        num_heads: int = 8,
+        qkv_bias: bool = False,
+        rel_chunks: int = 1,
+        rel_flash: str = "auto",
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if rel_flash not in ("auto", "always", "never"):
+            raise ValueError(f"rel_flash must be auto, always or never; got "
+                             f"{rel_flash!r}")
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.rel_chunks = rel_chunks
+        self.rel_flash = rel_flash
+        self.dtype = dtype
+        self.proj_q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj_k = nn.Linear(dim, dim, bias=False)
+        self.proj_v = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def uses_rel_kernel(self, pair_dim: int) -> bool:
+        """Whether a biased call with pair features of ``pair_dim`` runs
+        through :func:`rel_flash_attention`."""
+        return self.rel_flash != "never" and rel_supported(self.head_dim,
+                                                           pair_dim)
+
+    def forward(
+        self,
+        q_in: torch.Tensor,
+        k_in: torch.Tensor,
+        v_in: torch.Tensor,
+        rel_pos_bias: Optional[torch.Tensor] = None,
+        key_padding_mask: Optional[torch.Tensor] = None,
+        rel_source=None,
+    ) -> torch.Tensor:
+        B, L, D = q_in.shape
+        H, hd = self.num_heads, self.head_dim
+
+        def heads(t):
+            return t.reshape(B, L, H, hd).transpose(1, 2)
+
+        q = _scaled_q(heads(linear(self.proj_q, q_in, self.dtype)), hd ** -0.5)
+        k = heads(linear(self.proj_k, k_in, self.dtype))
+        v = heads(linear(self.proj_v, v_in, self.dtype))
+        if rel_source is not None and rel_pos_bias is None:
+            encoder, x0 = rel_source
+            if self.uses_rel_kernel(encoder.seq_length):
+                out = rel_flash_attention(
+                    q, k, v, x0, encoder.projection.weight,
+                    encoder.projection.bias, key_padding_mask)
+                out = out.reshape(B, L, D)
+                out = out if self.dtype is None else out.to(self.dtype)
+                return linear(self.proj, out, self.dtype)
+            rel_pos_bias = encoder(x0)
+        if rel_pos_bias is not None and self.rel_chunks > 1:
+            raise NotImplementedError(
+                "the chunked and cached relative-bias paths (rel_chunks > 1) "
+                "are not ported; use the rel kernels (rel_flash auto or "
+                "always) or rel_chunks=1"
+            )
+        if rel_pos_bias is None and flash_supported(hd):
+            out = flash_attention(q, k, v, key_padding_mask, scale=1.0)
+            out = out.transpose(1, 2)
+        else:
+            out = _dense_rel_attention(q, k, v, key_padding_mask, rel_pos_bias)
+        out = out.reshape(B, L, D)
+        out = out if self.dtype is None else out.to(self.dtype)
+        return linear(self.proj, out, self.dtype)
+
+
+class _TransformerBlock(nn.Module):
+    """Pre-norm block: ``x + g1 * attn(norm1(x))``, then ``x + g2 *
+    mlp(norm2(x))``, with the layer scales ``gamma_1``, ``gamma_2``
+    when ``init_values`` is given; the norms (eps 1e-6) with fp32
+    statistics and their result in ``dtype``."""
+
+    def __init__(self, dim, attn, mlp_ratio, drop_path, init_values, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = attn
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.dp1 = DropPath(drop_path)
+        self.dp2 = DropPath(drop_path)
+        if init_values is not None:
+            self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
+            self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
+        else:
+            self.gamma_1 = self.gamma_2 = None
+
+    def _residuals(self, x, attend):
+        h = attend(layer_norm(self.norm1, x, self.dtype))
+        if self.gamma_1 is not None:
+            h = self.gamma_1.to(h.dtype) * h
+        x = x + self.dp1(h)
+        h = self.mlp(layer_norm(self.norm2, x, self.dtype))
+        if self.gamma_2 is not None:
+            h = self.gamma_2.to(h.dtype) * h
+        return x + self.dp2(h)
+
+
+class BlockRel(_TransformerBlock):
+    """Pre-norm block around :class:`AttentionRel` (with q/v bias)."""
+
+    def __init__(
+        self,
+        dim: int,
+        num_heads: int = 8,
+        mlp_ratio: float = 4.0,
+        drop_path: float = 0.0,
+        init_values: Optional[float] = None,
+        rel_chunks: int = 1,
+        rel_flash: str = "auto",
+        dtype: Optional[torch.dtype] = None,
+    ):
+        attn = AttentionRel(dim, num_heads, qkv_bias=True,
+                            rel_chunks=rel_chunks, rel_flash=rel_flash,
+                            dtype=dtype)
+        super().__init__(dim, attn, mlp_ratio, drop_path, init_values, dtype)
+
+    def forward(self, x, rel_pos_bias=None, key_padding_mask=None,
+                rel_source=None):
+        return self._residuals(x, lambda h: self.attn(
+            h, h, h, rel_pos_bias=rel_pos_bias,
+            key_padding_mask=key_padding_mask, rel_source=rel_source))
+
+
+class Block(_TransformerBlock):
+    """Pre-norm block around :class:`MultiHeadAttention`."""
+
+    def __init__(
+        self,
+        dim: int,
+        num_heads: int = 8,
+        mlp_ratio: float = 4.0,
+        drop_path: float = 0.0,
+        init_values: Optional[float] = None,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        attn = MultiHeadAttention(dim, num_heads, dtype=dtype)
+        super().__init__(dim, attn, mlp_ratio, drop_path, init_values, dtype)
+
+    def forward(self, x, key_padding_mask=None):
+        return self._residuals(x, lambda h: self.attn(h, key_padding_mask))

@@ -10,7 +10,14 @@ module names, so the map is mechanical:
 * ``.../<dense>/bias`` -> ``<dense>.bias``;
 * ``.../<norm>/scale`` -> ``<norm>.weight`` (``nn.LayerNorm``);
 * ``.../out_kernel [H1, H2]`` and ``out_bias`` keep their names and
-  layout: ``out_kernel`` is the EdgeConv kernel's ``W2`` as it is.
+  layout: ``out_kernel`` is the EdgeConv kernel's ``W2`` as it is;
+* DeepIce's ``cls_token [1, D]``, layer scales ``gamma_1``/``gamma_2``
+  ``[D]`` and the ``embedding [n, d]`` of a flax ``Embed`` keep their
+  names and layout too (the port has parameters of those names, so no
+  table is transposed);
+* a ``scale [1]`` under a ``SinusoidalPosEmb`` (modules ``sin_emb`` and
+  ``sin_emb2``) is that module's learned scale and keeps its name;
+  every other ``scale`` is a layer norm's.
 
 Unpickling needs no JAX: the pickle holds numpy arrays only.
 :func:`params_to_jax` is the inverse map, for writing the same pickle.
@@ -30,7 +37,26 @@ _LEAF_NAMES = {
     "scale": ("weight", False),
     "out_kernel": ("out_kernel", False),
     "out_bias": ("out_bias", False),
+    "cls_token": ("cls_token", False),
+    "gamma_1": ("gamma_1", False),
+    "gamma_2": ("gamma_2", False),
+    "embedding": ("embedding", False),
 }
+# leaves that keep their names both ways
+_KEPT = {name for name, (port, _) in _LEAF_NAMES.items() if name == port}
+# the flax names of SinusoidalPosEmb modules, whose ``scale`` is their own
+_SINUSOIDAL = ("sin_emb", "sin_emb2")
+
+
+def _sinusoidal_scale(path: Tuple[str, ...]) -> bool:
+    return path[-1] == "scale" and len(path) > 1 and path[-2] in _SINUSOIDAL
+
+
+def _leaf_rule(path: Tuple[str, ...]):
+    """``(port name, transpose)`` of a JAX leaf, None if unknown."""
+    if _sinusoidal_scale(path):
+        return "scale", False
+    return _LEAF_NAMES.get(path[-1])
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[
@@ -67,7 +93,7 @@ def params_from_jax(
     out: Dict[str, torch.Tensor] = {}
     unknown = []
     for path, value in _leaves(params):
-        rule = _LEAF_NAMES.get(path[-1])
+        rule = _leaf_rule(path)
         if rule is None:
             unknown.append("/".join(path))
             continue
@@ -100,7 +126,9 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The JAX parameter tree (``{"params": {...}}`` of float32 numpy
     arrays) for the port's ``state_dict``: the inverse of
     :func:`params_from_jax`.  A 2-D ``weight`` is an ``nn.Linear``'s
-    (``kernel``, transposed back), a 1-D one a layer norm's (``scale``).
+    (``kernel``, transposed back), a 1-D one a layer norm's (``scale``);
+    the kept names (``out_kernel``, ``cls_token``, ``gamma_*``,
+    ``embedding``, a ``SinusoidalPosEmb``'s ``scale``) stay as they are.
     """
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
@@ -113,7 +141,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 name = "scale"
             else:
                 raise ValueError(f"{key}: a weight of {arr.ndim} dims")
-        elif name not in ("bias", "out_kernel", "out_bias"):
+        elif not (name in _KEPT or _sinusoidal_scale((*path, name))):
             raise ValueError(f"{key}: a parameter of unknown kind")
         node = tree
         for part in path:

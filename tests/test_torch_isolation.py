@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX, no flax and nothing of the
-JAX package (serving and a training step, of DynEdge and of TITO, run
-without them), and its entry points default to the GPU."""
+JAX package (serving and a training step, of DynEdge, of TITO and of
+DeepIce, run without them), nothing builds a kernel at import time or on
+the CPU, and its entry points default to the GPU."""
 
 import ast
 import subprocess
@@ -50,6 +51,10 @@ def test_port_imports_and_runs_without_jax():
         import torch
         torch.set_num_threads(2)
         import graphnet_tpu_torch
+        from graphnet_tpu_torch.kernels import build
+        def no_build(*args, **kwargs):
+            raise AssertionError("a kernel was built")
+        build.build = build.load = no_build
         for mod in pkgutil.walk_packages(
             graphnet_tpu_torch.__path__, "graphnet_tpu_torch."
         ):
@@ -113,6 +118,26 @@ def test_port_imports_and_runs_without_jax():
         loss = Trainer(tito).train_step(batch)
         assert torch.isfinite(loss)
         assert all(p.grad is not None for p in tito.parameters())
+        # DeepIce direction: serving and a training step (the rel
+        # attention's plain versions on the CPU)
+        from graphnet_tpu_torch.models.gnn.icemix import DeepIce
+        ice = StandardModel(
+            DeepIce(hidden_dim=32, head_size=16, seq_length=16, depth=1,
+                    depth_rel=2),
+            [DirectionReconstructionWithKappa(
+                hidden_size=32, loss_function=VonMisesFisher3DLoss())],
+            device="cpu",
+        )
+        ice_events = [Event(x=rng.random((n, 6)).astype(np.float32),
+                            features=list("xyztca")) for n in (9, 0, 1)]
+        out = DeploymentModule(ice, ice.state_dict(), device="cpu")(ice_events)
+        assert out.shape == (3, 4) and np.isnan(out[1]).all(), out
+        assert np.isfinite(out[[0, 2]]).all(), out
+        batch = make_batch([e.x for e in ice_events],
+                           labels={"direction": np.eye(3, dtype=np.float32)})
+        loss = Trainer(ice).train_step(batch)
+        assert torch.isfinite(loss)
+        assert all(p.grad is not None for p in ice.parameters())
         assert not any(
             m == "jax" or m.startswith(("jax.", "flax", "graphnet_tpu."))
             for m in sys.modules if sys.modules[m] is not None
