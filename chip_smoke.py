@@ -19,8 +19,10 @@ Phases, each printing one JSON line:
    same bits;
 6. flash, flash_bwd: the flash-attention forward, dq and dkv kernels
    against their plain versions (head dims 32 and 64, L = 128, 1000 and
-   1024, fp32 and bf16, an event with no valid key and one with a
-   single key), and whether two backward runs give the same bits;
+   1024, and the DeepIce path's shapes, 12 heads of 32 at L = 768 and
+   1024 with scale 1 and at L = 769 and 1025 with the cls key; fp32 and
+   bf16, an event with no valid key and one with a single key), and
+   whether two backward runs give the same bits;
 7. serve: the serving path.  A full-width DynEdge energy model is loaded
    from a JAX-layout ``state_dict.pkl`` (random weights from a seed)
    through ``DeploymentModule`` on the card and answers requests; the
@@ -128,6 +130,9 @@ TITO_BF16_SERVE_TOL = 1e-2
 # DeepIce at the JAX bench's shape (bench.py:359-430): events, length
 # (the IceMix pulse budget), heads, head dim
 ICE_B, ICE_L, ICE_HEADS, ICE_HD = 16, 768, 12, 32
+# the length bucket that serves events of 100-768 pulses
+# (``batch.DEFAULT_BUCKETS``)
+ICE_SERVE_L = 1024
 ICE_FEATURES = ["sensor_pos_x", "sensor_pos_y", "sensor_pos_z", "t", "charge",
                 "auxiliary"]
 # the rel kernels against their plain versions: each output's error over
@@ -909,22 +914,54 @@ def device_profile(torch, fn, calls=5):
 # ----------------------------------------------------------- flash, TITO
 
 
+def _key_mask(torch, rng, B, L, dev):
+    """A key mask ``[B, L]``: event 0 with no valid key, event 1 with
+    one, the others ragged lengths in [L/2, L]."""
+    n = torch.from_numpy(rng.integers(L // 2, L + 1, B)).to(dev)
+    n[0], n[1] = 0, 1
+    return torch.arange(L, device=dev)[None, :] < n[:, None]
+
+
 def flash_cases(torch, rng, dev):
-    """``(label, q, k, v, mask)`` for the flash phases: head dims 32 and
-    64 at L = 128, 1000 (ragged) and 1024; event 0 has no valid key,
-    event 1 a single one, the others ragged lengths.  Dh=32, L=1024 is
-    TITO's shape (B=8, H=8)."""
+    """``(label, make, mask)`` for the flash phases, ``make(dtype)`` the
+    kernels' arguments ``(q, k, v, mask, scale)`` in ``dtype``: head dims
+    32 and 64 at L = 128, 1000 (ragged) and 1024 with ``_key_mask``'s
+    events (Dh=32, L=1024 is TITO's shape, B=8, H=8); then the shapes
+    of the DeepIce path (B=16, H=12, Dh=32): its unbiased
+    ``AttentionRel`` blocks at L = 768 (training) and 1024 (the serving
+    bucket), q scaled by Dh^-0.5 and scale 1 as they pass it, and its
+    ``Block`` s at L = 769 and 1025 (one row in the last tile) at the
+    default scale, with the cls key valid in every event: there event 0
+    (no pulse) has the cls key alone and event 1 two keys."""
     cases = []
+
+    def add(label, q, k, v, mask, scale=None):
+        def make(dtype):
+            return (*(t.to(dtype) for t in (q, k, v)), mask, scale)
+        cases.append((label, make, mask))
+
     for dh in (32, 64):
         for L in (128, 1000, 1024):
             B, H = (TITO_B, TITO_HEADS) if (dh, L) == (32, 1024) else (4, 4)
             gen = torch.Generator(device=dev).manual_seed(dh * 10000 + L)
             q, k, v = (torch.randn(B, H, L, dh, device=dev, generator=gen)
                        for _ in range(3))
-            n = torch.from_numpy(rng.integers(L // 2, L + 1, B)).to(dev)
-            n[0], n[1] = 0, 1
-            mask = torch.arange(L, device=dev)[None, :] < n[:, None]
-            cases.append((f"Dh{dh}_L{L}_B{B}_H{H}", q, k, v, mask))
+            add(f"Dh{dh}_L{L}_B{B}_H{H}", q, k, v,
+                _key_mask(torch, rng, B, L, dev))
+    for L in (ICE_L, ICE_SERVE_L):
+        for cls in (0, 1):
+            gen = torch.Generator(device=dev).manual_seed(L + cls)
+            q, k, v = (torch.randn(ICE_B, ICE_HEADS, L + cls, ICE_HD,
+                                   device=dev, generator=gen)
+                       for _ in range(3))
+            mask = _key_mask(torch, rng, ICE_B, L, dev)
+            label = f"Dh{ICE_HD}_L{L + cls}_B{ICE_B}_H{ICE_HEADS}"
+            if cls:
+                mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
+                add(label + "_Block", q, k, v, mask)
+            else:
+                add(label + "_AttentionRel", q * ICE_HD ** -0.5, k, v, mask,
+                    1.0)
     return cases
 
 
@@ -934,119 +971,157 @@ def _event_errors(got, exp):
     return d, exp.float().abs().flatten(1).amax(1)
 
 
-def check_flash(torch, fa, cases):
-    """Phase: the flash forward kernel against its plain version, each
-    event on its own (``flash_cases``: event 0 has no valid key, event 1
-    one): o within ``FLASH_TOL`` of the event's max |o|; the fully
-    masked event's o the mean of v over the L keys (the dense formula),
-    event 1's o that key's v, exactly; lse in fp32 in both modes, within
-    1e-4 of max(|lse|, 1) where a key is valid and within one fp32 step
-    at 1e5 (-1e5 + log L) in event 0."""
+def check_fwd(torch, cases, fwd, plain, names, tol, vi=2):
+    """Phase: an attention forward kernel ``fwd`` against its plain
+    version ``plain`` on the cases' arguments, each event on its own.
+    The outputs (flash: o, lse; rel: o, oe, lse, as ``names``) but lse
+    within ``tol`` of the event's max; an event with no valid key has o
+    the mean of v (argument ``vi``) over the L keys (the dense formula),
+    an event with one key that key's v exactly, on both sides; lse in
+    fp32 in both modes, within 1e-4 of max(|lse|, 1) where a key is
+    valid and within one fp32 step at 1e5 (-1e5 + log L) where none
+    is."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     report = []
-    for label, q, k, v, mask in cases:
-        keyed = mask.any(dim=1)
+    for label, make, mask in cases:
+        n_keys = mask.sum(dim=1)
+        keyed = n_keys > 0
+        first = mask.int().argmax(dim=1)
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).replace("torch.", "")
-            tol = FLASH_TOL[key][0]
-            args = [t.to(dtype) for t in (q, k, v)] + [mask]
-            o, lse = fa.flash_attention_fwd(*args)
-            op, lsep = fa.flash_attention_plain(*args)
-            assert o.dtype == dtype and lse.dtype == torch.float32
-            assert bool(torch.isfinite(o.float()).all() & torch.isfinite(lse).all())
-            err, scale = _event_errors(o, op)
-            rel = err / scale
-            assert bool((rel <= tol).all()), (
-                f"{label} {key}: o off by {rel.tolist()} of each event's max")
-            mean_v = args[2][0].float().mean(dim=1, keepdim=True)
-            e0 = float((o[0].float() - mean_v).abs().max()) / float(scale[0])
-            assert e0 <= tol, f"{label} {key}: no-key event off the mean of v by {e0}"
-            v1 = args[2][1, :, :1].expand_as(o[1])
-            assert torch.equal(o[1], v1) and torch.equal(op[1], v1), (
-                f"{label} {key}: the one-key event's o is not that key's v")
+            args = make(dtype)
+            got, exp = fwd(*args), plain(*args)
+            o, op, lse, lsep = got[0], exp[0], got[-1], exp[-1]
+            assert o.dtype == dtype and all(
+                t.dtype == torch.float32 for t in got[1:])
+            assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+            rel = {}
+            for name, t, e in zip(names[:-1], got, exp):
+                err, scale = _event_errors(t, e)
+                r = err / scale
+                assert bool((r <= tol[key][0]).all()), (
+                    f"{label} {key}: {name} off by {r.tolist()} of each "
+                    "event's max")
+                rel[name] = r.tolist()
+                worst[key] = max(worst[key], float(err.max()))
+            v, no_key = args[vi], []
+            for b in torch.nonzero(~keyed).flatten().tolist():
+                mean_v = v[b].float().mean(dim=1, keepdim=True)
+                no_key.append(float((o[b].float() - mean_v).abs().max())
+                              / float(op[b].float().abs().max()))
+            assert max(no_key, default=0.0) <= tol[key][0], (
+                f"{label} {key}: no-key events off the mean of v by {no_key}")
+            for b in torch.nonzero(n_keys == 1).flatten().tolist():
+                j = int(first[b])
+                vb = v[b, :, j:j + 1].expand_as(o[b])
+                assert torch.equal(o[b], vb) and torch.equal(op[b], vb), (
+                    f"{label} {key}: event {b}'s o is not its one key's v")
             lerr, lscale = _event_errors(lse[keyed], lsep[keyed])
             lrel = float((lerr / lscale.clamp_min(1.0)).max())
             assert lrel <= 1e-4, f"{label} {key}: lse off by {lrel}"
-            merr = float((lse[~keyed] - lsep[~keyed]).abs().max())
+            d = (lse[~keyed] - lsep[~keyed]).abs()
+            merr = float(d.max()) if d.numel() else 0.0
             assert merr <= float(np.spacing(np.float32(1e5))), merr
-            worst[key] = max(worst[key], float(err.max()))
             report.append({
-                "case": label, "dtype": key, "o_max_abs_err": float(err.max()),
-                "o_rel_to_event_max": rel.tolist(), "o_no_key_rel_to_mean_v": e0,
+                "case": label, "dtype": key, "rel_to_event_max": rel,
+                "no_key_o_rel_to_mean_v": no_key,
                 "o_differing_share": float((o != op).float().mean()),
-                "lse_rel_err": lrel, "lse_fully_masked_max_abs_err": merr,
-                "lse_fully_masked": float(lse[~keyed].max())})
+                "lse_rel_err": lrel, "lse_fully_masked_max_abs_err": merr})
     return worst, report
 
 
-def check_flash_bwd(torch, fa, cases):
-    """Phase: the dq and dkv kernels against the plain backward, from the
-    plain forward's o and lse and a random output gradient, each event
-    on its own.  In the events with two or more valid keys each of dq,
-    dk, dv lies within ``FLASH_TOL`` of the event's max, and in bf16 no
-    more than ``FLASH_BWD_DIFFERING`` of its elements differ at all.
-    Event 0 (no key) passes no gradient through the logits: dq = dk = 0
-    exactly, and dv (p = 1/L at every key) within the limit of its max.
-    In event 1
-    (one key) every query puts p = 1 on that key: dv there is the sum of
-    g over the L queries, within the limit of its max, and 0 exactly at
-    the other keys; dq and dk are rounding noise (ds = dp - delta), held
-    to the limit of the largest gradient of the other events.  The
-    kernels run twice and the bits of the two runs are compared."""
+def check_bwd(torch, cases, io, names, tol, scale_of=()):
+    """Phase: an attention backward's kernels against its plain version,
+    each event on its own.  ``io(args)`` gives the kernels' call and the
+    plain gradients (``names``), both from the plain forward and random
+    output gradients.  In the events with two or more valid keys each
+    gradient lies within ``tol`` of the event's max (``scale_of`` names
+    another gradient whose max is the scale: rel's dqb, the gradient of
+    a per-row logit offset, is 0 exactly, as the softmax does not see
+    the offset, and both sides give rounding noise of sum_j ds, scaled by
+    dqt's max, the same ds summed against the O(1) embedding), and in
+    bf16 no more than ``FLASH_BWD_DIFFERING`` of the elements of each
+    gradient in q's dtype differ at all.  An event with no valid key
+    passes no gradient through the logits: every gradient but dv exactly
+    0, dv (p = 1/L at every key) within the limit.  In an event with one
+    key every query puts p = 1 on it, and the gradients but dv are
+    rounding noise (ds = dp - delta), held to the limit of the other
+    events' max.  dv is 0 exactly at the masked keys of every event with
+    a valid key.  The kernels run twice and the bits of the two runs are
+    compared."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     report = []
-    for label, q, k, v, mask in cases:
-        multi = mask.sum(dim=1) >= 2
+    for label, make, mask in cases:
+        n_keys = mask.sum(dim=1)
+        multi, keyed, one = n_keys >= 2, n_keys > 0, n_keys == 1
+        dead = ~mask & keyed[:, None]
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).replace("torch.", "")
-            tol = FLASH_TOL[key][1]
-            qc, kc, vc = (t.to(dtype) for t in (q, k, v))
-            o, lse = fa.flash_attention_plain(qc, kc, vc, mask)
-            gen = torch.Generator(device=q.device).manual_seed(q.shape[2])
-            g = torch.randn(o.shape, device=q.device, generator=gen).to(dtype)
-            delta = fa.attention_delta(g, o)
-            args = (qc, kc, vc, mask, lse, g, delta)
-
-            def run():
-                return (fa.flash_attention_bwd_dq(*args),
-                        *fa.flash_attention_bwd_dkv(*args))
-
-            got, again = run(), run()
-            exp = fa.flash_attention_bwd_plain(qc, kc, vc, mask, o, lse, g)
+            kernel, exp = io(make(dtype))
+            got, again = kernel(), kernel()
+            by_name = dict(zip(names, exp))
             rel, noise, share = {}, {}, {}
-            for name, t, e in zip(("dq", "dk", "dv"), got, exp):
-                assert t.dtype == dtype and bool(torch.isfinite(t.float()).all())
+            for name, t, e in zip(names, got, exp):
+                assert t.dtype == e.dtype and bool(torch.isfinite(t.float()).all())
                 err, scale = _event_errors(t, e)
+                if name in scale_of:
+                    s = by_name[dict(scale_of)[name]]
+                    scale = _event_errors(s, s)[1]
                 r = err / scale.clamp_min(1e-30)
                 if name == "dv":
-                    assert bool((r <= tol).all()), (
-                        f"{label} {key}: dv off by {r.tolist()} of each event's max")
-                    assert not bool(t[1, :, 1:].any()), (
-                        f"{label} {key}: dv of a masked key in the one-key event")
+                    assert bool((r <= tol[key][1]).all()), (
+                        f"{label} {key}: dv off by {r.tolist()} of each "
+                        "event's max")
+                    assert not bool(t.transpose(1, 2)[dead].any()), (
+                        f"{label} {key}: dv of a masked key")
                 else:
-                    assert bool((r[multi] <= tol).all()), (
+                    assert bool((r[multi] <= tol[key][1]).all()), (
                         f"{label} {key}: {name} off by {r.tolist()} of each "
                         "event's max")
-                    assert not bool(t[0].any()), (
-                        f"{label} {key}: {name} of the no-key event is not 0")
-                    noise[name] = float(err[1] / scale[multi].max())
-                    assert noise[name] <= tol, (
-                        f"{label} {key}: {name} of the one-key event off by "
-                        f"{noise[name]} of the other events' max")
+                    assert not bool(t[~keyed].any()), (
+                        f"{label} {key}: {name} of a no-key event is not 0")
+                    if bool(one.any()):
+                        noise[name] = float(err[one].max() / scale[multi].max())
+                        assert noise[name] <= tol[key][1], (
+                            f"{label} {key}: {name} of a one-key event off "
+                            f"by {noise[name]} of the other events' max")
                 rel[name] = r.tolist()
-                share[name] = float((t[multi] != e[multi]).float().mean())
-                assert dtype == torch.float32 or share[name] <= FLASH_BWD_DIFFERING, (
-                    f"{label} {key}: {share[name]} of {name} differs from the "
-                    "plain version")
+                if t.dtype == dtype:
+                    share[name] = float((t[multi] != e[multi]).float().mean())
+                    assert (dtype == torch.float32
+                            or share[name] <= FLASH_BWD_DIFFERING), (
+                        f"{label} {key}: {share[name]} of {name} differs "
+                        "from the plain version")
                 worst[key] = max(worst[key], float(err.max()))
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             assert same, f"{label} {key}: two runs gave other bits"
             report.append({"case": label, "dtype": key,
                            "rel_err_to_event_max": rel,
-                           "one_key_dq_dk_rel_to_others_max": noise,
+                           "one_key_rel_to_others_max": noise,
                            "differing_share_multi_key": share,
                            "same_bits_twice": same})
     return worst, report
+
+
+def flash_bwd_io(torch, fa):
+    """``check_bwd``'s ``io`` for the flash dq and dkv kernels: from the
+    plain forward's o and lse and a random output gradient."""
+
+    def io(args):
+        q, k, v, mask, scale = args
+        o, lse = fa.flash_attention_plain(*args)
+        gen = torch.Generator(device=q.device).manual_seed(q.shape[2])
+        g = torch.randn(o.shape, device=q.device, generator=gen).to(q.dtype)
+        full = (q, k, v, mask, lse, g, fa.attention_delta(g, o), scale)
+
+        def kernel():
+            return (fa.flash_attention_bwd_dq(*full),
+                    *fa.flash_attention_bwd_dkv(*full))
+
+        return kernel, fa.flash_attention_bwd_plain(q, k, v, mask, o, lse, g,
+                                                    scale)
+
+    return io
 
 
 def tito_jax_layout_tree(rng, blocks=4, width=256, ff=2048, post=(336, 256),
@@ -1127,39 +1202,43 @@ def input_graph_flips(torch, ops, x, mask, dev):
     return diff.flatten(1).any(1).numpy(), int(diff.sum())
 
 
-def serve_tito(torch, ops, gpu, cpu, requests, counters, expect, dev,
-               collate_events, tol=1e-3):
-    """Phase: TITO serving.  Every request goes through ``gpu`` with
-    ``expect`` launches per forward, then through ``cpu``, the same model
-    on the CPU (the plain versions); the unit direction's components
-    agree within ``tol`` (of the vector's norm, 1) and kappa within rtol
-    ``tol``, except for events whose input kNN graph differs between card
-    and CPU."""
+def serve_direction(torch, gpu, cpu, requests, counters, expect, tol=1e-3,
+                    held=None, flips=None):
+    """Phase: direction serving (TITO, DeepIce).  Every request goes
+    through ``gpu`` with ``expect`` launches per forward; then its held
+    events (``held``: request label -> indices; default every event) go
+    through ``cpu``, the same model on the CPU (the plain versions), as
+    one request.  The unit direction's components agree within ``tol``
+    (of the vector's norm, 1) and kappa within rtol ``tol``, except for
+    events that ``flips(events)`` (per event, whether the input graph
+    differs between card and CPU) explains."""
     answers, launches = answer(gpu, requests, counters, expect)
     report = []
     for label, evs in requests.items():
-        ref, got = cpu(evs), answers[label]
+        got = answers[label]
         empty = np.array([e.n_pulses == 0 for e in evs])
-        kept = np.flatnonzero(~empty)
         assert got.shape == (len(evs), 4)
-        assert np.isnan(got[empty]).all() and np.isfinite(got[kept]).all()
-        d_dir = np.abs(got[kept, :3] - ref[kept, :3]).max(axis=1)
-        d_kappa = np.abs(got[kept, 3] - ref[kept, 3]) / np.abs(ref[kept, 3])
+        assert np.isnan(got[empty]).all() and np.isfinite(got[~empty]).all()
+        idx = np.arange(len(evs)) if held is None else np.asarray(held[label])
+        kept = idx[~empty[idx]]
+        sub = [evs[i] for i in kept]
+        ref = cpu(sub)
+        d_dir = np.abs(got[kept, :3] - ref[:, :3]).max(axis=1)
+        d_kappa = np.abs(got[kept, 3] - ref[:, 3]) / np.abs(ref[:, 3])
         beyond = (d_dir > tol) | (d_kappa > tol)
-        batch = collate_events(evs, min_pulses=1)
-        flipped, n_flips = input_graph_flips(torch, ops, batch.x, batch.mask, dev)
-        unexplained = np.flatnonzero(beyond & ~flipped[: len(kept)])
+        flipped = np.zeros(len(kept), bool) if flips is None else flips(sub)
+        unexplained = np.flatnonzero(beyond & ~flipped)
         assert unexplained.size == 0, (
-            f"{label}: events {kept[unexplained].tolist()} differ from the CPU "
-            f"beyond {tol} with no kNN flip")
+            f"{label}: events {kept[unexplained].tolist()} differ from the "
+            f"CPU beyond {tol} with no kNN flip")
         report.append({
-            "request": label, "events": len(evs), "L": batch.max_length,
-            f"events_beyond_{tol}": int(beyond.sum()),
-            "input_knn_flips": n_flips,
+            "request": label, "events": len(evs),
+            "held_events": kept.tolist(), f"events_beyond_{tol}": int(beyond.sum()),
+            "events_with_input_knn_flips": int(flipped.sum()),
             "max_dir_abs_err": float(d_dir.max()),
             "max_kappa_rel_err": float(d_kappa.max()),
         })
-    return answers, launches, report
+    return launches, report
 
 
 def mask_ambiguous(torch, model, masks, record, rel=1e-5):
@@ -1234,83 +1313,98 @@ def mask_ambiguous(torch, model, masks, record, rel=1e-5):
     return handles
 
 
-def train_tito(torch, ops, make, Trainer, batch, counters, expect, dev,
-               dtype=None, steps=3, cpu_steps=3, loss_rtol=1e-3,
-               grad_tol=1e-3, grad_norm="max", rel=1e-5):
-    """Phase: TITO training in ``dtype`` on the card, ``steps`` steps with
-    ``expect`` launches each, held against the same model on the CPU: the
-    losses of the first ``cpu_steps`` steps within ``loss_rtol``, and the
-    step-1 gradients within ``grad_tol`` of each parameter's max
-    (``grad_norm="max"``) or of its norm (``"l2"``, the error's norm),
-    from one more step on each device with the gradient zeroed where the
-    backward is discontinuous within ``rel`` (``mask_ambiguous``: the
-    relu gates, the max aggregation and the max pooling, where the card
-    and the CPU may decide otherwise).  When the card's input graph
-    differs from the CPU's, the comparison feeds the CPU's graph through
-    ``batch.edges`` (TITO's graph is static)."""
-    on_card = batch.to(dev)
+def _grad_errors(a, b, norm):
+    """Per parameter, the step-1 gradient of run ``a`` against run ``b``:
+    the error's max over the max (``norm="max"``) or its norm over the
+    norm (``"l2"``)."""
+    out = {}
+    for n, g in b["grads1"].items():
+        d = a["grads1"][n] - g
+        if norm == "max":
+            e, s = float(d.abs().max()), float(g.abs().max())
+        else:
+            e, s = float(d.norm()), float(g.norm())
+        out[n] = e / s if s else (0.0 if e == 0 else float("inf"))
+    return out
+
+
+def train_direction(torch, make, Trainer, batch, counters, expect, dev,
+                    dtype=None, steps=3, cpu_steps=3, loss_rtol=1e-3,
+                    grad_tol=1e-3, grad_norm="max", held=None, ops=None,
+                    rel=1e-5):
+    """Phase: direction training (TITO, DeepIce) in ``dtype`` on the
+    card: ``steps`` steps on ``batch`` with ``expect`` launches each,
+    every gradient finite and non-zero.  Then held against the same
+    model on the CPU on ``held``, a few of the events (default the whole
+    batch): the losses of the first ``cpu_steps`` steps within
+    ``loss_rtol``, and the step-1 gradients within ``grad_tol`` of each
+    parameter's max (``grad_norm="max"``) or of its norm (``"l2"``, the
+    error's norm).  With ``ops`` (TITO: the kNN kernel and its plain
+    version) the step-1 gradients come from one more step on each device
+    with the output gradient zeroed where the backward is discontinuous
+    within ``rel`` (``mask_ambiguous``: the relu gates, the max
+    aggregation and the max pooling, where card and CPU may decide
+    otherwise), and when the card's input graph differs from the CPU's
+    the comparison feeds the CPU's graph through ``batch.edges`` (TITO's
+    graph is static).  DeepIce has no max and no relu gate: nothing is
+    masked."""
     for c in counters:
         c.launches = 0
-    gpu = run_steps(torch, Trainer(make(dev, dtype)), [on_card] * steps,
+    gpu = run_steps(torch, Trainer(make(dev, dtype)), [batch.to(dev)] * steps,
                     counters)
     launches = [c.launches for c in counters]
     assert all(r == expect for r in gpu["rose"]), gpu["rose"]
     assert not any(gpu["nonfinite"]) and not any(gpu["zero"]), (
         gpu["nonfinite"], gpu["zero"])
-    cpu = run_steps(torch, Trainer(make("cpu", dtype)), [batch] * cpu_steps)
-    _, flips = input_graph_flips(torch, ops, batch.x, batch.mask, dev)
-    held = gpu
+    ref = batch if held is None else held
+    on_card = ref.to(dev)
+    cpu = run_steps(torch, Trainer(make("cpu", dtype)), [ref] * cpu_steps)
+    flips = 0
+    if ops is not None:
+        _, flips = input_graph_flips(torch, ops, ref.x, ref.mask, dev)
     if flips:
-        ip, mp = ops["knn_plain"](batch.x[..., :4], batch.mask, K)
+        ip, mp = ops["knn_plain"](ref.x[..., :4], ref.mask, K)
         on_card = replace(on_card, edges=ip.to(dev), edge_mask=mp.to(dev))
-        held = run_steps(torch, Trainer(make(dev, dtype)), [on_card] * cpu_steps)
-    np.testing.assert_allclose(held["loss"][:cpu_steps], cpu["loss"],
+    card = gpu if held is None and not flips else run_steps(
+        torch, Trainer(make(dev, dtype)), [on_card] * cpu_steps)
+    np.testing.assert_allclose(card["loss"][:cpu_steps], cpu["loss"],
                                rtol=loss_rtol,
-                               err_msg="TITO losses, card against CPU")
-
-    def rel_errors(a, b, norm):
-        out = {}
-        for n, g in b["grads1"].items():
-            d = a["grads1"][n] - g
-            if norm == "max":
-                e, s = float(d.abs().max()), float(g.abs().max())
-            else:
-                e, s = float(d.norm()), float(g.norm())
-            out[n] = e / s if s else (0.0 if e == 0 else float("inf"))
-        return out
-
-    raw = rel_errors(held, cpu, grad_norm)
-    masks, runs = [], {}
-    for device, step_batch in (("cpu", batch), (dev, on_card)):
-        model = make(device, dtype)
-        handles = mask_ambiguous(torch, model, masks, device == "cpu", rel)
-        runs[device] = run_steps(torch, Trainer(model), [step_batch])
-        for h in handles:
-            h.remove()
-    masked = rel_errors(runs[dev], runs["cpu"], grad_norm)
-    other = rel_errors(runs[dev], runs["cpu"],
-                       "l2" if grad_norm == "max" else "max")
+                               err_msg="losses, card against CPU")
+    raw = _grad_errors(card, cpu, grad_norm)
+    masks, runs = [], {"cpu": cpu, dev: card}
+    if ops is not None:
+        for device, step_batch in (("cpu", ref), (dev, on_card)):
+            model = make(device, dtype)
+            handles = mask_ambiguous(torch, model, masks, device == "cpu", rel)
+            runs[device] = run_steps(torch, Trainer(model), [step_batch])
+            for h in handles:
+                h.remove()
+    masked = _grad_errors(runs[dev], runs["cpu"], grad_norm)
+    other = _grad_errors(runs[dev], runs["cpu"],
+                         "l2" if grad_norm == "max" else "max")
     worst = max(masked, key=masked.get)
     assert masked[worst] <= grad_tol, (
         f"step-1 gradients beyond {grad_tol} ({grad_norm}): "
         f"{ {n: e for n, e in masked.items() if e > grad_tol} }")
     return gpu, {
         "steps": steps, "B": batch.batch_size, "L": batch.max_length,
-        "losses_card": gpu["loss"], "losses_cpu": cpu["loss"],
+        "losses_card": gpu["loss"], "held_B": ref.batch_size,
+        "held_losses_card": card["loss"][:cpu_steps],
+        "held_losses_cpu": cpu["loss"],
         "max_loss_rel_err": float(np.max(np.abs(
-            np.subtract(held["loss"][:cpu_steps], cpu["loss"]))
+            np.subtract(card["loss"][:cpu_steps], cpu["loss"]))
             / np.abs(cpu["loss"]))),
         "input_knn_flips": flips, "cpu_graph_fed": bool(flips),
         "launches_per_step": gpu["rose"],
         "every_grad_finite_nonzero": True,
-        "n_params": len(masked), "ambiguity_rel": rel,
+        "n_params": len(masked), "ambiguity_rel": rel if ops else None,
         "ambiguous_entries_zeroed": int(sum(int((m == 0).sum()) for m in masks)),
         "entries_masked_over": int(sum(m.numel() for m in masks)),
         "grad_norm": grad_norm,
         "max_grad_rel_err_step1": masked[worst], "worst_grad_param": worst,
         "max_grad_rel_err_step1_other_norm": max(other.values()),
         "worst_grad_param_other_norm": max(other, key=other.get),
-        "grad_rel_err_step1_unmasked": raw,
+        "grad_rel_err_step1_unmasked": raw if ops else None,
     }, launches
 
 
@@ -1399,12 +1493,13 @@ def ice_events(rng, lengths):
 
 
 def rel_cases(torch, rng, dev):
-    """``(label, q, k, v, w, b, x0, mask)`` for the rel phases: 12 heads
-    of 32 at L = 128, 768 (B=16: DeepIce's shape), 1000 (ragged) and
-    1024, and 2 heads of 16 (the kernels' other head dim, one head
-    group) at L = 1000; q scaled by hd^-0.5; the projection ``w [e, hd]``
-    (nn.Linear layout) and ``b``; event 0 has no valid pulse, event 1 a
-    single one, the others ragged lengths."""
+    """``(label, make, mask)`` for the rel phases, ``make(dtype)`` the
+    core's inputs ``(q, qt, qb, k, v, x0, mask)`` in ``dtype``, with the
+    folds ``qt = q @ w``, ``qb = q . b`` in fp32 (the projection
+    ``w [e, hd]`` in nn.Linear layout, and ``b``): 12 heads of 32 at
+    L = 128, 768 (B=16: DeepIce's shape), 1000 (ragged) and 1024, and 2
+    heads of 16 (the kernels' other head dim, one head group) at
+    L = 1000; q scaled by hd^-0.5; ``_key_mask``'s events."""
     cases = []
     for L, B, H, hd in ((128, 4, ICE_HEADS, ICE_HD), (ICE_L, ICE_B, ICE_HEADS, ICE_HD),
                         (1000, 4, ICE_HEADS, ICE_HD), (1024, 4, ICE_HEADS, ICE_HD),
@@ -1415,144 +1510,35 @@ def rel_cases(torch, rng, dev):
         w = torch.randn(hd, hd, device=dev, generator=gen) / hd ** 0.5
         b = torch.randn(hd, device=dev, generator=gen) * 0.1
         x0 = torch.from_numpy(np.stack(ice_events(rng, [L] * B))).to(dev)
-        n = torch.from_numpy(rng.integers(L // 2, L + 1, B)).to(dev)
-        n[0], n[1] = 0, 1
-        mask = torch.arange(L, device=dev)[None, :] < n[:, None]
-        cases.append((f"L{L}_B{B}_H{H}_hd{hd}", q * hd ** -0.5, k, v, w, b,
-                      x0, mask))
+        mask = _key_mask(torch, rng, B, L, dev)
+
+        def make(dtype, q=q * hd ** -0.5, k=k, v=v, w=w, b=b, x0=x0,
+                 mask=mask):
+            qc, kc, vc = (t.to(dtype) for t in (q, k, v))
+            return (qc, qc.float() @ w, qc.float() @ b, kc, vc, x0, mask)
+
+        cases.append((f"L{L}_B{B}_H{H}_hd{hd}", make, mask))
     return cases
 
 
-def rel_args(torch, case, dtype):
-    """The core's inputs ``(q, qt, qb, k, v, x0, mask)`` in ``dtype``,
-    with the folds ``qt = q @ w``, ``qb = q . b`` in fp32."""
-    _, q, k, v, w, b, x0, mask = case
-    qc, kc, vc = (t.to(dtype) for t in (q, k, v))
-    return (qc, qc.float() @ w, qc.float() @ b, kc, vc, x0, mask)
+def rel_bwd_io(torch, rc, rp):
+    """``check_bwd``'s ``io`` for the rel dq and dkv kernels: from the
+    plain forward's o, oe and lse and random output gradients."""
 
+    def io(args):
+        o, oe, lse = rp.rel_attention_plain(*args)
+        gen = torch.Generator(device=o.device).manual_seed(o.shape[2])
+        do = torch.randn(o.shape, device=o.device, generator=gen).to(o.dtype)
+        doe = torch.randn(oe.shape, device=o.device, generator=gen)
+        full = args + (lse, do, doe, rp.rel_attention_delta(do, o, doe, oe))
 
-def check_rel(torch, rc, rp, cases):
-    """Phase: the rel forward kernel against its plain version, each
-    event on its own: o and oe within ``REL_TOL`` of the event's max; the
-    no-pulse event's o the mean of v over the L keys, event 1's o that
-    key's v exactly; lse within 1e-4 of max(|lse|, 1) where a key is
-    valid, within one fp32 step at 1e5 (-1e5 + log L) in event 0."""
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    report = []
-    for case in cases:
-        label, mask = case[0], case[-1]
-        keyed = mask.any(dim=1)
-        for dtype in (torch.float32, torch.bfloat16):
-            key = str(dtype).replace("torch.", "")
-            tol = REL_TOL[key][0]
-            args = rel_args(torch, case, dtype)
-            o, oe, lse = rc.rel_attention_fwd(*args)
-            op, oep, lsep = rp.rel_attention_plain(*args)
-            assert o.dtype == dtype and oe.dtype == lse.dtype == torch.float32
-            assert all(bool(torch.isfinite(t.float()).all()) for t in (o, oe, lse))
-            rel = {}
-            for name, t, e in (("o", o, op), ("oe", oe, oep)):
-                err, scale = _event_errors(t, e)
-                r = err / scale
-                assert bool((r <= tol).all()), (
-                    f"{label} {key}: {name} off by {r.tolist()} of each event's max")
-                rel[name] = r.tolist()
-                worst[key] = max(worst[key], float(err.max()))
-            mean_v = args[4][0].float().mean(dim=1, keepdim=True)
-            e0 = float((o[0].float() - mean_v).abs().max()) / float(
-                o[0].float().abs().max())
-            assert e0 <= tol, f"{label} {key}: no-pulse event off the mean of v by {e0}"
-            v1 = args[4][1, :, :1].expand_as(o[1])
-            assert torch.equal(o[1], v1) and torch.equal(op[1], v1), (
-                f"{label} {key}: the one-pulse event's o is not that key's v")
-            lerr, lscale = _event_errors(lse[keyed], lsep[keyed])
-            lrel = float((lerr / lscale.clamp_min(1.0)).max())
-            assert lrel <= 1e-4, f"{label} {key}: lse off by {lrel}"
-            merr = float((lse[~keyed] - lsep[~keyed]).abs().max())
-            assert merr <= float(np.spacing(np.float32(1e5))), merr
-            report.append({
-                "case": label, "dtype": key, "rel_to_event_max": rel,
-                "o_no_pulse_rel_to_mean_v": e0,
-                "o_differing_share": float((o != op).float().mean()),
-                "lse_rel_err": lrel, "lse_fully_masked_max_abs_err": merr})
-    return worst, report
+        def kernel():
+            return (*rc.rel_attention_bwd_dq(*full),
+                    *rc.rel_attention_bwd_dkv(*full))
 
+        return kernel, rp.rel_attention_bwd_plain(*full)
 
-def check_rel_bwd(torch, rc, rp, cases):
-    """Phase: the rel dq and dkv kernels against the plain backward, from
-    the plain forward's o, oe, lse and random output gradients, each
-    event on its own.  In the events with two or more valid pulses each
-    of dq, dqt, dqb, dk, dv within ``REL_TOL`` of the event's max, and in
-    bf16 no more than ``FLASH_BWD_DIFFERING`` of dq, dk, dv's elements
-    differing at all.  Event 0 (no pulse) passes no gradient through the
-    logits: dq, dqt, dqb, dk exactly 0, dv (p = 1/L) within the limit.
-    Event 1 (one pulse): dv 0 exactly at the masked keys; dq, dqt, dqb,
-    dk are rounding noise, held to the limit of the other events' max.
-    dqb, the gradient of a per-row logit offset, is 0 exactly (the
-    softmax does not see the offset): both sides give rounding noise of
-    sum_j ds, held to the limit of the event's max |dqt| (the same ds
-    summed against the O(1) embedding).  The kernels run twice and the
-    bits of the two runs are compared."""
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    report = []
-    for case in cases:
-        label, mask = case[0], case[-1]
-        multi = mask.sum(dim=1) >= 2
-        for dtype in (torch.float32, torch.bfloat16):
-            key = str(dtype).replace("torch.", "")
-            tol = REL_TOL[key][1]
-            args = rel_args(torch, case, dtype)
-            o, oe, lse = rp.rel_attention_plain(*args)
-            gen = torch.Generator(device=o.device).manual_seed(o.shape[2])
-            do = torch.randn(o.shape, device=o.device, generator=gen).to(dtype)
-            doe = torch.randn(oe.shape, device=o.device, generator=gen)
-            full = args + (lse, do, doe, rp.rel_attention_delta(do, o, doe, oe))
-
-            def run():
-                return (*rc.rel_attention_bwd_dq(*full),
-                        *rc.rel_attention_bwd_dkv(*full))
-
-            got, again = run(), run()
-            exp = rp.rel_attention_bwd_plain(*full)
-            rel, noise, share = {}, {}, {}
-            dqt_scale = _event_errors(exp[1], exp[1])[1]
-            for name, t, e in zip(("dq", "dqt", "dqb", "dk", "dv"), got, exp):
-                assert t.dtype == e.dtype and bool(torch.isfinite(t.float()).all())
-                err, scale = _event_errors(t, e)
-                if name == "dqb":
-                    scale = dqt_scale
-                r = err / scale.clamp_min(1e-30)
-                if name == "dv":
-                    assert bool((r <= tol).all()), (
-                        f"{label} {key}: dv off by {r.tolist()} of each event's max")
-                    assert not bool(t[1, :, 1:].any()), (
-                        f"{label} {key}: dv of a masked key in the one-pulse event")
-                else:
-                    assert bool((r[multi] <= tol).all()), (
-                        f"{label} {key}: {name} off by {r.tolist()} of each "
-                        "event's max")
-                    assert not bool(t[0].any()), (
-                        f"{label} {key}: {name} of the no-pulse event is not 0")
-                    noise[name] = float(err[1] / scale[multi].max())
-                    assert noise[name] <= tol, (
-                        f"{label} {key}: {name} of the one-pulse event off by "
-                        f"{noise[name]} of the other events' max")
-                rel[name] = r.tolist()
-                if t.dtype == dtype:
-                    share[name] = float((t[multi] != e[multi]).float().mean())
-                    assert (dtype == torch.float32
-                            or share[name] <= FLASH_BWD_DIFFERING), (
-                        f"{label} {key}: {share[name]} of {name} differs from "
-                        "the plain version")
-                worst[key] = max(worst[key], float(err.max()))
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            assert same, f"{label} {key}: two runs gave other bits"
-            report.append({"case": label, "dtype": key,
-                           "rel_err_to_event_max": rel,
-                           "one_pulse_rel_to_others_max": noise,
-                           "differing_share_multi_pulse": share,
-                           "same_bits_twice": same})
-    return worst, report
+    return io
 
 
 def ice_jax_layout_tree(rng, model, params_to_jax):
@@ -1576,79 +1562,6 @@ def ice_jax_layout_tree(rng, model, params_to_jax):
                 else draw(k, v).astype(np.float32) for k, v in t.items()}
 
     return walk(params_to_jax(model.state_dict()))
-
-
-def serve_deepice(torch, gpu, cpu, requests, held, counters, expect, tol):
-    """Phase: DeepIce serving.  Every request goes through ``gpu`` with
-    ``expect`` launches per forward; the ``held`` events (request label,
-    index) then go through ``cpu``, the same module on the CPU (the plain
-    versions), each alone: the unit direction's components within
-    ``tol`` and kappa within rtol ``tol``."""
-    answers, launches = answer(gpu, requests, counters, expect)
-    report = []
-    for label, evs in requests.items():
-        got = answers[label]
-        empty = np.array([e.n_pulses == 0 for e in evs])
-        assert got.shape == (len(evs), 4)
-        assert np.isnan(got[empty]).all() and np.isfinite(got[~empty]).all()
-        d_dir, d_kappa = [], []
-        for i in [i for lab, i in held if lab == label]:
-            ref = cpu([evs[i]])[0]
-            d_dir.append(float(np.abs(got[i, :3] - ref[:3]).max()))
-            d_kappa.append(float(abs(got[i, 3] - ref[3]) / abs(ref[3])))
-        assert max(d_dir + d_kappa) <= tol, (
-            f"{label}: held events off the CPU by {d_dir} (direction), "
-            f"{d_kappa} (kappa), beyond {tol}")
-        report.append({
-            "request": label, "events": len(evs),
-            "pulses": [e.n_pulses for e in evs],
-            "held_events": [i for lab, i in held if lab == label],
-            "max_dir_abs_err": max(d_dir), "max_kappa_rel_err": max(d_kappa),
-        })
-    return launches, report
-
-
-def train_deepice(torch, make, Trainer, batch, held_batch, counters, expect,
-                  dev, dtype=None, steps=3, loss_rtol=1e-3, grad_tol=1e-3,
-                  grad_norm="max"):
-    """Phase: DeepIce training in ``dtype`` on the card, ``steps`` steps
-    on ``batch`` with ``expect`` launches each, every gradient finite and
-    non-zero; then one step on the ``held_batch`` (a few of the events)
-    on each device: the loss within ``loss_rtol`` and each parameter's
-    gradient within ``grad_tol`` of its max (``grad_norm="max"``) or
-    with its error's norm within ``grad_tol`` of its norm (``"l2"``)."""
-    for c in counters:
-        c.launches = 0
-    gpu = run_steps(torch, Trainer(make(dev, dtype)), [batch.to(dev)] * steps,
-                    counters)
-    launches = [c.launches for c in counters]
-    assert all(r == expect for r in gpu["rose"]), gpu["rose"]
-    assert not any(gpu["nonfinite"]) and not any(gpu["zero"]), (
-        gpu["nonfinite"], gpu["zero"])
-    card = run_steps(torch, Trainer(make(dev, dtype)), [held_batch.to(dev)])
-    cpu = run_steps(torch, Trainer(make("cpu", dtype)), [held_batch])
-    loss_err = abs(card["loss"][0] - cpu["loss"][0]) / abs(cpu["loss"][0])
-    assert loss_err <= loss_rtol, f"held step-1 loss off the CPU by {loss_err}"
-    errs = {}
-    for n, g in cpu["grads1"].items():
-        d = card["grads1"][n] - g
-        if grad_norm == "max":
-            errs[n] = float(d.abs().max()) / float(g.abs().max())
-        else:
-            errs[n] = float(d.norm()) / float(g.norm())
-    worst = max(errs, key=errs.get)
-    assert errs[worst] <= grad_tol, (
-        f"held step-1 gradients beyond {grad_tol} ({grad_norm}): "
-        f"{ {n: e for n, e in errs.items() if e > grad_tol} }")
-    return gpu, {
-        "steps": steps, "B": batch.batch_size, "L": batch.max_length,
-        "losses_card": gpu["loss"], "launches_per_step": gpu["rose"],
-        "every_grad_finite_nonzero": True, "n_params": len(errs),
-        "held_B": held_batch.batch_size, "held_loss_card": card["loss"][0],
-        "held_loss_cpu": cpu["loss"][0], "held_loss_rel_err": loss_err,
-        "grad_norm": grad_norm, "max_grad_rel_err_step1": errs[worst],
-        "worst_grad_param": worst,
-    }, launches
 
 
 def rel_bound(B, H, L, hd, el, peaks, dtype_rate, t_flops, f_flops):
@@ -1834,11 +1747,14 @@ def main() -> int:
     # 5b. flash-attention kernels vs plain
     t0 = time.perf_counter()
     cases = flash_cases(torch, np.random.default_rng(SEED + 2), dev)
-    flash_err, report = check_flash(torch, fa, cases)
+    flash_err, report = check_fwd(torch, cases, fa.flash_attention_fwd,
+                                  fa.flash_attention_plain, ("o", "lse"),
+                                  FLASH_TOL)
     emit({"phase": "flash", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
-    flash_bwd_err, report = check_flash_bwd(torch, fa, cases)
+    flash_bwd_err, report = check_bwd(torch, cases, flash_bwd_io(torch, fa),
+                                      ("dq", "dk", "dv"), FLASH_TOL)
     emit({"phase": "flash_bwd", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
     del cases
@@ -1846,11 +1762,15 @@ def main() -> int:
     # 5c. relative-bias attention kernels vs plain
     t0 = time.perf_counter()
     cases = rel_cases(torch, np.random.default_rng(SEED + 6), dev)
-    rel_err, report = check_rel(torch, rc, rp, cases)
+    rel_err, report = check_fwd(torch, cases, rc.rel_attention_fwd,
+                                rp.rel_attention_plain, ("o", "oe", "lse"),
+                                REL_TOL, vi=4)
     emit({"phase": "rel_flash", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
-    rel_bwd_err, report = check_rel_bwd(torch, rc, rp, cases)
+    rel_bwd_err, report = check_bwd(torch, cases, rel_bwd_io(torch, rc, rp),
+                                    ("dq", "dqt", "dqb", "dk", "dv"), REL_TOL,
+                                    scale_of={"dqb": "dqt"})
     emit({"phase": "rel_flash_bwd", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
     del cases
@@ -1939,11 +1859,16 @@ def main() -> int:
         "seven_with_empty": [Event(x=a, features=FEATURES) for a in tito_events(
             trng, [30, 0, 5, 1, 700, 1024, 300])],
     }
+    def tito_flips(events):  # per event, whether the input kNN graph differs
+        batch = collate_events(events, min_pulses=1)
+        return input_graph_flips(torch, ops, batch.x, batch.mask,
+                                 dev)[0][: len(events)]
+
     tito_gpu = DeploymentModule(make_tito("cuda"), tito_pkl)
     tito_cpu = DeploymentModule(make_tito("cpu"), tito_pkl, device="cpu")
-    _, launches_s, report = serve_tito(
-        torch, ops, tito_gpu, tito_cpu, tito_requests, counters, tito_fwd, dev,
-        collate_events)
+    launches_s, report = serve_direction(
+        torch, tito_gpu, tito_cpu, tito_requests, counters, tito_fwd,
+        flips=tito_flips)
     emit({"phase": "serve_tito", "dtype": "float32", "requests": report,
           "launches": {**dict(zip(names, launches_s)),
                        "forwards": len(tito_requests)},
@@ -1952,9 +1877,9 @@ def main() -> int:
     tito_gpu16 = DeploymentModule(make_tito("cuda", "bfloat16"), tito_pkl)
     tito_cpu16 = DeploymentModule(make_tito("cpu", "bfloat16"), tito_pkl,
                                   device="cpu")
-    _, launches_s16, report = serve_tito(
-        torch, ops, tito_gpu16, tito_cpu16, tito_requests, counters, tito_fwd,
-        dev, collate_events, tol=TITO_BF16_SERVE_TOL)
+    launches_s16, report = serve_direction(
+        torch, tito_gpu16, tito_cpu16, tito_requests, counters, tito_fwd,
+        TITO_BF16_SERVE_TOL, flips=tito_flips)
     emit({"phase": "serve_tito_bf16", "requests": report,
           "launches": {**dict(zip(names, launches_s16)),
                        "forwards": len(tito_requests)},
@@ -1972,16 +1897,16 @@ def main() -> int:
     tito_batch = make_batch(tito_events(trng, [TITO_L] * TITO_B),
                             labels={"direction": unit_vectors(trng, TITO_B)},
                             length=TITO_L)
-    _, report, launches_tt = train_tito(
-        torch, ops, make_tito_trainable, Trainer, tito_batch, counters,
-        tito_step, dev)
+    _, report, launches_tt = train_direction(
+        torch, make_tito_trainable, Trainer, tito_batch, counters, tito_step,
+        dev, ops=ops)
     emit({"phase": "train_tito", "dtype": "float32", **report,
           "launches": dict(zip(names, launches_tt)),
           "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
-    _, report, launches_tt16 = train_tito(
-        torch, ops, make_tito_trainable, Trainer, tito_batch, counters,
-        tito_step, dev, "bfloat16", cpu_steps=1, **TITO_BF16_TRAIN)
+    _, report, launches_tt16 = train_direction(
+        torch, make_tito_trainable, Trainer, tito_batch, counters, tito_step,
+        dev, "bfloat16", cpu_steps=1, ops=ops, **TITO_BF16_TRAIN)
     emit({"phase": "train_tito_bf16", **report,
           "launches": dict(zip(names, launches_tt16)),
           "seconds": round(time.perf_counter() - t0, 2)})
@@ -2011,12 +1936,11 @@ def main() -> int:
         "with_0_and_1_pulses": [Event(x=a, features=ICE_FEATURES)
                                 for a in ice_events(irng, [0, 1, 300, ICE_L])],
     }
-    held = [(f"b{ICE_B}_100_{ICE_L}", 0), (f"b{ICE_B}_100_{ICE_L}", 1),
-            ("with_0_and_1_pulses", 1), ("with_0_and_1_pulses", 2)]
+    held = {f"b{ICE_B}_100_{ICE_L}": [0, 1], "with_0_and_1_pulses": [1, 2]}
     ice_gpu = DeploymentModule(make_ice("cuda"), ice_pkl)
     ice_cpu = DeploymentModule(make_ice("cpu"), ice_pkl, device="cpu")
-    launches_i, report = serve_deepice(torch, ice_gpu, ice_cpu, ice_requests,
-                                       held, counters, ice_fwd, 1e-3)
+    launches_i, report = serve_direction(torch, ice_gpu, ice_cpu, ice_requests,
+                                         counters, ice_fwd, held=held)
     emit({"phase": "serve_deepice", "dtype": "float32", "requests": report,
           "launches": {**dict(zip(names, launches_i)),
                        "forwards": len(ice_requests)},
@@ -2025,9 +1949,9 @@ def main() -> int:
     ice_gpu16 = DeploymentModule(make_ice("cuda", "bfloat16"), ice_pkl)
     ice_cpu16 = DeploymentModule(make_ice("cpu", "bfloat16"), ice_pkl,
                                  device="cpu")
-    launches_i16, report = serve_deepice(torch, ice_gpu16, ice_cpu16,
-                                         ice_requests, held[::2], counters,
-                                         ice_fwd, ICE_BF16_SERVE_TOL)
+    launches_i16, report = serve_direction(
+        torch, ice_gpu16, ice_cpu16, ice_requests, counters, ice_fwd,
+        ICE_BF16_SERVE_TOL, held={k: v[:1] for k, v in held.items()})
     emit({"phase": "serve_deepice_bf16", "requests": report,
           "launches": {**dict(zip(names, launches_i16)),
                        "forwards": len(ice_requests)},
@@ -2052,16 +1976,16 @@ def main() -> int:
         return make_batch(ice_arrays[:n], labels={"direction": ice_dirs[:n]},
                           length=ICE_L)
 
-    _, report, launches_it = train_deepice(
-        torch, make_ice_trainable, Trainer, ice_batch, held_batch(4), counters,
-        ice_step, dev, **ICE_FP32_TRAIN)
+    _, report, launches_it = train_direction(
+        torch, make_ice_trainable, Trainer, ice_batch, counters, ice_step, dev,
+        cpu_steps=1, held=held_batch(4), **ICE_FP32_TRAIN)
     emit({"phase": "train_deepice", "dtype": "float32", **report,
           "launches": dict(zip(names, launches_it)),
           "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
-    _, report, launches_it16 = train_deepice(
-        torch, make_ice_trainable, Trainer, ice_batch, held_batch(2), counters,
-        ice_step, dev, "bfloat16", **ICE_BF16_TRAIN)
+    _, report, launches_it16 = train_direction(
+        torch, make_ice_trainable, Trainer, ice_batch, counters, ice_step, dev,
+        "bfloat16", cpu_steps=1, held=held_batch(2), **ICE_BF16_TRAIN)
     emit({"phase": "train_deepice_bf16", **report,
           "launches": dict(zip(names, launches_it16)),
           "seconds": round(time.perf_counter() - t0, 2)})

@@ -521,7 +521,7 @@ class AttentionRel(nn.Module):
 
     * ``rel_source = (encoder, x0)``: the pair features as relative key
       and value.  Where the rel kernels take the shape (``rel_flash``
-      "auto" or "always" and the gate of
+      "auto", or its alias "always", and the gate of
       :func:`~graphnet_tpu_torch.ops.rel_flash_attention.supported`) they
       run through :func:`rel_flash_attention` (the CUDA kernels for CUDA
       tensors, the plain versions on the CPU) and nothing ``[B, L, L]``
@@ -552,7 +552,9 @@ class AttentionRel(nn.Module):
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.rel_chunks = rel_chunks
-        self.rel_flash = rel_flash
+        # "always" is the JAX package's name for skipping the TPU memory
+        # rule of "auto"; the port has no such rule, so it is "auto"
+        self.rel_flash = "auto" if rel_flash == "always" else rel_flash
         self.dtype = dtype
         self.proj_q = nn.Linear(dim, dim, bias=qkv_bias)
         self.proj_k = nn.Linear(dim, dim, bias=False)

@@ -5,8 +5,8 @@ FourierEncoder per pulse, the SpacetimeEncoder's relative features in
 the first ``n_rel`` of ``depth_rel`` BlockRel layers, a learned cls
 token, then ``depth`` Blocks with layer scale; the cls token's final
 state is the event's latent.  The relative-bias block runs through the
-rel kernels wherever their gate holds (``rel_flash`` "auto" or
-"always"), on both devices; with "never", or where the gate fails, the
+rel kernels wherever their gate holds (``rel_flash`` "auto", or its
+alias "always"), on both devices; with "never", or where the gate fails, the
 pair tensor ``[B, L, L, head_size]`` is materialised once and the dense
 path runs.  The other blocks' attention runs through the flash kernels.
 """

@@ -15,9 +15,10 @@ module names, so the map is mechanical:
   ``[D]`` and the ``embedding [n, d]`` of a flax ``Embed`` keep their
   names and layout too (the port has parameters of those names, so no
   table is transposed);
-* a ``scale [1]`` under a ``SinusoidalPosEmb`` (modules ``sin_emb`` and
-  ``sin_emb2``) is that module's learned scale and keeps its name;
-  every other ``scale`` is a layer norm's.
+* a ``scale`` for which the port model has a parameter ``<path>.scale``
+  (a ``SinusoidalPosEmb``'s learned scale) keeps its name; every other
+  ``scale`` is a layer norm's.  The port's layer norms name theirs
+  ``weight``, so a port parameter named ``scale`` is never a norm's.
 
 Unpickling needs no JAX: the pickle holds numpy arrays only.
 :func:`params_to_jax` is the inverse map, for writing the same pickle.
@@ -42,19 +43,15 @@ _LEAF_NAMES = {
     "gamma_2": ("gamma_2", False),
     "embedding": ("embedding", False),
 }
-# leaves that keep their names both ways
+# port parameter names that are JAX leaf names as they are (``scale``:
+# a SinusoidalPosEmb's, as the port's layer norms name theirs ``weight``)
 _KEPT = {name for name, (port, _) in _LEAF_NAMES.items() if name == port}
-# the flax names of SinusoidalPosEmb modules, whose ``scale`` is their own
-_SINUSOIDAL = ("sin_emb", "sin_emb2")
+_KEPT.add("scale")
 
 
-def _sinusoidal_scale(path: Tuple[str, ...]) -> bool:
-    return path[-1] == "scale" and len(path) > 1 and path[-2] in _SINUSOIDAL
-
-
-def _leaf_rule(path: Tuple[str, ...]):
+def _leaf_rule(path: Tuple[str, ...], expected: Optional[Mapping]):
     """``(port name, transpose)`` of a JAX leaf, None if unknown."""
-    if _sinusoidal_scale(path):
+    if path[-1] == "scale" and expected is not None and ".".join(path) in expected:
         return "scale", False
     return _LEAF_NAMES.get(path[-1])
 
@@ -81,7 +78,9 @@ def params_from_jax(
             collection.
         expected: the port model's ``state_dict()``; when given, every
             key must be carried with its shape, and no leaf may be left
-            over.
+            over.  A ``scale`` leaf keeps its name only where ``expected``
+            has a parameter of that name; without ``expected`` every
+            ``scale`` is a layer norm's ``weight``.
 
     Raises:
         ValueError: on a leaf of unknown kind, a leaf with no
@@ -93,7 +92,7 @@ def params_from_jax(
     out: Dict[str, torch.Tensor] = {}
     unknown = []
     for path, value in _leaves(params):
-        rule = _leaf_rule(path)
+        rule = _leaf_rule(path, expected)
         if rule is None:
             unknown.append("/".join(path))
             continue
@@ -141,7 +140,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 name = "scale"
             else:
                 raise ValueError(f"{key}: a weight of {arr.ndim} dims")
-        elif not (name in _KEPT or _sinusoidal_scale((*path, name))):
+        elif name not in _KEPT:
             raise ValueError(f"{key}: a parameter of unknown kind")
         node = tree
         for part in path:

@@ -242,6 +242,42 @@ def test_deepice_options_not_ported_raise():
         DeepIce(rel_flash="sometimes", **NARROW)
 
 
+def test_rel_flash_always_is_auto():
+    """The port has no memory rule for "auto" to skip: "always" is its
+    alias, and both take the rel kernels exactly where the gate holds
+    (an odd head dim fails it: the dense path)."""
+    for rel_flash in ("auto", "always"):
+        model = DeepIce(rel_flash=rel_flash, **NARROW)
+        assert all(getattr(model, f"sandwich_{i}").attn.rel_flash == "auto"
+                   for i in range(NARROW["depth_rel"]))
+        assert model.sandwich_0.attn.uses_rel_kernel(NARROW["head_size"])
+        odd = BlockRel(30, 2, rel_flash=rel_flash)
+        assert not odd.attn.uses_rel_kernel(15)
+    assert not DeepIce(rel_flash="never", **NARROW).sandwich_0.attn.uses_rel_kernel(16)
+
+
+def test_scale_leaf_carried_by_the_model_layout():
+    """A ``scale`` leaf keeps its name where the model has a parameter of
+    that name (a SinusoidalPosEmb's) and is a layer norm's ``weight``
+    everywhere else; without ``expected`` every ``scale`` is a norm's.
+    ``params_to_jax`` inverts both."""
+    model = StandardModel(DeepIce(scaled_emb=True, **NARROW),
+                          [DirectionReconstructionWithKappa(hidden_size=32)],
+                          device="cpu")
+    tree = params_to_jax(model.state_dict())
+    fe = tree["params"]["backbone"]["fourier_ext"]
+    assert fe["sin_emb"]["scale"].shape == (1,)
+    assert fe["mlp_norm"]["scale"].ndim == 1
+    sd = params_from_jax(tree, model.state_dict())
+    assert "backbone.fourier_ext.sin_emb.scale" in sd
+    assert "backbone.fourier_ext.mlp_norm.weight" in sd
+    blind = params_from_jax(tree)
+    assert "backbone.fourier_ext.sin_emb.weight" in blind
+    assert "backbone.fourier_ext.sin_emb.scale" not in blind
+    back = params_to_jax(sd)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(np.array_equal, back, tree))
+
+
 # ----------------------------------------------- Trainer and deployment
 def test_trainer_fit_deepice_matches_jax():
     """2 epochs of 2 ragged batches with validation, the default
