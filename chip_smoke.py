@@ -13,6 +13,12 @@ Phases, each printing one JSON line:
 3. knn: the kNN kernel against its plain PyTorch version on the card,
    for x, y, z (D=3) and x, y, z, t (D=4, TITO's graph);
 4. edgeconv: the fused EdgeConv forward kernel against its plain version;
+   edgeconv_knn: the fused EdgeConv + kNN kernel (``FUSE_CONV_KNN``)
+   against its plain version (B=128 at L=128 for H1 = 128 and 336, and
+   events of 0, 1, 2, k and k+1 nodes at L = 48 and 112; add and max,
+   fp32 and bf16): ``out`` the same bits as the forward kernel's, the
+   neighbours those of the plain kNN of that ``out``, the same bits
+   twice;
 5. edgeconv_bwd: the EdgeConv backward kernel against its plain version
    (both layer shapes, add/max/mean, fp32 and bf16, a 1-node and an
    all-masked event, L=512 and L=4096), and whether two runs give the
@@ -29,7 +35,18 @@ Phases, each printing one JSON line:
    kernels' launch counts are checked (5 kNN and 4 EdgeConv per
    forward, nothing else) and the answers are held against the same
    module on the CPU, which runs the plain versions.  Then the bfloat16
-   mode;
+   mode.  serve_fused: the requests at L <= 128 again with
+   ``FUSE_CONV_KNN`` on (1 kNN and 4 fused EdgeConv + kNN launches per
+   forward), fp32 and bf16;
+7b. train_sqlite: the training example's path
+   (``graphnet_tpu_torch.examples.train_dynedge``): the bundled SQLite
+   database through ``SQLiteDataset``, ``KNNGraph(Prometheus())``, the
+   datamodule's DataLoaders and ``Trainer.fit`` (2 epochs, batch 16) of
+   the full-width DynEdge with ``FUSE_CONV_KNN`` on: 1 kNN, 4 fused
+   EdgeConv + kNN and 4 EdgeConv-backward launches per step, every
+   gradient finite and non-zero, step 1 held against the CPU fed the
+   card's per-layer adjacency, ``Trainer.predict`` on the validation
+   loader;
 8. train: the training path.  ``Trainer`` steps of the same model with
    ``LogCoshLoss`` on ``log10(total_energy)`` on the JAX bench's batch
    (B=128, L=128); 5 kNN, 4 EdgeConv-forward and 4 EdgeConv-backward
@@ -58,7 +75,10 @@ Phases, each printing one JSON line:
    more per training step; answers and a step on a few of the events
    held against the CPU.  Then the bfloat16 modes, against the bf16
    model on the CPU;
-12. times: each kernel, its plain version and its bound; the flash
+12. times: each kernel, its plain version and its bound (the fused
+   EdgeConv + kNN also against the forward kernel, centring and kNN
+   kernel it replaces, and the DynEdge step and request with
+   ``FUSE_CONV_KNN`` off, on, on, off); the flash
    kernels beside the port's dense attention and
    ``F.scaled_dot_product_attention`` at L = 128, 512 and 1024; the rel
    attention beside the port's dense biased path at L = 768, 1536 and
@@ -340,6 +360,81 @@ def check_edgeconv(torch, ops, rng, dev, B=128, L=128,
             report.append({"H1": h1, "H2": h2, "dtype": key,
                            "aggr": "mean" if mean else aggr, "slope": slope,
                            "max_abs_err": err, "rel_to_max": rel})
+    return worst, report
+
+
+def fused_knn_cases(torch, ops, rng, dev):
+    """Conv inputs of the fused EdgeConv + kNN checks: B=128 events at
+    L=128 (lengths 64-128) for H1 = 128 and 336, and at L = 48 and 112
+    events of 0, 1, 2, k and k+1 valid nodes beside ragged ones; edges
+    from the plain kNN of random coordinates."""
+    cases = []
+    for label, B, L, lo, small in (("B128_L128", 128, 128, 64, False),
+                                   ("tiny_events_L48", 8, 48, 2, True),
+                                   ("tiny_events_L112", 8, 112, 2, True)):
+        x, m = ragged_coords(torch, rng, B, L, lo, dev)
+        if small:
+            for e, n in enumerate((0, 1, 2, K, K + 1)):
+                m[e] = torch.arange(L, device=dev) < n
+        idx, em = ops["knn_plain"](x, m, K)
+        for h1 in ((128, 336) if not small else (128,)):
+            cases.append((label, m, idx, em, h1))
+    return cases
+
+
+def check_edgeconv_knn(torch, ops, rng, dev, H2=256):
+    """The fused EdgeConv + kNN kernel (row 4) against its plain version,
+    add and max, fp32 and bf16.  ``out``: the same bits as row 2's
+    kernel on the same inputs, and within row 2's tolerance of the plain
+    conv; ``nem`` equal to the plain kNN of the kernel's ``out``, and
+    ``nidx`` equal where ``nem`` holds; no edge in an event of 0 or 1
+    valid nodes, or on an invalid node; the same bits twice."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    report = []
+    for label, m, idx, em, h1 in fused_knn_cases(torch, ops, rng, dev):
+        B, L = m.shape
+        g = torch.Generator(device=dev).manual_seed(h1 + L)
+        a = torch.randn(B, L, h1, device=dev, generator=g)
+        b = torch.randn(B, L, h1, device=dev, generator=g)
+        w2 = torch.randn(h1, H2, device=dev, generator=g) / h1 ** 0.5
+        b2 = torch.randn(H2, device=dev, generator=g) * 0.1
+        for dtype, aggr, slope in ((torch.float32, "add", 0.0),
+                                   (torch.float32, "max", 0.01),
+                                   (torch.bfloat16, "add", 0.0),
+                                   (torch.bfloat16, "max", 0.01)):
+            conv = [t.to(dtype) for t in (a, b)] + [idx, em]
+            wb = [w2.to(dtype), b2.to(dtype)]
+            kw = dict(aggr=aggr, slope=slope, knn_k=K, sub_lo=0, sub_hi=3)
+            out, nidx, nem = ops["edgeconv_knn"](*conv, m, *wb, **kw)
+            again = ops["edgeconv_knn"](*conv, m, *wb, **kw)
+            row2 = ops["edgeconv"](*conv, *wb, aggr=aggr, slope=slope)
+            plain = ops["edgeconv_plain"](*conv, *wb, aggr=aggr, slope=slope)
+            ref_i, ref_m = ops["output_knn_plain"](out, m, K, 0, 3)
+            key = str(dtype).replace("torch.", "")
+            case = f"{label} H1={h1} {key} {aggr}"
+            assert torch.equal(out, row2), f"{case}: out differs from row 2's"
+            assert torch.equal(nem, ref_m), f"{case}: nem differs"
+            assert torch.equal(torch.where(nem, nidx, -1),
+                               torch.where(ref_m, ref_i, -1)), (
+                f"{case}: nidx differs where nem holds")
+            assert not bool(nem[~m].any()), f"{case}: an edge on an invalid node"
+            if label.startswith("tiny"):
+                assert not bool(nem[:2].any()), f"{case}: an edge of a 0/1-node event"
+            same = all(torch.equal(p, q) for p, q in zip((out, nidx, nem), again))
+            assert same, f"{case}: two runs differ"
+            err = float((out - plain).abs().max())
+            rel = err / float(plain.abs().max())
+            if dtype == torch.float32:  # row 2's tolerances
+                torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+            else:
+                assert rel <= 2e-2, f"{case}: bf16 out off by {rel} of max"
+            worst[key] = max(worst[key], err)
+            report.append({"case": label, "H1": h1, "H2": H2, "dtype": key,
+                           "aggr": aggr, "slope": slope, "edges": int(nem.sum()),
+                           "out_same_bits_as_row2": True,
+                           "out_rel_err_to_plain": rel,
+                           "neighbours_equal_plain_knn": True,
+                           "same_bits_twice": same})
     return worst, report
 
 
@@ -831,6 +926,177 @@ def train_bf16(torch, make, Trainer, batch, counters, expect, dev, loss_fp32,
     return {"losses": out["loss"], "launches_per_step": out["rose"],
             "step1_rel_diff_to_fp32": rel,
             "params_with_all_zero_grad": sorted(set(sum(out["zero"], [])))}, launches
+
+
+def train_sqlite(torch, build, Trainer, counters, step_expect, fwd_expect,
+                 dev, epochs=2):
+    """The training example's path on the card: ``build(device)`` gives
+    the example's datamodule (the bundled SQLite database through
+    ``SQLiteDataset``, ``KNNGraph(Prometheus())`` and the DataLoader)
+    and its full-width DynEdge energy model; ``Trainer.fit`` runs
+    ``epochs`` epochs with validation, with the counts set to 0 just
+    before.  Each step launches ``step_expect``, each validation forward
+    ``fwd_expect``; every gradient is finite, and non-zero but where the
+    energy head saturates: the loader shuffles without a seed, as the
+    example's does, and a few Adam steps from a random start can drive
+    every event of a batch deep into the head's softplus flat side
+    (``sigmoid(0.05 x)`` is 0 in fp32 below x ~ -2000), where every
+    gradient is exactly 0.  Such a step must have all gradients 0 and
+    the head saturated for every event; step 1 must have none.  Step 1 is
+    held against the same model on the CPU, fed the card's per-layer
+    adjacency (the fused kernel's ``nidx``, ``nem``) and run with the
+    fused kernel off: given one adjacency both routes compute the same
+    function, so no kNN near-tie can hide a fault.  Then
+    ``Trainer.predict`` on the validation loader."""
+    datamodule, model = build(dev)
+    n_conv = len(model_convs(model))
+    trainer = Trainer(model)
+    store, steps, head = [], [], []
+    handles = record_adjacency(model, store)
+    handles.append(model.tasks_0.affine.register_forward_hook(
+        lambda mod, args, out: head.append(out.detach())))
+    train_step = trainer.train_step
+
+    def recording(batch):
+        before = [c.launches for c in counters]
+        loss = train_step(batch)
+        named = list(model.named_parameters())
+        x = head[-1].float()
+        rec = {"rose": [c.launches - b for c, b in zip(counters, before)],
+               "loss": float(loss),
+               "head_saturated": bool((torch.sigmoid(0.05 * x) == 0).all()),
+               "head_min_max": [float(x.min()), float(x.max())],
+               "nonfinite": [n for n, p in named if p.grad is None
+                             or not bool(torch.isfinite(p.grad).all())],
+               "zero": [n for n, p in named
+                        if p.grad is not None and not bool(p.grad.any())]}
+        if not steps:
+            rec.update(batch=batch,
+                       grads={n: p.grad.float().cpu() for n, p in named},
+                       graphs=[(i.cpu(), m.cpu()) for i, m in store[:n_conv]])
+        steps.append(rec)
+        return loss
+
+    trainer.train_step = recording
+    train_loader = datamodule.train_dataloader()
+    val_loader = datamodule.val_dataloader()
+    for c in counters:
+        c.launches = 0
+    history = trainer.fit(train_loader, val_loader, max_epochs=epochs)
+    launches = [c.launches for c in counters]
+    for h in handles:
+        h.remove()
+    rose = [s["rose"] for s in steps]
+    assert all(r == step_expect for r in rose), rose
+    n_params = len(list(model.parameters()))
+    assert not any(s["nonfinite"] for s in steps), [s["nonfinite"] for s in steps]
+    assert not steps[0]["zero"], steps[0]["zero"]
+    for i, s in enumerate(steps):
+        assert not s["zero"] or (s["head_saturated"] and len(s["zero"]) == n_params), (
+            f"step {i + 1}: zero gradients {s['zero']} with the head at "
+            f"{s['head_min_max']}")
+    n_val = epochs * len(list(val_loader))
+    assert launches == [len(steps) * s + n_val * f
+                        for s, f in zip(step_expect, fwd_expect)], launches
+
+    # step 1 on the CPU with the card's adjacency, the fused kernel off
+    from graphnet_tpu_torch.models.components import layers
+
+    first = steps[0]
+    layers.FUSE_CONV_KNN = False
+    try:
+        cpu_model = build("cpu")[1]
+        graphs = first["graphs"]
+        hooks = feed_adjacency(cpu_model, graphs, "cpu")
+        batch = replace(first["batch"], edges=graphs[0][0],
+                        edge_mask=graphs[0][1])
+        cpu = run_steps(torch, Trainer(cpu_model), [batch])
+        for h in hooks:
+            h.remove()
+    finally:
+        layers.FUSE_CONV_KNN = True
+    np.testing.assert_allclose(first["loss"], cpu["loss"][0], rtol=1e-3,
+                               err_msg="step-1 loss with the card's adjacency")
+    grad_err = {}
+    for name, gc in cpu["grads1"].items():
+        e = float((first["grads"][name] - gc).abs().max())
+        scale = float(gc.abs().max())
+        assert e <= 1e-3 * scale, f"step-1 gradient of {name}: {e} vs max {scale}"
+        grad_err[name] = e / scale
+    pred = trainer.predict(val_loader)[0]
+    assert pred.shape == (len(datamodule.val_dataset), 1), pred.shape
+    assert np.isfinite(pred).all()
+    return {
+        "events": {"train": len(datamodule.train_dataset),
+                   "val": len(datamodule.val_dataset)},
+        "batch_size": train_loader.batch_size, "buckets": train_loader.buckets,
+        "padding_efficiency": train_loader.padding_efficiency,
+        "steps": len(steps), "epochs": epochs,
+        "batch_shapes_step1": list(first["batch"].x.shape),
+        "losses_card": [s["loss"] for s in steps],
+        "step1_loss_cpu_card_adjacency": cpu["loss"][0],
+        "launches_per_step": rose,
+        "every_grad_finite": True,
+        "steps_all_grads_nonzero": sum(not s["zero"] for s in steps),
+        "steps_head_saturated_all_grads_zero": sum(bool(s["zero"]) for s in steps),
+        "head_min_max_per_step": [s["head_min_max"] for s in steps],
+        "max_grad_rel_err_step1_card_adjacency": max(grad_err.values()),
+        "worst_grad_param": max(grad_err, key=grad_err.get),
+        "fit_history": history,
+        "val_predictions_finite": True,
+    }, launches
+
+
+def fused_knn_times(torch, ops, rng, dev, peaks, B=128, L=128, H1=336,
+                    H2=256):
+    """Row 4 alone against row 2, then row 1 with its centring (the
+    unfused route), and its plain version, at B=128, L=128, H1=336, with
+    its bound: row 2's operations plus ~10 per valid pair of the kNN, or
+    every input read and output written once."""
+    x, m = ragged_coords(torch, rng, B, L, 65, dev)
+    idx, em = ops["knn"](x, m, K)
+    n = m.sum(1).double()
+    flops = (float(em.sum()) * (2.0 * H1 * H2 + 2 * H1 + 3 * H2)
+             + 10.0 * float((n * n).sum()))
+    g = torch.Generator(device=dev).manual_seed(4)
+    times = {}
+    for key, dtype, rate in (("edgeconv_knn", torch.float32, peaks["fp32"]),
+                             ("edgeconv_knn_bf16", torch.bfloat16, peaks["bf16"])):
+        a = torch.randn(B, L, H1, device=dev, generator=g).to(dtype)
+        b = torch.randn(B, L, H1, device=dev, generator=g).to(dtype)
+        w2 = (torch.randn(H1, H2, device=dev, generator=g) / H1 ** 0.5).to(dtype)
+        b2 = torch.zeros(H2, device=dev, dtype=dtype)
+        el = a.element_size()
+        nbytes = (2 * B * L * H1 * el + B * L * K * 5 + B * L + (H1 + 1) * H2 * el
+                  + B * L * H2 * 4 + B * L * K * 5)
+        t_b, t_o = nbytes / peaks["bytes"], flops / rate
+
+        def unfused():
+            out = ops["edgeconv"](a, b, idx, em, w2, b2)
+            return ops["knn"](out[..., :3], m, K)
+
+        fused = cuda_ms(torch, lambda: ops["edgeconv_knn"](a, b, idx, em, m, w2, b2))
+        times[key] = dict(
+            ms=fused,
+            unfused_ms=cuda_ms(torch, unfused),
+            ms_again=cuda_ms(torch, lambda: ops["edgeconv_knn"](
+                a, b, idx, em, m, w2, b2)),
+            plain_ms=cuda_ms(torch, lambda: ops["edgeconv_knn_plain"](
+                a, b, idx, em, m, w2, b2)),
+            bound_ms=max(t_b, t_o) * 1e3,
+            bound_by="bytes" if t_b >= t_o else "operations",
+        )
+    return times
+
+
+def switch_times(torch, layers, fn, timer):
+    """``timer(fn)`` with the fused EdgeConv + kNN off, on, on, off."""
+    out = {}
+    for i, on in enumerate((False, True, True, False)):
+        layers.FUSE_CONV_KNN = on
+        out[f"{i}_{'on' if on else 'off'}"] = timer(fn)
+    layers.FUSE_CONV_KNN = False
+    return out
 
 
 def bwd_times(torch, ops, rng, dev, peaks, B=128, L=128,
@@ -1668,11 +1934,16 @@ def main() -> int:
         EnergyReconstruction,
     )
     from graphnet_tpu_torch.ops import flash_attention_cuda as fa
+    from graphnet_tpu_torch.examples import train_dynedge
+    from graphnet_tpu_torch.models.components import layers
     from graphnet_tpu_torch.ops.edgeconv_cuda import (
         fused_edgeconv,
         fused_edgeconv_bwd,
         fused_edgeconv_bwd_plain,
+        fused_edgeconv_knn,
+        fused_edgeconv_knn_plain,
         fused_edgeconv_plain,
+        output_knn_plain,
     )
     from graphnet_tpu_torch.ops.knn import knn_graph_plain
     from graphnet_tpu_torch.ops.knn_cuda import knn_graph_cuda
@@ -1688,17 +1959,24 @@ def main() -> int:
     ops = dict(knn=knn_graph_cuda, knn_plain=knn_graph_plain,
                edgeconv=fused_edgeconv, edgeconv_plain=fused_edgeconv_plain,
                edgeconv_bwd=fused_edgeconv_bwd,
-               edgeconv_bwd_plain=fused_edgeconv_bwd_plain)
+               edgeconv_bwd_plain=fused_edgeconv_bwd_plain,
+               edgeconv_knn=fused_edgeconv_knn,
+               edgeconv_knn_plain=fused_edgeconv_knn_plain,
+               output_knn_plain=output_knn_plain)
     counters = (knn_graph_cuda, fused_edgeconv, fused_edgeconv_bwd,
                 fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv, rc.rel_attention_fwd,
-                rc.rel_attention_bwd_dq, rc.rel_attention_bwd_dkv)
+                rc.rel_attention_bwd_dq, rc.rel_attention_bwd_dkv,
+                fused_edgeconv_knn)
     names = ("knn", "edgeconv", "edgeconv_bwd", "flash_fwd", "flash_bwd_dq",
-             "flash_bwd_dkv", "rel_fwd", "rel_bwd_dq", "rel_bwd_dkv")
-    # launches per DynEdge, TITO and DeepIce forward / step
-    dynedge_fwd, dynedge_step = [5, 4, 0, 0, 0, 0, 0, 0, 0], [5, 4, 4, 0, 0, 0, 0, 0, 0]
-    tito_fwd, tito_step = [1, 4, 0, 4, 0, 0, 0, 0, 0], [1, 4, 4, 4, 4, 4, 0, 0, 0]
-    ice_fwd, ice_step = [0, 0, 0, 15, 0, 0, 1, 0, 0], [0, 0, 0, 15, 15, 15, 1, 1, 1]
+             "flash_bwd_dkv", "rel_fwd", "rel_bwd_dq", "rel_bwd_dkv",
+             "edgeconv_knn")
+    # launches per DynEdge, TITO and DeepIce forward / step; DynEdge with
+    # the fused EdgeConv + kNN switched on (L <= 128)
+    dynedge_fwd, dynedge_step = [5, 4, 0, 0, 0, 0, 0, 0, 0, 0], [5, 4, 4, 0, 0, 0, 0, 0, 0, 0]
+    fused_fwd, fused_step = [1, 0, 0, 0, 0, 0, 0, 0, 0, 4], [1, 0, 4, 0, 0, 0, 0, 0, 0, 4]
+    tito_fwd, tito_step = [1, 4, 0, 4, 0, 0, 0, 0, 0, 0], [1, 4, 4, 4, 4, 4, 0, 0, 0, 0]
+    ice_fwd, ice_step = [0, 0, 0, 15, 0, 0, 1, 0, 0, 0], [0, 0, 0, 15, 15, 15, 1, 1, 1, 0]
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -1717,9 +1995,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = build.build(["knn", "edgeconv", "edgeconv_bwd", "flash_attention",
-                        "flash_attention_bwd", "rel_flash_attention",
-                        "rel_flash_attention_bwd"])
+    logs = build.build(["knn", "edgeconv", "edgeconv_knn", "edgeconv_bwd",
+                        "flash_attention", "flash_attention_bwd",
+                        "rel_flash_attention", "rel_flash_attention_bwd"])
     ptxas = {n: [l.strip() for l in log.splitlines()
                  if "registers" in l or "spill" in l or "Compiling" in l]
              for n, log in logs.items()}
@@ -1736,6 +2014,12 @@ def main() -> int:
     t0 = time.perf_counter()
     ec_err, report = check_edgeconv(torch, ops, rng, dev)
     emit({"phase": "edgeconv", "B": 128, "L": 128, "k": K, "cases": report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 4b. fused EdgeConv + kNN kernel vs plain
+    t0 = time.perf_counter()
+    eck_err, report = check_edgeconv_knn(torch, ops, rng, dev)
+    emit({"phase": "edgeconv_knn", "k": K, "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
 
     # 5. EdgeConv backward kernel vs plain
@@ -1806,8 +2090,41 @@ def main() -> int:
     emit({"phase": "serve_bf16", "requests": report,
           "launches": {**dict(zip(names, launches16)), "forwards": len(requests)},
           "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 6b. the serving requests at L <= 128 with the fused EdgeConv + kNN on
+    t0 = time.perf_counter()
+    fused_requests = {k: v for k, v in requests.items()
+                      if k != "b128_buckets_16_512"}
+    layers.FUSE_CONV_KNN = True
+    fused_answers, launches_f, report = serve(
+        torch, gpu, cpu, fused_requests, counters, fused_fwd, dev,
+        collate_events)
+    launches_f16, report16 = serve_bf16(gpu16, fused_requests, fused_answers,
+                                        counters, fused_fwd)
+    layers.FUSE_CONV_KNN = False
+    emit({"phase": "serve_fused", "requests": report, "bf16": report16,
+          "launches": {**dict(zip(names, launches_f)),
+                       "forwards": len(fused_requests)},
+          "launches_bf16": dict(zip(names, launches_f16)),
+          "seconds": round(time.perf_counter() - t0, 2)})
     os.remove(pkl)
     os.rmdir(tmp)
+
+    # 6c. the training example's path (SQLite data, DataLoader,
+    # Trainer.fit) with the fused EdgeConv + kNN on
+    t0 = time.perf_counter()
+
+    def example(device):
+        return train_dynedge.build(train_dynedge.parse_args(
+            ["--device", str(device), "--batch-size", "16"]))
+
+    layers.FUSE_CONV_KNN = True
+    report, launches_sq = train_sqlite(torch, example, Trainer, counters,
+                                       fused_step, fused_fwd, dev)
+    layers.FUSE_CONV_KNN = False
+    emit({"phase": "train_sqlite", "dtype": "float32", **report,
+          "launches": dict(zip(names, launches_sq)),
+          "seconds": round(time.perf_counter() - t0, 2)})
 
     # 7. the training path through Trainer
     train_tree = trainable_tree(tree)
@@ -1994,6 +2311,7 @@ def main() -> int:
     t0 = time.perf_counter()
     times = kernel_times(torch, ops, rng, dev, peaks)
     times_bwd = bwd_times(torch, ops, rng, dev, peaks)
+    times_fused = fused_knn_times(torch, ops, rng, dev, peaks)
     serving = requests["b128_L128"]
     single = requests["one_event"]
     on_card = batch.to(dev)
@@ -2024,6 +2342,18 @@ def main() -> int:
         "profile_fp32_B128_L128": device_profile(torch, lambda: gpu(serving)),
         "profile_train_fp32_B128_L128": device_profile(
             torch, lambda: trainer.train_step(on_card)),
+        "edgeconv_knn_B128_L128_H1_336": times_fused,
+        "fused_switch_off_on_on_off": {
+            "train_step_ms_fp32_B128_L128": switch_times(
+                torch, layers, lambda: trainer.train_step(on_card),
+                lambda f: cuda_ms(torch, f, runs=20)),
+            "serving_ms_fp32_B128_L128": switch_times(
+                torch, layers, lambda: gpu(serving),
+                lambda f: 1e3 * host_s(f)),
+            "serving_ms_bf16_B128_L128": switch_times(
+                torch, layers, lambda: gpu16(serving),
+                lambda f: 1e3 * host_s(f)),
+        },
         "flash_B8_H8_Dh32": flash,
         "tito_serving_B8_L1024": {
             "fp32_events_per_s": TITO_B / host_s(lambda: tito_gpu(tito_serving)),
@@ -2087,6 +2417,20 @@ def main() -> int:
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:116",
              launches=launches_t16[2], launches_per="training step: 4",
              max_abs_err=bwd_err["bfloat16"], **bwd16, library_ms=None),
+        dict(name="edgeconv_knn", row="4", route="cuda",
+             source="graphnet_tpu_torch/csrc/edgeconv_knn.cu",
+             replaces="graphnet_tpu/ops/edgeconv_pallas.py:414",
+             launches=launches_sq[9],
+             launches_per="DynEdge forward and step with FUSE_CONV_KNN: 4",
+             max_abs_err=eck_err["float32"],
+             **times_fused["edgeconv_knn"], library_ms=None),
+        dict(name="edgeconv_knn_bf16", row="4", route="cuda",
+             source="graphnet_tpu_torch/csrc/edgeconv_knn.cu",
+             replaces="graphnet_tpu/ops/edgeconv_pallas.py:414",
+             launches=launches_f16[9],
+             launches_per="serving forward with FUSE_CONV_KNN: 4",
+             max_abs_err=eck_err["bfloat16"],
+             **times_fused["edgeconv_knn_bf16"], library_ms=None),
     ]
     f32, b16 = flash[f"L{TITO_L}_float32"], flash[f"L{TITO_L}_bfloat16"]
     for key, fwd, bwd, t, err, bwd_e in (

@@ -7,7 +7,9 @@ kernels become CUDA C++ kernels for Hopper (``graphnet_tpu_torch/csrc``),
 built on first use; every kernel has a plain PyTorch version beside it,
 which is what runs for tensors on the CPU.
 
-This package imports ``torch`` and ``numpy`` only.
+This package imports ``torch`` and ``numpy`` only (and pandas inside
+the calls that read or return tables: a detector's geometry table,
+``Trainer.predict_as_dataframe``).
 """
 
 from graphnet_tpu_torch.device import resolve_device

@@ -1,0 +1,16 @@
+"""Repository paths (counterpart of ``graphnet_tpu/constants.py``)."""
+
+import os
+
+GRAPHNET_ROOT_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..")
+)
+DATA_DIR = os.environ.get(
+    "GRAPHNET_DATA_DIR", os.path.join(GRAPHNET_ROOT_DIR, "data")
+)
+GEOMETRY_TABLE_DIR = os.path.join(DATA_DIR, "geometry_tables")
+PROMETHEUS_GEOMETRY_TABLE_DIR = os.path.join(GEOMETRY_TABLE_DIR, "prometheus")
+EXAMPLE_DATA_DIR = os.path.join(DATA_DIR, "examples")
+EXAMPLE_SQLITE_DATA = os.path.join(
+    EXAMPLE_DATA_DIR, "sqlite", "prometheus", "prometheus-events.db"
+)

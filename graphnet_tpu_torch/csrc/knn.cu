@@ -24,24 +24,17 @@
 // lower-index tie rule of top_k.  Distances use the non-fused
 // __fmul_rn/__fadd_rn intrinsics in the same order as the plain PyTorch
 // version, so both give bit-identical distances and the same neighbours.
+// The distance and the insertion live in knn.cuh, which edgeconv_knn.cu
+// shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "knn.cuh"
+
 namespace {
 
-constexpr float kBig = 1e30f;
 constexpr int kKeyTile = 256;
-
-// |c|^2 or a.b over D coordinates, in coordinate order, one rounding per
-// product and per sum (the plain version's order)
-template <int D>
-__device__ __forceinline__ float dot_rn(const float* a, const float* b) {
-  float s = __fmul_rn(a[0], b[0]);
-#pragma unroll
-  for (int d = 1; d < D; ++d) s = __fadd_rn(s, __fmul_rn(a[d], b[d]));
-  return s;
-}
 
 template <int K, int D>
 __global__ void knn_kernel(const float* __restrict__ coords,    // [B, L, D]
@@ -91,27 +84,8 @@ __global__ void knn_kernel(const float* __restrict__ coords,    // [B, L, D]
     const int n = min(kKeyTile, L - t0);
     for (int j = 0; j < n; ++j) {
       if (!sval[j] || (exclude_self && t0 + j == q)) continue;
-      const float cross = dot_rn<D>(qc, sc[j]);
-      float d = __fsub_rn(__fadd_rn(qsq, ssq[j]), __fmul_rn(2.0f, cross));
-      d = fmaxf(d, 0.0f);
-      if (d < bd[K - 1]) {
-        // insert into the sorted list, dropping the last entry; equal
-        // distances stay behind the earlier (lower-index) key
-#pragma unroll
-        for (int p = K - 1; p > 0; --p) {
-          if (bd[p - 1] > d) {
-            bd[p] = bd[p - 1];
-            bi[p] = bi[p - 1];
-          } else if (bd[p] > d) {
-            bd[p] = d;
-            bi[p] = t0 + j;
-          }
-        }
-        if (bd[0] > d) {
-          bd[0] = d;
-          bi[0] = t0 + j;
-        }
-      }
+      topk_insert<K>(bd, bi, sq_dist(qsq, ssq[j], dot_rn<D>(qc, sc[j])),
+                     t0 + j);
     }
   }
 

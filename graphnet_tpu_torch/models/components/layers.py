@@ -21,7 +21,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from graphnet_tpu_torch.ops.edgeconv_cuda import fused_edgeconv
+from graphnet_tpu_torch.ops.edgeconv_cuda import (
+    KNN_DIMS,
+    KNN_MAX_K,
+    KNN_MAX_L,
+    fused_edgeconv,
+    fused_edgeconv_knn,
+)
 from graphnet_tpu_torch.ops.flash_attention_cuda import (
     _scaled_q,
     flash_attention,
@@ -34,6 +40,12 @@ from graphnet_tpu_torch.ops.rel_flash_attention import (
     supported as rel_supported,
 )
 from graphnet_tpu_torch.ops.rel_flash_attention_cuda import rel_flash_attention
+
+# opt-in switch for the fused EdgeConv + kNN kernel (the JAX package's
+# default, off): where it holds (EdgeConv.uses_fused_knn) each DynEdge
+# conv computes the next layer's adjacency in its own kernel.  Read at
+# call time, so setting it on the module turns it on for every model.
+FUSE_CONV_KNN = False
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
 
@@ -158,6 +170,12 @@ class EdgeConv(nn.Module):
     ``out_bias``; with relu or leaky relu and add, max or mean
     aggregation it runs through :func:`fused_edgeconv` (the CUDA kernel
     for CUDA tensors, its plain version on the CPU).
+
+    ``knn_k`` and ``knn_subset`` ``(lo, hi)``: where
+    :meth:`uses_fused_knn` holds, the forward (given the node ``mask``)
+    also returns the next layer's kNN over ``out[..., lo:hi]``, computed
+    by :func:`fused_edgeconv_knn` in the conv's own kernel, as the tuple
+    ``(out, idx, edge_mask)``.
     """
 
     def __init__(
@@ -169,9 +187,13 @@ class EdgeConv(nn.Module):
         add_norm_layer: bool = False,
         tito: bool = False,
         dtype: Optional[torch.dtype] = None,
+        knn_k: int = 0,
+        knn_subset: Optional[Tuple[int, int]] = None,
     ):
         super().__init__()
         self.tito = tito
+        self.knn_k = knn_k
+        self.knn_subset = knn_subset
         self.nn_sizes = tuple(nn_sizes)
         self.aggr = aggr
         self.activation = activation
@@ -207,6 +229,23 @@ class EdgeConv(nn.Module):
             and self.activation in _KERNEL_SLOPES
         )
 
+    def uses_fused_knn(self, L: int, mask: Optional[torch.Tensor]) -> bool:
+        """Whether the forward returns the next layer's kNN from the fused
+        kernel: the JAX package's gate (``EdgeConv._use_fused_knn``),
+        with the kernel route and the kernel's limits (k, columns) in
+        place of its TPU test.  ``mean`` divides after the kernel, which
+        would change the coordinates the kNN sees, so it is out."""
+        return (
+            FUSE_CONV_KNN
+            and 0 < self.knn_k <= KNN_MAX_K
+            and self.knn_subset is not None
+            and self.knn_subset[1] - self.knn_subset[0] in KNN_DIMS
+            and mask is not None
+            and self.aggr in ("add", "max")
+            and L <= KNN_MAX_L
+            and self.uses_kernel
+        )
+
     def linear_terms(self, x: torch.Tensor):
         """The linearised first layer's two per-node terms ``(a, b)``: an
         edge's pre-activation is ``a_i + b_j``."""
@@ -219,12 +258,20 @@ class EdgeConv(nn.Module):
         x: torch.Tensor,
         idx: torch.Tensor,
         edge_mask: torch.Tensor,
-    ) -> torch.Tensor:
+        mask: Optional[torch.Tensor] = None,
+    ):
         a, b = self.linear_terms(x)
         if self.two_layer:
             w2, b2 = self.out_kernel, self.out_bias
             if self.dtype is not None:
                 w2, b2 = w2.to(self.dtype), b2.to(self.dtype)
+            if self.uses_fused_knn(x.shape[1], mask):
+                lo, hi = self.knn_subset
+                return fused_edgeconv_knn(
+                    a, b, idx, edge_mask, mask, w2, b2, aggr=self.aggr,
+                    slope=_KERNEL_SLOPES[self.activation], knn_k=self.knn_k,
+                    sub_lo=lo, sub_hi=hi,
+                )
             if self.uses_kernel:
                 out = fused_edgeconv(
                     a, b, idx, edge_mask, w2, b2,
@@ -251,7 +298,9 @@ class EdgeConv(nn.Module):
 
 class DynEdgeConv(nn.Module):
     """EdgeConv followed by kNN recomputation on the new latents; returns
-    ``(x, idx, edge_mask)`` with the adjacency for the next layer."""
+    ``(x, idx, edge_mask)`` with the adjacency for the next layer.  A
+    contiguous ``features_subset`` lets the conv compute that adjacency
+    in its own kernel where :data:`FUSE_CONV_KNN` is on."""
 
     def __init__(
         self,
@@ -267,6 +316,8 @@ class DynEdgeConv(nn.Module):
         super().__init__()
         self.nb_neighbors = nb_neighbors
         self.features_subset = list(features_subset)
+        fs = tuple(features_subset)
+        contiguous = fs == tuple(range(fs[0], fs[0] + len(fs)))
         self.conv = EdgeConv(
             in_features,
             nn_sizes,
@@ -274,6 +325,8 @@ class DynEdgeConv(nn.Module):
             activation=activation,
             add_norm_layer=add_norm_layer,
             dtype=dtype,
+            knn_k=nb_neighbors if contiguous else 0,
+            knn_subset=(fs[0], fs[0] + len(fs)) if contiguous else None,
         )
 
     def forward(
@@ -283,7 +336,10 @@ class DynEdgeConv(nn.Module):
         idx: torch.Tensor,
         edge_mask: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.conv(x, idx, edge_mask)
+        res = self.conv(x, idx, edge_mask, mask=mask)
+        if isinstance(res, tuple):
+            return res
+        x = res
         new_idx, new_edge_mask = knn_graph(
             x[..., self.features_subset], mask, k=self.nb_neighbors
         )

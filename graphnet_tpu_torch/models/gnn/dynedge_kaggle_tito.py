@@ -30,7 +30,9 @@ class DynEdgeTITO(GNN):
     """Arguments and defaults are the JAX package's.  ``compute_dtype``
     ("bfloat16" or None) is the dtype of the blocks' matrix products;
     the layer norms, the kNN, the post-processing and readout MLPs and
-    the pooling stay fp32.  ``dropout_rate > 0`` is not ported yet."""
+    the pooling stay fp32.  ``dropout_rate > 0`` is not ported yet, so
+    ``deterministic`` (the JAX switch that turns dropout on in training)
+    changes nothing: with no dropout both settings compute the same."""
 
     def __init__(
         self,
@@ -50,6 +52,7 @@ class DynEdgeTITO(GNN):
         n_head: int = 8,
         nb_neighbours: int = 8,
         dropout_rate: float = 0.0,
+        deterministic: bool = True,
         compute_dtype: Optional[str] = None,
     ):
         super().__init__()
@@ -67,6 +70,7 @@ class DynEdgeTITO(GNN):
         self.use_post_processing_layers = use_post_processing_layers
         self.readout_layer_sizes = tuple(readout_layer_sizes)
         self.nb_neighbours = nb_neighbours
+        self.deterministic = deterministic
         self.compute_dtype = compute_dtype
         dtype = resolve_compute_dtype(compute_dtype)
 

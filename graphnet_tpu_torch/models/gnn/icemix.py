@@ -13,7 +13,7 @@ path runs.  The other blocks' attention runs through the flash kernels.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -37,8 +37,11 @@ class DeepIce(GNN):
     ``include_dynedge`` (DynEdge node latents beside the Fourier
     features), ``remat`` (recompute of the blocks in the backward), and
     ``rel_bias_chunks > 1`` where the rel kernels do not run (the chunked
-    and cached bias paths).  Where they run, ``rel_bias_chunks`` is
-    ignored, as in the JAX package.
+    and cached bias paths).  Where they run, ``rel_bias_chunks`` and
+    ``rel_bias_cache`` are ignored, as in the JAX package; so is
+    ``rel_bias_cache`` with ``rel_bias_chunks == 1`` (the dense path
+    materialises the pair tensor once).  ``dynedge_args`` is read only
+    with ``include_dynedge``.
     """
 
     def __init__(
@@ -52,8 +55,10 @@ class DeepIce(GNN):
         n_rel: int = 1,
         scaled_emb: bool = False,
         include_dynedge: bool = False,
+        dynedge_args: Optional[Dict[str, Any]] = None,
         n_features: int = 6,
         rel_bias_chunks: int = 1,
+        rel_bias_cache: str = "auto",
         rel_flash: str = "auto",
         compute_dtype: Optional[str] = None,
         remat: bool = False,
@@ -72,6 +77,7 @@ class DeepIce(GNN):
         self.depth = depth
         self.depth_rel = depth_rel
         self.n_rel = n_rel
+        self.rel_bias_cache = rel_bias_cache
         self.compute_dtype = compute_dtype
         dtype = resolve_compute_dtype(compute_dtype)
         num_heads = hidden_dim // head_size

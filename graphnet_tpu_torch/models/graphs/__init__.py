@@ -1,1 +1,10 @@
-"""graphs of the PyTorch/CUDA port (see graphnet_tpu_torch/__init__.py)."""
+"""Graph construction: detectors feed node and edge definitions
+(counterpart of ``graphnet_tpu/models/graphs``)."""
+
+from graphnet_tpu_torch.models.graphs.edges import EdgeDefinition, KNNEdges
+from graphnet_tpu_torch.models.graphs.graph_definition import (
+    Event,
+    GraphDefinition,
+)
+from graphnet_tpu_torch.models.graphs.graphs import EdgelessGraph, KNNGraph
+from graphnet_tpu_torch.models.graphs.nodes import NodeDefinition, NodesAsPulses

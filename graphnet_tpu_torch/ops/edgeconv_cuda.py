@@ -1,8 +1,10 @@
-"""Fused EdgeConv kernels for Hopper (forward and backward), and their
-plain PyTorch versions.
+"""Fused EdgeConv kernels for Hopper (forward, forward + next-layer kNN,
+and backward), and their plain PyTorch versions.
 
 Replaces ``graphnet_tpu/ops/edgeconv_pallas.py``: ``_fwd_kernel`` (the
-forward of ``fused_edgeconv``) and ``_bwd_kernel`` (its custom VJP).
+forward of ``fused_edgeconv``), ``_bwd_kernel`` (its custom VJP) and
+``_fwd_knn_kernel`` (the forward of ``fused_edgeconv_knn``, whose VJP is
+``_bwd_kernel`` too).
 The forward computes, per node,
 
     ``aggr_k em[i,k] act(act(a[i] + b[idx[i,k]]) @ w2 + b2)``
@@ -10,31 +12,43 @@ The forward computes, per node,
 where ``act`` is (leaky) relu with ``slope`` and ``aggr`` is "add" or
 "max" (a node with no valid edge gives 0).  "mean" is "add" divided by
 the valid-edge count outside the kernel, as in the JAX package.  The
-kernels are ``csrc/edgeconv.cu`` and ``csrc/edgeconv_bwd.cu``; their
-header notes say what bounds each on the H100 and what the designs do
-about it (the backward keeps every sum in a fixed order, so it is
-deterministic).
+kernels are ``csrc/edgeconv.cu``, ``csrc/edgeconv_knn.cu`` and
+``csrc/edgeconv_bwd.cu``; their header notes say what bounds each on the
+H100 and what the designs do about it (the backward keeps every sum in a
+fixed order, so it is deterministic).
 
-:func:`fused_edgeconv` is a ``torch.autograd.Function`` on both devices:
-tensors on the CPU take the plain forward and the plain backward
-(:func:`fused_edgeconv_plain`, :func:`fused_edgeconv_bwd_plain`), CUDA
-tensors launch the kernels.  There is no fallback from CUDA to the plain
-versions.
+:func:`fused_edgeconv` and :func:`fused_edgeconv_knn` are
+``torch.autograd.Function`` classes on both devices: tensors on the CPU take
+the plain forwards and the plain backward (:func:`fused_edgeconv_plain`,
+:func:`fused_edgeconv_knn_plain`, :func:`fused_edgeconv_bwd_plain`),
+CUDA tensors launch the kernels.  There is no fallback from CUDA to the
+plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from graphnet_tpu_torch.ops.gather_reduce import gather_neighbors
+from graphnet_tpu_torch.ops.knn import (
+    centre_coords_sequential,
+    select_knn,
+    sq_dists,
+)
 
 _NAME = "edgeconv"
 _BWD_NAME = "edgeconv_bwd"
+_KNN_NAME = "edgeconv_knn"
 MAX_K = 64
+# the fused EdgeConv + kNN: whole events of at most this many nodes (the
+# TPU kernel's bound), at most this many neighbours, on 3 or 4 columns
+KNN_MAX_L = 128
+KNN_MAX_K = 16
+KNN_DIMS = (3, 4)
 AGGRS = ("add", "max")
 HOPPER_SMEM_OPTIN = 232448  # bytes a block may opt in to on sm_90
 _ROWS = 64  # edge rows per block of both kernels
@@ -69,6 +83,45 @@ def fused_edgeconv_plain(
         return torch.where(m, out, 0.0).sum(dim=2)
     r = torch.where(m, out, -1e30).amax(dim=2)
     return torch.where(edge_mask.any(dim=2, keepdim=True), r, 0.0)
+
+
+def fused_edgeconv_knn_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    idx: torch.Tensor,
+    edge_mask: torch.Tensor,
+    nmask: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    aggr: str = "add",
+    slope: float = 0.0,
+    knn_k: int = 8,
+    sub_lo: int = 0,
+    sub_hi: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused EdgeConv + kNN kernel:
+    :func:`fused_edgeconv_plain`, then the ``knn_k`` nearest valid nodes
+    of each node over ``out[..., sub_lo:sub_hi]``, centred in the
+    kernel's fixed order (:func:`~graphnet_tpu_torch.ops.knn.
+    centre_coords_sequential`).  Returns ``(out, nidx, nem)``."""
+    out = fused_edgeconv_plain(a, b, idx, edge_mask, w2, b2, aggr, slope)
+    return (out,) + output_knn_plain(out, nmask, knn_k, sub_lo, sub_hi)
+
+
+def output_knn_plain(
+    out: torch.Tensor,
+    nmask: torch.Tensor,
+    knn_k: int = 8,
+    sub_lo: int = 0,
+    sub_hi: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kNN half of :func:`fused_edgeconv_knn_plain`: ``(nidx, nem)``
+    of the ``knn_k`` nearest valid nodes over ``out[..., sub_lo:sub_hi]``,
+    centred in the kernel's order.  Given the kernel's ``out`` it gives
+    the kernel's neighbours, bit for bit."""
+    with torch.no_grad():
+        c = centre_coords_sequential(out[..., sub_lo:sub_hi], nmask)
+        return select_knn(sq_dists(c, nmask), nmask, knn_k)
 
 
 def fused_edgeconv_bwd_plain(
@@ -141,6 +194,20 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.edgeconv_fwd_smem_bytes.argtypes = [I, I]
         lib.edgeconv_fwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _knn_lib() -> ctypes.CDLL:
+    from graphnet_tpu_torch.kernels import build
+
+    lib = build.load(_KNN_NAME)
+    fn = lib.edgeconv_knn_launch
+    if fn.argtypes is None:  # first use: declare the C signature
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 11 + [I] * 8 + [ctypes.c_float, I, I, P]
+        fn.restype = ctypes.c_int
+        lib.edgeconv_knn_smem_bytes.argtypes = [I, I, I, I]
+        lib.edgeconv_knn_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -245,6 +312,69 @@ def _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope, dev):
     return out
 
 
+# per (device, stream): the fused EdgeConv + kNN kernel's per-event
+# arrival counters, zero between launches (the last block of each event
+# resets its own); launches on one stream run one after another
+_ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _arrival_counters(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    key = (dev, stream)
+    cnt = _ARRIVALS.get(key)
+    if cnt is None or cnt.numel() < B:
+        size = B if cnt is None else max(B, 2 * cnt.numel())
+        cnt = torch.zeros(size, dtype=torch.int32, device=dev)
+        _ARRIVALS[key] = cnt
+    return cnt
+
+
+def _check_knn(nmask, a, w2, knn_k, sub_lo, sub_hi):
+    B, L = a.shape[:2]
+    if nmask.shape != (B, L) or nmask.dtype != torch.bool:
+        raise ValueError(f"nmask must be a bool [B, L] = {(B, L)} tensor")
+    if not 0 <= sub_lo < sub_hi <= w2.shape[1]:
+        raise ValueError(
+            f"the kNN columns [{sub_lo}, {sub_hi}) must lie in the output's "
+            f"{w2.shape[1]}"
+        )
+    if not 1 <= knn_k <= L:
+        raise ValueError(f"knn_k={knn_k} must lie in [1, L={L}]")
+
+
+def _fwd_knn_cuda(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
+                  sub_lo, sub_hi, dev):
+    B, L, H1 = a.shape
+    H2, k = w2.shape[1], idx.shape[2]
+    D = sub_hi - sub_lo
+    if L > KNN_MAX_L or knn_k > KNN_MAX_K or D not in KNN_DIMS:
+        raise ValueError(
+            f"the fused EdgeConv + kNN kernel takes L <= {KNN_MAX_L}, "
+            f"knn_k <= {KNN_MAX_K} and {KNN_DIMS} columns; got L={L}, "
+            f"knn_k={knn_k}, {D} columns"
+        )
+    bf16 = int(a.dtype == torch.bfloat16)
+    lib = _knn_lib()
+    _check_smem(lib.edgeconv_knn_smem_bytes(H1, L, D, bf16), dev, f"H1={H1}")
+    with torch.cuda.device(dev):
+        args = [t.contiguous() for t in (a, b, idx, edge_mask, nmask, w2, b2)]
+        out = torch.empty((B, L, H2), dtype=torch.float32, device=dev)
+        nidx = torch.empty((B, L, knn_k), dtype=torch.int32, device=dev)
+        nem = torch.empty((B, L, knn_k), dtype=torch.bool, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counters = _arrival_counters(dev, stream, B)
+        err = lib.edgeconv_knn_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(), nidx.data_ptr(),
+            nem.data_ptr(), counters.data_ptr(), B, L, H1, H2, k, knn_k,
+            sub_lo, D, float(slope), int(aggr == "max"), bf16, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"edgeconv_knn kernel launch failed: CUDA error {err}"
+        )
+    fused_edgeconv_knn.launches += 1
+    return out, nidx, nem
+
+
 def _dw2_splits(n_edges: int) -> int:
     """Slices of the edge rows in the split-K dW2 product: ~1024 rows
     each, at most 128 (the partials then stay ~44 MB at H1=336, H2=256)."""
@@ -341,14 +471,18 @@ class _FusedEdgeConv(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        a, b, idx, edge_mask, w2, b2 = ctx.saved_tensors
-        da, db, dw2, db2 = fused_edgeconv_bwd(
-            a, b, idx, edge_mask, w2, b2, g, ctx.aggr, ctx.slope
-        )
-        return (
-            da.to(a.dtype), db.to(b.dtype), None, None,
-            dw2.to(w2.dtype), db2.to(b2.dtype), None, None,
-        )
+        da, db, dw2, db2 = _saved_grads(ctx, g)
+        return da, db, None, None, dw2, db2, None, None
+
+
+def _saved_grads(ctx, g):
+    """``(da, db, dw2, db2)`` in the inputs' dtypes, from the tensors a
+    fused EdgeConv forward saved and the output gradient ``g``."""
+    a, b, idx, edge_mask, w2, b2 = ctx.saved_tensors
+    da, db, dw2, db2 = fused_edgeconv_bwd(
+        a, b, idx, edge_mask, w2, b2, g, ctx.aggr, ctx.slope
+    )
+    return da.to(a.dtype), db.to(b.dtype), dw2.to(w2.dtype), db2.to(b2.dtype)
 
 
 def fused_edgeconv(
@@ -375,3 +509,69 @@ def fused_edgeconv(
 
 
 fused_edgeconv.launches = 0
+
+
+class _FusedEdgeConvKnn(torch.autograd.Function):
+    """The fused EdgeConv + kNN; its backward is the EdgeConv backward on
+    the output gradient (the counterpart of ``_fused_knn_bwd``): the
+    neighbour indices and edge mask are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
+                sub_lo, sub_hi):
+        dev = _cuda_device((a, b, idx, edge_mask, w2, b2, nmask),
+                           "fused_edgeconv_knn")
+        if dev is None:
+            out, nidx, nem = fused_edgeconv_knn_plain(
+                a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
+                sub_lo, sub_hi)
+        else:
+            out, nidx, nem = _fwd_knn_cuda(
+                a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
+                sub_lo, sub_hi, dev)
+        ctx.mark_non_differentiable(nidx, nem)
+        ctx.save_for_backward(a, b, idx, edge_mask, w2, b2)
+        ctx.aggr, ctx.slope = aggr, slope
+        return out, nidx, nem
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _g_nidx, _g_nem):
+        da, db, dw2, db2 = _saved_grads(ctx, g)
+        return (da, db, None, None, None, dw2, db2) + (None,) * 5
+
+
+def fused_edgeconv_knn(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    idx: torch.Tensor,
+    edge_mask: torch.Tensor,
+    nmask: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    aggr: str = "add",
+    slope: float = 0.0,
+    knn_k: int = 8,
+    sub_lo: int = 0,
+    sub_hi: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused EdgeConv forward + the kNN of its output, differentiable in
+    ``a``, ``b``, ``w2`` and ``b2`` (the backward is
+    :func:`fused_edgeconv_bwd`).
+
+    Arguments as :func:`fused_edgeconv`, plus ``nmask [B, L]`` bool node
+    validity.  The next layer's adjacency is the ``knn_k`` nearest valid
+    nodes of each node over ``out[..., sub_lo:sub_hi]`` with
+    :func:`~graphnet_tpu_torch.ops.knn.knn_graph`'s contract, centred in
+    a fixed order.  Returns ``(out [B, L, H2] float32, nidx [B, L, knn_k]
+    int32, nem [B, L, knn_k] bool)``.  CUDA tensors need L <= 128,
+    ``knn_k`` <= 16 and 3 or 4 columns.  Counts its kernel launches in
+    ``fused_edgeconv_knn.launches``.
+    """
+    _check(a, b, idx, edge_mask, w2, b2, aggr)
+    _check_knn(nmask, a, w2, knn_k, sub_lo, sub_hi)
+    return _FusedEdgeConvKnn.apply(a, b, idx, edge_mask, nmask, w2, b2, aggr,
+                                   slope, knn_k, sub_lo, sub_hi)
+
+
+fused_edgeconv_knn.launches = 0

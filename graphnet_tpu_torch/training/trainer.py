@@ -7,8 +7,7 @@ stopping on the validation loss with the best weights restored, and the
 same ``state_dict.pkl`` (the JAX parameter tree, pickled) on both sides.
 The model holds its parameters and its device; batches are moved to it.
 Not ported yet: meshes and sharding, ``steps_per_dispatch``, SWA/EMA,
-orbax checkpoints and ``resume``, profiling, prefetch, loggers,
-``predict_as_dataframe``.
+orbax checkpoints and ``resume``, profiling, prefetch, loggers.
 """
 
 from __future__ import annotations
@@ -275,6 +274,59 @@ class Trainer:
         if per_task is None:
             raise ValueError("empty loader")
         return [np.concatenate(chunks, axis=0) for chunks in per_task]
+
+    def predict_as_dataframe(
+        self,
+        loader,
+        additional_attributes: Optional[List[str]] = None,
+    ):
+        """Predictions and the requested truth attributes as a pandas
+        DataFrame, one column per prediction label.  Node-level tasks
+        give one row per valid pulse, with the event attributes repeated
+        per pulse.  pandas is imported here, so the rest of the port
+        does not need it."""
+        import pandas as pd
+
+        additional_attributes = additional_attributes or []
+        columns = self.model.prediction_labels
+        node_level = any(t.node_level for t in self.model.tasks)
+        rows: List[np.ndarray] = []
+        attrs: Dict[str, List[np.ndarray]] = {
+            a: [] for a in additional_attributes
+        }
+        self.model.eval()
+        with torch.inference_mode():
+            for batch in loader:
+                outs = [
+                    pred.float().cpu().numpy()
+                    for pred, _ in self.model(
+                        batch.to(self.device), inference=True
+                    )
+                ]
+                if node_level:
+                    mask = batch.mask.cpu().numpy()
+                    reps = batch.n_pulses.cpu().numpy()
+                    rows.append(np.concatenate([
+                        o[mask] if o.ndim == 3 else np.repeat(o, reps, axis=0)
+                        for o in outs
+                    ], axis=1))
+                else:
+                    reps = None
+                    rows.append(np.concatenate(outs, axis=1))
+                for a in additional_attributes:
+                    v = batch.labels[a].cpu().numpy()
+                    attrs[a].append(v if reps is None else np.repeat(v, reps, axis=0))
+        if not rows:
+            raise ValueError("empty loader")
+        data = np.concatenate(rows, axis=0)
+        if data.shape[1] != len(columns):
+            raise ValueError(
+                f"prediction width {data.shape[1]} != labels {columns}"
+            )
+        df = pd.DataFrame(data, columns=columns)
+        for a in additional_attributes:
+            df[a] = np.concatenate(attrs[a], axis=0)
+        return df
 
     # ------------------------------------------------------------------
     def save_state_dict(self, path: str) -> None:

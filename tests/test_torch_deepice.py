@@ -5,10 +5,12 @@ paths (the JAX kernels in Pallas interpret mode), ``Trainer.fit``,
 options that are not ported."""
 
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 import jax
 
@@ -276,6 +278,62 @@ def test_scale_leaf_carried_by_the_model_layout():
     assert "backbone.fourier_ext.sin_emb.scale" not in blind
     back = params_to_jax(sd)
     assert jax.tree_util.tree_all(jax.tree_util.tree_map(np.array_equal, back, tree))
+
+
+# ------------------------------------------------------- the zoo configs
+ZOO = Path(__file__).resolve().parent.parent / "configs/models/zoo/kaggle_icemix"
+
+
+def _zoo_arguments(name):
+    with open(ZOO / name / "model.yml") as f:
+        spec = yaml.safe_load(f)
+    return spec["arguments"]["backbone"]["__model__"]["arguments"]
+
+
+@pytest.mark.parametrize("name", ["B_d32", "B_d32_4rel", "B_d64"])
+def test_zoo_config_builds_and_matches_jax(name):
+    """The backbone arguments of each zoo file whose options the port
+    has build the port's DeepIce unchanged (``B_d64``: head dim 64 takes
+    the dense rel path).  Narrowed to two heads and one block, the port
+    model matches the JAX model built from the same arguments (rtol
+    2e-4, as the narrow models above)."""
+    args = _zoo_arguments(name)
+    model = DeepIce(**args)
+    assert model.hidden_dim == args["hidden_dim"] and model.depth == args["depth"]
+    assert model.sandwich_0.attn.uses_rel_kernel(args["head_size"]) == (
+        args["head_size"] != 64)
+    del model
+    narrow = {**args, "hidden_dim": 2 * args["head_size"], "depth": 1}
+    jbs, tbs = _batches(12, [[40, 3, 17]], length=64)
+    jmodel = JaxStandardModel(
+        backbone=JaxDeepIce(**narrow),
+        tasks=(JaxDirection(loss_function=jlf.VonMisesFisher3DLoss()),))
+    params = _random_tree(
+        jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jbs[0]), 13)
+    j_pred = np.asarray(jmodel.apply(params, jbs[0])[0][0])
+    model = StandardModel(
+        DeepIce(**narrow),
+        [DirectionReconstructionWithKappa(hidden_size=narrow["hidden_dim"])],
+        device="cpu")
+    model.load_state_dict(params_from_jax(params, model.state_dict()))
+    with torch.no_grad():
+        pred = model(tbs[0])[0][0]
+    np.testing.assert_allclose(pred.numpy(), j_pred, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["S+DynEdge_d32", "B+DynEdge_d64"])
+def test_zoo_config_with_dynedge_is_not_ported(name):
+    """``dynedge_args`` is accepted; ``include_dynedge`` is what raises."""
+    with pytest.raises(NotImplementedError, match="include_dynedge"):
+        DeepIce(**_zoo_arguments(name))
+
+
+def test_deepice_accepts_rel_bias_cache():
+    for cache in ("auto", "always", "never"):
+        DeepIce(rel_bias_cache=cache, **NARROW)  # ignored with the kernels
+    with pytest.raises(NotImplementedError, match="chunked"):
+        DeepIce(rel_flash="never", rel_bias_chunks=4, rel_bias_cache="always",
+                **NARROW)
 
 
 # ----------------------------------------------- Trainer and deployment

@@ -190,8 +190,10 @@ def test_tito_rejects_dropout_and_empty_pooling():
 @pytest.mark.parametrize(
     "options",
     [dict(use_global_features=False),
-     dict(use_post_processing_layers=False, global_pooling_schemes=("max", "mean"))],
-    ids=["no_global_features", "no_post_processing_two_pools"],
+     dict(use_post_processing_layers=False, global_pooling_schemes=("max", "mean")),
+     dict(deterministic=False)],
+    ids=["no_global_features", "no_post_processing_two_pools",
+         "not_deterministic_without_dropout"],
 )
 def test_tito_options_match_jax(options):
     jbs, tbs = _batches(1, [[20, 9]])
