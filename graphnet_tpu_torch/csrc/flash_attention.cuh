@@ -1,14 +1,15 @@
 // Pieces shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): the numerics helpers and the row layout.
+// flash_attention_bwd.cu) and the relative-bias ones: the numerics
+// helpers, and the row layout of the dq kernel.
 //
-// Each row of q, k, v, o or g (head dim DH = 32 or 64) belongs to
-// SPLIT = DH / 32 adjacent threads of a warp, each holding 32 of its
+// dq layout: each row of q, k, v or g (head dim DH = 32 or 64) belongs
+// to SPLIT = DH / 32 adjacent threads of a warp, each holding 32 of its
 // elements in registers; a dot product is a 32-term partial sum per
 // thread, then a butterfly sum over the SPLIT lanes (both lanes end with
 // the same bits).  Tiles of rows are staged in shared memory as fp32 in
 // segments of 32 elements padded to 36 floats, so the SPLIT segments of
 // one row, read together by the two lanes of a pair, sit in different
-// banks.
+// banks.  The forward and dkv kernels tile with flash_mma.cuh instead.
 
 #pragma once
 

@@ -75,8 +75,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named kernels, all ``nvcc`` processes at once.
 
     Returns each kernel's compiler log (ptxas register and spill report
-    included); an empty log means the library was already built.
-    Raises ``RuntimeError`` if a compile fails.
+    included); for a library built before, the log kept beside it ("" if
+    there is none).  Raises ``RuntimeError`` if a compile fails.
     """
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,7 +88,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed: List[str] = []
             for n, proc in procs.items():
                 if proc is None:
-                    logs[n] = ""
+                    log = _library_path(n).with_suffix(".log")
+                    logs[n] = log.read_text() if log.exists() else ""
                     continue
                 out, _ = proc.communicate()
                 logs[n] = out

@@ -207,12 +207,24 @@ def _check_kernel(q):
         )
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data 16-byte aligned, as the kernels'
+    ``cp.async`` copies need: ``t`` itself when it is, else a copy
+    (a contiguous view whose storage offset is not a multiple of 16
+    bytes is copied)."""
+    t = t.contiguous()
+    if t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 def _launch(fn, counter, name, ins, outs, q, scale, dev):
-    """Call a kernel's C entry on ``ins`` (made contiguous), writing into
-    the fresh ``outs``; raises on a launch error."""
+    """Call a kernel's C entry on ``ins`` (made contiguous and 16-byte
+    aligned), writing into the fresh ``outs``; raises on a launch
+    error."""
     B, H, L, Dh = q.shape
     with torch.cuda.device(dev):
-        ins = [t.contiguous() for t in ins]
+        ins = [aligned16(t) for t in ins]
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             *(t.data_ptr() for t in ins), B * H, H, L, Dh, float(scale),

@@ -68,10 +68,22 @@ def _port_flash(q, k, v, mask, g, dtype=torch.float32):
     return o, [t.grad for t in ts]
 
 
-@pytest.mark.parametrize("masks", list(MASKS))
-def test_flash_fp32_matches_jax(masks):
-    q, k, v, g = _qkvg()
-    mask = MASKS[masks](128)
+# (mask, L, Dh): the three masks at L=128, Dh=32, then the lengths at
+# the CUDA kernels' 64-row tile edges and the DeepIce Block's 769, at
+# both head dims, with "padding" where it leaves every event a valid key
+FP32_CASES = [pytest.param(m, 128, 32, id=m) for m in MASKS] + [
+    pytest.param(m, L, D, id=f"{m}-L{L}-Dh{D}")
+    for D in (32, 64)
+    for L in (1, 65, 129, 769)
+    for m in ("no_padding", "padding")
+    if m == "no_padding" or L >= 65
+]
+
+
+@pytest.mark.parametrize("masks,L,D", FP32_CASES)
+def test_flash_fp32_matches_jax(masks, L, D):
+    q, k, v, g = _qkvg(L=L, D=D)
+    mask = MASKS[masks](L)
     o_j, grads_j = _jax_flash(q, k, v, mask, g)
     o_t, grads_t = _port_flash(q, k, v, mask, g)
     assert o_t.dtype == torch.float32
@@ -168,6 +180,25 @@ def test_flash_wrappers_take_the_plain_version_on_the_cpu_and_check_inputs():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa._check_kernel(torch.zeros(1, 1, 4, 32, dtype=torch.float16))
     assert tfa.supported(32) and tfa.supported(64) and not tfa.supported(16)
+
+
+def test_aligned16_passes_an_aligned_tensor_through():
+    t = torch.randn(4, 32)
+    assert t.data_ptr() % 16 == 0
+    assert tfa.aligned16(t).data_ptr() == t.data_ptr()
+
+
+def test_aligned16_copies_an_offset_view_to_aligned_memory():
+    base = torch.randn(2 * 64 + 1)
+    view = base[1:].view(2, 64)  # contiguous, 4 bytes past an aligned start
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = tfa.aligned16(view)
+    assert got.data_ptr() % 16 == 0 and got.data_ptr() != view.data_ptr()
+    assert torch.equal(got, view)
+    bf = torch.randn(65).to(torch.bfloat16)[1:]  # 2 bytes off
+    assert bf.data_ptr() % 16 == 2
+    got = tfa.aligned16(bf)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, bf)
 
 
 def test_flash_default_scale_is_applied_to_q_in_its_dtype():
