@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
 2. build: compiles every CUDA kernel of the port from
    ``graphnet_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
    build_flash: the registers, shared memory and spills of the flash
-   forward and dkv kernels (rows 5a and 5c), from the ptxas report;
+   forward, dq and dkv kernels (rows 5a-c), from the ptxas report;
+   build_edgeconv_bwd: the same for each kernel of the EdgeConv
+   backward (row 3);
 3. knn: the kNN kernel against its plain PyTorch version on the card,
    for x, y, z (D=3) and x, y, z, t (D=4, TITO's graph);
 4. edgeconv: the fused EdgeConv forward kernel against its plain version;
@@ -22,9 +24,9 @@ Phases, each printing one JSON line:
    neighbours those of the plain kNN of that ``out``, the same bits
    twice;
 5. edgeconv_bwd: the EdgeConv backward kernel against its plain version
-   (both layer shapes, add/max/mean, fp32 and bf16, a 1-node and an
-   all-masked event, L=512 and L=4096), and whether two runs give the
-   same bits;
+   (both layer shapes and H1=100, H2=72, add/max/mean, fp32 and bf16,
+   k = 8, 1, 12 and 64, a 1-node and an all-masked event, L=512 and
+   L=4096); two runs must give the same bits;
 6. flash, flash_bwd: the flash-attention forward, dq and dkv kernels
    against their plain versions (head dims 32 and 64, L = 1, 63, 64,
    65, 129, 128, 1000 and 1024, and the DeepIce path's shapes, 12 heads
@@ -87,7 +89,8 @@ Phases, each printing one JSON line:
    L = 128, 512 and 1024, at the DeepIce path's B=16, H=12 and L = 768
    and 769 with ragged events, and at Dh=64; the rel
    attention beside the port's dense biased path at L = 768, 1536 and
-   3072; serving events/s and single-event latency; training step ms and
+   3072; the EdgeConv backward's device time by launch over one call at
+   H1=336; serving events/s and single-event latency; training step ms and
    events/s; device time by kernel for serving and for training; peak
    memory of a training step;
 13. a ``kernels`` line with every ported kernel and its row of the
@@ -181,6 +184,24 @@ ICE_BF16_TRAIN = dict(loss_rtol=3e-3, grad_tol=3e-2, grad_norm="l2")
 ICE_FP32_TRAIN = dict(loss_rtol=1e-4, grad_tol=1e-4)
 
 
+def kernel_name(mangled):
+    """A readable name of a mangled kernel of the port's sources: the
+    last name of its nested name (after the namespaces) and its template
+    argument (a head dim, float or bf16)."""
+    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        pos += len(m.group())
+        name = mangled[pos:pos + int(m.group())]
+        pos += int(m.group())
+    t = re.match(r"I(?:Li(\d+)E|(f)|13__nv_bfloat16)E", mangled[pos:])
+    if t:
+        name += "<" + (t.group(1) or ("float" if t.group(2) else "bf16")) + ">"
+    return name
+
+
 def ptxas_table(log, match):
     """Per kernel entry of an ``nvcc -Xptxas -v`` log whose mangled name
     contains ``match``: its name, registers, static shared memory, stack
@@ -191,10 +212,7 @@ def ptxas_table(log, match):
         if m:
             cur = None
             if match in m.group(1):
-                name = re.search(r"\d+(flash_\w+?_kernel)", m.group(1))
-                dh = re.search(r"Li(\d+)E", m.group(1))
-                cur = {"kernel": (name.group(1) if name else m.group(1))
-                       + (f"<{dh.group(1)}>" if dh else "")}
+                cur = {"kernel": kernel_name(m.group(1))}
                 rows.append(cur)
             continue
         if cur is None:
@@ -723,8 +741,11 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
                        shapes=((128, 256), (336, 256))):
     """Phase 5: the EdgeConv backward kernel against its plain version,
     each of da, db, dW2, db2 within 1e-4 (fp32) or 2e-2 (bf16) of the
-    plain output's max |value|; the kernel runs twice and the bits of
-    the two runs are compared."""
+    plain output's max |value|; the kernel runs twice and the two runs
+    must give the same bits.  Cases: both layer shapes of DynEdge and
+    widths that are no multiple of the kernel's tiles (H1=100, H2=72);
+    add, max and mean; k = 8, 1, 12 (no divisor of the 64 rows of a
+    block) and 64; a 1-node and an all-masked event, L = 512 and 4096."""
     x, m = ragged_coords(torch, rng, B, L, L // 2, dev)
     main = ops["knn_plain"](x, m, K)
     xt, mt = ragged_coords(torch, rng, 3, 16, 16, dev)
@@ -734,18 +755,35 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
     tiny = ops["knn_plain"](xt, mt, K)
     g512 = ops["knn_plain"](*ragged_coords(torch, rng, 1, 512, 400, dev), K)
     g4096 = ops["knn_plain"](*ragged_coords(torch, rng, 1, 4096, 3000, dev), K)
+    # k = 1, a k that does not divide the kernel's 64 edge rows (a block
+    # then holds 60), and the largest k, one node a block
+    g_k1 = ops["knn_plain"](*ragged_coords(torch, rng, 8, 64, 32, dev), 1)
+    g_k12 = ops["knn_plain"](*ragged_coords(torch, rng, 8, 64, 32, dev), 12)
+    g_k64 = ops["knn_plain"](*ragged_coords(torch, rng, 2, 96, 70, dev), 64)
     f32, b16 = torch.float32, torch.bfloat16
     cases = []
     for h1, h2 in shapes:
         cases += [(f"B{B}_L{L}", main, h1, h2, f32, "add", 0.0, False),
                   (f"B{B}_L{L}", main, h1, h2, f32, "max", 0.01, False),
                   (f"B{B}_L{L}", main, h1, h2, f32, "add", 0.0, True),
-                  (f"B{B}_L{L}", main, h1, h2, b16, "add", 0.0, False)]
+                  (f"B{B}_L{L}", main, h1, h2, b16, "add", 0.0, False),
+                  (f"B{B}_L{L}", main, h1, h2, b16, "max", 0.01, False)]
     cases += [("tiny_events_L16", tiny, 128, 256, f32, "add", 0.0, False),
               ("tiny_events_L16", tiny, 128, 256, f32, "max", 0.01, False),
               ("one_event_L512", g512, 336, 256, f32, "add", 0.0, False),
               ("one_event_L512", g512, 336, 256, b16, "add", 0.0, False),
-              ("one_event_L4096", g4096, 336, 256, f32, "add", 0.0, False)]
+              ("one_event_L4096", g4096, 336, 256, f32, "add", 0.0, False),
+              # widths that are no multiple of the kernel's tiles
+              (f"B{B}_L{L}", main, 100, 72, f32, "add", 0.0, False),
+              (f"B{B}_L{L}", main, 100, 72, f32, "max", 0.01, False),
+              (f"B{B}_L{L}", main, 100, 72, b16, "max", 0.01, False),
+              ("k1_B8_L64", g_k1, 100, 72, f32, "max", 0.01, False),
+              ("k1_B8_L64", g_k1, 336, 256, b16, "add", 0.0, False),
+              ("k12_B8_L64", g_k12, 336, 256, f32, "max", 0.01, False),
+              ("k12_B8_L64", g_k12, 100, 72, b16, "add", 0.0, False),
+              ("k12_B8_L64", g_k12, 128, 256, b16, "max", 0.01, False),
+              ("k64_B2_L96", g_k64, 128, 256, f32, "add", 0.0, False),
+              ("k64_B2_L96", g_k64, 336, 256, b16, "max", 0.01, False)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     report = []
     for label, (idx, em), h1, h2, dtype, aggr, slope, mean in cases:
@@ -776,12 +814,13 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
         if label.startswith("tiny"):  # no edge, no gradient
             for t in got[:2]:
                 assert not bool(t[0].any()) and not bool(t[1].any())
+        same = all(torch.equal(p, q) for p, q in zip(got, again))
+        assert same, f"{label} H1={h1} {key} {aggr}: two runs gave other bits"
         report.append({
-            "case": label, "H1": h1, "H2": h2, "dtype": key,
-            "aggr": "mean" if mean else aggr, "slope": slope,
+            "case": label, "H1": h1, "H2": h2, "k": idx.shape[2],
+            "dtype": key, "aggr": "mean" if mean else aggr, "slope": slope,
             "edges": int(em.sum()), "g_zeroed_ambiguous": zeroed,
-            "rel_err_to_max": rel,
-            "same_bits_twice": all(torch.equal(p, q) for p, q in zip(got, again)),
+            "rel_err_to_max": rel, "same_bits_twice": same,
         })
     return worst, report
 
@@ -1142,7 +1181,9 @@ def bwd_times(torch, ops, rng, dev, peaks, B=128, L=128,
               shapes=((128, 256), (336, 256))):
     """Phase 8b: the backward kernel and its plain version at the
     training shape, with its bound: 3 products of 2*E*H1*H2 flops over
-    the E valid edges, against every input read and output written once."""
+    the E valid edges, against every input read and output written once;
+    at H1=336 also each launch's device time over one call
+    (``torch.profiler``)."""
     x, m = ragged_coords(torch, rng, B, L, 65, dev)
     idx, em = ops["knn"](x, m, K)
     n_edges = float(em.sum())
@@ -1169,6 +1210,9 @@ def bwd_times(torch, ops, rng, dev, peaks, B=128, L=128,
                 bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="bytes" if t_b >= t_o else "operations",
             )
+            if h1 == 336:  # device time of each of the call's launches
+                times[f"launches_one_call_{key}"] = device_profile(
+                    torch, lambda: ops["edgeconv_bwd"](*args), calls=1)["top"]
     return times
 
 
@@ -2072,10 +2116,11 @@ def main() -> int:
              for n, log in logs.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "ptxas": ptxas})
-    # rows 5a and 5c: registers, shared memory and spills of each kernel
+    # rows 5a-c: registers, shared memory and spills of each kernel
     flash_ptxas = []
     for lib, kern, entry in (
         ("flash_attention", "flash_fwd_", "flash_fwd_smem_bytes"),
+        ("flash_attention_bwd", "flash_dq_", "flash_bwd_dq_smem_bytes"),
         ("flash_attention_bwd", "flash_dkv_", "flash_bwd_dkv_smem_bytes"),
     ):
         smem = getattr(build.load(lib), entry)
@@ -2085,6 +2130,16 @@ def main() -> int:
             row["dynamic_smem_bytes"] = smem(dh, int("mma" in row["kernel"]))
             flash_ptxas.append(row)
     emit({"phase": "build_flash", "kernels": flash_ptxas})
+    # row 3: each kernel of the backward; the edge kernel's dynamic
+    # shared memory at DynEdge's H1=336, H2=256, k=8
+    smem = build.load("edgeconv_bwd").edgeconv_bwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    bwd_ptxas = ptxas_table(logs["edgeconv_bwd"], "_Z")
+    for row in bwd_ptxas:
+        if row["kernel"].startswith("bwd_edge"):
+            row["dynamic_smem_bytes_H1_336_H2_256_k8"] = smem(
+                336, 256, K, int("bf16" in row["kernel"]))
+    emit({"phase": "build_edgeconv_bwd", "kernels": bwd_ptxas})
 
     # 3. kNN kernel vs plain
     t0 = time.perf_counter()

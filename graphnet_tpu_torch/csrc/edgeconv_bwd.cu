@@ -25,348 +25,855 @@
 // (the custom VJP of fused_edgeconv).  On the TPU the grid ran in order,
 // so the db, dW2 and db2 sums were free of races; here blocks run in
 // parallel, and the design keeps every sum in a fixed order, so two runs
-// give the same bits (no floating-point atomics).  Nine launches:
+// give the same bits (no floating-point atomics).  Six launches (seven
+// in fp32, which first transposes W2):
 //
-//   1. edge rows.  bwd_gm: 64 rows a block (64/k whole nodes of one
-//      event), as the forward: messages in shared memory, pre2 by
-//      CUDA-core FMAs (one thread per output column, 64 accumulators),
-//      routing; writes the msgs and gm rows to scratch and the block's
-//      partial of db2.  bwd_gz: gz = gm W2^T as a tiled product over all
-//      edge rows (128x128 tiles, 8x8 outputs a thread; W2^T transposed
-//      once so its reads coalesce), the z gate in the epilogue; fp32 gz
-//      rows to scratch.  bwd_da sums each node's k rows.
-//   2. dW2 = msgs^T gm, the same tiled product split over S slices of
-//      the edge rows; the S partials and the db2 partials are summed in
-//      a fixed order.
-//   3. db: one block per event builds the reverse (CSR) index of incoming
-//      edges, ordered by edge id; then one block per node sums the gz
-//      rows of its incoming edges in that order (each rounded to bf16
-//      first in the bf16 mode).
+//   1. bwd_edge, one block of 64 edge rows (64/k whole nodes of one
+//      event, as the forward; fewer rows when k does not divide 64).
+//      The neighbours' b rows and the nodes' a rows come in by cp.async
+//      and become the messages (and their z > 0 bits) in shared memory;
+//      pre2 = msgs.W2 + b2 over W2 tiles streamed through a ring of
+//      cp.async stages; the routing gives gm, which replaces the
+//      messages; g_z = (gm.W2^T) * act'(z) a pass of columns at a time
+//      over the ring again; da sums each node's k rows of g_z in order.
+//      Only what crosses blocks leaves: the gm rows (for dW2), the g_z
+//      rows in the compute type (for db), the block's partial of db2.
+//      A block of padding nodes (no valid edge) writes its zeros and
+//      stops.
+//   2. bwd_dw2: dW2 = msgs^T gm in 128 x 128 tiles, split over slices of
+//      at most 1024 edge rows; each slice streams its valid edges' a, b
+//      and gm rows through a ring of cp.async stages and forms msgs from
+//      a and b where it reads them.  sum_partials adds the slices'
+//      partials and sum_partials_long the db2 partials, each in a fixed
+//      order.
+//   3. db: bwd_csr, one block per event, builds the reverse (CSR) index
+//      of incoming edges, ordered by edge id; bwd_db, one block per
+//      node, sums the g_z rows of its incoming edges in that order.
 //
 // What bounds it on the H100: operations.  It does three products of
 // 2*E*H1*H2 flops (E valid edges): about 3x the forward's.  At DynEdge's
 // layers 1-3 (H1=336, H2=256), B=128, L=128, k=8 with ~75 % of the edges
-// valid that is ~51 GFLOP, a bound of ~0.76 ms on the fp32 CUDA cores.
-// This is a simple version: CUDA-core FMAs in both precisions (no
-// tensor cores, TMA or wgmma yet), and the scratch rows (msgs, gm, gz:
-// ~0.5 GB at that shape) go through device memory.
+// valid that is ~51 GFLOP: 0.76 ms on the fp32 CUDA cores, 0.05 ms on
+// the bf16 tensor cores.  bf16 runs the products on the tensor cores
+// (mma.sync.m16n8k16 with ldmatrix fragments; mma_bf16.cuh), fp32 on the
+// CUDA cores in full fp32 (no TF32) with 8 x 8 and 8 x 4 register
+// micro-tiles.  The products run well below both rates, and with one
+// block an SM (the edge kernel's shared memory) nothing overlaps the
+// routing, the g_z epilogues and the message staging (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edgeconv.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int kRows = 64;      // edge rows per block of the edge kernel
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTile = 128;     // dW2 tile edge
-constexpr int kStage = 16;     // edge rows per dW2 shared-memory stage
+using bf16_t = __nv_bfloat16;
+using ec::act;
+using ec::kRows;
+using ec::kThreads;
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::ldmatrix_x4;
+using hopper::ldmatrix_x4_trans;
+using hopper::mma_bf16;
+using hopper::pack_bf16;
 
-__device__ __forceinline__ float act(float x, float slope) {
-  return slope == 0.0f ? fmaxf(x, 0.0f) : (x > 0.0f ? x : slope * x);
-}
+constexpr int kTile = 128;    // dW2 tile edge (h and c)
+constexpr int kChunk = 1024;  // at most this many edge rows per dW2 slice
+constexpr int kDwStages = 3;  // dW2 stages in flight
+
+// Per compute type, the edge kernel's streamed tiles and the dW2 stage.
+// pre2 = msgs.W2 streams tiles of kPreR rows (h) x kPreC columns (c) of
+// W2, column chunk by column chunk of pre2; g_z = gm.W2^T, kGzN of its
+// columns (h) a pass, streams tiles of kGzR x kGzC: of W2 (bf16: rows h,
+// columns c, read by ldmatrix) or of W2^T (fp32: rows c, columns h, read
+// along h by float4).  kStages tiles in the ring, so that the copies
+// from L2 in flight cover their latency.  kStage edge rows per dW2
+// stage.
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<bf16_t> {
+  static constexpr int kStages = 4, kPreR = 64, kPreC = 128, kGzR = 64,
+                       kGzC = 128, kGzN = 64, kStage = 32;
+  static constexpr bool kGzT = false;
+};
+template <>
+struct Cfg<float> {
+  static constexpr int kStages = 3, kPreR = 16, kPreC = 256, kGzR = 16,
+                       kGzC = 128, kGzN = 128, kStage = 16;
+  static constexpr bool kGzT = true;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f(bf16_t x) { return __bfloat162float(x); }
 
-// x rounded to the compute type T, as a float
 template <typename T>
-__device__ __forceinline__ float round_c(float x);
+__device__ __forceinline__ T from_f(float x);
 template <>
-__device__ __forceinline__ float round_c<float>(float x) {
+__device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
 template <>
-__device__ __forceinline__ float round_c<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ bf16_t from_f<bf16_t>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
-// Neighbour index and edge validity of the block's 64 rows; rows past
-// the block's nodes, past L, or with an out-of-range index are invalid
-// (the forward kernel's rule).
-__device__ __forceinline__ void load_edges(const int32_t* __restrict__ idx,
-                                           const uint8_t* __restrict__ em,
-                                           int ev, int n0, int L, int k,
-                                           int rows, int* s_idx,
-                                           uint8_t* s_em) {
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    int j = 0;
-    uint8_t e = 0;
-    const int node = n0 + r / k;
-    if (r < rows && node < L) {
-      const size_t o = ((size_t)ev * L + node) * k + r % k;
-      j = idx[o];
-      e = em[o];
-      if (j < 0 || j >= L) {
-        j = 0;
-        e = 0;
-      }
-    }
-    s_idx[r] = j;
-    s_em[r] = e;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float at4(const float4& x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// the 8 values at p (16-byte aligned), as floats
+__device__ __forceinline__ void load8(float (&v)[8], const bf16_t* p) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    v[2 * i] = __bfloat162float(h.x);
+    v[2 * i + 1] = __bfloat162float(h.y);
+  }
+}
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 x = ld4(p), y = ld4(p + 4);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
+}
+
+// v rounded to T into dst (16-byte aligned)
+__device__ __forceinline__ void store8(bf16_t* dst, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The edge kernel's shared memory for compute type T and k neighbours,
+// in order: the messages, later the gm rows (row strides ldm, ldg: the
+// padded widths and 16 bytes); pre2 in fp32 (ldp), later the g_z
+// staging; the ring of tiles (slot elements each); the z > 0 bits of the
+// messages, a byte per 8 columns (nzb bytes a row); the block's
+// neighbour indices and edge flags.  The nodes' a rows are staged first
+// where pre2 and the ring go (a_bytes); `early`: they leave the ring
+// free, so that its first tiles can be in flight meanwhile.  Widths are
+// padded with zeros to H1p (a multiple of the g_z pass) and H2p (of a
+// pre2 column chunk).
+struct EdgeLayout {
+  int H1p, H2p, ldm, ldg, ldp, slot, nzb;
+  size_t msg_bytes, pre_bytes, w_bytes, a_bytes, bits_bytes, total;
+  bool early;
+};
+
+template <typename T>
+__host__ __device__ inline EdgeLayout edge_layout(int H1, int H2, int k) {
+  using C = Cfg<T>;
+  constexpr int el = (int)sizeof(T), pad = 16 / el;
+  constexpr int kPreSlot = C::kPreR * (C::kPreC + pad);
+  constexpr int kGzSlot = C::kGzR * (C::kGzC + pad);
+  EdgeLayout s;
+  s.H1p = (H1 + C::kGzN - 1) / C::kGzN * C::kGzN;
+  s.H2p = (H2 + C::kPreC - 1) / C::kPreC * C::kPreC;
+  s.ldm = s.H1p + pad;
+  s.ldg = s.H2p + pad;
+  s.ldp = s.H2p + 8;
+  s.slot = kPreSlot > kGzSlot ? kPreSlot : kGzSlot;
+  s.nzb = s.H1p / 8;
+  s.msg_bytes = (size_t)kRows * (s.ldm > s.ldg ? s.ldm : s.ldg) * el;
+  s.pre_bytes = (size_t)kRows * s.ldp * 4;
+  s.w_bytes = (size_t)C::kStages * s.slot * el;
+  s.a_bytes = (size_t)(kRows / k) * s.ldm * el;
+  s.early = s.a_bytes <= s.pre_bytes;
+  s.bits_bytes = ((size_t)kRows * s.nzb + 15) / 16 * 16;
+  const size_t stage = s.pre_bytes + s.w_bytes;
+  s.total = s.msg_bytes + (stage > s.a_bytes ? stage : s.a_bytes) +
+            s.bits_bytes + kRows * (4 + 1);
+  return s;
+}
+
+// Start the 16-byte copy of src into dst, or zeros where src is null
+// (`base`: any valid source address, named where nothing is read).
+template <typename T>
+__device__ __forceinline__ void copy16(T* dst, const T* src, const T* base) {
+  cp_async16(dst, src ? src : base, src ? 16 : 0);
+}
+
+// Start the copy of rows [r0, r0 + R) x columns [c0, c0 + C) of src
+// ([*][ld]) into dst ([R][C + 16 bytes]), zeros outside [0, rows) x
+// [0, cols) (cols a multiple of 16 bytes).  Commits nothing.
+template <typename T, int R, int C>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
+                                          int ld, int r0, int c0, int rows,
+                                          int cols) {
+  constexpr int kPer = 16 / (int)sizeof(T), kCpr = C / kPer;
+  for (int i = threadIdx.x; i < R * kCpr; i += kThreads) {
+    const int r = i / kCpr, c = (i % kCpr) * kPer;
+    const bool in = r0 + r < rows && c0 + c < cols;
+    copy16(dst + r * (C + kPer) + c,
+           in ? src + (size_t)(r0 + r) * ld + c0 + c : nullptr, src);
   }
 }
 
-// Messages, pre2 and the routed, gated gradient gm of 64 edge rows;
-// writes the msgs and gm rows and the block's partial of db2.
+// ---- the products of the edge kernel, per compute type: pre2 over a
+// column chunk of kPreC (Acc::pre a thread), g_z over a pass of kGzN
+// columns (Acc::gz a thread), a streamed tile a step.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bwd_gm(const T* __restrict__ a, const T* __restrict__ b,
-           const int32_t* __restrict__ idx, const uint8_t* __restrict__ em,
-           const T* __restrict__ w2, const T* __restrict__ b2,
-           const float* __restrict__ g, float* __restrict__ msgs_out,
-           float* __restrict__ gm_out, float* __restrict__ db2_part, int L,
-           int H1, int H2, int k, int tl, float slope, int aggr_max) {
-  // msg [kRows][H1p] | s_idx [kRows] | s_em [kRows]
-  extern __shared__ __align__(16) float smem[];
-  const int H1p = (H1 + 3) & ~3;
-  float* msg = smem;
-  int* s_idx = reinterpret_cast<int*>(msg + kRows * H1p);
+struct Acc;
+template <>
+struct Acc<bf16_t> {  // mma C fragments: [n-tile][4]
+  using pre = float[8][4];
+  using gz = float[4][4];
+};
+template <>
+struct Acc<float> {  // [row i][column]
+  using pre = float[8][8];
+  using gz = float[8][4];
+};
+
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
+}
+template <int L, int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[L][M][N]) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) zero(acc[i]);
+}
+
+// bf16: warp w owns rows 16 (w & 3) .. + 15; of a pre2 chunk the 64
+// columns 64 (w >> 2) .. (8 n-tiles), of a g_z pass the 32 columns
+// 32 (w >> 2) .. (4 n-tiles).  The W2 tiles are [h][c]: B fragments of
+// pre2 by ldmatrix.trans, of g_z by ldmatrix.
+__device__ __forceinline__ void pre_step(float (&acc)[8][4],
+                                         const bf16_t* msg, int ldm, int h0,
+                                         const bf16_t* w) {
+  constexpr int ldw = Cfg<bf16_t>::kPreC + 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp & 3, cg = warp >> 2;
+#pragma unroll
+  for (int ks = 0; ks < Cfg<bf16_t>::kPreR / 16; ++ks) {
+    uint32_t af[4];
+    ldmatrix_x4(af, msg + (rg * 16 + (lane & 15)) * ldm + h0 + ks * 16 +
+                        (lane >> 4) * 8);
+    const int hr = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, w + hr * ldw + cg * 64 + np * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * np], af, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void pre_store(const float (&acc)[8][4], float* pre,
+                                          int ldp, int c0,
+                                          const bf16_t* __restrict__ b2,
+                                          int H2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp & 3, cg = warp >> 2;
+  const int gq = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = c0 + cg * 64 + n * 8 + c;
+    const float bias0 = col < H2 ? to_f(b2[col]) : 0.f;
+    const float bias1 = col + 1 < H2 ? to_f(b2[col + 1]) : 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rg * 16 + gq + 8 * r;
+      *reinterpret_cast<float2*>(pre + row * ldp + col) = make_float2(
+          acc[n][2 * r] + bias0, acc[n][2 * r + 1] + bias1);
+    }
+  }
+}
+
+__device__ __forceinline__ void gz_step(float (&acc)[4][4], const bf16_t* gm,
+                                        int ldg, int c0, const bf16_t* w) {
+  constexpr int ldw = Cfg<bf16_t>::kGzC + 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp & 3, hg = warp >> 2;
+#pragma unroll
+  for (int ks = 0; ks < Cfg<bf16_t>::kGzC / 16; ++ks) {
+    uint32_t af[4];
+    ldmatrix_x4(af, gm + (rg * 16 + (lane & 15)) * ldg + c0 + ks * 16 +
+                        (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, w + (hg * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                             ldw +
+                         ks * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * np], af, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void gz_store(const float (&acc)[4][4], float* gzs,
+                                         int ldz) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp & 3, hg = warp >> 2;
+  const int gq = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(gzs + (rg * 16 + gq + 8 * r) * ldz + hg * 32 +
+                                 n * 8 + c) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+}
+
+// fp32: warp w owns rows w + 8 i (i < 8), lane l the columns 4 l .. + 3
+// and, of a pre2 chunk, 128 + 4 l .. + 3: 8 x 8 (pre2) and 8 x 4 (g_z)
+// micro-tiles, each operand read as float4, the rows' along k (a
+// broadcast in the warp), the tile's along the lanes.
+__device__ __forceinline__ void pre_step(float (&acc)[8][8], const float* msg,
+                                         int ldm, int h0, const float* w) {
+  constexpr int ldw = Cfg<float>::kPreC + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int hh = 0; hh < Cfg<float>::kPreR; hh += 4) {
+    float4 mv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mv[i] = ld4(msg + (warp + 8 * i) * ldm + h0 + hh);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 w0 = ld4(w + (hh + u) * ldw + 4 * lane);
+      const float4 w1 = ld4(w + (hh + u) * ldw + 128 + 4 * lane);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float m = at4(mv[i], u);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(m, wv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void pre_store(const float (&acc)[8][8], float* pre,
+                                          int ldp, int c0,
+                                          const float* __restrict__ b2,
+                                          int H2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int col = c0 + 128 * jj + 4 * lane;
+    float bias[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bias[u] = col + u < H2 ? b2[col + u] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float* a = acc[i] + 4 * jj;
+      *reinterpret_cast<float4*>(pre + (warp + 8 * i) * ldp + col) =
+          make_float4(a[0] + bias[0], a[1] + bias[1], a[2] + bias[2],
+                      a[3] + bias[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void gz_step(float (&acc)[8][4], const float* gm,
+                                        int ldg, int c0, const float* wt) {
+  constexpr int ldw = Cfg<float>::kGzC + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int cc = 0; cc < Cfg<float>::kGzR; cc += 4) {
+    float4 gv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) gv[i] = ld4(gm + (warp + 8 * i) * ldg + c0 + cc);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 x = ld4(wt + (cc + u) * ldw + 4 * lane);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float m = at4(gv[i], u);
+        acc[i][0] = fmaf(m, x.x, acc[i][0]);
+        acc[i][1] = fmaf(m, x.y, acc[i][1]);
+        acc[i][2] = fmaf(m, x.z, acc[i][2]);
+        acc[i][3] = fmaf(m, x.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void gz_store(const float (&acc)[8][4], float* gzs,
+                                         int ldz) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    *reinterpret_cast<float4*>(gzs + (warp + 8 * i) * ldz + 4 * lane) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// The tiles of each product, rotated per block (rot) so that the blocks
+// that run together read other parts of W2 from L2 at a time.  pre2's
+// step t: column chunk t / nhp, W2 rows of h tile (t % nhp + rot) % nhp.
+// g_z's step t: pass (t / nk + rot) % np, k tile t % nk.  Both give the
+// source tile's first row and column.
+template <typename T>
+__device__ __forceinline__ int2 pre_tile(int t, int nhp, int rot) {
+  return make_int2((t % nhp + rot) % nhp * Cfg<T>::kPreR,
+                   (t / nhp) * Cfg<T>::kPreC);
+}
+template <typename T>
+__device__ __forceinline__ int gz_pass(int t, int nk, int np, int rot) {
+  return (t / nk + rot) % np;
+}
+template <typename T>
+__device__ __forceinline__ int2 gz_tile(int t, int nk, int np, int rot) {
+  using C = Cfg<T>;
+  const int h0 = gz_pass<T>(t, nk, np, rot) * C::kGzN;
+  const int k0 = (t % nk) * (C::kGzT ? C::kGzR : C::kGzC);
+  return C::kGzT ? make_int2(k0, h0) : make_int2(h0, k0);
+}
+
+// One block of 64 edge rows: pre2, the routed and gated gm, g_z and da.
+// Writes the gm rows ([E][H2p], compute type), the g_z rows ([E][H1],
+// compute type), da and the block's partial of db2.  H1 and H2 are
+// multiples of 8 and every pointer is 16-byte aligned (the wrapper
+// pads); w2t is W2^T ([H2][H1]) where g_z reads it (kGzT).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_edge(const T* __restrict__ a, const T* __restrict__ b,
+             const int32_t* __restrict__ idx, const uint8_t* __restrict__ em,
+             const T* __restrict__ w2, const T* __restrict__ w2t,
+             const T* __restrict__ b2, const float* __restrict__ g,
+             T* __restrict__ gm_out, T* __restrict__ gz_out,
+             float* __restrict__ da, float* __restrict__ db2_part, int L,
+             int H1, int H2, int k, int tl, float slope, int aggr_max) {
+  using C = Cfg<T>;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const EdgeLayout lay = edge_layout<T>(H1, H2, k);
+  const int ldm = lay.ldm, ldg = lay.ldg, ldp = lay.ldp, slot = lay.slot;
+  const int nzb = lay.nzb;
+  unsigned char* p = smem_raw;
+  T* msg = reinterpret_cast<T*>(p);  // [kRows][ldm], then gm [kRows][ldg]
+  p += lay.msg_bytes;
+  T* as = reinterpret_cast<T*>(p);           // [tl][ldm] first
+  float* pre = reinterpret_cast<float*>(p);  // [kRows][ldp]
+  p += lay.pre_bytes;
+  T* ring = reinterpret_cast<T*>(p);  // [kStages][slot]
+  p = smem_raw + lay.msg_bytes +
+      (lay.pre_bytes + lay.w_bytes > lay.a_bytes ? lay.pre_bytes + lay.w_bytes
+                                                 : lay.a_bytes);
+  uint8_t* zbits = p;  // [kRows][nzb]
+  p += lay.bits_bytes;
+  int* s_idx = reinterpret_cast<int*>(p);
   uint8_t* s_em = reinterpret_cast<uint8_t*>(s_idx + kRows);
 
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ev = blockIdx.y;
   const int n0 = blockIdx.x * tl;
-  const int rows = tl * k;
-  const int live = min(rows, (L - n0) * k);  // rows of existing nodes
+  const int live = min(tl * k, (L - n0) * k);  // rows of existing nodes
   const size_t e0 = ((size_t)ev * L + n0) * k;  // the block's first edge row
-  load_edges(idx, em, ev, n0, L, k, rows, s_idx, s_em);
-  __syncthreads();
+  // pre2: nhp h tiles for each of ncp column chunks; g_z: np passes of
+  // nk k tiles
+  const int nhp = (H1 + C::kPreR - 1) / C::kPreR, ncp = lay.H2p / C::kPreC;
+  const int np = lay.H1p / C::kGzN,
+            nk = lay.H2p / (C::kGzT ? C::kGzR : C::kGzC);
+  const int npre = nhp * ncp, ngz = np * nk;
+  const int rot_pre = blockIdx.x % nhp, rot_gz = blockIdx.x % np;
+  const T* gsrc = C::kGzT ? w2t : w2;  // g_z's tiles
+  const int g_ld = C::kGzT ? H1 : H2, g_rows = C::kGzT ? H2 : H1;
+  auto pre_load = [=](int t) {
+    const int2 rc = pre_tile<T>(t, nhp, rot_pre);
+    load_tile<T, C::kPreR, C::kPreC>(ring + (t % S) * slot, w2, H2, rc.x, rc.y,
+                                     H1, H2);
+  };
+  auto gz_load = [=](int t) {
+    const int2 rc = gz_tile<T>(t, nk, np, rot_gz);
+    load_tile<T, C::kGzR, C::kGzC>(ring + (t % S) * slot, gsrc, g_ld, rc.x,
+                                   rc.y, g_rows, g_ld);
+  };
+  ec::load_edges(idx, em, ev, n0, L, k, tl * k, s_idx, s_em);
+  // a block of padding nodes (no valid edge): da and the db2 partial are
+  // 0; its gm and g_z rows are read by no one (dW2 and db take valid
+  // edges only)
+  if (!__syncthreads_or(threadIdx.x < kRows && s_em[threadIdx.x])) {
+    for (int i = threadIdx.x; i < tl * H1; i += kThreads) {
+      const int nd = i / H1;
+      if (n0 + nd < L) da[((size_t)ev * L + n0) * H1 + i] = 0.f;
+    }
+    const size_t bid = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    for (int c = threadIdx.x; c < H2; c += kThreads) db2_part[bid * H2 + c] = 0.f;
+    return;
+  }
+  // the tiles of each product stream through the ring S - 1 ahead, each
+  // in a commit group of its own
+  if (lay.early) {
+    for (int t = 0; t < S - 1; ++t) {
+      if (t < npre) pre_load(t);
+      cp_async_commit();
+    }
+  }
+  // the first 8 nodes' output gradient of this thread's first column,
+  // for the routing
+  float g0[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int c = threadIdx.x, node = n0 + u;
+    g0[u] = (u < tl && node < L && c < H2) ? g[((size_t)ev * L + node) * H2 + c]
+                                           : 0.f;
+  }
 
-  const T* aE = a + (size_t)ev * L * H1;
-  const T* bE = b + (size_t)ev * L * H1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the messages: the neighbours' b rows into msg, the nodes' a rows
+  // into `as`, then msgs = act(a + b) in place with their z > 0 bits,
+  // a warp per row, 8 columns a lane
+  {
+    const T* aE = a + (size_t)ev * L * H1;
+    const T* bE = b + (size_t)ev * L * H1;
+    constexpr int kPer = 16 / (int)sizeof(T);
+    const int cpr = lay.H1p / kPer;
+    for (int i = threadIdx.x; i < kRows * cpr; i += kThreads) {
+      const int r = i / cpr, h = (i % cpr) * kPer;
+      copy16(msg + r * ldm + h,
+             s_em[r] && h < H1 ? bE + (size_t)s_idx[r] * H1 + h : nullptr, b);
+    }
+    for (int i = threadIdx.x; i < tl * cpr; i += kThreads) {
+      const int q = i / cpr, h = (i % cpr) * kPer;
+      copy16(as + q * ldm + h,
+             n0 + q < L && h < H1 ? aE + (size_t)(n0 + q) * H1 + h : nullptr, a);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
   for (int r = warp; r < kRows; r += kThreads / 32) {
     const bool ok = s_em[r] != 0;
-    const T* ar = aE + (size_t)(n0 + r / k) * H1;
-    const T* br = bE + (size_t)s_idx[r] * H1;
-    for (int h = lane; h < H1p; h += 32) {
-      float v = 0.0f;
-      if (ok && h < H1) v = round_c<T>(act(to_f(ar[h]) + to_f(br[h]), slope));
-      msg[r * H1p + h] = v;
-      if (r < live && h < H1) msgs_out[(e0 + r) * H1 + h] = v;
+    for (int ch = lane; ch < nzb; ch += 32) {
+      float x[8], y[8];
+      load8(x, as + (r / k) * ldm + ch * 8);
+      load8(y, msg + r * ldm + ch * 8);
+      uint32_t bits = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float z = ok ? x[u] + y[u] : 0.f;
+        bits |= (z > 0.0f ? 1u : 0u) << u;
+        x[u] = act(z, slope);
+      }
+      store8(msg + r * ldm + ch * 8, x);
+      zbits[r * nzb + ch] = (uint8_t)bits;
     }
+  }
+  if (!lay.early) {
+    __syncthreads();  // the a rows are read: the ring is free
+    for (int t = 0; t < S - 1; ++t) {
+      if (t < npre) pre_load(t);
+      cp_async_commit();
+    }
+  }
+
+  // 1. pre2 = msgs.W2 + b2 into `pre` (no longer the a rows: the first
+  // tile's __syncthreads orders the messages before it)
+  {
+    typename Acc<T>::pre acc;
+    zero(acc);
+    for (int t = 0; t < npre; ++t) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // tile t landed; every warp is done with tile t - 1
+      if (t + S - 1 < npre) pre_load(t + S - 1);
+      cp_async_commit();
+      pre_step(acc, msg, ldm, pre_tile<T>(t, nhp, rot_pre).x,
+               ring + (t % S) * slot);
+      if (t % nhp == nhp - 1) {
+        pre_store(acc, pre, ldp, (t / nhp) * C::kPreC, b2, H2);
+        zero(acc);
+      }
+    }
+  }
+  __syncthreads();  // pre2 complete; the messages are no longer read
+  for (int t = 0; t < S - 1; ++t) {  // g_z's first tiles, during the routing
+    if (t < ngz) gz_load(t);
+    cp_async_commit();
+  }
+
+  // 2. routing: thread per column, nodes in order, their output gradient
+  // loaded 8 nodes at a time; gm replaces msgs
+  T* gms = msg;
+  const size_t bid = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  for (int c = threadIdx.x; c < lay.H2p; c += kThreads) {
+    float db2_acc = 0.f;
+    for (int q0 = 0; q0 < tl; q0 += 8) {
+      float gq[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int node = n0 + q0 + u;
+        gq[u] = c == threadIdx.x && q0 == 0 ? g0[u]
+                : (q0 + u < tl && node < L && c < H2)
+                    ? g[((size_t)ev * L + node) * H2 + c]
+                    : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int q = q0 + u;
+        if (q >= tl) break;
+        const bool exists = n0 + q < L;
+        float best = 0.f, best_gate = 0.f;
+        int first = -1;
+        for (int k0 = 0; k0 < k; k0 += 8) {  // 8 rows' pre2 in flight
+          float pr[8];
+          bool ok[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int r = q * k + k0 + j;
+            ok[j] = exists && k0 + j < k && s_em[r];
+            pr[j] = ok[j] ? pre[r * ldp + c] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (k0 + j >= k) break;
+            const int r = q * k + k0 + j;
+            float gv = 0.f;
+            if (ok[j]) {
+              const float gate = pr[j] > 0.0f ? 1.0f : slope;
+              if (aggr_max) {
+                const float v = act(pr[j], slope);
+                if (first < 0 || v > best) {  // strictly greater: first argmax
+                  best = v;
+                  best_gate = gate;
+                  first = r;
+                }
+              } else {
+                gv = gq[u] * gate;
+                db2_acc += gv;
+              }
+            }
+            gms[r * ldg + c] = from_f<T>(gv);
+          }
+        }
+        if (aggr_max && first >= 0) {
+          const float gf = gq[u] * best_gate;
+          gms[first * ldg + c] = from_f<T>(gf);
+          db2_acc += gf;
+        }
+      }
+    }
+    for (int r = tl * k; r < kRows; ++r) gms[r * ldg + c] = from_f<T>(0.f);
+    if (c < H2) db2_part[bid * H2 + c] = db2_acc;
   }
   __syncthreads();
+  {  // the gm rows of existing nodes, 16 bytes at a time
+    const int cpr = lay.H2p * (int)sizeof(T) / 16;
+    for (int i = threadIdx.x; i < live * cpr; i += kThreads) {
+      const int r = i / cpr, q = i % cpr;
+      reinterpret_cast<uint4*>(gm_out + (e0 + r) * lay.H2p)[q] =
+          reinterpret_cast<const uint4*>(gms + r * ldg)[q];
+    }
+  }
 
-  const size_t bid = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  for (int c = threadIdx.x; c < H2; c += blockDim.x) {
-    float acc[kRows];
+  // 3. g_z = (gm.W2^T) * act'(z), kGzN columns a pass, then da
+  constexpr int kN = C::kGzN, ldz = kN + 4;
+  float* gzs = pre;  // [kRows][ldz]: pre2 is no longer read
+  typename Acc<T>::gz acz;
+  zero(acz);
+  for (int t = 0; t < ngz; ++t) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + S - 1 < ngz) gz_load(t + S - 1);
+    cp_async_commit();
+    gz_step(acz, gms, ldg, (t % nk) * (C::kGzT ? C::kGzR : C::kGzC),
+            ring + (t % S) * slot);
+    if (t % nk != nk - 1) continue;
+    gz_store(acz, gzs, ldz);
+    zero(acz);
+    __syncthreads();
+    // gate by z, 8 columns a thread; the g_z rows in the compute type
+    const int h0 = gz_pass<T>(t, nk, np, rot_gz) * kN;
+    for (int i = threadIdx.x; i < kRows * (kN / 8); i += kThreads) {
+      const int r = i / (kN / 8), hh = (i % (kN / 8)) * 8, h = h0 + hh;
+      const bool ok = s_em[r] && h < H1;  // H1 % 8 == 0
+      const uint32_t bits = zbits[r * nzb + h / 8];
+      float v[8];
+      load8(v, gzs + r * ldz + hh);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int h = 0; h < H1p; h += 4) {
-      const float w0 = to_f(w2[(size_t)h * H2 + c]);
-      const float w1 = h + 1 < H1 ? to_f(w2[(size_t)(h + 1) * H2 + c]) : 0.0f;
-      const float wv2 = h + 2 < H1 ? to_f(w2[(size_t)(h + 2) * H2 + c]) : 0.0f;
-      const float w3 = h + 3 < H1 ? to_f(w2[(size_t)(h + 3) * H2 + c]) : 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 m = *reinterpret_cast<const float4*>(&msg[r * H1p + h]);
-        acc[r] = fmaf(m.x, w0, acc[r]);
-        acc[r] = fmaf(m.y, w1, acc[r]);
-        acc[r] = fmaf(m.z, wv2, acc[r]);
-        acc[r] = fmaf(m.w, w3, acc[r]);
+      for (int u = 0; u < 8; ++u)
+        v[u] = ok ? v[u] * ((bits >> u) & 1u ? 1.0f : slope) : 0.f;
+      store8(gzs + r * ldz + hh, v);
+      if (r < live && h < H1) store8(gz_out + (e0 + r) * H1 + h, v);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < tl * kN; i += kThreads) {
+      const int nd = i / kN, hh = i % kN, h = h0 + hh;
+      if (n0 + nd < L && h < H1) {
+        float s = 0.0f;
+        for (int kk = 0; kk < k; ++kk) s += gzs[(nd * k + kk) * ldz + hh];
+        da[((size_t)ev * L + n0 + nd) * H1 + h] = s;
       }
     }
-    const float bias = to_f(b2[c]);
-    float* out = gm_out + e0 * H2 + c;
-    float db2_acc = 0.0f;
-    float best = 0.0f, best_gate = 0.0f;
-    int first = -1, kk = 0, node = n0;
-    float gn = node < L ? g[((size_t)ev * L + node) * H2 + c] : 0.0f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < live) {
-        const float pre = acc[r] + bias;
-        const float gate = pre > 0.0f ? 1.0f : slope;
-        if (aggr_max) {
-          out[(size_t)r * H2] = 0.0f;
-          if (s_em[r]) {
-            const float v = act(pre, slope);
-            if (first < 0 || v > best) {  // strictly greater: first argmax
-              best = v;
-              best_gate = gate;
-              first = r;
-            }
-          }
-        } else {
-          const float gv = s_em[r] ? gn * gate : 0.0f;
-          out[(size_t)r * H2] = round_c<T>(gv);
-          db2_acc += gv;
-        }
-        if (++kk == k) {
-          if (aggr_max && first >= 0) {
-            const float gv = gn * best_gate;
-            out[(size_t)first * H2] = round_c<T>(gv);
-            db2_acc += gv;
-          }
-          first = -1;
-          kk = 0;
-          ++node;
-          gn = node < L ? g[((size_t)ev * L + node) * H2 + c] : 0.0f;
-        }
-      }
-    }
-    db2_part[bid * H2 + c] = db2_acc;
+    // gzs is written again only after the next pass's tiles, past a
+    // __syncthreads at the top of the loop
   }
 }
 
-// gz = (gm @ W2^T) * act'(z) over all edge rows, as a tiled product:
-// one 128x128 tile (edge rows x H1 columns) a block, 8x8 outputs a
-// thread, the gate applied in the epilogue; writes fp32 gz rows.
+// w2t [H2, H1] = w2 [H1, H2] transposed, for g_z's fp32 tiles.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bwd_gz(const float* __restrict__ gm, const T* __restrict__ w2t,
-           const T* __restrict__ a, const T* __restrict__ b,
-           const int32_t* __restrict__ idx, const uint8_t* __restrict__ em,
-           float* __restrict__ gz, long long E, int L, int H1, int H2, int k,
-           float slope) {
-  // [c][edge row], rows padded: the transposing stores hit 2-way banks
-  __shared__ __align__(16) float As[kStage][kTile + 4];
-  __shared__ __align__(16) float Bs[kStage][kTile];  // [c][h]
-  const long long m0 = (long long)blockIdx.x * kTile;
-  const int h0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  constexpr int kPer = kStage * kTile / kThreads;
-  float ra[kPer], rb[kPer];
-  auto fetch = [&](int c0) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int t = threadIdx.x + p * kThreads;
-      const int m = t / kStage, q = t % kStage;  // 16 consecutive c a row
-      const long long row = m0 + m;
-      ra[p] = (row < E && c0 + q < H2) ? gm[row * H2 + c0 + q] : 0.0f;
-      const int qb = t / kTile, col = t % kTile;
-      rb[p] = (c0 + qb < H2 && h0 + col < H1)
-                  ? to_f(w2t[(size_t)(c0 + qb) * H1 + h0 + col])
-                  : 0.0f;
-    }
-  };
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  fetch(0);
-  for (int c0 = 0; c0 < H2; c0 += kStage) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int t = threadIdx.x + p * kThreads;
-      As[t % kStage][t / kStage] = ra[p];
-      Bs[t / kTile][t % kTile] = rb[p];
-    }
-    __syncthreads();
-    if (c0 + kStage < H2) fetch(c0 + kStage);
-#pragma unroll
-    for (int q = 0; q < kStage; ++q) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[q][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[q][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[q][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[q][64 + tx * 4]);
-      const float ai[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bj[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const long long per_event = (long long)L * k;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long e = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (e >= E) continue;
-    const long long ev = e / per_event;
-    const int node = (int)(e % per_event) / k;
-    const int j = idx[e];
-    const bool ok = em[e] && j >= 0 && j < L;
-    const T* ar = a + ((size_t)ev * L + node) * H1;
-    const T* br = b + ((size_t)ev * L + (ok ? j : 0)) * H1;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int h = h0 + (jj < 4 ? tx * 4 + jj : 64 + tx * 4 + jj - 4);
-      if (h >= H1) continue;
-      float v = 0.0f;
-      if (ok) {
-        const float z = to_f(ar[h]) + to_f(br[h]);
-        v = acc[i][jj] * (z > 0.0f ? 1.0f : slope);
-      }
-      gz[e * H1 + h] = v;
-    }
-  }
-}
-
-// da[i] = sum over node i's k edge rows of the fp32 gz, in order.
-__global__ void bwd_da(const float* __restrict__ gz, float* __restrict__ da,
-                       long long n, int k, int H1) {
+__global__ void transpose(const T* __restrict__ w2, T* __restrict__ w2t,
+                          int H1, int H2) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const long long node = t / H1;
-  const int h = (int)(t % H1);
-  const float* row = gz + (size_t)node * k * H1 + h;
-  float s = 0.0f;
-  for (int kk = 0; kk < k; ++kk) s += row[(size_t)kk * H1];
-  da[t] = s;
+  if (t >= (long long)H1 * H2) return;
+  const int h = (int)(t / H2), c = (int)(t % H2);
+  w2t[(size_t)c * H1 + h] = w2[t];
 }
 
-// Partial dW2 of one 128x128 tile over one slice of the edge rows:
-// 8x8 outputs a thread (rows ty*4+i and 64+ty*4+i, columns likewise).
-__global__ void __launch_bounds__(kThreads)
-    bwd_dw2(const float* __restrict__ msgs, const float* __restrict__ gm,
-            float* __restrict__ part, long long E, long long chunk, int H1,
-            int H2) {
-  __shared__ __align__(16) float As[kStage][kTile];
-  __shared__ __align__(16) float Bs[kStage][kTile];
-  const int h0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const long long eb = blockIdx.z * chunk;
-  const long long ee = min(E, eb + chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  // the next stage's operands load into registers while this one computes
-  constexpr int kPer = kStage * kTile / kThreads;
-  float ra[kPer], rb[kPer];
-  auto fetch = [&](long long e) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int t = threadIdx.x + p * kThreads;
-      const int q = t / kTile, col = t % kTile;
-      const long long row = e + q;
-      ra[p] = (row < ee && h0 + col < H1) ? msgs[row * H1 + h0 + col] : 0.0f;
-      rb[p] = (row < ee && c0 + col < H2) ? gm[row * H2 + c0 + col] : 0.0f;
-    }
-  };
-  fetch(eb);
-  for (long long e = eb; e < ee; e += kStage) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int t = threadIdx.x + p * kThreads;
-      As[t / kTile][t % kTile] = ra[p];
-      Bs[t / kTile][t % kTile] = rb[p];
-    }
-    __syncthreads();
-    if (e + kStage < ee) fetch(e + kStage);
-#pragma unroll
-    for (int q = 0; q < kStage; ++q) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[q][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[q][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[q][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[q][64 + tx * 4]);
-      const float ai[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bj[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-    }
-    __syncthreads();
+// ---- dW2: partial dW2 of one 128 x 128 tile (h0.., c0..) over the
+// valid edges of one slice of at most kChunk edge rows [eb, ee), kStage
+// edges a stage through a ring of kDwStages: each stage copies in, by
+// cp.async, the edges' a rows (their nodes'), b rows (their neighbours',
+// gathered) and gm rows; rows past the last valid edge are zeros.
+// bf16 forms msgs = act(a + b), rounded, in the A fragments; fp32 in
+// place of the a rows, once a stage.
+
+template <typename T>
+constexpr size_t dw2_smem_bytes() {
+  return (size_t)kDwStages * 3 * Cfg<T>::kStage * (kTile + 16 / sizeof(T)) *
+             sizeof(T) +
+         2 * kChunk * sizeof(int);
+}
+
+// Start the copy of one dW2 stage, the valid edges [v0, v0 + kStage) of
+// the slice, into buf: their a rows, b rows and gm rows, each
+// [kStage][kTile + 16 bytes]; rows past nv as zeros.
+template <typename T>
+__device__ __forceinline__ void dw2_issue(T* buf, const T* __restrict__ a,
+                                          const T* __restrict__ b,
+                                          const T* __restrict__ gm,
+                                          const int* s_rows,
+                                          const int* s_boff, int v0, int nv,
+                                          int h0, int c0, int H1, int H2p,
+                                          int k) {
+  constexpr int kSt = Cfg<T>::kStage, kPer = 16 / (int)sizeof(T);
+  constexpr int kLd = kTile + kPer, kCpr = kTile / kPer;
+  for (int i = threadIdx.x; i < kSt * kCpr; i += kThreads) {
+    const int r = i / kCpr, c = (i % kCpr) * kPer, v = v0 + r;
+    const bool row = v < nv;
+    const bool in = row && h0 + c < H1;  // H1 % kPer == 0
+    const int e = row ? s_rows[v] : 0;
+    copy16(buf + r * kLd + c, in ? a + (size_t)(e / k) * H1 + h0 + c : nullptr,
+           a);
+    copy16(buf + kSt * kLd + r * kLd + c,
+           in ? b + (size_t)s_boff[v] * H1 + h0 + c : nullptr, b);
+    copy16(buf + 2 * kSt * kLd + r * kLd + c,
+           row ? gm + (size_t)e * H2p + c0 + c : nullptr, gm);
   }
-  float* out = part + (size_t)blockIdx.z * H1 * H2;
+}
+
+// bf16: warp w owns h rows 32 (w & 3) .. + 31 (2 m-tiles) and c columns
+// 64 (w >> 2) .. + 63 (8 n-tiles).  A = msgs^T: the a and b stages read
+// by ldmatrix.trans, added, activated and rounded in the fragment; B =
+// gm by ldmatrix.trans of the [e][c] stage.
+__device__ __forceinline__ uint32_t msg_pair(uint32_t x, uint32_t y,
+                                             float slope) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&y);
+  return pack_bf16(act(__bfloat162float(a.x) + __bfloat162float(b.x), slope),
+                   act(__bfloat162float(a.y) + __bfloat162float(b.y), slope));
+}
+
+__device__ __forceinline__ void dw2_step(float (&acc)[2][8][4],
+                                         const bf16_t* as, const bf16_t* bs,
+                                         const bf16_t* gs, int ld,
+                                         float slope) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wh = warp & 3, wc = warp >> 2;
+#pragma unroll
+  for (int ks = 0; ks < Cfg<bf16_t>::kStage / 16; ++ks) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int at = (ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * ld +
+                     wh * 32 + m * 16 + ((lane >> 3) & 1) * 8;
+      uint32_t x[4], y[4];
+      ldmatrix_x4_trans(x, as + at);
+      ldmatrix_x4_trans(y, bs + at);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[m][e] = msg_pair(x[e], y[e], slope);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(
+          bf, gs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                  wc * 64 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(acc[m][2 * np], af[m], bf[0], bf[1]);
+        mma_bf16(acc[m][2 * np + 1], af[m], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void dw2_store(const float (&acc)[2][8][4],
+                                          float* out, int h0, int c0, int H1,
+                                          int H2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wh = warp & 3, wc = warp >> 2;
+  const int gq = lane >> 2, cq = 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = h0 + wh * 32 + m * 16 + gq + 8 * (e >> 1);
+        const int c = c0 + wc * 64 + n * 8 + cq + (e & 1);
+        if (h < H1 && c < H2) out[(size_t)h * H2 + c] = acc[m][n][e];
+      }
+}
+
+// fp32: msgs = act(a + b) in place of the a rows, 8 a thread; then 8 x 8
+// outputs a thread, rows ty * 4 + i and 64 + ty * 4 + i, columns
+// likewise by tx, float4 reads of the msgs and gm stages
+__device__ __forceinline__ void dw2_msgs(float* as, const float* bs, int ld,
+                                         float slope) {
+  constexpr int kPer = 8, kCpr = kTile / kPer;
+  for (int i = threadIdx.x; i < Cfg<float>::kStage * kCpr; i += kThreads) {
+    const int at = (i / kCpr) * ld + (i % kCpr) * kPer;
+    float x[8], y[8];
+    load8(x, as + at);
+    load8(y, bs + at);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = act(x[u] + y[u], slope);
+    store8(as + at, x);
+  }
+}
+
+__device__ __forceinline__ void dw2_step(float (&acc)[8][8], const float* ms,
+                                         const float*, const float* gs,
+                                         int ld, float) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int q = 0; q < Cfg<float>::kStage; ++q) {
+    const float4 a0 = ld4(ms + q * ld + ty * 4);
+    const float4 a1 = ld4(ms + q * ld + 64 + ty * 4);
+    const float4 b0 = ld4(gs + q * ld + tx * 4);
+    const float4 b1 = ld4(gs + q * ld + 64 + tx * 4);
+    const float ai[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bj[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void dw2_store(const float (&acc)[8][8],
+                                          float* out, int h0, int c0, int H1,
+                                          int H2) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int h = h0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
@@ -376,6 +883,109 @@ __global__ void __launch_bounds__(kThreads)
       if (h < H1 && c < H2) out[(size_t)h * H2 + c] = acc[i][j];
     }
   }
+}
+
+template <typename T>
+struct Dw2Acc;
+template <>
+struct Dw2Acc<bf16_t> {
+  using type = float[2][8][4];
+};
+template <>
+struct Dw2Acc<float> {
+  using type = float[8][8];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bwd_dw2(const T* __restrict__ a, const T* __restrict__ b,
+            const int32_t* __restrict__ idx, const uint8_t* __restrict__ em,
+            const T* __restrict__ gm, float* __restrict__ part, int E,
+            int chunk, int L, int H1, int H2, int H2p, int k, float slope) {
+  constexpr int kSt = Cfg<T>::kStage, S = kDwStages;
+  constexpr int kLd = kTile + 16 / (int)sizeof(T);
+  constexpr int kBuf = kSt * kLd;  // elements of one stage buffer
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [S][a, b, gm][kSt][kLd]
+  int* s_boff = reinterpret_cast<int*>(ring + S * 3 * kBuf);  // [kChunk]
+  int* s_rows = s_boff + kChunk;                               // [kChunk]
+  __shared__ int s_count[kThreads / 32 + 1];
+  const int h0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int eb = blockIdx.z * chunk;
+  const int ee = min(E, eb + chunk);
+  // the slice's valid edges, in order: their rows and neighbour rows in
+  // b (a node's row in a is e / k); each thread takes 4 rows, then a
+  // scan of the counts
+  int nv;
+  {
+    constexpr int kPerT = kChunk / kThreads;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int bo[kPerT], cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kPerT; ++u) {
+      const int e = eb + threadIdx.x * kPerT + u;
+      bo[u] = -1;
+      if (e < ee) {
+        const int j = idx[e];
+        if (em[e] && j >= 0 && j < L) bo[u] = (e / (L * k)) * L + j;
+      }
+      cnt += bo[u] >= 0;
+    }
+    int incl = cnt;  // inclusive scan over the warp, then over the warps
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    if (lane == 31) s_count[warp] = incl;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int run = 0;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const int x = s_count[w];
+        s_count[w] = run;
+        run += x;
+      }
+      s_count[kThreads / 32] = run;
+    }
+    __syncthreads();
+    int at = s_count[warp] + incl - cnt;
+#pragma unroll
+    for (int u = 0; u < kPerT; ++u) {
+      if (bo[u] >= 0) {
+        s_rows[at] = eb + threadIdx.x * kPerT + u;
+        s_boff[at] = bo[u];
+        ++at;
+      }
+    }
+    nv = s_count[kThreads / 32];
+    __syncthreads();
+  }
+  const int nst = (nv + kSt - 1) / kSt;
+  typename Dw2Acc<T>::type acc;
+  zero(acc);
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nst)
+      dw2_issue(ring + s * 3 * kBuf, a, b, gm, s_rows, s_boff, s * kSt, nv, h0,
+                c0, H1, H2p, k);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage s landed; every warp is done with s - 1
+    if (s + S - 1 < nst)
+      dw2_issue(ring + ((s + S - 1) % S) * 3 * kBuf, a, b, gm, s_rows, s_boff,
+                (s + S - 1) * kSt, nv, h0, c0, H1, H2p, k);
+    cp_async_commit();
+    T* buf = ring + (s % S) * 3 * kBuf;
+    if constexpr (sizeof(T) == 4) {
+      dw2_msgs(buf, buf + kBuf, kLd, slope);
+      __syncthreads();
+    }
+    dw2_step(acc, buf, buf + kBuf, buf + 2 * kBuf, kLd, slope);
+  }
+  dw2_store(acc, part + (size_t)blockIdx.z * H1 * H2, h0, c0, H1, H2);
 }
 
 // out[i] = sum_{s < S} part[s * n + i], in order of s (short S).
@@ -404,16 +1014,6 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   if (threadIdx.x == 0) out[i] = red[0];
-}
-
-// w2t [H2, H1] = w2 [H1, H2] transposed, for coalesced reads of W2^T.
-template <typename T>
-__global__ void transpose(const T* __restrict__ w2, T* __restrict__ w2t,
-                          int H1, int H2) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)H1 * H2) return;
-  const int h = (int)(t / H2), c = (int)(t % H2);
-  w2t[(size_t)c * H1 + h] = w2[t];
 }
 
 // Reverse index of one event's valid edges: offs[j]..offs[j+1] in list
@@ -487,42 +1087,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// db[j] = sum of the gz rows of j's incoming edges, in edge order, each
-// rounded to the compute type T first.
+// db[j] = sum of the g_z rows (compute type) of j's incoming edges, in
+// edge order.
 template <typename T>
-__global__ void bwd_db(const float* __restrict__ gz,
-                       const int* __restrict__ offs,
+__global__ void bwd_db(const T* __restrict__ gz, const int* __restrict__ offs,
                        const int* __restrict__ list, float* __restrict__ db,
                        int L, int k, int H1) {
   const int j = blockIdx.x, ev = blockIdx.y;
   const int* o = offs + (size_t)ev * (L + 1);
   const int p0 = o[j], p1 = o[j + 1];
   const int* lst = list + (size_t)ev * L * k;
-  const float* gE = gz + (size_t)ev * L * k * H1;
+  const T* gE = gz + (size_t)ev * L * k * H1;
   for (int h = threadIdx.x; h < H1; h += blockDim.x) {
     float s = 0.0f;
-    for (int p = p0; p < p1; ++p) s += round_c<T>(gE[(size_t)lst[p] * H1 + h]);
+    for (int p = p0; p < p1; ++p) s += to_f(gE[(size_t)lst[p] * H1 + h]);
     db[((size_t)ev * L + j) * H1 + h] = s;
   }
 }
 
-cudaError_t allow_smem(const void* kernel, size_t bytes, size_t* configured) {
-  if (bytes <= 48 * 1024 || bytes <= *configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *configured = bytes;
-  return err;
-}
-
 }  // namespace
 
-static long long gm_smem(int H1) {
-  return (long long)kRows * ((H1 + 3) & ~3) * 4 + kRows * (4 + 1);
+// Shared memory of the edge kernel and of the CSR kernel, in bytes (the
+// wrapper checks both against the card's limit before launching).
+extern "C" long long edgeconv_bwd_smem_bytes(int H1, int H2, int k,
+                                             int bf16) {
+  return (long long)(bf16 ? edge_layout<bf16_t>(H1, H2, k).total
+                          : edge_layout<float>(H1, H2, k).total);
 }
-
-// Shared memory of bwd_gm and of the CSR kernel, in bytes (the wrapper
-// checks both against the card's limit before launching).
-extern "C" long long edgeconv_bwd_smem_bytes(int H1) { return gm_smem(H1); }
 
 extern "C" long long edgeconv_bwd_csr_smem_bytes(int L) {
   return (2LL * L + 1 + 2 * kThreads) * 4;
@@ -539,40 +1130,38 @@ template <typename T>
 static cudaError_t launch(const T* a, const T* b, const int32_t* idx,
                           const uint8_t* em, const T* w2, const T* b2,
                           const float* g, float* da, float* db, float* dw2,
-                          float* db2, T* w2t, float* msgs, float* gm,
-                          float* gz, float* dw2_part, float* db2_part,
-                          int* offs, int* list, int B, int L, int H1, int H2,
-                          int k, int S, float slope, int aggr_max,
-                          cudaStream_t s) {
-  static size_t conf_gm = 0, conf_csr = 0;
+                          float* db2, T* w2t, T* gm, T* gz, float* dw2_part,
+                          float* db2_part, int* offs, int* list, int B, int L,
+                          int H1, int H2, int k, int S, float slope,
+                          int aggr_max, cudaStream_t s) {
+  static size_t conf_edge = 0, conf_dw2 = 0, conf_csr = 0;
   const int tl = kRows / k;
-  const long long E = (long long)B * L * k;
+  const int E = B * L * k;
+  const EdgeLayout lay = edge_layout<T>(H1, H2, k);
   cudaError_t err;
-  transpose<T><<<(unsigned)(((long long)H1 * H2 + 255) / 256), 256, 0, s>>>(
-      w2, w2t, H1, H2);
-  CHECK_LAUNCH();
 
-  // 1. edge rows: gm (and msgs, db2 partials), then gz and da
+  // 1. edge rows: gm, g_z, da and the db2 partials
+  if constexpr (Cfg<T>::kGzT) {
+    transpose<T><<<(H1 * H2 + 255) / 256, 256, 0, s>>>(w2, w2t, H1, H2);
+    CHECK_LAUNCH();
+  }
   const dim3 grid((L + tl - 1) / tl, B);
-  err = allow_smem((const void*)bwd_gm<T>, gm_smem(H1), &conf_gm);
+  err = ec::allow_smem((const void*)bwd_edge<T>, lay.total, &conf_edge);
   if (err != cudaSuccess) return err;
-  bwd_gm<T><<<grid, kThreads, gm_smem(H1), s>>>(a, b, idx, em, w2, b2, g,
-                                                msgs, gm, db2_part, L, H1, H2,
-                                                k, tl, slope, aggr_max);
-  CHECK_LAUNCH();
-  const dim3 gz_tiles((unsigned)((E + kTile - 1) / kTile),
-                      (H1 + kTile - 1) / kTile);
-  bwd_gz<T><<<gz_tiles, kThreads, 0, s>>>(gm, w2t, a, b, idx, em, gz, E, L,
-                                          H1, H2, k, slope);
-  CHECK_LAUNCH();
-  const long long n_da = (long long)B * L * H1;
-  bwd_da<<<(unsigned)((n_da + 255) / 256), 256, 0, s>>>(gz, da, n_da, k, H1);
+  bwd_edge<T><<<grid, kThreads, lay.total, s>>>(
+      a, b, idx, em, w2, w2t, b2, g, gm, gz, da, db2_part, L, H1, H2, k, tl,
+      slope, aggr_max);
   CHECK_LAUNCH();
 
-  // 2. dW2 split over S slices of the edge rows, then db2
-  const long long chunk = (E + S - 1) / S;
+  // 2. dW2 split over S slices of the edge rows, then dW2 and db2
+  const int chunk = (E + S - 1) / S;
+  if (chunk > kChunk) return cudaErrorInvalidValue;
   const dim3 tiles((H1 + kTile - 1) / kTile, (H2 + kTile - 1) / kTile, S);
-  bwd_dw2<<<tiles, kThreads, 0, s>>>(msgs, gm, dw2_part, E, chunk, H1, H2);
+  err = ec::allow_smem((const void*)bwd_dw2<T>, dw2_smem_bytes<T>(),
+                       &conf_dw2);
+  if (err != cudaSuccess) return err;
+  bwd_dw2<T><<<tiles, kThreads, dw2_smem_bytes<T>(), s>>>(
+      a, b, idx, em, gm, dw2_part, E, chunk, L, H1, H2, lay.H2p, k, slope);
   CHECK_LAUNCH();
   const long long n_w = (long long)H1 * H2;
   sum_partials<<<(unsigned)((n_w + 255) / 256), 256, 0, s>>>(dw2_part, S, n_w,
@@ -584,7 +1173,7 @@ static cudaError_t launch(const T* a, const T* b, const int32_t* idx,
 
   // 3. db through the reverse index
   const size_t csr_smem = (size_t)edgeconv_bwd_csr_smem_bytes(L);
-  err = allow_smem((const void*)bwd_csr, csr_smem, &conf_csr);
+  err = ec::allow_smem((const void*)bwd_csr, csr_smem, &conf_csr);
   if (err != cudaSuccess) return err;
   bwd_csr<<<B, kThreads, csr_smem, s>>>(idx, em, L, k, offs, list);
   CHECK_LAUNCH();
@@ -592,41 +1181,46 @@ static cudaError_t launch(const T* a, const T* b, const int32_t* idx,
   return cudaGetLastError();
 }
 
-// Scratch (all from the wrapper): w2t [H2, H1] of w2's type; msgs_buf
-// [B*L*k, H1], gm_buf [B*L*k, H2], gz_buf [B*L*k, H1], dw2_part [S, H1, H2],
-// db2_part [blocks, H2] float; offs [B, L+1], list [B, L*k] int32.
-// blocks = B * ceil(L / (64/k)).
+// H1 and H2 multiples of 8; every pointer 16-byte aligned.  Scratch (all
+// from the wrapper): w2t [H2, H1] (used in fp32), gm_buf [B*L*k, H2p]
+// (H2 rounded up to a pre2 column chunk: 128 in bf16, 256 in fp32) and
+// gz_buf [B*L*k, H1], all of a's type;
+// dw2_part [S, H1, H2] with S >= B*L*k / 1024, db2_part [blocks, H2]
+// float; offs [B, L+1], list [B, L*k] int32.  blocks = B * ceil(L /
+// (64/k)).
 extern "C" int edgeconv_bwd_launch(
     const void* a, const void* b, const void* idx, const void* em,
     const void* w2, const void* b2, const void* g, void* da, void* db,
-    void* dw2, void* db2, void* w2t, void* msgs_buf, void* gm_buf,
-    void* gz_buf, void* dw2_part, void* db2_part, void* offs, void* list,
-    int B, int L, int H1, int H2, int k, int S, float slope, int aggr_max,
-    int bf16, void* stream) {
+    void* dw2, void* db2, void* w2t, void* gm_buf, void* gz_buf,
+    void* dw2_part, void* db2_part, void* offs, void* list, int B, int L,
+    int H1, int H2, int k, int S, float slope, int aggr_max, int bf16,
+    void* stream) {
   if (B == 0 || L == 0) return 0;
-  if (k < 1 || k > kRows || S < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > kRows || S < 1 || H1 % 8 || H2 % 8)
+    return (int)cudaErrorInvalidValue;
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const uint8_t* m = static_cast<const uint8_t*>(em);
   const float* gf = static_cast<const float*>(g);
-  float* f[9] = {static_cast<float*>(da),       static_cast<float*>(db),
+  float* f[6] = {static_cast<float*>(da),       static_cast<float*>(db),
                  static_cast<float*>(dw2),      static_cast<float*>(db2),
-                 static_cast<float*>(msgs_buf), static_cast<float*>(gm_buf),
-                 static_cast<float*>(gz_buf),   static_cast<float*>(dw2_part),
-                 static_cast<float*>(db2_part)};
+                 static_cast<float*>(dw2_part), static_cast<float*>(db2_part)};
   int* o = static_cast<int*>(offs);
   int* lst = static_cast<int*>(list);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    using T = __nv_bfloat16;
+    using T = bf16_t;
     return (int)launch<T>(
         static_cast<const T*>(a), static_cast<const T*>(b), ix, m,
         static_cast<const T*>(w2), static_cast<const T*>(b2), gf, f[0], f[1],
-        f[2], f[3], static_cast<T*>(w2t), f[4], f[5], f[6], f[7], f[8], o, lst,
-        B, L, H1, H2, k, S, slope, aggr_max, s);
+        f[2], f[3], static_cast<T*>(w2t), static_cast<T*>(gm_buf),
+        static_cast<T*>(gz_buf), f[4], f[5], o, lst, B, L, H1, H2, k, S, slope,
+        aggr_max, s);
   }
-  return (int)launch<float>(
-      static_cast<const float*>(a), static_cast<const float*>(b), ix, m,
-      static_cast<const float*>(w2), static_cast<const float*>(b2), gf, f[0],
-      f[1], f[2], f[3], static_cast<float*>(w2t), f[4], f[5], f[6], f[7], f[8],
-      o, lst, B, L, H1, H2, k, S, slope, aggr_max, s);
+  using T = float;
+  return (int)launch<T>(
+      static_cast<const T*>(a), static_cast<const T*>(b), ix, m,
+      static_cast<const T*>(w2), static_cast<const T*>(b2), gf, f[0], f[1],
+      f[2], f[3], static_cast<T*>(w2t), static_cast<T*>(gm_buf),
+      static_cast<T*>(gz_buf), f[4], f[5], o, lst, B, L, H1, H2, k, S, slope,
+      aggr_max, s);
 }

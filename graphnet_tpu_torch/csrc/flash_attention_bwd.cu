@@ -18,11 +18,12 @@
 // gradients, lse and delta.  Every sum runs in a fixed order, so two
 // runs give the same bits.
 //
-// dq (unchanged from the first port): 128 query rows per block, each
-// row held by Dh/32 threads in registers (flash_attention.cuh), keys and
-// values staged as fp32 in tiles of 32; CUDA cores, latency-bound on the
-// dependent FMA chains of one row per thread.  Bound: 6*B*H*L^2*Dh
-// flops.
+// dq: 64 query rows per block; key and value tiles of 64 stream in
+// double-buffered by 16-byte cp.async (flash_mma.cuh) with their key
+// flags.  Bound: 6*B*H*L^2*Dh flops (three products), 13 us in bf16 and
+// 0.19 ms in fp32 at TITO's shape, and B*H*L^2 exponentials, as dkv's.
+// bf16 on the tensor cores (dS never leaves the registers), fp32 on the
+// CUDA cores with register micro-tiles; see the notes at the kernels.
 //
 // dkv: 64 key rows per block; query tiles of 64 stream in
 // double-buffered by 16-byte cp.async (flash_mma.cuh), the next in
@@ -42,82 +43,12 @@
 namespace flash {
 namespace {
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kRows * (DH / kSeg))
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const uint8_t* __restrict__ mask,   // [B, L]
-                    const float* __restrict__ lse,      // [B*H, L]
-                    const T* __restrict__ g,            // [B*H, L, DH]
-                    const float* __restrict__ delta,    // [B*H, L]
-                    int H, int L, float scale,
-                    T* __restrict__ dq) {
-  constexpr int SPLIT = DH / kSeg;
-  __shared__ __align__(16) float ks[kTile * SPLIT * kSegPad];
-  __shared__ __align__(16) float vs[kTile * SPLIT * kSegPad];
-  __shared__ float kval[kTile];
-
-  const int bh = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / SPLIT;
-  const int h = threadIdx.x % SPLIT;
-  const bool active = row < L;
-  const size_t base = (size_t)bh * L * DH;
-  const uint8_t* m = mask + (size_t)(bh / H) * L;
-  const size_t at = base + (size_t)min(row, L - 1) * DH + h * kSeg;
-  const size_t st = (size_t)bh * L + min(row, L - 1);
-
-  float qr[kSeg], gr[kSeg], acc[kSeg];
-  load_seg<T>(qr, q + at, active, round_t<T>(scale));
-  load_seg<T>(gr, g + at, active, 1.f);
-#pragma unroll
-  for (int d = 0; d < kSeg; ++d) acc[d] = 0.f;
-  const float lse_r = active ? lse[st] : 0.f;
-  const float delta_r = active ? delta[st] : 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int n = min(kTile, L - t0);  // the same in every thread
-    __syncthreads();
-    stage<T, DH>(ks, k + base + (size_t)t0 * DH, n, 1.f);
-    stage<T, DH>(vs, v + base + (size_t)t0 * DH, n, 1.f);
-    for (int j = threadIdx.x; j < kTile; j += blockDim.x)
-      kval[j] = (j < n && m[t0 + j]) ? 1.f : 0.f;
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float* kj = ks + seg_off<DH>(j, h);
-      const float valid = kval[j];
-      float s = row_sum<SPLIT>(seg_dot(qr, kj));
-      s = valid != 0.f ? s : kNeg;
-      const float p = expf(s - lse_r);
-      const float dp = row_sum<SPLIT>(seg_dot(gr, vs + seg_off<DH>(j, h)));
-      seg_axpy(acc, round_t<T>(p * (dp - delta_r) * valid), kj);
-    }
-  }
-
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < kSeg; ++d) dq[at + d] = from_f<T>(acc[d] * scale);
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* mask, const void* lse, const void* g,
-                      const void* delta, int BH, int H, int L, float scale,
-                      void* dq, cudaStream_t stream) {
-  dim3 grid((L + kRows - 1) / kRows, BH);
-  flash_dq_kernel<T, DH><<<grid, kRows * (DH / kSeg), 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(lse), static_cast<const T*>(g),
-      static_cast<const float*>(delta), H, L, scale, static_cast<T*>(dq));
-  return cudaGetLastError();
-}
+// key rows a dkv block owns, and a dq block's streamed key tile; query
+// rows a dq block owns, and a dkv block's streamed query tile
+constexpr int kBlockK = 64;
+constexpr int kBlockQ = 64;
 
 // ------------------------------------------------------------ dK, dV
-
-constexpr int kBlockK = 64;  // key rows a dkv block owns
-constexpr int kBlockQ = 64;  // queries per streamed tile
 
 // dkv, bf16: tensor cores.  Four warps of 16 keys each hold their K and
 // V rows as mma A fragments.  Per 16 queries of the streamed tile:
@@ -495,6 +426,350 @@ __global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
   }
 }
 
+// ------------------------------------------------------------ dQ
+
+// dq, bf16: tensor cores.  64 query rows per block, four warps of 16,
+// each holding its Q_scaled and G rows as mma A fragments and its rows'
+// lse and delta in registers; key and value tiles of 64 rows stream in
+// double-buffered by cp.async with their key flags.  Per 16 keys of the
+// tile: S = Q_scaled.K^T and dP = G.V^T (K and V read by ldmatrix),
+// P = exp(S - lse) with masked keys at -1e5, dS = round(P * (dP - delta)
+// * valid); then dQ += dS.K with the dS accumulators repacked as an A
+// fragment and K read by ldmatrix.trans.  dQ stays in fp32 registers
+// and is rounded once, after the scale, at the end.
+template <int DH>
+constexpr size_t dq_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * kBlockQ + 4 * kBlockK) *
+             pad_ld<__nv_bfloat16, DH>() +
+         sizeof(float) * 2 * kBlockK;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128)
+    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const uint8_t* __restrict__ mask,  // [B, L]
+                        const float* __restrict__ lse,     // [B*H, L]
+                        const __nv_bfloat16* __restrict__ g,
+                        const float* __restrict__ delta,   // [B*H, L]
+                        int H, int L, float scale,
+                        __nv_bfloat16* __restrict__ dq) {
+  using T = __nv_bfloat16;
+  constexpr int LD = pad_ld<T, DH>();
+  constexpr int KS = DH / 16;  // k-steps of Q.K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kBlockQ][LD]
+  T* gs = qs + kBlockQ * LD;               // [kBlockQ][LD]
+  T* ks = gs + kBlockQ * LD;               // [2][kBlockK][LD]
+  T* vs = ks + 2 * kBlockK * LD;           // [2][kBlockK][LD]
+  float* kf = reinterpret_cast<float*>(vs + 2 * kBlockK * LD);  // [2][kBlockK]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, c = 2 * (lane & 3);
+  const int bh = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  const size_t base = (size_t)bh * L * DH;
+  const uint8_t* m = mask + (size_t)(bh / H) * L;
+  const int nt = (L + kBlockK - 1) / kBlockK;
+  // the lane's query rows gq and gq + 8 of the warp's 16; beyond L
+  // lse = +inf and delta = 0, so p and ds are 0 there
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + gq + 8 * r;
+    lr[r] = row < L ? lse[(size_t)bh * L + row] : INFINITY;
+    dr[r] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+  }
+
+  load_tile<T, DH, kBlockQ>(qs, q + base, q0, L);
+  load_tile<T, DH, kBlockQ>(gs, g + base, q0, L);
+  load_tile<T, DH, kBlockK>(ks, k + base, 0, L);
+  load_tile<T, DH, kBlockK>(vs, v + base, 0, L);
+  cp_async_commit();
+  load_key_flags(kf, m, 0, L, kBlockK);
+
+  uint32_t qa[KS][4], ga[KS][4];
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int cur = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < nt) {
+      const int nxt = cur ^ 1, r0 = (t + 1) * kBlockK;
+      load_tile<T, DH, kBlockK>(ks + nxt * kBlockK * LD, k + base, r0, L);
+      load_tile<T, DH, kBlockK>(vs + nxt * kBlockK * LD, v + base, r0, L);
+      cp_async_commit();
+      load_key_flags(kf + nxt * kBlockK, m, r0, L, kBlockK);
+    }
+    if (t == 0) {
+      scale_tile<T, DH, kBlockQ>(qs, round_t<T>(scale));
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at =
+            (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(qa[kk], qs + at);
+        ldmatrix_x4(ga[kk], gs + at);
+      }
+    }
+    const T* kt = ks + cur * kBlockK * LD;
+    const T* vt = vs + cur * kBlockK * LD;
+    const float* f = kf + cur * kBlockK;
+
+#pragma unroll
+    for (int ch = 0; ch < kBlockK / 16; ++ch) {
+      // S and dP for the warp's 16 rows and keys 16 ch .. + 15
+      float st[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = (ch * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                       ((lane >> 3) & 1) * 8;
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + at);
+        mma_bf16(st[0], qa[kk], b[0], b[1]);
+        mma_bf16(st[1], qa[kk], b[2], b[3]);
+        ldmatrix_x4(b, vt + at);
+        mma_bf16(dp[0], ga[kk], b[0], b[1]);
+        mma_bf16(dp[1], ga[kk], b[2], b[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float val = f[ch * 16 + n * 8 + c + (e & 1)] > 0.f ? 1.f : 0.f;
+          const float p =
+              __expf((val != 0.f ? st[n][e] : kNeg) - lr[e >> 1]);
+          dp[n][e] = p * (dp[n][e] - dr[e >> 1]) * val;
+        }
+      uint32_t da[4];
+      pack_a(da, dp[0], dp[1]);
+#pragma unroll
+      for (int np = 0; np < DH / 16; ++np) {
+        const int at = (ch * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                       np * 16 + (lane >> 4) * 8;
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, kt + at);
+        mma_bf16(acc[2 * np], da, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + gq + 8 * r;
+    if (row < L) {
+      T* out = dq + base + (size_t)row * DH + c;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d)
+        *reinterpret_cast<uint32_t*>(out + d * 8) =
+            pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
+    }
+  }
+}
+
+// dq, fp32: CUDA cores in full fp32.  256 threads as a 16 x 16 grid
+// compute 4 x 4 micro-tiles of S and dP (queries ty + 16i, keys
+// tx + 16j, float4 reads along Dh) and write dS into shared memory; the
+// same thread then accumulates a 4 x Dh/16 micro-tile of dQ (its four
+// rows, dims DN * tx ..) over the tile's keys, as the fp32 forward does
+// for O += P.V.
+constexpr int kDsLd = kBlockK + 4;  // row stride of the staged dS
+
+template <int DH>
+constexpr size_t dq_f32_smem_bytes() {
+  return sizeof(float) * ((2 * kBlockQ + 4 * kBlockK) * pad_ld<float, DH>() +
+                          kBlockQ * kDsLd + 2 * kBlockK);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
+    flash_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const uint8_t* __restrict__ mask,  // [B, L]
+                        const float* __restrict__ lse,     // [B*H, L]
+                        const float* __restrict__ g,
+                        const float* __restrict__ delta,   // [B*H, L]
+                        int H, int L, float scale,
+                        float* __restrict__ dq) {
+  constexpr int LD = pad_ld<float, DH>();
+  constexpr int DN = DH / 16;  // dims of dQ per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kBlockQ][LD]
+  float* gs = qs + kBlockQ * LD;                   // [kBlockQ][LD]
+  float* ks = gs + kBlockQ * LD;                   // [2][kBlockK][LD]
+  float* vs = ks + 2 * kBlockK * LD;               // [2][kBlockK][LD]
+  float* dss = vs + 2 * kBlockK * LD;              // [kBlockQ][kDsLd]
+  float* kf = dss + kBlockQ * kDsLd;               // [2][kBlockK]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  const size_t base = (size_t)bh * L * DH;
+  const uint8_t* m = mask + (size_t)(bh / H) * L;
+  const int nt = (L + kBlockK - 1) / kBlockK;
+  // rows ty + 16 i: lse (+inf beyond L) and delta (0 beyond L)
+  float lr[4], dr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lr[i] = row < L ? lse[(size_t)bh * L + row] : INFINITY;
+    dr[i] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+  }
+
+  load_tile<float, DH, kBlockQ>(qs, q + base, q0, L);
+  load_tile<float, DH, kBlockQ>(gs, g + base, q0, L);
+  load_tile<float, DH, kBlockK>(ks, k + base, 0, L);
+  load_tile<float, DH, kBlockK>(vs, v + base, 0, L);
+  cp_async_commit();
+  load_key_flags(kf, m, 0, L, kBlockK);
+
+  float acc[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DN; ++e) acc[i][e] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int cur = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every thread is done with t - 1
+    if (t + 1 < nt) {
+      const int nxt = cur ^ 1, r0 = (t + 1) * kBlockK;
+      load_tile<float, DH, kBlockK>(ks + nxt * kBlockK * LD, k + base, r0, L);
+      load_tile<float, DH, kBlockK>(vs + nxt * kBlockK * LD, v + base, r0, L);
+      cp_async_commit();
+      load_key_flags(kf + nxt * kBlockK, m, r0, L, kBlockK);
+    }
+    if (t == 0) {
+      scale_tile<float, DH, kBlockQ>(qs, scale);
+      __syncthreads();
+    }
+    const float* kt = ks + cur * kBlockK * LD;
+    const float* vt = vs + cur * kBlockK * LD;
+    const float* f = kf + cur * kBlockK;
+
+    // S and dP micro-tiles: queries ty + 16 i, keys tx + 16 j
+    float st[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ld4(kt + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = fmaf(a[i].x, b[j].x, st[i][j]);
+          st[i][j] = fmaf(a[i].y, b[j].y, st[i][j]);
+          st[i][j] = fmaf(a[i].z, b[j].z, st[i][j]);
+          st[i][j] = fmaf(a[i].w, b[j].w, st[i][j]);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(gs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ld4(vt + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dp[i][j] = fmaf(a[i].x, b[j].x, dp[i][j]);
+          dp[i][j] = fmaf(a[i].y, b[j].y, dp[i][j]);
+          dp[i][j] = fmaf(a[i].z, b[j].z, dp[i][j]);
+          dp[i][j] = fmaf(a[i].w, b[j].w, dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = tx + 16 * j;
+        const float val = f[key] > 0.f ? 1.f : 0.f;
+        const float p = __expf((val != 0.f ? st[i][j] : kNeg) - lr[i]);
+        dss[(ty + 16 * i) * kDsLd + key] = p * (dp[i][j] - dr[i]) * val;
+      }
+    __syncthreads();
+
+    // dQ micro-tile += dS.K
+#pragma unroll 2
+    for (int kk = 0; kk < kBlockK; kk += 4) {
+      float4 s[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] = ld4(dss + (ty + 16 * i) * kDsLd + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* kr = kt + (kk + u) * LD + DN * tx;
+        float w[DN];
+        if constexpr (DN == 4) {
+          const float4 x = ld4(kr);
+          w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(kr);
+          w[0] = x.x, w[1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float su = at4(s[i], u);
+#pragma unroll
+          for (int e = 0; e < DN; ++e) acc[i][e] = fmaf(su, w[e], acc[i][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < L) {
+      float* out = dq + base + (size_t)row * DH + DN * tx;
+      if constexpr (DN == 4) {
+        *reinterpret_cast<float4*>(out) =
+            make_float4(acc[i][0] * scale, acc[i][1] * scale,
+                        acc[i][2] * scale, acc[i][3] * scale);
+      } else {
+        *reinterpret_cast<float2*>(out) =
+            make_float2(acc[i][0] * scale, acc[i][1] * scale);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dq(void (*kern)(const T*, const T*, const T*,
+                                   const uint8_t*, const float*, const T*,
+                                   const float*, int, int, float, T*),
+                      size_t bytes, int threads, const void* q,
+                      const void* k, const void* v, const void* mask,
+                      const void* lse, const void* g, const void* delta,
+                      int BH, int H, int L, float scale, void* dq,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + kBlockQ - 1) / kBlockQ, BH);
+  kern<<<grid, threads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(lse), static_cast<const T*>(g),
+      static_cast<const float*>(delta), H, L, scale, static_cast<T*>(dq));
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dkv(
     void (*kern)(const T*, const T*, const T*, const uint8_t*, const float*,
@@ -522,26 +797,30 @@ cudaError_t launch_dkv(
 // q, k, v, g, dq, dk, dv: [BH, L, DH] of float (bf16 = 0) or bfloat16
 // (bf16 = 1); mask: [BH / H, L] uint8; lse, delta: [BH, L] float.  Each
 // returns a cudaError_t.
-#define FLASH_DISPATCH(CALL)                               \
-  if (BH == 0 || L == 0) return 0;                         \
-  if (H <= 0 || BH % H) return (int)cudaErrorInvalidValue; \
-  if (DH == 32 && !bf16) return (int)CALL(float, 32);      \
-  if (DH == 64 && !bf16) return (int)CALL(float, 64);      \
-  if (DH == 32 && bf16) return (int)CALL(__nv_bfloat16, 32); \
-  if (DH == 64 && bf16) return (int)CALL(__nv_bfloat16, 64); \
-  return (int)cudaErrorInvalidValue
-
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    const void* lse, const void* g,
                                    const void* delta, int BH, int H, int L,
                                    int DH, float scale, int bf16, void* dq,
                                    void* stream) {
+  using namespace flash;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(T, D) \
-  flash::launch_dq<T, D>(q, k, v, mask, lse, g, delta, BH, H, L, scale, dq, s)
-  FLASH_DISPATCH(DQ);
+  if (BH == 0 || L == 0) return 0;
+  if (H <= 0 || BH % H) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q, k, v, g)) return (int)cudaErrorMisalignedAddress;
+#define DQ(KERN, BYTES, THREADS)                                         \
+  launch_dq(KERN, BYTES, THREADS, q, k, v, mask, lse, g, delta, BH, H, L, \
+            scale, dq, s)
+  if (DH == 32 && !bf16)
+    return (int)DQ(flash_dq_f32_kernel<32>, dq_f32_smem_bytes<32>(), 256);
+  if (DH == 64 && !bf16)
+    return (int)DQ(flash_dq_f32_kernel<64>, dq_f32_smem_bytes<64>(), 256);
+  if (DH == 32 && bf16)
+    return (int)DQ(flash_dq_mma_kernel<32>, dq_mma_smem_bytes<32>(), 128);
+  if (DH == 64 && bf16)
+    return (int)DQ(flash_dq_mma_kernel<64>, dq_mma_smem_bytes<64>(), 128);
 #undef DQ
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
@@ -578,5 +857,16 @@ extern "C" int flash_bwd_dkv_smem_bytes(int DH, int bf16) {
     return (int)(bf16 ? dkv_mma_smem_bytes<32>() : dkv_f32_smem_bytes<32>());
   if (DH == 64)
     return (int)(bf16 ? dkv_mma_smem_bytes<64>() : dkv_f32_smem_bytes<64>());
+  return 0;
+}
+
+// the dynamic shared memory a dq block takes, in bytes (0 for a head dim
+// the kernels do not take)
+extern "C" int flash_bwd_dq_smem_bytes(int DH, int bf16) {
+  using namespace flash;
+  if (DH == 32)
+    return (int)(bf16 ? dq_mma_smem_bytes<32>() : dq_f32_smem_bytes<32>());
+  if (DH == 64)
+    return (int)(bf16 ? dq_mma_smem_bytes<64>() : dq_f32_smem_bytes<64>());
   return 0;
 }

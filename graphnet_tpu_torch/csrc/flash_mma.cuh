@@ -1,19 +1,9 @@
 // Tile machinery shared by the Hopper flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu): 16-byte cp.async copies
-// of row tiles into padded shared memory, ldmatrix and the bf16
-// mma.sync.m16n8k16 of the tensor cores, and the fragment layouts the
-// kernels rely on.
-//
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, c = 2 * (lane % 4)):
-//   A (16 x 16, row-major), 4 regs of bf16x2: a0 (g, c..c+1),
-//     a1 (g+8, c..c+1), a2 (g, c+8..c+9), a3 (g+8, c+8..c+9);
-//   B (16 x 8, k x n), 2 regs: b0 (k = c..c+1, n = g), b1 (k = c+8..c+9);
-//   C / D (16 x 8, fp32), 4 floats: (g, c), (g, c+1), (g+8, c),
-//     (g+8, c+1).
-// So the accumulator of two adjacent n-tiles of an S = Q.K^T product
-// repacks, rounded to bf16, straight into the A fragment of the next
-// product over those 16 columns (pack_a below): P never goes through
-// shared memory.
+// of row tiles into padded shared memory, the key flags and row
+// statistics beside them.  The PTX primitives (cp.async, ldmatrix,
+// mma.sync.m16n8k16) and the fragment layouts the kernels rely on are in
+// mma_bf16.cuh.
 //
 // Row tiles live in shared memory with a row stride of the row plus
 // 16 bytes (pad_ld<T, DH>): at 80 or 144 bytes (bf16, DH = 32 or 64) the
@@ -24,8 +14,18 @@
 #pragma once
 
 #include "flash_attention.cuh"
+#include "mma_bf16.cuh"
 
 namespace flash {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait_all;
+using hopper::ldmatrix_x4;
+using hopper::ldmatrix_x4_trans;
+using hopper::mma_bf16;
+using hopper::pack_a;
+using hopper::pack_bf16;
 
 // elements of one staged row: DH and 16 bytes of pad
 template <typename T, int DH>
@@ -41,83 +41,12 @@ inline bool aligned16(const void* a, const void* b, const void* c,
           15) == 0;
 }
 
-// ---- PTX primitives
-
-// 16 bytes from global to shared memory, asynchronously; src_bytes = 0
-// writes 16 zero bytes and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until every committed group has landed (this thread's copies)
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// four 8 x 8 bf16 matrices; lanes 8m..8m+7 give the row addresses of
-// matrix m, and r[m] is this lane's (row g, cols c..c+1) of matrix m
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// as ldmatrix_x4, transposed: r[m] is (rows c..c+1, col g) of matrix m
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// d += a . b, bf16 operands, fp32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---- end of PTX primitives
-
 // the float4 at p (16-byte aligned), and its component u
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ float at4(const float4& x, int u) {
   return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
-}
-
-// (lo, hi) rounded to bf16 (nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// the A fragment over the 16 columns of the C fragments of two adjacent
-// n-tiles (columns 0-7 in c0, 8-15 in c1), each value rounded to bf16
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // Start the copy of rows [row0, row0 + ROWS) of src ([L, DH] of T,

@@ -28,11 +28,14 @@ plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from graphnet_tpu_torch.ops.flash_attention_cuda import aligned16
 from graphnet_tpu_torch.ops.gather_reduce import gather_neighbors
 from graphnet_tpu_torch.ops.knn import (
     centre_coords_sequential,
@@ -52,6 +55,9 @@ KNN_DIMS = (3, 4)
 AGGRS = ("add", "max")
 HOPPER_SMEM_OPTIN = 232448  # bytes a block may opt in to on sm_90
 _ROWS = 64  # edge rows per block of both kernels
+# the backward's pre2 column chunk (csrc/edgeconv_bwd.cu, Cfg): the gm
+# rows' padding
+_BWD_COLS = {torch.bfloat16: 128, torch.float32: 256}
 
 
 def _act(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -218,9 +224,9 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.edgeconv_bwd_launch
     if fn.argtypes is None:  # first use: declare the C signature
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 19 + [I] * 6 + [ctypes.c_float, I, I, P]
+        fn.argtypes = [P] * 18 + [I] * 6 + [ctypes.c_float, I, I, P]
         fn.restype = ctypes.c_int
-        lib.edgeconv_bwd_smem_bytes.argtypes = [I]
+        lib.edgeconv_bwd_smem_bytes.argtypes = [I, I, I, I]
         lib.edgeconv_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.edgeconv_bwd_csr_smem_bytes.argtypes = [I]
         lib.edgeconv_bwd_csr_smem_bytes.restype = ctypes.c_longlong
@@ -279,12 +285,17 @@ def _cuda_device(tensors, name: str) -> Optional[torch.device]:
     return dev
 
 
-def _check_smem(need: int, dev: torch.device, what: str) -> None:
-    limit = getattr(
+@functools.lru_cache(maxsize=16)
+def _smem_limit(dev: torch.device) -> int:
+    return getattr(
         torch.cuda.get_device_properties(dev),
         "shared_memory_per_block_optin",
         HOPPER_SMEM_OPTIN,
     )
+
+
+def _check_smem(need: int, dev: torch.device, what: str) -> None:
+    limit = _smem_limit(dev)
     if need > limit:
         raise ValueError(
             f"{what} needs {need} bytes of shared memory per block; the "
@@ -376,9 +387,52 @@ def _fwd_knn_cuda(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
 
 
 def _dw2_splits(n_edges: int) -> int:
-    """Slices of the edge rows in the split-K dW2 product: ~1024 rows
-    each, at most 128 (the partials then stay ~44 MB at H1=336, H2=256)."""
-    return max(1, min(128, -(-n_edges // 1024)))
+    """Slices of the edge rows in the split-K dW2 product: at most 1024
+    rows each (the kernel's bound; at B=128, L=128, k=8 the 128 partials
+    take ~44 MB at H1=336, H2=256)."""
+    return max(1, -(-n_edges // 1024))
+
+
+def bwd_scratch_plan(
+    B: int, L: int, H1: int, H2: int, k: int, dtype: torch.dtype
+) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The backward kernel's scratch, in the order of its C entry: name
+    -> (shape, dtype).  In the compute dtype: W2 transposed (read by the
+    fp32 kernel), the gm rows (the routed, gated output gradient, for
+    dW2), zero-padded to a multiple of 128 (bf16) or 256 (fp32) columns,
+    and the g_z rows (for db); as float32 the dW2 partials of the split
+    over the edge rows and the per-block db2 partials; as int32 the
+    reverse (CSR) index of each event's edges."""
+    n_edges = B * L * k
+    H2p = -(-H2 // _BWD_COLS[dtype]) * _BWD_COLS[dtype]
+    blocks = B * -(-L // (_ROWS // k))
+    f32, i32 = torch.float32, torch.int32
+    return {
+        "w2t": ((H2, H1), dtype),
+        "gm": ((n_edges, H2p), dtype),
+        "gz": ((n_edges, H1), dtype),
+        "dw2_part": ((_dw2_splits(n_edges), H1, H2), f32),
+        "db2_part": ((blocks, H2), f32),
+        "offs": ((B, L + 1), i32),
+        "list": ((B, L * k), i32),
+    }
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_layout(lib, dev, B, L, H1, H2, k, dtype):
+    """For one call's shapes, checked once: the byte offset of each part
+    of :func:`bwd_scratch_plan` in one allocation (256-byte aligned), its
+    size, and the dW2 slices."""
+    _check_smem(
+        lib.edgeconv_bwd_smem_bytes(H1, H2, k, int(dtype == torch.bfloat16)),
+        dev, f"H1={H1}, H2={H2}, k={k}")
+    _check_smem(lib.edgeconv_bwd_csr_smem_bytes(L), dev, f"L={L}")
+    plan = bwd_scratch_plan(B, L, H1, H2, k, dtype)
+    starts, total = [], 0
+    for shape, dt in plan.values():
+        starts.append(total)
+        total += -(-math.prod(shape) * dt.itemsize // 256) * 256
+    return starts, total, plan["dw2_part"][0][0]
 
 
 def fused_edgeconv_bwd(
@@ -397,8 +451,9 @@ def fused_edgeconv_bwd(
     dtype and strides; it is made contiguous fp32).
 
     Tensors on the CPU take :func:`fused_edgeconv_bwd_plain`; CUDA
-    tensors launch ``csrc/edgeconv_bwd.cu`` (nine kernels, counted as one
-    call in ``fused_edgeconv_bwd.launches``).
+    tensors launch ``csrc/edgeconv_bwd.cu`` (six kernels, seven in fp32,
+    counted as one call in ``fused_edgeconv_bwd.launches``) with the
+    scratch of :func:`bwd_scratch_plan`.
     """
     _check(a, b, idx, edge_mask, w2, b2, aggr, g)
     tensors = (a, b, idx, edge_mask, w2, b2, g)
@@ -409,45 +464,41 @@ def fused_edgeconv_bwd(
         )
     B, L, H1 = a.shape
     H2, k = w2.shape[1], idx.shape[2]
-    lib = _bwd_lib()
-    _check_smem(lib.edgeconv_bwd_smem_bytes(H1), dev, f"H1={H1}")
-    _check_smem(lib.edgeconv_bwd_csr_smem_bytes(L), dev, f"L={L}")
-    n_edges = B * L * k
-    blocks = B * -(-L // (_ROWS // k))
-    splits = _dw2_splits(n_edges)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        args = [t.contiguous() for t in (a, b, idx, edge_mask, w2, b2)]
-        gc = g.to(torch.float32).contiguous()
-        da = torch.empty((B, L, H1), **f32)
-        db = torch.empty((B, L, H1), **f32)
-        dw2 = torch.zeros((H1, H2), **f32)
-        db2 = torch.zeros((H2,), **f32)
-        scratch = (
-            torch.empty((H2, H1), dtype=a.dtype, device=dev),  # W2^T
-            torch.empty((n_edges, H1), **f32),  # msgs
-            torch.empty((n_edges, H2), **f32),  # routed, gated gradient
-            torch.empty((n_edges, H1), **f32),  # g_z
-            torch.empty((splits, H1, H2), **f32),  # dW2 partials
-            torch.empty((blocks, H2), **f32),  # db2 partials
-            torch.empty((B, L + 1), **i32),  # CSR offsets
-            torch.empty((B, L * k), **i32),  # CSR edge lists
+    P1, P2 = -(-H1 // 8) * 8, -(-H2 // 8) * 8
+    if (P1, P2) != (H1, H2):
+        # the kernel takes rows of whole 16-byte chunks: zero columns
+        # change no gradient, and are cut off again
+        pad = torch.nn.functional.pad
+        da, db, dw2, db2 = fused_edgeconv_bwd(
+            pad(a, (0, P1 - H1)), pad(b, (0, P1 - H1)), idx, edge_mask,
+            pad(w2, (0, P2 - H2, 0, P1 - H1)), pad(b2, (0, P2 - H2)),
+            pad(g, (0, P2 - H2)), aggr, slope,
         )
+        return da[..., :H1], db[..., :H1], dw2[:H1, :H2], db2[:H2]
+    bf16 = int(a.dtype == torch.bfloat16)
+    lib = _bwd_lib()
+    starts, total, splits = _bwd_layout(lib, dev, B, L, H1, H2, k, a.dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        args = [aligned16(t) for t in (a, b, idx, edge_mask, w2, b2)]
+        gc = g.to(torch.float32).contiguous()
+        outs = (torch.empty((B, L, H1), **f32), torch.empty((B, L, H1), **f32),
+                torch.empty((H1, H2), **f32), torch.empty((H2,), **f32))
+        scratch = torch.empty(total, dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.edgeconv_bwd_launch(
             *(t.data_ptr() for t in args), gc.data_ptr(),
-            da.data_ptr(), db.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            *(t.data_ptr() for t in scratch),
-            B, L, H1, H2, k, splits, float(slope), int(aggr == "max"),
-            int(a.dtype == torch.bfloat16), stream,
+            *(t.data_ptr() for t in outs),
+            *(scratch.data_ptr() + s for s in starts),
+            B, L, H1, H2, k, splits, float(slope),
+            int(aggr == "max"), bf16, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"edgeconv backward kernel launch failed: CUDA error {err}"
         )
     fused_edgeconv_bwd.launches += 1
-    return da, db, dw2, db2
+    return outs
 
 
 fused_edgeconv_bwd.launches = 0

@@ -98,9 +98,9 @@ def test_flash_fp32_matches_jax(masks, L, D):
     assert np.isfinite(o_t.detach().numpy()).all()
 
 
-def test_flash_bf16_matches_jax_loosely():
-    q, k, v, g = _qkvg(seed=1)
-    mask = MASKS["padding"](128)
+def _bf16_matches_jax_loosely(L, D):
+    q, k, v, g = _qkvg(L=L, D=D, seed=1)
+    mask = MASKS["padding"](L)
     bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
     o_j = np.asarray(fa.flash_attention(*bf, jnp.asarray(mask)), np.float32)
     o_t, grads = _port_flash(q, k, v, mask, g, torch.bfloat16)
@@ -113,6 +113,17 @@ def test_flash_bf16_matches_jax_loosely():
         exp = exp.detach().numpy()
         err = np.abs(got.float().detach().numpy() - exp).max()
         assert err <= 2e-2 * np.abs(exp).max() + 1e-2, err
+
+
+def test_flash_bf16_matches_jax_loosely():
+    _bf16_matches_jax_loosely(128, 32)
+
+
+@pytest.mark.parametrize("L,D", [(65, 32), (129, 32), (65, 64), (129, 64)],
+                         ids=["L65-Dh32", "L129-Dh32", "L65-Dh64", "L129-Dh64"])
+def test_flash_bf16_matches_jax_loosely_at_tile_edges(L, D):
+    """One row past the CUDA kernels' 64-row tiles, both head dims."""
+    _bf16_matches_jax_loosely(L, D)
 
 
 def test_flash_fully_masked_row_is_uniform_with_finite_lse():

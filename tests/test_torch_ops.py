@@ -358,15 +358,28 @@ def _grads_port(inp, cot, aggr, slope, mean, dtype=None):
     return [t.grad.float().numpy() for t in leaves]
 
 
+# (aggr, slope, mean, H1, H2, k): the layer shapes of the first cases,
+# then widths that are no multiple of 16 (the CUDA kernel's tiles pad
+# them) and k = 1 and 3
 @pytest.mark.parametrize(
-    "aggr,slope,mean",
-    [("add", 0.0, False), ("max", 0.01, False), ("add", 0.0, True)],
-    ids=["add_relu", "max_leaky", "mean_relu"],
+    "aggr,slope,mean,H1,H2,k",
+    [
+        ("add", 0.0, False, 16, 8, 4),
+        ("max", 0.01, False, 16, 8, 4),
+        ("add", 0.0, True, 16, 8, 4),
+        ("add", 0.0, False, 20, 12, 1),
+        ("max", 0.01, False, 20, 12, 3),
+        ("add", 0.0, True, 36, 10, 3),
+        ("max", 0.0, False, 12, 20, 1),
+    ],
+    ids=["add_relu", "max_leaky", "mean_relu", "add_relu-H1_20-H2_12-k1",
+         "max_leaky-H1_20-H2_12-k3", "mean_relu-H1_36-H2_10-k3",
+         "max_relu-H1_12-H2_20-k1"],
 )
-def test_fused_edgeconv_grads_match_pallas(aggr, slope, mean):
-    inp = _edge_inputs(seed=41)
+def test_fused_edgeconv_grads_match_pallas(aggr, slope, mean, H1, H2, k):
+    inp = _edge_inputs(seed=41, H1=H1, H2=H2, k=k)
     inp["em"][1, 7] = False  # a node with no valid edge
-    cot = np.random.default_rng(42).standard_normal((2, 32, 8)).astype(np.float32)
+    cot = np.random.default_rng(42).standard_normal((2, 32, H2)).astype(np.float32)
     got = _grads_port(inp, cot, aggr, slope, mean)
     exp = _grads_jax(inp, cot, aggr, slope, mean)
     for name, g, e in zip(("da", "db", "dw2", "db2"), got, exp):
@@ -386,6 +399,20 @@ def test_fused_edgeconv_grads_bf16_match_pallas():
         assert err <= 2e-2, f"{name}: {err} of the max"
 
 
+def test_fused_edgeconv_grads_bf16_max_match_pallas():
+    """bf16 with max aggregation: the first-argmax routing on pre2 from
+    bf16 messages and weights, both sides at the same tolerance as add."""
+    inp = _edge_inputs(seed=48)
+    inp["em"][0, 5] = False  # a node with no valid edge
+    cot = np.random.default_rng(49).standard_normal((2, 32, 8)).astype(np.float32)
+    got = _grads_port(inp, cot, "max", 0.01, False, torch.bfloat16)
+    exp = _grads_jax(inp, cot, "max", 0.01, False, jnp.bfloat16)
+    for name, g, e in zip(("da", "db", "dw2", "db2"), got, exp):
+        err = np.abs(g - e).max() / np.abs(e).max()
+        assert err <= 2e-2, f"{name}: {err} of the max"
+    np.testing.assert_array_equal(got[0][0, 5], 0.0)
+
+
 def test_fused_edgeconv_max_tie_routes_to_first_edge():
     """Two valid edges of a node to the same neighbour give identical
     messages, an exact tie in every channel: the gradient goes to the
@@ -403,6 +430,41 @@ def test_fused_edgeconv_max_tie_routes_to_first_edge():
     for name, g, e, u in zip(("da", "db", "dw2", "db2"), got, exp, alone):
         np.testing.assert_allclose(g, e, rtol=1e-5, atol=1e-5, err_msg=name)
         np.testing.assert_allclose(g, u, rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fused_edgeconv_bwd_scratch_plan(dtype):
+    """The CUDA backward's scratch at DynEdge's training shape (B=128,
+    L=128, k=8, H1=336, H2=256): W2^T, the gm rows padded to the kernel's
+    column chunk and the g_z rows in the compute dtype, fp32 partials,
+    int32 reverse index; under the ~0.5 GB of the nine-launch design
+    (msgs, gm and g_z rows in fp32), and each dW2 slice at most 1024
+    rows."""
+    from graphnet_tpu_torch.ops.edgeconv_cuda import bwd_scratch_plan
+
+    plan = bwd_scratch_plan(128, 128, 336, 256, 8, dtype)
+    E, H2p = 128 * 128 * 8, 256
+    assert list(plan) == ["w2t", "gm", "gz", "dw2_part", "db2_part", "offs",
+                          "list"]
+    assert plan["w2t"] == ((256, 336), dtype)
+    assert plan["gm"] == ((E, H2p), dtype)
+    assert plan["gz"] == ((E, 336), dtype)
+    assert plan["dw2_part"] == ((128, 336, 256), torch.float32)
+    assert plan["db2_part"] == ((128 * 16, 256), torch.float32)
+    assert plan["offs"] == ((128, 129), torch.int32)
+    assert plan["list"] == ((128, 1024), torch.int32)
+    total = sum(np.prod(shape) * dt.itemsize for shape, dt in plan.values())
+    old = 4 * E * (336 + 256 + 336) + 4 * 128 * 336 * 256
+    assert total < old
+    # widths that are no multiple of the column chunk are padded (128 in
+    # bf16, 256 in fp32); every slice of the edge rows holds <= 1024 rows
+    chunk = 128 if dtype == torch.bfloat16 else 256
+    odd = bwd_scratch_plan(3, 100, 104, 72, 12, dtype)
+    assert odd["gm"] == ((3 * 100 * 12, chunk), dtype)
+    assert odd["db2_part"][0] == (3 * 20, 72)
+    n_slices = odd["dw2_part"][0][0]
+    assert -(-3 * 100 * 12 // n_slices) <= 1024
 
 
 def test_fused_edgeconv_bwd_checks_inputs_and_counts_nothing_on_cpu():
