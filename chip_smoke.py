@@ -13,10 +13,17 @@ Phases, each printing one JSON line:
    build_flash: the registers, shared memory and spills of the flash
    forward, dq and dkv kernels (rows 5a-c), from the ptxas report;
    build_edgeconv_bwd: the same for each kernel of the EdgeConv
-   backward (row 3);
+   backward (row 3); build_edgeconv_fwd: for the EdgeConv forward and
+   the fused EdgeConv + kNN (rows 2 and 4), each kernel's registers and
+   spills, and at H1 = 128 and 336 its dynamic shared memory and blocks
+   an SM;
 3. knn: the kNN kernel against its plain PyTorch version on the card,
    for x, y, z (D=3) and x, y, z, t (D=4, TITO's graph);
-4. edgeconv: the fused EdgeConv forward kernel against its plain version;
+4. edgeconv: the fused EdgeConv forward kernel against its plain version
+   (both layer shapes and H1=100, H2=72, add/max/mean, fp32 and bf16,
+   k = 8, 1, 3, 12 and 64, events of 0, 1, 2, k and k+1 nodes at L = 48
+   and 112, L=512, TITO's B=8, L=1024, H1 = H2 = 256 with max); two
+   runs must give the same bits;
    edgeconv_knn: the fused EdgeConv + kNN kernel (``FUSE_CONV_KNN``)
    against its plain version (B=128 at L=128 for H1 = 128 and 336, and
    events of 0, 1, 2, k and k+1 nodes at L = 48 and 112; add and max,
@@ -80,7 +87,9 @@ Phases, each printing one JSON line:
    more per training step; answers and a step on a few of the events
    held against the CPU.  Then the bfloat16 modes, against the bf16
    model on the CPU;
-12. times: each kernel, its plain version and its bound (the fused
+12. times: each kernel, its plain version and its bound (the EdgeConv
+   forward also at conv 0's H1=128 and at TITO's shape, and with the
+   fused EdgeConv + kNN its profiled device time a launch; the fused
    EdgeConv + kNN also against the forward kernel, centring and kNN
    kernel it replaces, and the DynEdge step and request with
    ``FUSE_CONV_KNN`` off, on, on, off); the flash
@@ -378,45 +387,106 @@ def check_knn(torch, ops, rng, dev):
     return worst, report
 
 
+def tiny_events(torch, rng, B, L, dev):
+    """Coordinates and a mask over ``B`` events at length ``L``: events
+    of 0, 1, 2, K and K+1 valid nodes (whole 64-row blocks of the
+    EdgeConv kernels are then padding), the others ragged."""
+    x, m = ragged_coords(torch, rng, B, L, 2, dev)
+    for e, n in enumerate((0, 1, 2, K, K + 1)):
+        m[e] = torch.arange(L, device=dev) < n
+    return x, m
+
+
 def check_edgeconv(torch, ops, rng, dev, B=128, L=128,
                    shapes=((128, 256), (336, 256))):
-    """Phase 4: the EdgeConv forward kernel against its plain version."""
+    """Phase 4: the EdgeConv forward kernel against its plain version,
+    within 1e-4 (fp32) or 2e-2 of the plain output's max (bf16); every
+    case runs twice and must give the same bits.  Cases, as the
+    backward's: both DynEdge layer shapes and H1=100, H2=72 (no multiple
+    of the kernel's tiles); add, max and mean; bf16 max with the leaky
+    slope; k = 1, 3, 12 (no divisor of the 64 rows of a block) and 64;
+    events of 0, 1, 2, k and k+1 valid nodes at L = 48 and 112; L=512
+    (serving's largest bucket); TITO's B=8, L=1024, H1 = H2 = 256 with
+    max."""
     x, m = ragged_coords(torch, rng, B, L, L // 2, dev)
-    idx, em = ops["knn_plain"](x, m, K)
+    main = ops["knn_plain"](x, m, K)
+    r2 = np.random.default_rng(SEED + 9)  # the later phases' stream stays
+    t48 = ops["knn_plain"](*tiny_events(torch, r2, 8, 48, dev), K)
+    t112 = ops["knn_plain"](*tiny_events(torch, r2, 8, 112, dev), K)
+    g512 = ops["knn_plain"](*ragged_coords(torch, r2, 4, 512, 256, dev), K)
+    tito = ops["knn_plain"](*ragged_coords(torch, r2, TITO_B, TITO_L, TITO_L,
+                                           dev, D=4), K)
+    g_k1 = ops["knn_plain"](*ragged_coords(torch, r2, 8, 64, 32, dev), 1)
+    g_k3 = ops["knn_plain"](*ragged_coords(torch, r2, 8, 64, 32, dev), 3)
+    g_k12 = ops["knn_plain"](*ragged_coords(torch, r2, 8, 64, 32, dev), 12)
+    g_k64 = ops["knn_plain"](*ragged_coords(torch, r2, 2, 96, 70, dev), 64)
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = []
+    for h1, h2 in shapes:
+        cases += [(f"B{B}_L{L}", main, h1, h2, f32, "add", 0.0, False),
+                  (f"B{B}_L{L}", main, h1, h2, f32, "max", 0.01, False),
+                  (f"B{B}_L{L}", main, h1, h2, f32, "add", 0.0, True),
+                  (f"B{B}_L{L}", main, h1, h2, b16, "add", 0.0, False),
+                  (f"B{B}_L{L}", main, h1, h2, b16, "max", 0.01, False)]
+    cases += [(f"B{B}_L{L}", main, 100, 72, f32, "add", 0.0, False),
+              (f"B{B}_L{L}", main, 100, 72, f32, "max", 0.01, False),
+              (f"B{B}_L{L}", main, 100, 72, b16, "max", 0.01, False),
+              ("tiny_events_L48", t48, 128, 256, f32, "add", 0.0, False),
+              ("tiny_events_L48", t48, 336, 256, b16, "max", 0.01, False),
+              ("tiny_events_L112", t112, 336, 256, f32, "max", 0.01, False),
+              ("tiny_events_L112", t112, 128, 256, b16, "add", 0.0, False),
+              ("B4_L512", g512, 336, 256, f32, "add", 0.0, False),
+              ("B4_L512", g512, 336, 256, b16, "max", 0.01, False),
+              (f"tito_B{TITO_B}_L{TITO_L}", tito, 256, 256, f32, "max", 0.01,
+               False),
+              (f"tito_B{TITO_B}_L{TITO_L}", tito, 256, 256, b16, "max", 0.01,
+               False),
+              ("k1_B8_L64", g_k1, 100, 72, f32, "max", 0.01, False),
+              ("k1_B8_L64", g_k1, 336, 256, b16, "add", 0.0, False),
+              ("k3_B8_L64", g_k3, 336, 256, f32, "add", 0.0, False),
+              ("k3_B8_L64", g_k3, 100, 72, b16, "max", 0.01, False),
+              ("k12_B8_L64", g_k12, 336, 256, f32, "max", 0.01, False),
+              ("k12_B8_L64", g_k12, 128, 256, b16, "max", 0.01, False),
+              ("k64_B2_L96", g_k64, 128, 256, f32, "add", 0.0, False),
+              ("k64_B2_L96", g_k64, 336, 256, b16, "max", 0.01, False)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     report = []
-    for h1, h2 in shapes:
-        g = torch.Generator(device=dev).manual_seed(h1)
-        a = torch.randn(B, L, h1, device=dev, generator=g)
-        b = torch.randn(B, L, h1, device=dev, generator=g)
+    for label, (idx, em), h1, h2, dtype, aggr, slope, mean in cases:
+        Bc, Lc = idx.shape[:2]
+        g = torch.Generator(device=dev).manual_seed(h1 + Lc)
+        a = torch.randn(Bc, Lc, h1, device=dev, generator=g)
+        b = torch.randn(Bc, Lc, h1, device=dev, generator=g)
         w2 = torch.randn(h1, h2, device=dev, generator=g) / h1 ** 0.5
         b2 = torch.randn(h2, device=dev, generator=g) * 0.1
-        for dtype, aggr, slope, mean in (
-            (torch.float32, "add", 0.0, False),
-            (torch.float32, "max", 0.01, False),
-            (torch.float32, "add", 0.0, True),
-            (torch.bfloat16, "add", 0.0, False),
-        ):
-            args = [a.to(dtype), b.to(dtype), idx, em, w2.to(dtype), b2.to(dtype)]
-            ok = ops["edgeconv"](*args, aggr=aggr, slope=slope)
-            op = ops["edgeconv_plain"](*args, aggr=aggr, slope=slope)
-            if mean:
-                n = em.sum(dim=2, keepdim=True).clamp_min(1)
-                ok, op = ok / n, op / n
-            err = float((ok - op).abs().max())
-            key = str(dtype).replace("torch.", "")
-            if dtype == torch.float32:
-                # fp32 throughout: only the summation order differs
-                torch.testing.assert_close(ok, op, rtol=1e-4, atol=1e-4)
-                rel = None
-            else:
-                # the same bf16 operands, fp32 sums in another order
-                rel = err / float(op.abs().max())
-                assert rel <= 2e-2, f"bf16 EdgeConv off by {rel} of max"
-            worst[key] = max(worst[key], err)
-            report.append({"H1": h1, "H2": h2, "dtype": key,
-                           "aggr": "mean" if mean else aggr, "slope": slope,
-                           "max_abs_err": err, "rel_to_max": rel})
+        args = [a.to(dtype), b.to(dtype), idx, em, w2.to(dtype), b2.to(dtype)]
+        ok = ops["edgeconv"](*args, aggr=aggr, slope=slope)
+        again = ops["edgeconv"](*args, aggr=aggr, slope=slope)
+        op = ops["edgeconv_plain"](*args, aggr=aggr, slope=slope)
+        key = str(dtype).replace("torch.", "")
+        case = f"{label} H1={h1} H2={h2} k={idx.shape[2]} {key} {aggr}"
+        same = torch.equal(ok, again)
+        assert same, f"{case}: two runs gave other bits"
+        if mean:
+            n = em.sum(dim=2, keepdim=True).clamp_min(1)
+            ok, op = ok / n, op / n
+        err = float((ok - op).abs().max())
+        if dtype == torch.float32:
+            # fp32 throughout: only the summation order differs
+            torch.testing.assert_close(ok, op, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{case}: {m}")
+            rel = None
+        else:
+            # the same bf16 operands, fp32 sums in another order
+            rel = err / float(op.abs().max())
+            assert rel <= 2e-2, f"{case}: bf16 EdgeConv off by {rel} of max"
+        if label.startswith("tiny"):  # no valid edge, no output
+            assert not bool(ok[:2].any()), f"{case}: output on a 0/1-node event"
+        worst[key] = max(worst[key], err)
+        report.append({"case": label, "H1": h1, "H2": h2, "k": idx.shape[2],
+                       "dtype": key, "aggr": "mean" if mean else aggr,
+                       "slope": slope, "edges": int(em.sum()),
+                       "max_abs_err": err, "rel_to_max": rel,
+                       "same_bits_twice": same})
     return worst, report
 
 
@@ -429,10 +499,8 @@ def fused_knn_cases(torch, ops, rng, dev):
     for label, B, L, lo, small in (("B128_L128", 128, 128, 64, False),
                                    ("tiny_events_L48", 8, 48, 2, True),
                                    ("tiny_events_L112", 8, 112, 2, True)):
-        x, m = ragged_coords(torch, rng, B, L, lo, dev)
-        if small:
-            for e, n in enumerate((0, 1, 2, K, K + 1)):
-                m[e] = torch.arange(L, device=dev) < n
+        x, m = (tiny_events(torch, rng, B, L, dev) if small
+                else ragged_coords(torch, rng, B, L, lo, dev))
         idx, em = ops["knn_plain"](x, m, K)
         for h1 in ((128, 336) if not small else (128,)):
             cases.append((label, m, idx, em, h1))
@@ -645,8 +713,9 @@ def serve_bf16(gpu16, requests, answers, counters, expect):
 
 def kernel_times(torch, ops, rng, dev, peaks):
     """Phase 8a: each kernel and its plain version at the serving shape
-    (B=128, L=128, k=8; EdgeConv at H1=336, H2=256), and the kNN at
-    TITO's (B=8, L=1024, D=4), with their bounds."""
+    (B=128, L=128, k=8; EdgeConv at H1=336, H2=256 and at conv 0's
+    H1=128), and the kNN and the EdgeConv (max, H1 = H2 = 256) at TITO's
+    (B=8, L=1024, D=4), with their bounds."""
     B, L, H1, H2 = 128, 128, 336, 256
     x, m = ragged_coords(torch, rng, B, L, 65, dev)
     idx, em = ops["knn"](x, m, K)
@@ -672,28 +741,40 @@ def kernel_times(torch, ops, rng, dev, peaks):
         bound_ms=max(t_b, t_o) * 1e3,
         bound_by="bytes" if t_b >= t_o else "operations",
     )
-    n_edges = float(em.sum())
-    flops = n_edges * (2.0 * H1 * H2 + 2 * H1 + 3 * H2)
+    # row 2 at DynEdge's layers 1-3 (H1=336), its conv 0 (H1=128) and
+    # TITO's shape (max)
+    graph4 = ops["knn"](x4, m4, K)
     g = torch.Generator(device=dev).manual_seed(1)
-    for key, dtype, rate in (
-        ("edgeconv_fwd", torch.float32, peaks["fp32"]),
-        ("edgeconv_fwd_bf16", torch.bfloat16, peaks["bf16"]),
+    for tag, (gi, ge), h1, h2, aggr in (
+        ("", (idx, em), H1, H2, "add"),
+        ("_H1_128", (idx, em), 128, H2, "add"),
+        (f"_tito_B{TITO_B}_L{TITO_L}", graph4, 256, 256, "max"),
     ):
-        a = torch.randn(B, L, H1, device=dev, generator=g).to(dtype)
-        b = torch.randn(B, L, H1, device=dev, generator=g).to(dtype)
-        w2 = (torch.randn(H1, H2, device=dev, generator=g) / H1 ** 0.5).to(dtype)
-        b2 = torch.zeros(H2, device=dev, dtype=dtype)
-        el = a.element_size()
-        nbytes = (2 * B * L * H1 * el + B * L * K * 5 + (H1 + 1) * H2 * el
-                  + B * L * H2 * 4)
-        t_b, t_o = nbytes / peaks["bytes"], flops / rate
-        times[key] = dict(
-            ms=cuda_ms(torch, lambda: ops["edgeconv"](a, b, idx, em, w2, b2)),
-            plain_ms=cuda_ms(
-                torch, lambda: ops["edgeconv_plain"](a, b, idx, em, w2, b2)),
-            bound_ms=max(t_b, t_o) * 1e3,
-            bound_by="bytes" if t_b >= t_o else "operations",
-        )
+        Bc, Lc = gi.shape[:2]
+        flops = float(ge.sum()) * (2.0 * h1 * h2 + 2 * h1 + 3 * h2)
+        for key, dtype, rate in (
+            ("edgeconv_fwd", torch.float32, peaks["fp32"]),
+            ("edgeconv_fwd_bf16", torch.bfloat16, peaks["bf16"]),
+        ):
+            a = torch.randn(Bc, Lc, h1, device=dev, generator=g).to(dtype)
+            b = torch.randn(Bc, Lc, h1, device=dev, generator=g).to(dtype)
+            w2 = (torch.randn(h1, h2, device=dev, generator=g) / h1 ** 0.5).to(dtype)
+            b2 = torch.zeros(h2, device=dev, dtype=dtype)
+            el = a.element_size()
+            nbytes = (2 * Bc * Lc * h1 * el + Bc * Lc * K * 5
+                      + (h1 + 1) * h2 * el + Bc * Lc * h2 * 4)
+            t_b, t_o = nbytes / peaks["bytes"], flops / rate
+            conv = (a, b, gi, ge, w2, b2)
+            times[key + tag] = dict(
+                ms=cuda_ms(torch, lambda: ops["edgeconv"](*conv, aggr=aggr)),
+                device_ms=kernel_device_ms(
+                    torch, lambda: ops["edgeconv"](*conv, aggr=aggr),
+                    "edgeconv_fwd"),
+                plain_ms=cuda_ms(torch, lambda: ops["edgeconv_plain"](
+                    *conv, aggr=aggr)),
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+            )
     return times
 
 
@@ -1156,6 +1237,9 @@ def fused_knn_times(torch, ops, rng, dev, peaks, B=128, L=128, H1=336,
         fused = cuda_ms(torch, lambda: ops["edgeconv_knn"](a, b, idx, em, m, w2, b2))
         times[key] = dict(
             ms=fused,
+            device_ms=kernel_device_ms(
+                torch, lambda: ops["edgeconv_knn"](a, b, idx, em, m, w2, b2),
+                "edgeconv_knn"),
             unfused_ms=cuda_ms(torch, unfused),
             ms_again=cuda_ms(torch, lambda: ops["edgeconv_knn"](
                 a, b, idx, em, m, w2, b2)),
@@ -1258,6 +1342,15 @@ def device_profile(torch, fn, calls=5):
         "top": [{"kernel": k[:100], "ms": t, "count": c}
                 for t, k, c in rows[:12]],
     }
+
+
+def kernel_device_ms(torch, fn, match, calls=10):
+    """Device time of one launch of the kernel whose name holds ``match``
+    (``torch.profiler`` over ``calls`` calls of ``fn``): the kernel alone,
+    without the wrapper's host time that one call between CUDA events
+    also holds."""
+    top = device_profile(torch, fn, calls=calls)["top"]
+    return sum(r["ms"] for r in top if match in r["kernel"]) / calls
 
 
 # ----------------------------------------------------------- flash, TITO
@@ -2140,6 +2233,27 @@ def main() -> int:
             row["dynamic_smem_bytes_H1_336_H2_256_k8"] = smem(
                 336, 256, K, int("bf16" in row["kernel"]))
     emit({"phase": "build_edgeconv_bwd", "kernels": bwd_ptxas})
+    # rows 2 and 4: each kernel's registers and spills, and at H1 = 128
+    # and 336 its dynamic shared memory and blocks an SM (row 4 at L=128,
+    # D=3)
+    fwd_rows = []
+    for lib_name, smem_fn, occ_fn, extra in (
+        ("edgeconv", "edgeconv_fwd_smem_bytes", "edgeconv_fwd_blocks_per_sm",
+         ()),
+        ("edgeconv_knn", "edgeconv_knn_smem_bytes",
+         "edgeconv_knn_blocks_per_sm", (128, 3)),
+    ):
+        lib = build.load(lib_name)
+        smem, occ = getattr(lib, smem_fn), getattr(lib, occ_fn)
+        smem.argtypes = occ.argtypes = [ctypes.c_int] * (2 + len(extra))
+        smem.restype, occ.restype = ctypes.c_longlong, ctypes.c_int
+        for row in ptxas_table(logs[lib_name], "_Z"):
+            bf = int("bf16" in row["kernel"])
+            for h1 in (128, 336):
+                row[f"dynamic_smem_bytes_H1_{h1}"] = smem(h1, *extra, bf)
+                row[f"blocks_per_sm_H1_{h1}"] = occ(h1, *extra, bf)
+            fwd_rows.append(row)
+    emit({"phase": "build_edgeconv_fwd", "kernels": fwd_rows})
 
     # 3. kNN kernel vs plain
     t0 = time.perf_counter()

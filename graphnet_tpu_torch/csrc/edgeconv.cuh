@@ -1,243 +1,182 @@
 // The fused EdgeConv forward of one block of 64 edge rows, shared by
 // csrc/edgeconv.cu (the forward kernel) and csrc/edgeconv_knn.cu (the
 // forward fused with the next layer's kNN), so that both compute `out`
-// with the same code and give the same bits.  edgeconv.cu's note says
-// what the block does and what bounds it.
+// with the same code and give the same bits.  The messages, the W2 ring
+// and the product pre2 = msgs.W2 are the backward's (edgeconv_tiles.cuh);
+// edgeconv.cu's note says what the block does and what bounds it.
+//
+// Shared memory a block, in order: the messages [64][ldm] in the compute
+// type (H1 zero-padded to a multiple of 16, plus 16 bytes a row); the
+// ring of kFwdStages W2 tiles [kPreR][256 + 16 bytes], which at the end
+// of each 256-column chunk becomes the fp32 staging of pre2 + b2
+// [64][264]; the block's neighbour indices and edge flags.  At H1=336:
+// bf16 44,032 + 67,584 + 320 = 111,936 bytes, two blocks an SM; fp32
+// 87,040 + 67,584 + 320 = 154,944 bytes, one block an SM.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "edgeconv_tiles.cuh"
 
 namespace ec {
 
+constexpr int kLds = 256 + 8;  // floats per staged pre2 row (bank spread)
 
-constexpr int kRows = 64;      // edge rows per block
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kChunk = 128;    // output columns per WMMA pass (8 warps x 16)
-constexpr int kWld = kChunk + 8;  // bf16 elements per staged W2 row
-constexpr int kOld = kChunk + 4;  // floats per staged output row
+struct FwdLayout {
+  int H1p, ldm, slot;
+  size_t msg_bytes, region, total;
+};
 
-__device__ __forceinline__ float act(float x, float slope) {
-  return slope == 0.0f ? fmaxf(x, 0.0f) : (x > 0.0f ? x : slope * x);
+template <typename T>
+__host__ __device__ inline FwdLayout fwd_layout(int H1) {
+  using C = Cfg<T>;
+  constexpr int el = (int)sizeof(T), pad = 16 / el;
+  FwdLayout s;
+  s.H1p = (H1 + 15) / 16 * 16;
+  s.ldm = s.H1p + pad;  // bf16: an odd count of 16 bytes, for ldmatrix
+  s.slot = C::kPreR * (C::kFwdC + pad);
+  s.msg_bytes = (size_t)kRows * s.ldm * el;
+  const size_t ring = (size_t)C::kFwdStages * s.slot * el;
+  const size_t stage = (size_t)kRows * kLds * 4;
+  s.region = ring > stage ? ring : stage;
+  s.total = s.msg_bytes + s.region + kRows * (4 + 1);
+  return s;
 }
 
-// Neighbour index and edge validity of the block's 64 rows; rows past
-// the block's nodes, past L, or with an out-of-range index are invalid.
-__device__ __forceinline__ void load_edges(const int32_t* __restrict__ idx,
-                                           const uint8_t* __restrict__ em,
-                                           int ev, int n0, int L, int k,
-                                           int rows, int* s_idx,
-                                           uint8_t* s_em) {
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    int j = 0;
-    uint8_t e = 0;
-    const int node = n0 + r / k;
-    if (r < rows && node < L) {
-      const size_t o = ((size_t)ev * L + node) * k + r % k;
-      j = idx[o];
-      e = em[o];
-      if (j < 0 || j >= L) {
-        j = 0;
-        e = 0;
-      }
-    }
-    s_idx[r] = j;
-    s_em[r] = e;
-  }
-}
+// the accumulators of pre2 over a 256-column chunk, a thread
+template <typename T>
+struct FwdAcc;
+template <>
+struct FwdAcc<bf16_t> {  // mma C fragments: [m-tile][n-tile][4]
+  using type = float[2][8][4];
+};
+template <>
+struct FwdAcc<float> {  // [row i][column]
+  using type = float[8][8];
+};
 
-// The fp32 block: `msg` is the dynamic shared memory, [kRows][H1p]
-// floats, then the edges.
-__device__ __forceinline__ void fwd_f32(
-    const float* __restrict__ a, const float* __restrict__ b,
+// One block: out rows n0 .. n0 + tl - 1 of event blockIdx.y, all H2
+// columns.  H1 and H2 are multiples of 8 and a, b, w2 16-byte aligned
+// (the wrapper pads).  `smem`: fwd_layout<T>(H1).total bytes.  A block of
+// padding nodes (no valid edge) writes its zeros and returns.
+template <typename T>
+__device__ __forceinline__ void fwd_block(
+    const T* __restrict__ a, const T* __restrict__ b,
     const int32_t* __restrict__ idx, const uint8_t* __restrict__ em,
-    const float* __restrict__ w2, const float* __restrict__ b2,
+    const T* __restrict__ w2, const T* __restrict__ b2,
     float* __restrict__ out, int L, int H1, int H2, int k, int tl,
-    float slope, int aggr_max, float* msg) {
-  const int H1p = (H1 + 3) & ~3;
-  int* s_idx = reinterpret_cast<int*>(msg + kRows * H1p);
-  uint8_t* s_em = reinterpret_cast<uint8_t*>(s_idx + kRows);
-  const int ev = blockIdx.y;
-  const int n0 = blockIdx.x * tl;
-  const int rows = tl * k;
-  load_edges(idx, em, ev, n0, L, k, rows, s_idx, s_em);
-  __syncthreads();
-
-  const float* aE = a + (size_t)ev * L * H1;
-  const float* bE = b + (size_t)ev * L * H1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const bool ok = s_em[r] != 0;
-    const float* ar = aE + (size_t)(n0 + r / k) * H1;
-    const float* br = bE + (size_t)s_idx[r] * H1;
-    for (int h = lane; h < H1p; h += 32) {
-      msg[r * H1p + h] = (ok && h < H1) ? act(ar[h] + br[h], slope) : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  for (int c = threadIdx.x; c < H2; c += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int h = 0; h < H1p; h += 4) {
-      const float w0 = w2[(size_t)h * H2 + c];
-      const float w1 = h + 1 < H1 ? w2[(size_t)(h + 1) * H2 + c] : 0.0f;
-      const float w2v = h + 2 < H1 ? w2[(size_t)(h + 2) * H2 + c] : 0.0f;
-      const float w3 = h + 3 < H1 ? w2[(size_t)(h + 3) * H2 + c] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 m = *reinterpret_cast<const float4*>(&msg[r * H1p + h]);
-        acc[r] = fmaf(m.x, w0, acc[r]);
-        acc[r] = fmaf(m.y, w1, acc[r]);
-        acc[r] = fmaf(m.z, w2v, acc[r]);
-        acc[r] = fmaf(m.w, w3, acc[r]);
-      }
-    }
-    const float bias = b2[c];
-    float cur = aggr_max ? -1e30f : 0.0f;
-    bool has = false;
-    int kk = 0, node = n0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) {
-        if (s_em[r]) {
-          const float v = act(acc[r] + bias, slope);
-          cur = aggr_max ? fmaxf(cur, v) : cur + v;
-          has = true;
-        }
-        if (++kk == k) {
-          if (node < L) {
-            out[((size_t)ev * L + node) * H2 + c] =
-                (aggr_max && !has) ? 0.0f : cur;
-          }
-          cur = aggr_max ? -1e30f : 0.0f;
-          has = false;
-          kk = 0;
-          ++node;
-        }
-      }
-    }
-  }
-}
-
-// The bf16 block: `smem` is the dynamic shared memory, one region with
-// every WMMA tile 32-byte aligned:
-// msg [64][ldm] bf16 | wt [16][kWld] bf16 | o [64][kOld] f32 | edges
-__device__ __forceinline__ void fwd_bf16(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    const int32_t* __restrict__ idx, const uint8_t* __restrict__ em,
-    const __nv_bfloat16* __restrict__ w2,
-    const __nv_bfloat16* __restrict__ b2, float* __restrict__ out, int L,
-    int H1, int H2, int k, int tl, float slope, int aggr_max,
-    unsigned char* smem) {
-  using namespace nvcuda;
-  const int H1p = (H1 + 15) & ~15;
-  const int ldm = H1p + 8;  // bf16 elements; 64*ldm*2 bytes is 128-aligned
-  __nv_bfloat16* msg = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wt = msg + kRows * ldm;
-  float* o = reinterpret_cast<float*>(wt + 16 * kWld);
-  int* s_idx = reinterpret_cast<int*>(o + kRows * kOld);
+    float slope, int aggr_max, unsigned char* smem) {
+  using C = Cfg<T>;
+  constexpr int S = C::kFwdStages, R = C::kPreR, NC = C::kFwdC;
+  const FwdLayout lay = fwd_layout<T>(H1);
+  const int ldm = lay.ldm, slot = lay.slot;
+  T* msg = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + lay.msg_bytes);
+  float* stage = reinterpret_cast<float*>(smem + lay.msg_bytes);
+  int* s_idx = reinterpret_cast<int*>(smem + lay.msg_bytes + lay.region);
   uint8_t* s_em = reinterpret_cast<uint8_t*>(s_idx + kRows);
 
   const int ev = blockIdx.y;
   const int n0 = blockIdx.x * tl;
-  const int rows = tl * k;
-  load_edges(idx, em, ev, n0, L, k, rows, s_idx, s_em);
-  __syncthreads();
-
-  const __nv_bfloat16* aE = a + (size_t)ev * L * H1;
-  const __nv_bfloat16* bE = b + (size_t)ev * L * H1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const bool ok = s_em[r] != 0;
-    const __nv_bfloat16* ar = aE + (size_t)(n0 + r / k) * H1;
-    const __nv_bfloat16* br = bE + (size_t)s_idx[r] * H1;
-    for (int h = lane; h < ldm; h += 32) {
-      float v = 0.0f;
-      if (ok && h < H1) {
-        v = act(__bfloat162float(ar[h]) + __bfloat162float(br[h]), slope);
-      }
-      msg[r * ldm + h] = __float2bfloat16(v);
+  load_edges(idx, em, ev, n0, L, k, tl * k, s_idx, s_em);
+  if (!__syncthreads_or(threadIdx.x < kRows && s_em[threadIdx.x])) {
+    for (int i = threadIdx.x; i < tl * H2; i += kThreads) {
+      if (n0 + i / H2 < L) out[((size_t)ev * L + n0) * H2 + i] = 0.f;
     }
+    return;
+  }
+  // pre2 over nhp h tiles for each 256-column chunk, the tiles S - 1
+  // ahead in the ring, each in a commit group of its own
+  const int nhp = (H1 + R - 1) / R, rot = blockIdx.x % nhp;
+  auto load = [=](int t, int c0) {
+    load_tile<T, R, NC>(ring + (t % S) * slot, w2, H2, pre_h0<T>(t, nhp, rot),
+                        c0, H1, H2);
+  };
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < nhp) load(t, 0);
+    hopper::cp_async_commit();
   }
 
-  for (int c0 = 0; c0 < H2; c0 += kChunk) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRows / 16];
-#pragma unroll
-    for (int i = 0; i < kRows / 16; ++i) wmma::fill_fragment(acc[i], 0.0f);
+  // the messages: the neighbours' b rows into msg and the nodes' a rows
+  // into the ring's last slot (read from memory where they do not fit),
+  // then msgs = act(a + b) in place
+  const T* aE = a + ((size_t)ev * L + n0) * H1;
+  T* as = ring + (S - 1) * slot;
+  const bool staged = tl * ldm <= slot;
+  issue_b_rows(msg, ldm, b + (size_t)ev * L * H1, b, s_idx, s_em, H1,
+               lay.H1p);
+  if (staged) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int q = warp; q < tl; q += kThreads / 32) {
+      for (int h = lane * kPer; h < H1; h += 32 * kPer)
+        copy16(as + q * ldm + h, n0 + q < L ? aE + (size_t)q * H1 + h : nullptr,
+               a);
+    }
+  }
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  if (staged) {  // two calls, so that this one reads shared memory only
+    build_msgs(msg, ldm, as, ldm, k, H1, lay.H1p / 8, s_em, slope,
+               (uint8_t*)nullptr);
+  } else {
+    build_msgs(msg, ldm, aE, H1, k, H1, lay.H1p / 8, s_em, slope,
+               (uint8_t*)nullptr);
+  }
 
-    for (int h0 = 0; h0 < H1p; h0 += 16) {
-      __syncthreads();  // previous slab consumed (and messages written)
-      for (int t = threadIdx.x; t < 16 * kChunk; t += blockDim.x) {
-        const int hh = t / kChunk, cc = t % kChunk;
-        const int h = h0 + hh, c = c0 + cc;
-        wt[hh * kWld + cc] = (h < H1 && c < H2)
-                                 ? w2[(size_t)h * H2 + c]
-                                 : __float2bfloat16(0.0f);
-      }
-      __syncthreads();
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          bf;
-      wmma::load_matrix_sync(bf, wt + 16 * warp, kWld);
-#pragma unroll
-      for (int i = 0; i < kRows / 16; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af;
-        wmma::load_matrix_sync(af, msg + 16 * i * ldm + h0, ldm);
-        wmma::mma_sync(acc[i], af, bf, acc[i]);
+  for (int c0 = 0; c0 < H2; c0 += NC) {
+    if (c0 > 0) {
+      for (int t = 0; t < S - 1; ++t) {
+        if (t < nhp) load(t, c0);
+        hopper::cp_async_commit();
       }
     }
-#pragma unroll
-    for (int i = 0; i < kRows / 16; ++i) {
-      wmma::store_matrix_sync(o + 16 * i * kOld + 16 * warp, acc[i], kOld,
-                              wmma::mem_row_major);
+    typename FwdAcc<T>::type acc;
+    zero(acc);
+    for (int t = 0; t < nhp; ++t) {
+      hopper::cp_async_wait<S - 2>();
+      __syncthreads();  // tile t landed; every warp is done with tile t - 1
+      if (t + S - 1 < nhp) load(t + S - 1, c0);
+      hopper::cp_async_commit();
+      const int h0 = pre_h0<T>(t, nhp, rot);
+      pre_step(acc, msg, ldm, h0, ring + (t % S) * slot, (lay.H1p - h0) / 16);
     }
+    __syncthreads();  // every warp is done with the ring: pre2 + b2 there
+    pre_store(acc, stage, kLds, c0, b2, H2, c0);
     __syncthreads();
-
-    for (int t = threadIdx.x; t < tl * kChunk; t += blockDim.x) {
-      const int nl = t / kChunk, cc = t % kChunk;
-      const int node = n0 + nl, c = c0 + cc;
-      if (node >= L || c >= H2) continue;
-      const float bias = __bfloat162float(b2[c]);
-      float cur = aggr_max ? -1e30f : 0.0f;
+    // bias done; act, mask and the sum or max over each node's k rows in
+    // order, 4 columns a thread
+    constexpr int kQ = NC / 4;
+    for (int i = threadIdx.x; i < tl * kQ; i += kThreads) {
+      const int q = i / kQ, cq = (i % kQ) * 4, col = c0 + cq;
+      if (n0 + q >= L || col >= H2) continue;
+      const float init = aggr_max ? -1e30f : 0.0f;
+      float cur[4] = {init, init, init, init};
       bool has = false;
+#pragma unroll 8
       for (int kk = 0; kk < k; ++kk) {
-        const int r = nl * k + kk;
+        const int r = q * k + kk;  // < 64: a row of the staging
+        const float4 v = ld4(stage + r * kLds + cq);
         if (!s_em[r]) continue;
-        const float v = act(o[r * kOld + cc] + bias, slope);
-        cur = aggr_max ? fmaxf(cur, v) : cur + v;
+        const float x[4] = {act(v.x, slope), act(v.y, slope), act(v.z, slope),
+                            act(v.w, slope)};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          cur[u] = aggr_max ? fmaxf(cur[u], x[u]) : cur[u] + x[u];
         has = true;
       }
-      out[((size_t)ev * L + node) * H2 + c] = (aggr_max && !has) ? 0.0f : cur;
+      if (aggr_max && !has) cur[0] = cur[1] = cur[2] = cur[3] = 0.0f;
+      *reinterpret_cast<float4*>(out + ((size_t)ev * L + n0 + q) * H2 + col) =
+          make_float4(cur[0], cur[1], cur[2], cur[3]);
     }
-    // the next chunk's first slab barrier also protects `o`
+    __syncthreads();  // the staging is read before the next tiles land
   }
 }
 
 // Shared memory a block needs, in bytes.
 inline long long smem_bytes(int H1, int bf16) {
-  const long long edges = kRows * (4 + 1);
-  if (bf16) {
-    const int ldm = ((H1 + 15) & ~15) + 8;
-    return (long long)kRows * ldm * 2 + 16 * kWld * 2 +
-           (long long)kRows * kOld * 4 + edges;
-  }
-  return (long long)kRows * ((H1 + 3) & ~3) * 4 + edges;
-}
-
-inline cudaError_t allow_smem(const void* kernel, size_t bytes,
-                              size_t* configured) {
-  if (bytes <= 48 * 1024 || bytes <= *configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *configured = bytes;
-  return err;
+  return (long long)(bf16 ? fwd_layout<bf16_t>(H1).total
+                          : fwd_layout<float>(H1).total);
 }
 
 }  // namespace ec

@@ -50,6 +50,10 @@
 //      of incoming edges, ordered by edge id; bwd_db, one block per
 //      node, sums the g_z rows of its incoming edges in that order.
 //
+// The message build, the W2 tiles and the pre2 product are the
+// forward's code (edgeconv_tiles.cuh), in the same tile order, so pre2
+// here is the forward's, bit for bit.
+//
 // What bounds it on the H100: operations.  It does three products of
 // 2*E*H1*H2 flops (E valid edges): about 3x the forward's.  At DynEdge's
 // layers 1-3 (H1=336, H2=256), B=128, L=128, k=8 with ~75 % of the edges
@@ -65,16 +69,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "edgeconv.cuh"
+#include "edgeconv_tiles.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using bf16_t = __nv_bfloat16;
 using ec::act;
+using ec::at4;
+using ec::bf16_t;
+using ec::Cfg;
+using ec::copy16;
+using ec::from_f;
 using ec::kRows;
 using ec::kThreads;
-using hopper::cp_async16;
+using ec::ld4;
+using ec::load8;
+using ec::load_tile;
+using ec::pre_h0;
+using ec::pre_step;
+using ec::pre_store;
+using ec::store8;
+using ec::to_f;
+using ec::zero;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::ldmatrix_x4;
@@ -85,78 +101,6 @@ using hopper::pack_bf16;
 constexpr int kTile = 128;    // dW2 tile edge (h and c)
 constexpr int kChunk = 1024;  // at most this many edge rows per dW2 slice
 constexpr int kDwStages = 3;  // dW2 stages in flight
-
-// Per compute type, the edge kernel's streamed tiles and the dW2 stage.
-// pre2 = msgs.W2 streams tiles of kPreR rows (h) x kPreC columns (c) of
-// W2, column chunk by column chunk of pre2; g_z = gm.W2^T, kGzN of its
-// columns (h) a pass, streams tiles of kGzR x kGzC: of W2 (bf16: rows h,
-// columns c, read by ldmatrix) or of W2^T (fp32: rows c, columns h, read
-// along h by float4).  kStages tiles in the ring, so that the copies
-// from L2 in flight cover their latency.  kStage edge rows per dW2
-// stage.
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<bf16_t> {
-  static constexpr int kStages = 4, kPreR = 64, kPreC = 128, kGzR = 64,
-                       kGzC = 128, kGzN = 64, kStage = 32;
-  static constexpr bool kGzT = false;
-};
-template <>
-struct Cfg<float> {
-  static constexpr int kStages = 3, kPreR = 16, kPreC = 256, kGzR = 16,
-                       kGzC = 128, kGzN = 128, kStage = 16;
-  static constexpr bool kGzT = true;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16_t x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16_t from_f<bf16_t>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float at4(const float4& x, int u) {
-  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
-}
-
-// the 8 values at p (16-byte aligned), as floats
-__device__ __forceinline__ void load8(float (&v)[8], const bf16_t* p) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    v[2 * i] = __bfloat162float(h.x);
-    v[2 * i + 1] = __bfloat162float(h.y);
-  }
-}
-__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
-  const float4 x = ld4(p), y = ld4(p + 4);
-  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
-}
-
-// v rounded to T into dst (16-byte aligned)
-__device__ __forceinline__ void store8(bf16_t* dst, const float (&v)[8]) {
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-}
-__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 // The edge kernel's shared memory for compute type T and k neighbours,
 // in order: the messages, later the gm rows (row strides ldm, ldg: the
@@ -200,37 +144,14 @@ __host__ __device__ inline EdgeLayout edge_layout(int H1, int H2, int k) {
   return s;
 }
 
-// Start the 16-byte copy of src into dst, or zeros where src is null
-// (`base`: any valid source address, named where nothing is read).
-template <typename T>
-__device__ __forceinline__ void copy16(T* dst, const T* src, const T* base) {
-  cp_async16(dst, src ? src : base, src ? 16 : 0);
-}
-
-// Start the copy of rows [r0, r0 + R) x columns [c0, c0 + C) of src
-// ([*][ld]) into dst ([R][C + 16 bytes]), zeros outside [0, rows) x
-// [0, cols) (cols a multiple of 16 bytes).  Commits nothing.
-template <typename T, int R, int C>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          int ld, int r0, int c0, int rows,
-                                          int cols) {
-  constexpr int kPer = 16 / (int)sizeof(T), kCpr = C / kPer;
-  for (int i = threadIdx.x; i < R * kCpr; i += kThreads) {
-    const int r = i / kCpr, c = (i % kCpr) * kPer;
-    const bool in = r0 + r < rows && c0 + c < cols;
-    copy16(dst + r * (C + kPer) + c,
-           in ? src + (size_t)(r0 + r) * ld + c0 + c : nullptr, src);
-  }
-}
-
 // ---- the products of the edge kernel, per compute type: pre2 over a
 // column chunk of kPreC (Acc::pre a thread), g_z over a pass of kGzN
 // columns (Acc::gz a thread), a streamed tile a step.
 template <typename T>
 struct Acc;
 template <>
-struct Acc<bf16_t> {  // mma C fragments: [n-tile][4]
-  using pre = float[8][4];
+struct Acc<bf16_t> {  // mma C fragments: [m-tile][n-tile][4]
+  using pre = float[1][8][4];
   using gz = float[4][4];
 };
 template <>
@@ -238,66 +159,6 @@ struct Acc<float> {  // [row i][column]
   using pre = float[8][8];
   using gz = float[8][4];
 };
-
-template <int M, int N>
-__device__ __forceinline__ void zero(float (&acc)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
-}
-template <int L, int M, int N>
-__device__ __forceinline__ void zero(float (&acc)[L][M][N]) {
-#pragma unroll
-  for (int i = 0; i < L; ++i) zero(acc[i]);
-}
-
-// bf16: warp w owns rows 16 (w & 3) .. + 15; of a pre2 chunk the 64
-// columns 64 (w >> 2) .. (8 n-tiles), of a g_z pass the 32 columns
-// 32 (w >> 2) .. (4 n-tiles).  The W2 tiles are [h][c]: B fragments of
-// pre2 by ldmatrix.trans, of g_z by ldmatrix.
-__device__ __forceinline__ void pre_step(float (&acc)[8][4],
-                                         const bf16_t* msg, int ldm, int h0,
-                                         const bf16_t* w) {
-  constexpr int ldw = Cfg<bf16_t>::kPreC + 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rg = warp & 3, cg = warp >> 2;
-#pragma unroll
-  for (int ks = 0; ks < Cfg<bf16_t>::kPreR / 16; ++ks) {
-    uint32_t af[4];
-    ldmatrix_x4(af, msg + (rg * 16 + (lane & 15)) * ldm + h0 + ks * 16 +
-                        (lane >> 4) * 8);
-    const int hr = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, w + hr * ldw + cg * 64 + np * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * np], af, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void pre_store(const float (&acc)[8][4], float* pre,
-                                          int ldp, int c0,
-                                          const bf16_t* __restrict__ b2,
-                                          int H2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rg = warp & 3, cg = warp >> 2;
-  const int gq = lane >> 2, c = 2 * (lane & 3);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = c0 + cg * 64 + n * 8 + c;
-    const float bias0 = col < H2 ? to_f(b2[col]) : 0.f;
-    const float bias1 = col + 1 < H2 ? to_f(b2[col + 1]) : 0.f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = rg * 16 + gq + 8 * r;
-      *reinterpret_cast<float2*>(pre + row * ldp + col) = make_float2(
-          acc[n][2 * r] + bias0, acc[n][2 * r + 1] + bias1);
-    }
-  }
-}
 
 __device__ __forceinline__ void gz_step(float (&acc)[4][4], const bf16_t* gm,
                                         int ldg, int c0, const bf16_t* w) {
@@ -335,55 +196,6 @@ __device__ __forceinline__ void gz_store(const float (&acc)[4][4], float* gzs,
           make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
 }
 
-// fp32: warp w owns rows w + 8 i (i < 8), lane l the columns 4 l .. + 3
-// and, of a pre2 chunk, 128 + 4 l .. + 3: 8 x 8 (pre2) and 8 x 4 (g_z)
-// micro-tiles, each operand read as float4, the rows' along k (a
-// broadcast in the warp), the tile's along the lanes.
-__device__ __forceinline__ void pre_step(float (&acc)[8][8], const float* msg,
-                                         int ldm, int h0, const float* w) {
-  constexpr int ldw = Cfg<float>::kPreC + 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int hh = 0; hh < Cfg<float>::kPreR; hh += 4) {
-    float4 mv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) mv[i] = ld4(msg + (warp + 8 * i) * ldm + h0 + hh);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 w0 = ld4(w + (hh + u) * ldw + 4 * lane);
-      const float4 w1 = ld4(w + (hh + u) * ldw + 128 + 4 * lane);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float m = at4(mv[i], u);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(m, wv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void pre_store(const float (&acc)[8][8], float* pre,
-                                          int ldp, int c0,
-                                          const float* __restrict__ b2,
-                                          int H2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int col = c0 + 128 * jj + 4 * lane;
-    float bias[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) bias[u] = col + u < H2 ? b2[col + u] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float* a = acc[i] + 4 * jj;
-      *reinterpret_cast<float4*>(pre + (warp + 8 * i) * ldp + col) =
-          make_float4(a[0] + bias[0], a[1] + bias[1], a[2] + bias[2],
-                      a[3] + bias[3]);
-    }
-  }
-}
-
 __device__ __forceinline__ void gz_step(float (&acc)[8][4], const float* gm,
                                         int ldg, int c0, const float* wt) {
   constexpr int ldw = Cfg<float>::kGzC + 4;
@@ -419,13 +231,12 @@ __device__ __forceinline__ void gz_store(const float (&acc)[8][4], float* gzs,
 
 // The tiles of each product, rotated per block (rot) so that the blocks
 // that run together read other parts of W2 from L2 at a time.  pre2's
-// step t: column chunk t / nhp, W2 rows of h tile (t % nhp + rot) % nhp.
-// g_z's step t: pass (t / nk + rot) % np, k tile t % nk.  Both give the
-// source tile's first row and column.
+// step t: column chunk t / nhp, W2 rows of h tile (t % nhp + rot) % nhp
+// (ec::pre_h0, as the forward).  g_z's step t: pass (t / nk + rot) % np,
+// k tile t % nk.  Both give the source tile's first row and column.
 template <typename T>
 __device__ __forceinline__ int2 pre_tile(int t, int nhp, int rot) {
-  return make_int2((t % nhp + rot) % nhp * Cfg<T>::kPreR,
-                   (t / nhp) * Cfg<T>::kPreC);
+  return make_int2(pre_h0<T>(t, nhp, rot), (t / nhp) * Cfg<T>::kPreC);
 }
 template <typename T>
 __device__ __forceinline__ int gz_pass(int t, int nk, int np, int rot) {
@@ -474,7 +285,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* s_idx = reinterpret_cast<int*>(p);
   uint8_t* s_em = reinterpret_cast<uint8_t*>(s_idx + kRows);
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ev = blockIdx.y;
   const int n0 = blockIdx.x * tl;
   const int live = min(tl * k, (L - n0) * k);  // rows of existing nodes
@@ -530,18 +340,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // the messages: the neighbours' b rows into msg, the nodes' a rows
-  // into `as`, then msgs = act(a + b) in place with their z > 0 bits,
-  // a warp per row, 8 columns a lane
+  // into `as`, then msgs = act(a + b) in place with their z > 0 bits
   {
     const T* aE = a + (size_t)ev * L * H1;
-    const T* bE = b + (size_t)ev * L * H1;
     constexpr int kPer = 16 / (int)sizeof(T);
     const int cpr = lay.H1p / kPer;
-    for (int i = threadIdx.x; i < kRows * cpr; i += kThreads) {
-      const int r = i / cpr, h = (i % cpr) * kPer;
-      copy16(msg + r * ldm + h,
-             s_em[r] && h < H1 ? bE + (size_t)s_idx[r] * H1 + h : nullptr, b);
-    }
+    ec::issue_b_rows(msg, ldm, b + (size_t)ev * L * H1, b, s_idx, s_em, H1,
+                     lay.H1p);
     for (int i = threadIdx.x; i < tl * cpr; i += kThreads) {
       const int q = i / cpr, h = (i % cpr) * kPer;
       copy16(as + q * ldm + h,
@@ -551,23 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async_wait<0>();
     __syncthreads();
   }
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const bool ok = s_em[r] != 0;
-    for (int ch = lane; ch < nzb; ch += 32) {
-      float x[8], y[8];
-      load8(x, as + (r / k) * ldm + ch * 8);
-      load8(y, msg + r * ldm + ch * 8);
-      uint32_t bits = 0;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float z = ok ? x[u] + y[u] : 0.f;
-        bits |= (z > 0.0f ? 1u : 0u) << u;
-        x[u] = act(z, slope);
-      }
-      store8(msg + r * ldm + ch * 8, x);
-      zbits[r * nzb + ch] = (uint8_t)bits;
-    }
-  }
+  ec::build_msgs(msg, ldm, as, ldm, k, H1, nzb, s_em, slope, zbits);
   if (!lay.early) {
     __syncthreads();  // the a rows are read: the ring is free
     for (int t = 0; t < S - 1; ++t) {

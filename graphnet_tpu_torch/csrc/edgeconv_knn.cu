@@ -19,25 +19,31 @@
 //
 // What bounds it on the H100: operations, as edgeconv.cu.  At DynEdge's
 // layers 1-3 (H1=336, H2=256, B=128, L=128, k=8) the conv's second
-// linear is 22.5 GFLOP; the kNN adds ~10 flops a valid pair, 21 MFLOP.
+// linear is ~17 GFLOP over the valid edges; the kNN adds ~10 flops a
+// valid pair, 21 MFLOP.
 //
 // The design: the kNN needs every row of an event, but edgeconv.cu's grid
 // gives a block 64 edge rows (8 nodes at k=8), so an event at L=128
-// spans 16 blocks.  The grid and the conv code are edgeconv.cu's
-// (edgeconv.cuh), so `out` is the same bits as that kernel's.  Each block
-// writes its rows of `out`, fences them, and counts itself in the
-// event's arrival counter with an atomic; the block that arrives last
-// reads the event's D coordinate columns back from L2 (__ldcg, past the
-// non-coherent L1), computes the centre and runs knn.cu's selection, one
-// thread per query with a sorted top-16 in registers (the first knn_k of
-// the top 16 are the top knn_k), and resets the counter to 0 for the next
-// launch.  The kNN of an event thus runs on one block while the other
-// events' conv blocks keep the card busy; the event's coordinates never
-// leave the chip between the conv and the kNN but for the L2 round trip.
-// The counters ([B] unsigned ints, zero) are allocated once per device by
-// the wrapper; launches on one stream run one after another, so each
-// finds them zero.  This is the first, simple version (no TMA, wgmma or
-// pipelining yet).
+// spans 16 blocks.  The grid and the conv block are edgeconv.cu's
+// (ec::fwd_block in edgeconv.cuh: the message build, the W2 tiles through
+// a cp.async ring, pre2 on mma.sync in bf16 or on 8 x 8 fp32 register
+// tiles, the reduction over k through the ring's place), so `out` is the
+// same bits as that kernel's, with its shared memory (112 KB bf16, two
+// blocks an SM; 155 KB fp32 at H1=336).  Each block writes its rows of
+// `out`, fences them, and counts itself in the event's arrival counter
+// with an atomic; a block of padding nodes, which writes its zeros and
+// leaves the conv early, counts itself too, and may be the last.  The
+// block that arrives last reads the event's D coordinate columns back
+// from L2 (__ldcg, past the non-coherent L1), computes the centre and
+// runs knn.cu's selection, one thread per query with a sorted top-16 in
+// registers (the first knn_k of the top 16 are the top knn_k), and
+// resets the counter to 0 for the next launch.  The kNN of an event thus
+// runs on one block while the other events' conv blocks keep the card
+// busy; the event's coordinates never leave the chip between the conv
+// and the kNN but for the L2 round trip.  The counters ([B] unsigned
+// ints, zero) are allocated once per device by the wrapper; launches on
+// one stream run one after another, so each finds them zero.  The kNN
+// tail is serial per event (one block).
 
 #include "edgeconv.cuh"
 #include "knn.cuh"
@@ -150,38 +156,19 @@ __device__ __forceinline__ void knn_tail(const float* __restrict__ out,
   if (threadIdx.x == 0) counter[ev] = 0;
 }
 
-__global__ void __launch_bounds__(ec::kThreads)
-    edgeconv_knn_f32(const float* __restrict__ a, const float* __restrict__ b,
-                     const int32_t* __restrict__ idx,
-                     const uint8_t* __restrict__ em,
-                     const uint8_t* __restrict__ nmask,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ out,
-                     int32_t* __restrict__ nidx, uint8_t* __restrict__ nem,
-                     unsigned int* counter, int L, int H1, int H2, int k,
-                     int tl, float slope, int aggr_max, int knn_k, int lo,
-                     int D) {
-  extern __shared__ __align__(128) float msg[];
-  ec::fwd_f32(a, b, idx, em, w2, b2, out, L, H1, H2, k, tl, slope, aggr_max,
-              msg);
-  knn_tail(out, nmask, L, H2, lo, D, knn_k, nidx, nem, counter, msg);
-}
-
-__global__ void __launch_bounds__(ec::kThreads)
-    edgeconv_knn_bf16(const __nv_bfloat16* __restrict__ a,
-                      const __nv_bfloat16* __restrict__ b,
-                      const int32_t* __restrict__ idx,
-                      const uint8_t* __restrict__ em,
-                      const uint8_t* __restrict__ nmask,
-                      const __nv_bfloat16* __restrict__ w2,
-                      const __nv_bfloat16* __restrict__ b2,
-                      float* __restrict__ out, int32_t* __restrict__ nidx,
-                      uint8_t* __restrict__ nem, unsigned int* counter, int L,
-                      int H1, int H2, int k, int tl, float slope,
-                      int aggr_max, int knn_k, int lo, int D) {
+template <typename T>
+__global__ void __launch_bounds__(ec::kThreads, sizeof(T) == 2 ? 2 : 1)
+    edgeconv_knn(const T* __restrict__ a, const T* __restrict__ b,
+                 const int32_t* __restrict__ idx,
+                 const uint8_t* __restrict__ em,
+                 const uint8_t* __restrict__ nmask, const T* __restrict__ w2,
+                 const T* __restrict__ b2, float* __restrict__ out,
+                 int32_t* __restrict__ nidx, uint8_t* __restrict__ nem,
+                 unsigned int* counter, int L, int H1, int H2, int k, int tl,
+                 float slope, int aggr_max, int knn_k, int lo, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ec::fwd_bf16(a, b, idx, em, w2, b2, out, L, H1, H2, k, tl, slope, aggr_max,
-               smem);
+  ec::fwd_block<T>(a, b, idx, em, w2, b2, out, L, H1, H2, k, tl, slope,
+                   aggr_max, smem);
   knn_tail(out, nmask, L, H2, lo, D, knn_k, nidx, nem, counter,
            reinterpret_cast<float*>(smem));
 }
@@ -198,6 +185,39 @@ extern "C" long long edgeconv_knn_smem_bytes(int H1, int L, int D, int bf16) {
   return conv > knn ? conv : knn;
 }
 
+// Blocks of the kernel an SM holds at H1, L and D (-1 on an error).
+extern "C" int edgeconv_knn_blocks_per_sm(int H1, int L, int D, int bf16) {
+  const size_t smem = (size_t)edgeconv_knn_smem_bytes(H1, L, D, bf16);
+  return bf16 ? ec::blocks_per_sm((const void*)edgeconv_knn<ec::bf16_t>, smem)
+              : ec::blocks_per_sm((const void*)edgeconv_knn<float>, smem);
+}
+
+template <typename T>
+cudaError_t launch(const void* a, const void* b, const void* idx,
+                   const void* em, const void* nmask, const void* w2,
+                   const void* b2, void* out, void* nidx, void* nem,
+                   void* counter, int B, int L, int H1, int H2, int k,
+                   int knn_k, int lo, int D, float slope, int aggr_max,
+                   size_t smem, cudaStream_t s) {
+  static size_t configured = 0;
+  const int tl = ec::kRows / k;
+  const dim3 grid((L + tl - 1) / tl, B);
+  cudaError_t err = ec::allow_smem((const void*)edgeconv_knn<T>, smem,
+                                   &configured);
+  if (err != cudaSuccess) return err;
+  edgeconv_knn<T><<<grid, ec::kThreads, smem, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(em),
+      static_cast<const uint8_t*>(nmask), static_cast<const T*>(w2),
+      static_cast<const T*>(b2), static_cast<float*>(out),
+      static_cast<int32_t*>(nidx), static_cast<uint8_t*>(nem),
+      static_cast<unsigned int*>(counter), L, H1, H2, k, tl, slope, aggr_max,
+      knn_k, lo, D);
+  return cudaGetLastError();
+}
+
+// H1 and H2 multiples of 8; a, b, w2 16-byte aligned (the wrapper pads
+// and copies).
 extern "C" int edgeconv_knn_launch(const void* a, const void* b,
                                    const void* idx, const void* em,
                                    const void* nmask, const void* w2,
@@ -206,41 +226,17 @@ extern "C" int edgeconv_knn_launch(const void* a, const void* b,
                                    int H1, int H2, int k, int knn_k, int lo,
                                    int D, float slope, int aggr_max, int bf16,
                                    void* stream) {
-  static size_t configured_f32 = 0, configured_bf16 = 0;
   if (B == 0 || L == 0) return 0;
   if (k < 1 || k > ec::kRows || knn_k < 1 || knn_k > kMaxK ||
-      (D != 3 && D != 4) || lo < 0 || lo + D > H2) {
+      (D != 3 && D != 4) || lo < 0 || lo + D > H2 || H1 % 8 || H2 % 8) {
     return (int)cudaErrorInvalidValue;
   }
-  const int tl = ec::kRows / k;
-  const dim3 grid((L + tl - 1) / tl, B);
   const size_t smem = (size_t)edgeconv_knn_smem_bytes(H1, L, D, bf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* nm = static_cast<const uint8_t*>(nmask);
-  int32_t* ni = static_cast<int32_t*>(nidx);
-  uint8_t* ne = static_cast<uint8_t*>(nem);
-  unsigned int* cnt = static_cast<unsigned int*>(counter);
-  cudaError_t err;
-  if (bf16) {
-    err = ec::allow_smem((const void*)edgeconv_knn_bf16, smem,
-                         &configured_bf16);
-    if (err != cudaSuccess) return (int)err;
-    edgeconv_knn_bf16<<<grid, ec::kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b),
-        static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(em), nm,
-        static_cast<const __nv_bfloat16*>(w2),
-        static_cast<const __nv_bfloat16*>(b2), static_cast<float*>(out), ni,
-        ne, cnt, L, H1, H2, k, tl, slope, aggr_max, knn_k, lo, D);
-  } else {
-    err = ec::allow_smem((const void*)edgeconv_knn_f32, smem, &configured_f32);
-    if (err != cudaSuccess) return (int)err;
-    edgeconv_knn_f32<<<grid, ec::kThreads, smem, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(em), nm,
-        static_cast<const float*>(w2), static_cast<const float*>(b2),
-        static_cast<float*>(out), ni, ne, cnt, L, H1, H2, k, tl, slope,
-        aggr_max, knn_k, lo, D);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch<ec::bf16_t>(a, b, idx, em, nmask, w2, b2, out,
+                                         nidx, nem, counter, B, L, H1, H2, k,
+                                         knn_k, lo, D, slope, aggr_max, smem, s)
+                    : launch<float>(a, b, idx, em, nmask, w2, b2, out, nidx,
+                                    nem, counter, B, L, H1, H2, k, knn_k, lo,
+                                    D, slope, aggr_max, smem, s));
 }

@@ -303,24 +303,44 @@ def _check_smem(need: int, dev: torch.device, what: str) -> None:
         )
 
 
+def pad_operands(
+    a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``a``, ``b``, ``w2`` and ``b2`` with H1 and H2 zero-padded to
+    multiples of 8, the kernels' rows of whole 16-byte chunks (the same
+    tensors where both already are).  Zero columns of a and b give zero
+    messages, zero rows and columns of W2 and b2 zero outputs: the first
+    H2 output columns and the gradients' first H1 and H2 are unchanged.
+    Made anew each call, so a W2 updated in place is always read."""
+    H1, H2 = w2.shape
+    P1, P2 = -(-H1 // 8) * 8, -(-H2 // 8) * 8
+    if (P1, P2) == (H1, H2):
+        return a, b, w2, b2
+    pad = torch.nn.functional.pad
+    return (pad(a, (0, P1 - H1)), pad(b, (0, P1 - H1)),
+            pad(w2, (0, P2 - H2, 0, P1 - H1)), pad(b2, (0, P2 - H2)))
+
+
 def _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope, dev):
-    B, L, H1 = a.shape
     H2, k = w2.shape[1], idx.shape[2]
+    a, b, w2, b2 = pad_operands(a, b, w2, b2)
+    B, L, H1 = a.shape
+    H2p = w2.shape[1]
     bf16 = int(a.dtype == torch.bfloat16)
     lib = _lib()
     _check_smem(lib.edgeconv_fwd_smem_bytes(H1, bf16), dev, f"H1={H1}")
     with torch.cuda.device(dev):
-        args = [t.contiguous() for t in (a, b, idx, edge_mask, w2, b2)]
-        out = torch.empty((B, L, H2), dtype=torch.float32, device=dev)
+        args = [aligned16(t) for t in (a, b, idx, edge_mask, w2, b2)]
+        out = torch.empty((B, L, H2p), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.edgeconv_fwd_launch(
             *(t.data_ptr() for t in args), out.data_ptr(),
-            B, L, H1, H2, k, float(slope), int(aggr == "max"), bf16, stream,
+            B, L, H1, H2p, k, float(slope), int(aggr == "max"), bf16, stream,
         )
     if err != 0:
         raise RuntimeError(f"edgeconv kernel launch failed: CUDA error {err}")
     fused_edgeconv.launches += 1
-    return out
+    return out if H2p == H2 else out[..., :H2].contiguous()
 
 
 # per (device, stream): the fused EdgeConv + kNN kernel's per-event
@@ -363,19 +383,21 @@ def _fwd_knn_cuda(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
             f"knn_k <= {KNN_MAX_K} and {KNN_DIMS} columns; got L={L}, "
             f"knn_k={knn_k}, {D} columns"
         )
+    a, b, w2, b2 = pad_operands(a, b, w2, b2)
+    H1, H2p = w2.shape
     bf16 = int(a.dtype == torch.bfloat16)
     lib = _knn_lib()
     _check_smem(lib.edgeconv_knn_smem_bytes(H1, L, D, bf16), dev, f"H1={H1}")
     with torch.cuda.device(dev):
-        args = [t.contiguous() for t in (a, b, idx, edge_mask, nmask, w2, b2)]
-        out = torch.empty((B, L, H2), dtype=torch.float32, device=dev)
+        args = [aligned16(t) for t in (a, b, idx, edge_mask, nmask, w2, b2)]
+        out = torch.empty((B, L, H2p), dtype=torch.float32, device=dev)
         nidx = torch.empty((B, L, knn_k), dtype=torch.int32, device=dev)
         nem = torch.empty((B, L, knn_k), dtype=torch.bool, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         counters = _arrival_counters(dev, stream, B)
         err = lib.edgeconv_knn_launch(
             *(t.data_ptr() for t in args), out.data_ptr(), nidx.data_ptr(),
-            nem.data_ptr(), counters.data_ptr(), B, L, H1, H2, k, knn_k,
+            nem.data_ptr(), counters.data_ptr(), B, L, H1, H2p, k, knn_k,
             sub_lo, D, float(slope), int(aggr == "max"), bf16, stream,
         )
     if err != 0:
@@ -383,6 +405,8 @@ def _fwd_knn_cuda(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
             f"edgeconv_knn kernel launch failed: CUDA error {err}"
         )
     fused_edgeconv_knn.launches += 1
+    if H2p != H2:
+        out = out[..., :H2].contiguous()
     return out, nidx, nem
 
 
@@ -464,16 +488,12 @@ def fused_edgeconv_bwd(
         )
     B, L, H1 = a.shape
     H2, k = w2.shape[1], idx.shape[2]
-    P1, P2 = -(-H1 // 8) * 8, -(-H2 // 8) * 8
-    if (P1, P2) != (H1, H2):
-        # the kernel takes rows of whole 16-byte chunks: zero columns
-        # change no gradient, and are cut off again
-        pad = torch.nn.functional.pad
+    pa, pb, pw2, pb2 = pad_operands(a, b, w2, b2)
+    if pw2 is not w2:
+        # zero columns change no gradient, and are cut off again
+        pg = torch.nn.functional.pad(g, (0, pw2.shape[1] - H2))
         da, db, dw2, db2 = fused_edgeconv_bwd(
-            pad(a, (0, P1 - H1)), pad(b, (0, P1 - H1)), idx, edge_mask,
-            pad(w2, (0, P2 - H2, 0, P1 - H1)), pad(b2, (0, P2 - H2)),
-            pad(g, (0, P2 - H2)), aggr, slope,
-        )
+            pa, pb, idx, edge_mask, pw2, pb2, pg, aggr, slope)
         return da[..., :H1], db[..., :H1], dw2[:H1, :H2], db2[:H2]
     bf16 = int(a.dtype == torch.bfloat16)
     lib = _bwd_lib()

@@ -44,7 +44,7 @@ torch.set_num_threads(2)
 H1, H2, K, KNN_K = 16, 8, 4, 4
 
 
-def _inputs(L, seed, B=3):
+def _inputs(L, seed, B=3, H1=H1, H2=H2):
     """Conv inputs over ``B`` events of length ``L``: event 0 ragged,
     event 1 with one valid node, event 2 with ``KNN_K - 1`` (fewer than
     ``knn_k + 1``); edges only between valid nodes, as a kNN gives."""
@@ -65,18 +65,24 @@ def _inputs(L, seed, B=3):
     )
 
 
-def _jax(inp, aggr, slope, lo=0, hi=3):
+_CAST = ("a", "b", "w2", "b2")  # cast to bf16 in the bf16 mode
+
+
+def _jax(inp, aggr, slope, lo=0, hi=3, bf16=False):
     with pltpu.force_tpu_interpret_mode():
         out, nidx, nem = jax_fused_knn(
-            *(jnp.asarray(v) for v in inp.values()), aggr, slope, KNN_K, lo, hi
+            *(jnp.asarray(v).astype(jnp.bfloat16) if bf16 and n in _CAST
+              else jnp.asarray(v) for n, v in inp.items()),
+            aggr, slope, KNN_K, lo, hi
         )
     return np.asarray(out), np.asarray(nidx), np.asarray(nem)
 
 
-def _port(inp, aggr, slope, lo=0, hi=3):
+def _port(inp, aggr, slope, lo=0, hi=3, bf16=False):
     out, nidx, nem = fused_edgeconv_knn(
-        *(torch.from_numpy(v) for v in inp.values()), aggr=aggr, slope=slope,
-        knn_k=KNN_K, sub_lo=lo, sub_hi=hi,
+        *(torch.from_numpy(v).to(torch.bfloat16) if bf16 and n in _CAST
+          else torch.from_numpy(v) for n, v in inp.items()),
+        aggr=aggr, slope=slope, knn_k=KNN_K, sub_lo=lo, sub_hi=hi,
     )
     return out.detach().numpy(), nidx.numpy(), nem.numpy()
 
@@ -121,6 +127,28 @@ def test_fused_knn_on_columns_1_to_5_matches_pallas():
     out, idx, em = _port(inp, "add", 0.0, 1, 5)
     np.testing.assert_allclose(out, out_j, rtol=1e-5, atol=1e-5)
     _assert_same_neighbours(out[..., 1:5], inp["mask"], idx_j, em_j, idx, em)
+
+
+@pytest.mark.parametrize(
+    "h1,h2,bf16,aggr,slope",
+    [(20, 12, False, "max", 0.01), (36, 10, False, "add", 0.0),
+     (20, 12, True, "max", 0.01), (16, 8, True, "add", 0.0)],
+    ids=["H1_20-H2_12-max", "H1_36-H2_10-add", "bf16-H1_20-H2_12-max",
+         "bf16-add"],
+)
+def test_fused_knn_plain_matches_pallas_at_other_widths(h1, h2, bf16, aggr,
+                                                        slope):
+    """Widths that are no multiple of 16 (the CUDA wrapper pads them to
+    multiples of 8) and bf16 operands (fp32 sums on both sides): the
+    conv output within 1e-5 (fp32) or 1e-4 (bf16), the adjacency equal
+    up to near-ties."""
+    inp = _inputs(48, seed=h1 + h2, H1=h1, H2=h2)
+    out_j, idx_j, em_j = _jax(inp, aggr, slope, bf16=bf16)
+    out, idx, em = _port(inp, aggr, slope, bf16=bf16)
+    tol = 1e-4 if bf16 else 1e-5
+    np.testing.assert_allclose(out, out_j, rtol=tol, atol=tol)
+    _assert_same_neighbours(out[..., :3], inp["mask"], idx_j, em_j, idx, em)
+    assert not em[1].any() and not em[~inp["mask"]].any()
 
 
 def test_fused_knn_plain_is_the_conv_then_the_knn():

@@ -20,6 +20,7 @@ from graphnet_tpu_torch.ops import gather_reduce as tgr
 from graphnet_tpu_torch.ops.edgeconv_cuda import (
     fused_edgeconv,
     fused_edgeconv_plain,
+    pad_operands,
 )
 from graphnet_tpu_torch.ops.knn import knn_graph, pairwise_sq_dists
 from graphnet_tpu_torch.ops.knn_cuda import knn_graph_cuda
@@ -202,24 +203,75 @@ def _edge_inputs(seed, B=2, L=32, H1=16, H2=8, k=4):
     )
 
 
+# (aggr, slope, H1, H2, k, dtype): the first four cases at the layer
+# shape of 16 -> 8 with k = 4; then widths that are no multiple of 16
+# (the CUDA wrapper pads them to multiples of 8), k = 1 and 3, and bf16
+# operands with max and the leaky slope.  Indices stay in [0, L): the
+# JAX selection matmul gives an out-of-range edge b = 0 and keeps it,
+# the port drops it (the kNN never makes one)
 @pytest.mark.parametrize(
-    "aggr,slope", [("add", 0.0), ("max", 0.01), ("add", 0.01), ("max", 0.0)]
+    "aggr,slope,H1,H2,k,dtype",
+    [
+        pytest.param("add", 0.0, 16, 8, 4, "float32", id="add-0.0"),
+        pytest.param("max", 0.01, 16, 8, 4, "float32", id="max-0.01"),
+        pytest.param("add", 0.01, 16, 8, 4, "float32", id="add-0.01"),
+        pytest.param("max", 0.0, 16, 8, 4, "float32", id="max-0.0"),
+        pytest.param("add", 0.0, 20, 12, 1, "float32", id="add-0.0-H1_20-H2_12-k1"),
+        pytest.param("max", 0.01, 20, 12, 3, "float32", id="max-0.01-H1_20-H2_12-k3"),
+        pytest.param("add", 0.01, 36, 10, 3, "float32", id="add-0.01-H1_36-H2_10-k3"),
+        pytest.param("max", 0.0, 12, 20, 1, "float32", id="max-0.0-H1_12-H2_20-k1"),
+        pytest.param("max", 0.01, 16, 8, 4, "bfloat16", id="bf16-max-0.01"),
+        pytest.param("max", 0.01, 20, 12, 3, "bfloat16", id="bf16-max-0.01-H1_20-H2_12-k3"),
+        pytest.param("add", 0.0, 36, 10, 1, "bfloat16", id="bf16-add-0.0-H1_36-H2_10-k1"),
+        pytest.param("max", 0.0, 12, 20, 1, "bfloat16", id="bf16-max-0.0-H1_12-H2_20-k1"),
+    ],
 )
-def test_fused_edgeconv_plain_matches_pallas(aggr, slope):
-    inp = _edge_inputs(seed=11)
+def test_fused_edgeconv_plain_matches_pallas(aggr, slope, H1, H2, k, dtype):
+    inp = _edge_inputs(seed=11, H1=H1, H2=H2, k=k)
     inp["em"][0, 3] = False  # a node with no valid edge
+    cast = ("a", "b", "w2", "b2") if dtype == "bfloat16" else ()
+    jin = [jnp.asarray(v).astype(jnp.bfloat16) if n in cast else jnp.asarray(v)
+           for n, v in inp.items()]
     with pltpu.force_tpu_interpret_mode():
-        expected = np.asarray(
-            jax_fused(
-                *(jnp.asarray(v) for v in inp.values()), 32, aggr, slope
-            )
-        )
+        expected = np.asarray(jax_fused(*jin, 32, aggr, slope))
     got = fused_edgeconv(
-        *(torch.from_numpy(v) for v in inp.values()), aggr=aggr, slope=slope
+        *(torch.from_numpy(v).to(torch.bfloat16) if n in cast
+          else torch.from_numpy(v) for n, v in inp.items()),
+        aggr=aggr, slope=slope,
     )
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), expected, rtol=1e-5, atol=1e-5)
+    # fp32 throughout, or the same bf16 operands with fp32 sums: only the
+    # summation order differs
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    np.testing.assert_allclose(got.numpy(), expected, rtol=tol, atol=tol)
     np.testing.assert_array_equal(got.numpy()[0, 3], 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_operands_keeps_the_output_and_reads_w2_anew(dtype):
+    """The CUDA wrappers' padding to multiples of 8: the first H2 output
+    columns unchanged, the padded ones 0, nothing copied where the widths
+    already fit, and a W2 changed in place (as Adam does) read anew."""
+    t = {n: torch.from_numpy(v) for n, v in
+         _edge_inputs(seed=14, H1=20, H2=12, k=3).items()}
+    for n in ("a", "b", "w2", "b2"):
+        t[n] = t[n].to(dtype)
+    args = (t["a"], t["b"], t["w2"], t["b2"])
+    a, b, w2, b2 = pad_operands(*args)
+    assert a.shape[-1] == b.shape[-1] == 24 and w2.shape == (24, 16)
+    assert b2.shape == (16,)
+    ref = fused_edgeconv_plain(t["a"], t["b"], t["idx"], t["em"], t["w2"],
+                               t["b2"], "max", 0.01)
+    got = fused_edgeconv_plain(a, b, t["idx"], t["em"], w2, b2, "max", 0.01)
+    torch.testing.assert_close(got[..., :12], ref, rtol=1e-6, atol=1e-6)
+    assert not got[..., 12:].any()
+    assert all(x is y for x, y in zip(pad_operands(a, b, w2, b2), (a, b, w2, b2)))
+    t["w2"].mul_(-2.0)  # in place
+    w2_new = pad_operands(*args)[2]
+    assert torch.equal(w2_new[:20, :12], t["w2"]) and not w2_new[20:].any()
+    after = fused_edgeconv(t["a"], t["b"], t["idx"], t["em"], t["w2"],
+                           t["b2"], aggr="max", slope=0.01)
+    assert not torch.allclose(after, ref)
 
 
 def test_fused_edgeconv_plain_bf16_matches_pallas():
