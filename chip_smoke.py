@@ -12,6 +12,8 @@ Phases, each printing one JSON line:
    ``graphnet_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
    build_flash: the registers, shared memory and spills of the flash
    forward, dq and dkv kernels (rows 5a-c), from the ptxas report;
+   build_rel: the same for the rel forward, dq and dkv kernels (rows
+   6a-c), with their dynamic shared memory at 12 and 24 heads;
    build_edgeconv_bwd: the same for each kernel of the EdgeConv
    backward (row 3); build_edgeconv_fwd: for the EdgeConv forward and
    the fused EdgeConv + kNN (rows 2 and 4), each kernel's registers and
@@ -76,9 +78,10 @@ Phases, each printing one JSON line:
    model on the CPU;
 10. rel_flash, rel_flash_bwd: the relative-bias attention forward, dq
    and dkv kernels against their plain versions (12 heads of 32, L =
-   128, 768, 1000 and 1024, fp32 and bf16, an event with no pulse and
-   one with a single pulse), and whether two backward runs give the
-   same bits;
+   128, 768, 1000 and 1024; at the dkv kernel's tile edges, L = 1, 63,
+   65 and 129, and 3 heads of 16 at L = 65; 1 and 24 heads of 32 at
+   L = 200; fp32 and bf16, an event with no pulse and one with a single
+   pulse), and whether two backward runs give the same bits;
 11. serve_deepice, train_deepice: the same two paths for the full-width
    DeepIce direction model at the JAX bench's DeepIce shape, B=16,
    L=768 (serving: 16 events of 100-768 pulses, and a request with
@@ -196,7 +199,7 @@ ICE_FP32_TRAIN = dict(loss_rtol=1e-4, grad_tol=1e-4)
 def kernel_name(mangled):
     """A readable name of a mangled kernel of the port's sources: the
     last name of its nested name (after the namespaces) and its template
-    argument (a head dim, float or bf16)."""
+    arguments (head dims, float or bf16)."""
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while True:
         m = re.match(r"\d+", mangled[pos:])
@@ -205,9 +208,16 @@ def kernel_name(mangled):
         pos += len(m.group())
         name = mangled[pos:pos + int(m.group())]
         pos += int(m.group())
-    t = re.match(r"I(?:Li(\d+)E|(f)|13__nv_bfloat16)E", mangled[pos:])
-    if t:
-        name += "<" + (t.group(1) or ("float" if t.group(2) else "bf16")) + ">"
+    if mangled[pos:pos + 1] == "I":
+        args, rest = [], mangled[pos + 1:]
+        while True:
+            t = re.match(r"Li(\d+)E|f|13__nv_bfloat16", rest)
+            if not t:
+                break
+            args.append(t.group(1) or ("float" if t.group() == "f" else "bf16"))
+            rest = rest[t.end():]
+        if args and rest.startswith("E"):
+            name += "<" + ", ".join(args) + ">"
     return name
 
 
@@ -237,6 +247,30 @@ def ptxas_table(log, match):
             sm = re.search(r"(\d+) bytes smem", line)
             cur.update(registers=int(m.group(1)),
                        static_smem_bytes=int(sm.group(1)) if sm else 0)
+    return rows
+
+
+def rel_build_report(build, logs):
+    """Rows 6a-c: each rel forward, dq and dkv kernel's registers, spills
+    and stack (``ptxas_table``) and its dynamic shared memory at DeepIce's
+    12 heads and the zoo's 24 (the libraries' ``*_smem_bytes`` entries)."""
+    rows = []
+    for lib, kern, entry in (
+        ("rel_flash_attention", "rel_fwd_kernel", "rel_fwd_smem_bytes"),
+        ("rel_flash_attention_bwd", "rel_dq_kernel", "rel_bwd_dq_smem_bytes"),
+        ("rel_flash_attention_bwd", "rel_dkv_", "rel_bwd_dkv_smem_bytes"),
+    ):
+        smem = getattr(build.load(lib), entry)
+        by_dtype = entry == "rel_bwd_dkv_smem_bytes"
+        smem.argtypes = [ctypes.c_int] * (3 if by_dtype else 2)
+        smem.restype = ctypes.c_int
+        for row in ptxas_table(logs[lib], kern):
+            args = row["kernel"].split("<")[1].rstrip(">").split(", ")
+            hd, bf = int(args[-1]), int("bf16" in args or "mma" in row["kernel"])
+            for heads in (ICE_HEADS, 2 * ICE_HEADS):
+                row[f"dynamic_smem_bytes_H{heads}"] = (
+                    smem(hd, bf, heads) if by_dtype else smem(hd, heads))
+            rows.append(row)
     return rows
 
 
@@ -1971,11 +2005,19 @@ def rel_cases(torch, rng, dev):
     ``w [e, hd]`` in nn.Linear layout, and ``b``): 12 heads of 32 at
     L = 128, 768 (B=16: DeepIce's shape), 1000 (ragged) and 1024, and 2
     heads of 16 (the kernels' other head dim, one head group) at
-    L = 1000; q scaled by hd^-0.5; ``_key_mask``'s events."""
+    L = 1000; at the dkv kernel's tile edges (32-key blocks, 16-query
+    tiles), L = 1, 63, 65 and 129 with 12 heads of 32 and L = 65 with 3
+    heads of 16; and at its head groups, one head and the zoo's 24
+    (B_d32: two groups in bf16, three in fp32) at L = 200; q scaled by
+    hd^-0.5; ``_key_mask``'s events."""
     cases = []
     for L, B, H, hd in ((128, 4, ICE_HEADS, ICE_HD), (ICE_L, ICE_B, ICE_HEADS, ICE_HD),
                         (1000, 4, ICE_HEADS, ICE_HD), (1024, 4, ICE_HEADS, ICE_HD),
-                        (1000, 4, 2, 16)):
+                        (1000, 4, 2, 16),
+                        (1, 4, ICE_HEADS, ICE_HD), (63, 4, ICE_HEADS, ICE_HD),
+                        (65, 4, ICE_HEADS, ICE_HD), (129, 4, ICE_HEADS, ICE_HD),
+                        (65, 4, 3, 16), (200, 4, 1, ICE_HD),
+                        (200, 4, 2 * ICE_HEADS, ICE_HD)):
         gen = torch.Generator(device=dev).manual_seed(L + 7 + hd)
         q, k, v = (torch.randn(B, H, L, hd, device=dev, generator=gen)
                    for _ in range(3))
@@ -2055,7 +2097,8 @@ def rel_times(torch, rc, rp, rel_flash_attention, encoder, dense, dev, peaks):
     """Phase: the rel kernels and their plain versions at DeepIce's shape
     (B=16, H=12, L=768, hd=32, full-length events) with their bounds
     (``rel_bound``: forward 8*hd flops per (b, h, i, j), half of them in
-    the input dtype; dq and dkv 12*hd each); and the whole biased
+    the input dtype; dq and dkv 12*hd each), each kernel also by its
+    profiled device time a launch (``device_ms``); and the whole biased
     attention, the folds and the forward kernel, beside the port's dense
     path (``encoder(x0)`` materialised, then ``dense``) at L = 768, 1536
     (B=16) and 3072 (B=4: at B=16 the dense path's fp32 pair tensor alone
@@ -2090,15 +2133,22 @@ def rel_times(torch, rc, rp, rel_flash_attention, encoder, dense, dev, peaks):
                 full = args + (lse, do, doe, rp.rel_attention_delta(do, o, doe, oe))
                 plain_bwd = cuda_ms(torch, lambda: rp.rel_attention_bwd_plain(*full),
                                     runs=5, warmup=1)
+                fwd, dq, dkv = (
+                    lambda: rc.rel_attention_fwd(*args),
+                    lambda: rc.rel_attention_bwd_dq(*full),
+                    lambda: rc.rel_attention_bwd_dkv(*full))
                 row.update({
-                    "fwd": dict(ms=cuda_ms(torch, lambda: rc.rel_attention_fwd(*args)),
+                    "fwd": dict(ms=cuda_ms(torch, fwd),
+                                device_ms=kernel_device_ms(torch, fwd, "rel_fwd_kernel"),
                                 plain_ms=cuda_ms(torch, lambda: rp.rel_attention_plain(
                                     *args), runs=5, warmup=1),
                                 **rel_bound(B, H, L, hd, el, peaks, rate, 4 * hd, 4 * hd)),
-                    "bwd_dq": dict(ms=cuda_ms(torch, lambda: rc.rel_attention_bwd_dq(*full)),
+                    "bwd_dq": dict(ms=cuda_ms(torch, dq),
+                                   device_ms=kernel_device_ms(torch, dq, "rel_dq_kernel"),
                                    plain_ms=plain_bwd,
                                    **rel_bound(B, H, L, hd, el, peaks, rate, 6 * hd, 6 * hd)),
-                    "bwd_dkv": dict(ms=cuda_ms(torch, lambda: rc.rel_attention_bwd_dkv(*full)),
+                    "bwd_dkv": dict(ms=cuda_ms(torch, dkv),
+                                    device_ms=kernel_device_ms(torch, dkv, "rel_dkv_"),
                                     plain_ms=plain_bwd,
                                     **rel_bound(B, H, L, hd, el, peaks, rate, 8 * hd, 4 * hd)),
                 })
@@ -2223,6 +2273,7 @@ def main() -> int:
             row["dynamic_smem_bytes"] = smem(dh, int("mma" in row["kernel"]))
             flash_ptxas.append(row)
     emit({"phase": "build_flash", "kernels": flash_ptxas})
+    emit({"phase": "build_rel", "kernels": rel_build_report(build, logs)})
     # row 3: each kernel of the backward; the edge kernel's dynamic
     # shared memory at DynEdge's H1=336, H2=256, k=8
     smem = build.load("edgeconv_bwd").edgeconv_bwd_smem_bytes

@@ -1,8 +1,10 @@
 // The Hopper primitives of the hand-written tensor-core kernels
-// (flash_attention.cu, flash_attention_bwd.cu through flash_mma.cuh, and
-// edgeconv_bwd.cu): 16-byte cp.async copies into shared memory, ldmatrix,
-// the bf16 mma.sync.m16n8k16 with fp32 accumulation, and the packing of
-// fp32 accumulators into bf16 A fragments.
+// (flash_attention.cu, flash_attention_bwd.cu through flash_mma.cuh, the
+// EdgeConv kernels and rel_flash_attention_bwd.cu): 16-byte cp.async
+// copies into shared memory, bulk copies completing on mbarriers,
+// ldmatrix, the bf16 mma.sync.m16n8k16 and the tf32 mma.sync.m16n8k8 with
+// fp32 accumulation, and the packing of fp32 accumulators into bf16 A
+// fragments.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, c = 2 * (lane % 4)):
 //   A (16 x 16, row-major), 4 regs of bf16x2: a0 (g, c..c+1),
@@ -15,6 +17,9 @@
 // (pack_a).  A row-major [rows][k] tile in shared memory gives A
 // fragments by ldmatrix; a [n][k] tile gives B fragments by ldmatrix,
 // a [k][n] tile by ldmatrix.trans.
+// The tf32 mma.m16n8k8 (fp32 accumulation) takes A (16 x 8) in 4 regs:
+// a0 (g, c/2), a1 (g+8, c/2), a2 (g, c/2+4), a3 (g+8, c/2+4); B (8 x 8)
+// in 2: b0 (k = c/2, n = g), b1 (k = c/2+4, n = g); C / D as above.
 
 #pragma once
 
@@ -81,6 +86,74 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b, tf32 operands (m16n8k8; the low 13 bits of each operand
+// are not read), fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the shared-memory address of p
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// an mbarrier in shared memory expecting `count` arrivals a phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+// makes initialised mbarriers visible to the async proxy
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// orders this thread's earlier shared-memory accesses (and those it has
+// synchronised with) before its later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// arrive on bar, announcing `bytes` more to land in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the bulk-copy engine, completing on bar
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wait until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
 }
 
 // ---- end of PTX primitives

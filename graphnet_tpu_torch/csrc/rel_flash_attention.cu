@@ -71,7 +71,7 @@ __global__ void __launch_bounds__(kLanes * kFwdHeads)
   for (int t0 = 0; t0 < L; t0 += kTile) {
     const int n = min(kTile, L - t0);  // the same in every thread
     __syncthreads();
-    emb_tile<E>(emb, x0b, XF, L, row0, t0, true, freqs);
+    emb_tile<E>(emb, x0b, XF, L, row0, t0, freqs);
     for (int e = threadIdx.x; e < hg * kTile * HD; e += blockDim.x) {
       const int hh = e / (kTile * HD), r = (e / HD) % kTile, c = e % HD;
       float kx = 0.f, vx = 0.f;
@@ -143,6 +143,11 @@ __global__ void __launch_bounds__(kLanes * kFwdHeads)
   }
 }
 
+// the dynamic shared memory of a block of hg heads
+inline size_t fwd_smem_bytes(int HD, int hg) {
+  return sizeof(float) * (kTile * HD * kLanes + 2 * hg * kTile * HD + kTile);
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* qt, const void* qb,
                    const void* k, const void* v, const void* x0,
@@ -150,8 +155,7 @@ cudaError_t launch(const void* q, const void* qt, const void* qb,
                    int XF, void* o, void* oe, void* lse,
                    cudaStream_t stream) {
   const int hg = head_group(H, kFwdHeads);
-  const size_t bytes =
-      sizeof(float) * (kTile * HD * kLanes + 2 * hg * kTile * HD + kTile);
+  const size_t bytes = fwd_smem_bytes(HD, hg);
   auto kern = rel_fwd_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -191,4 +195,12 @@ extern "C" int rel_fwd_launch(const void* q, const void* qt, const void* qb,
   if (HD == 32 && bf16) return (int)FWD(__nv_bfloat16, 32);
 #undef FWD
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of a launch over H heads at head dim HD (0
+// for a head dim the kernel is not built for).
+extern "C" int rel_fwd_smem_bytes(int HD, int H) {
+  if (HD != 16 && HD != 32) return 0;
+  return (int)relattn::fwd_smem_bytes(
+      HD, relattn::head_group(H, relattn::kFwdHeads));
 }

@@ -1,15 +1,16 @@
 // Pieces shared by the relative-bias attention kernels
 // (rel_flash_attention.cu, rel_flash_attention_bwd.cu): the pair
-// embedding of DeepIce's SpacetimeEncoder, built per tile in shared
-// memory, and the tile sizes.
+// argument of DeepIce's SpacetimeEncoder (all three kernels), its
+// embedding built per tile in shared memory, and the tile sizes (the
+// forward and dq kernels).
 //
-// A block owns 32 rows of one side (query rows in the forward and dq
-// kernels, key rows in the dkv kernel), one row per lane, and a group of
-// heads, one warp per head.  It streams tiles of the other side.  The
-// pair embedding of a (32 rows x tile) block of pairs is computed once
-// into shared memory and read by every head of the group: the
+// A forward or dq block owns 32 query rows, one row per lane, and a
+// group of heads, one warp per head.  It streams key tiles.  The pair
+// embedding of a (32 rows x tile) block of pairs is computed once into
+// shared memory and read by every head of the group: the
 // transcendentals are the costly part of the work, and they do not
-// depend on the head.
+// depend on the head.  (The dkv kernel builds its embeddings in
+// registers; see rel_flash_attention_bwd.cu.)
 
 #pragma once
 
@@ -51,22 +52,20 @@ __device__ __forceinline__ float pair_arg(const float* __restrict__ a,
   return __fmul_rn(kArgScale, fminf(fmaxf(d, -kClip), kClip));
 }
 
-// emb[(t * E + e) * 32 + lane] = embedding e of the pair (lane row
-// lane0 + lane, tile row tile0 + t) for t < kTile: [sin(arg f), cos(arg
-// f)] with the precise sincosf (the fast __sinf's error grows with the
-// argument).  lane_is_query says which side the lane rows are.  Rows
-// past L take row L - 1 (their values are never used).
+// emb[(t * E + e) * 32 + lane] = embedding e of the pair (query lane0 +
+// lane, key tile0 + t) for t < kTile: [sin(arg f), cos(arg f)] with the
+// precise sincosf (the fast __sinf's error grows with the argument).
+// Rows past L take row L - 1 (their values are never used).
 template <int E>
 __device__ __forceinline__ void emb_tile(float* emb,
                                          const float* __restrict__ x0b,
                                          int XF, int L, int lane0, int tile0,
-                                         bool lane_is_query,
                                          const float* __restrict__ freqs) {
   for (int p = threadIdx.x; p < kTile * kLanes; p += blockDim.x) {
     const int lane = p % kLanes, t = p / kLanes;
     const float* xl = x0b + (size_t)min(lane0 + lane, L - 1) * XF;
     const float* xt = x0b + (size_t)min(tile0 + t, L - 1) * XF;
-    const float arg = lane_is_query ? pair_arg(xl, xt) : pair_arg(xt, xl);
+    const float arg = pair_arg(xl, xt);
     float* out = emb + (size_t)t * E * kLanes + lane;
 #pragma unroll 4
     for (int f = 0; f < E / 2; ++f) {

@@ -4,24 +4,27 @@
 // Replaces the TPU kernels graphnet_tpu/ops/rel_flash_attention.py:
 // _rel_bwd_dq_kernel and _rel_bwd_dkv_kernel.  Same contract, the
 // extended-value recompute: the pair embedding is an extension of the
-// value, so with the forward's lse, p = exp(logit - lse) (logits formed
-// as in the forward, a masked key at -1e5), dp = do.v + doe.emb_ij,
+// value, so with the forward's lse, p = exp(logit - lse) (logits q.k +
+// qt.emb_ij + qb, a masked key at -1e5), dp = do.v + doe.emb_ij,
 // ds = p * (dp - delta) * valid, delta = do.o + doe.oe from the wrapper;
 // dq = sum_j ds.k (ds rounded to the input dtype), dqt = sum_j ds.emb_ij
 // and dqb = sum_j ds in fp32; dk = sum_i ds.q (ds rounded), dv =
-// sum_i p.do (p rounded).  Both kernels form p with the same operations
-// in the same order, so they see the same bits.
+// sum_i p.do (p rounded), over every query row.  The two kernels form
+// the logits with other operations in another order (the dkv kernel's
+// q.k runs on the tensor cores in bf16), so each is held to the plain
+// version on its own.  Neither uses atomics; every sum runs in a fixed
+// order, so two runs give the same bits.
 //
-// What bounds it on the H100: operations, ~12*hd flops per (b, h, i, j)
-// in each kernel (two logit dots, two dp dots, two updates), plus hd/2
-// precise sincos per (b, i, j) in each.  The split is the TPU's, and it
-// keeps the kernels free of atomics: the dq kernel owns 32 query rows per
-// block (one per lane) and streams key tiles; the dkv kernel owns 32 key
-// rows and streams query tiles.  Each block holds a group of up to 4
-// heads (a warp each) and computes each tile's pair embedding once for
-// the group, in shared memory.  Every sum runs in a fixed order, so two
-// runs give the same bits.
+// dq: ~12*hd flops per (b, h, i, j) (two logit dots, two dp dots, two
+// updates) plus hd/2 precise sincos per (b, i, j).  It owns 32 query
+// rows per block (one per lane) and streams key tiles; a block holds a
+// group of up to 4 heads (a warp each) and computes each tile's pair
+// embedding once for the group, in shared memory.
+//
+// dkv: see the notes at its kernels below.
 
+
+#include "flash_mma.cuh"
 #include "rel_flash_attention.cuh"
 
 namespace relattn {
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(kLanes * kBwdHeads)
   for (int t0 = 0; t0 < L; t0 += kTile) {
     const int n = min(kTile, L - t0);  // the same in every thread
     __syncthreads();
-    emb_tile<E>(emb, x0b, XF, L, row0, t0, true, freqs);
+    emb_tile<E>(emb, x0b, XF, L, row0, t0, freqs);
     for (int e = threadIdx.x; e < hg * kTile * HD; e += blockDim.x) {
       const int hh = e / (kTile * HD), r = (e / HD) % kTile, c = e % HD;
       float kx = 0.f, vx = 0.f;
@@ -136,116 +139,9 @@ __global__ void __launch_bounds__(kLanes * kBwdHeads)
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kLanes * kBwdHeads)
-    rel_dkv_kernel(const T* __restrict__ q, const float* __restrict__ qt,
-                   const float* __restrict__ qb, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ x0,
-                   const uint8_t* __restrict__ mask,
-                   const float* __restrict__ freqs,
-                   const float* __restrict__ lse, const T* __restrict__ dout,
-                   const float* __restrict__ doe,
-                   const float* __restrict__ delta, int H, int L, int XF,
-                   T* __restrict__ dk, T* __restrict__ dv) {
-  constexpr int E = HD;
-  extern __shared__ __align__(16) float smem[];
-  const int hg = blockDim.x / kLanes;
-  float* emb = smem;                      // [kTile][E][32], lane = key
-  float* qs = emb + kTile * E * kLanes;   // [hg][kTile][HD], q
-  float* qts = qs + hg * kTile * HD;      // qt
-  float* dos = qts + hg * kTile * HD;     // do
-  float* does = dos + hg * kTile * HD;    // doe
-  float* rows = does + hg * kTile * HD;   // [hg][3][kTile]: qb, lse, delta
-
-  const int lane = threadIdx.x % kLanes, w = threadIdx.x / kLanes;
-  const int b = blockIdx.z, h0 = blockIdx.y * hg;
-  const int key0 = blockIdx.x * kLanes, key = key0 + lane;
-  const bool active = key < L;
-  const size_t bh = (size_t)b * H + h0 + w;
-  const size_t at = (bh * L + min(key, L - 1)) * HD;
-  const float* x0b = x0 + (size_t)b * L * XF;
-  const float valid = (active && mask[(size_t)b * L + key]) ? 1.f : 0.f;
-
-  float kr[HD], vr[HD], dka[HD], dva[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    kr[d] = active ? to_f<T>(k[at + d]) : 0.f;
-    vr[d] = active ? to_f<T>(v[at + d]) : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int n = min(kTile, L - t0);  // the same in every thread
-    __syncthreads();
-    emb_tile<E>(emb, x0b, XF, L, key0, t0, false, freqs);
-    for (int e = threadIdx.x; e < hg * kTile * HD; e += blockDim.x) {
-      const int hh = e / (kTile * HD), r = (e / HD) % kTile, c = e % HD;
-      float a = 0.f, at_ = 0.f, g = 0.f, ge = 0.f;
-      if (r < n) {
-        const size_t i = (((size_t)b * H + h0 + hh) * L + t0 + r) * HD + c;
-        a = to_f<T>(q[i]);
-        at_ = qt[i];
-        g = to_f<T>(dout[i]);
-        ge = doe[i];
-      }
-      qs[e] = a;
-      qts[e] = at_;
-      dos[e] = g;
-      does[e] = ge;
-    }
-    for (int e = threadIdx.x; e < hg * kTile; e += blockDim.x) {
-      const int hh = e / kTile, r = e % kTile;
-      const size_t i = ((size_t)b * H + h0 + hh) * L + t0 + min(r, n - 1);
-      rows[(hh * 3 + 0) * kTile + r] = qb[i];
-      rows[(hh * 3 + 1) * kTile + r] = lse[i];
-      rows[(hh * 3 + 2) * kTile + r] = delta[i];
-    }
-    __syncthreads();
-
-    const float* qh = qs + w * kTile * HD;
-    const float* qth = qts + w * kTile * HD;
-    const float* doh = dos + w * kTile * HD;
-    const float* doeh = does + w * kTile * HD;
-    const float* rh = rows + w * 3 * kTile;
-    for (int i = 0; i < n; ++i) {
-      const float* qi = qh + i * HD;
-      const float* qti = qth + i * HD;
-      const float* doi = doh + i * HD;
-      const float* doei = doeh + i * HD;
-      const float* ei = emb + i * E * kLanes + lane;
-      float a = 0.f, ae = 0.f, dpv = 0.f, dpe = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        a = fmaf(qi[d], kr[d], a);
-        dpv = fmaf(doi[d], vr[d], dpv);
-      }
-#pragma unroll
-      for (int d = 0; d < E; ++d) {
-        const float x = ei[d * kLanes];
-        ae = fmaf(qti[d], x, ae);
-        dpe = fmaf(doei[d], x, dpe);
-      }
-      float s = (a + ae) + rh[i];
-      s = valid != 0.f ? s : kNeg;
-      const float p = expf(s - rh[kTile + i]);
-      const float ds = round_t<T>(p * (dpv + dpe - rh[2 * kTile + i]) * valid);
-      const float pr = round_t<T>(p);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dka[d] = fmaf(ds, qi[d], dka[d]);
-        dva[d] = fmaf(pr, doi[d], dva[d]);
-      }
-    }
-  }
-
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      dk[at + d] = from_f<T>(dka[d]);
-      dv[at + d] = from_f<T>(dva[d]);
-    }
-  }
+// the dynamic shared memory of a dq block of hg heads
+inline size_t dq_smem_bytes(int HD, int hg) {
+  return sizeof(float) * (kTile * HD * kLanes + 2 * hg * kTile * HD + kTile);
 }
 
 template <typename T, int HD>
@@ -256,8 +152,7 @@ cudaError_t launch_dq(const void* q, const void* qt, const void* qb,
                       int B, int H, int L, int XF, void* dq, void* dqt,
                       void* dqb, cudaStream_t stream) {
   const int hg = head_group(H, kBwdHeads);
-  const size_t bytes =
-      sizeof(float) * (kTile * HD * kLanes + 2 * hg * kTile * HD + kTile);
+  const size_t bytes = dq_smem_bytes(HD, hg);
   auto kern = rel_dq_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -275,6 +170,784 @@ cudaError_t launch_dq(const void* q, const void* qt, const void* qb,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ dK, dV
+//
+// What bounds the dkv kernel on the H100: operations.  Per (b, h, i, j)
+// the two embedding dots qt.emb_ij and doe.emb_ij (4*hd flops, fp32 by
+// the contract) and the four products q.k, do.v, ds.q and p.do (8*hd
+// flops, in the input dtype), and per (b, i, j) hd/2 precise sincos: at
+// DeepIce's shape (B=16, H=12, L=768, hd=32) 0.25 ms in bf16 and 0.65
+// ms in fp32 at the card's peaks.
+//
+// The design.  A block owns 32 keys of one event and a group of heads
+// (all of them up to kDkvHeads<T>: one group at H = 12 in bf16), and
+// streams tiles of 16 query rows.  Per tile, two phases:
+//
+// A. The embedding dots, once per pair for the whole group, on the
+//    tensor cores.  For one query and 16 keys the dots of every head
+//    are a product [16 keys x e] . [e x heads]; a warp builds the pair
+//    embeddings (pair_arg and precise sincosf, the plain version's
+//    bits) straight into the A fragments of mma.m16n8k8 (each lane's
+//    fragment places are 4 frequencies of 2 keys, so no pair is built
+//    twice), and the query's qt and doe rows of 8 heads are the B
+//    fragments.  The product runs split in three tf32 products (big .
+//    big, big . small and small . big, the two corrections in their own
+//    accumulator), which keeps it at fp32 accuracy.  Register-blocked
+//    fp32 FMAs fed from shared memory are bound by it: a warp's 16-byte
+//    load takes four of shared memory's cycles, broadcast or not, and
+//    each loaded qt value feeds one FMA per key a lane holds.  sincosf
+//    is told its argument is bounded (|x| <= 4096), so the calls, free
+//    of their large-argument branch, interleave.  The dots go to shared
+//    memory in the order of the phase-B accumulator fragments
+//    ([head][key 16-tile][query 8-tile][element][lane], the lane
+//    XOR-swizzled by the head so that the stores do not collide).
+// B. The products.  bf16: a unit is (head, 16 keys); the 8 warps take
+//    the group's units in turn (3 each at 12 heads), each unit holding
+//    its K and V rows as mma A fragments and its dK and dV accumulators
+//    in registers.  S^T = K.Q^T and dP^T = V.G^T on mma.sync.m16n8k16,
+//    the embedding dots and qb added in fp32, p = exp(s - lse),
+//    ds = p (dp - delta) valid; then dV += P^T.G and dK += dS^T.Q with
+//    P^T and dS^T repacked from the accumulators as A fragments (rounded
+//    to bf16 there).  fp32: a warp per head, K and V staged in shared
+//    memory; each lane takes a 4 x 4 register tile of S^T and dP^T
+//    (keys g + 8r, queries in the accumulator fragments' places), puts
+//    P^T and dS^T in the head's slot of the embedding-dot buffer it has
+//    just read, and accumulates 4 keys x 8 dims of dK and of dV.
+//
+// The tiles stream in asynchronously: the qt/doe tile of the next query
+// tile (double-buffered, by bulk copies on an mbarrier) while this one
+// is worked on, the q/do tile (16-byte cp.async into padded rows) while
+// phase A runs; the next tile's row statistics and query coordinates
+// wait in registers meanwhile.  Rows past L have lse = +inf, so their p
+// and ds are exactly 0.  No atomics, every sum in a fixed order.
+
+constexpr int kDkvKeys = 32;     // keys a block owns
+constexpr int kDkvQueries = 16;  // query rows per streamed tile
+constexpr int kDkvThreads = 256;
+constexpr int kDkvWarps = kDkvThreads / 32;
+
+// most heads a dkv block holds: bf16 by the registers of its units (3 a
+// warp), fp32 by a warp per head
+template <typename T>
+__host__ __device__ constexpr int kDkvHeads() {
+  return sizeof(T) == 2 ? 12 : 8;
+}
+
+// floats per head of a staged qt or doe tile: 16 rows and 8 of pad, so
+// that the 8-byte B-fragment loads of 8 heads fall in distinct banks
+template <int HD>
+__host__ __device__ constexpr int dkv_qtd_ld() {
+  return kDkvQueries * HD + 8;
+}
+
+// The shared memory of a dkv block of hg heads, in floats from the
+// start: the qt/doe tiles (two stages, [stage][qt|doe][head][dkv_qtd_ld]),
+// the q/do tile ([q|do][head][16][pad_ld]), in fp32 the K/V rows
+// ([k|v][head][32][pad_ld]), the row statistics ([qb|lse|delta][head]
+// [16]), the embedding dots ([ae|dpe][head][512]), the key flags [32],
+// the query coordinates [16][4], the frequencies [HD/2] and the
+// mbarriers of the two qt/doe stages.
+// In bf16 the K/V rows are staged in the qt/doe region before the loop.
+template <typename T, int HD>
+struct DkvSmem {
+  static constexpr int LD = flash::pad_ld<T, HD>();
+  static constexpr int kEl = (int)sizeof(T);
+  int qtd, qdo, kv, stats, ae, kval, xq, freqs, bars, floats;
+  __host__ __device__ explicit DkvSmem(int hg) {
+    qtd = 0;
+    qdo = qtd + 2 * 2 * hg * dkv_qtd_ld<HD>();
+    kv = qdo + 2 * hg * kDkvQueries * LD * kEl / 4;
+    stats = kv + (kEl == 4 ? 2 * hg * kDkvKeys * LD : 0);
+    ae = stats + 3 * hg * kDkvQueries;
+    kval = ae + 2 * hg * 512;
+    xq = kval + kDkvKeys;
+    freqs = xq + 4 * kDkvQueries;
+    bars = (freqs + HD / 2 + 1) & ~1;
+    floats = bars + 4;
+  }
+};
+
+template <typename T, int HD>
+size_t dkv_smem_bytes(int hg) {
+  return sizeof(float) * (size_t)DkvSmem<T, HD>(hg).floats;
+}
+
+// head groups of a dkv launch over H heads, and the heads of each (the
+// last group may hold fewer)
+template <typename T>
+inline void dkv_groups(int H, int* groups, int* hg) {
+  *groups = (H + kDkvHeads<T>() - 1) / kDkvHeads<T>();
+  *hg = (H + *groups - 1) / *groups;
+}
+
+// rows [row0, row0 + ROWS) of nh heads of one event ([head][L][HD] of T
+// from src) into dst ([head][ROWS][LD]); rows at or past L as zeros
+template <typename T, int HD, int ROWS, int LD>
+__device__ __forceinline__ void dkv_load_rows(T* dst,
+                                              const T* __restrict__ src,
+                                              int nh, int L, int row0) {
+  constexpr int kPer = 16 / (int)sizeof(T);
+  constexpr int kChunks = HD / kPer;
+  for (int c = threadIdx.x; c < nh * ROWS * kChunks; c += blockDim.x) {
+    const int h = c / (ROWS * kChunks), r = (c / kChunks) % ROWS;
+    const int e = (c % kChunks) * kPer;
+    const bool in = row0 + r < L;
+    const T* g = src + ((size_t)h * L + (in ? row0 + r : 0)) * HD + e;
+    flash::cp_async16(dst + (h * ROWS + r) * LD + e, g, in ? 16 : 0);
+  }
+}
+
+// The streamed query tiles of a dkv block: qt/doe in two stages
+// (dkv_qtd_ld floats a head, rows contiguous), filled by bulk copies
+// that warp 0 issues (one a head and tensor), completing on the stage's
+// mbarrier; q/do in one stage of padded rows, by cp.async.  Rows past L
+// are not copied (qt/doe) or come as zeros (q/do): the buffers start
+// zeroed, and a row past L keeps finite values whose p and ds are 0.
+template <typename T, int HD>
+struct DkvTiles {
+  static constexpr int LD = flash::pad_ld<T, HD>();
+  static constexpr int LDH = dkv_qtd_ld<HD>();
+  const float* qt;  // the block's first head of the event, [head][L][HD]
+  const float* doe;
+  const T* q;
+  const T* dout;
+  float* qtd;
+  T* qdo;
+  uint64_t* bars;
+  int nh, hg, L;
+
+  // warp 0: the qt and doe rows of tile t into stage t & 1
+  __device__ void issue_qtd(int t) const {
+    const int lane = threadIdx.x & 31, row0 = t * kDkvQueries;
+    const uint32_t bytes = min(kDkvQueries, L - row0) * HD * 4;
+    uint64_t* bar = bars + (t & 1);
+    float* dst = qtd + (t & 1) * 2 * hg * LDH;
+    hopper::fence_proxy_async();
+    if (lane == 0) hopper::mbar_arrive_expect_tx(bar, 2 * nh * bytes);
+    __syncwarp();
+    for (int c = lane; c < 2 * nh; c += 32) {
+      const int tn = c / nh, h = c % nh;
+      hopper::bulk_copy_g2s(dst + (tn * hg + h) * LDH,
+                            (tn ? doe : qt) + ((size_t)h * L + row0) * HD,
+                            bytes, bar);
+    }
+  }
+
+  // every thread: the q and do rows of tile t, by cp.async (one commit
+  // group; the padded rows keep ldmatrix free of bank conflicts)
+  __device__ void load_qdo(int t) const {
+    const int row0 = t * kDkvQueries;
+    dkv_load_rows<T, HD, kDkvQueries, LD>(qdo, q, nh, L, row0);
+    dkv_load_rows<T, HD, kDkvQueries, LD>(qdo + hg * kDkvQueries * LD, dout,
+                                          nh, L, row0);
+    flash::cp_async_commit();
+  }
+
+  // every thread: wait for tile t's qt/doe
+  __device__ void wait_qtd(int t) const {
+    hopper::mbar_wait(bars + (t & 1), (t >> 1) & 1);
+  }
+};
+
+static_assert(kDkvHeads<__nv_bfloat16>() * kDkvQueries <= kDkvThreads &&
+                  kDkvHeads<float>() * kDkvQueries <= kDkvThreads,
+              "DkvRows reads one row statistic of the tile a thread");
+
+// The row statistics (qb, lse, delta; past L 0, +inf, 0) and the query
+// coordinates (x, y, z, t of rows past L: row L - 1's) of one query
+// tile, one value of each a thread: read into registers ahead of the
+// tile, stored once the tile before it is done.
+struct DkvRows {
+  float qb, lse, delta, xq;
+  __device__ void read(const float* __restrict__ qb_b,
+                       const float* __restrict__ lse_b,
+                       const float* __restrict__ delta_b,
+                       const float* __restrict__ x0b, int XF, int nh, int L,
+                       int row0) {
+    const int e = threadIdx.x;
+    if (e < nh * kDkvQueries) {
+      const int r = row0 + e % kDkvQueries;
+      const size_t at = (size_t)(e / kDkvQueries) * L + r;
+      const bool in = r < L;
+      qb = in ? qb_b[at] : 0.f;
+      lse = in ? lse_b[at] : INFINITY;
+      delta = in ? delta_b[at] : 0.f;
+    }
+    if (e < 4 * kDkvQueries)
+      xq = x0b[(size_t)min(row0 + e / 4, L - 1) * XF + e % 4];
+  }
+  __device__ void store(float* stats, float* xq_s, int nh, int hg) const {
+    const int e = threadIdx.x;
+    if (e < nh * kDkvQueries) {
+      stats[e] = qb;
+      stats[hg * kDkvQueries + e] = lse;
+      stats[2 * hg * kDkvQueries + e] = delta;
+    }
+    if (e < 4 * kDkvQueries) xq_s[e] = xq;
+  }
+};
+
+// x as a tf32 pair, x ~ big + small: big is x rounded to tf32 (half an
+// ulp added, the low 13 bits cleared; x is finite), small the exact rest,
+// which the tensor core reads truncated to tf32 (|small| <= 2^-11 |x|, so
+// it carries x to ~2^-22)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// the place of element e (key row g + 8 (e >> 1), query parity e & 1)
+// of lane `lane`'s accumulator fragment (unit (h, m), query 8-tile n)
+// in the embedding-dot buffer
+__device__ __forceinline__ int dkv_slot(int h, int m, int n, int e,
+                                        int lane) {
+  return ((h * 2 + m) * 2 + n) * 128 + e * 32 + (lane ^ ((h >> 1) & 3));
+}
+
+// Phase A for one tile: qt.emb and doe.emb of every (query, key) pair of
+// the tile for each of the nh heads, into ae_s / dpe (hg * 512 floats
+// on) in fragment order.  Warp w takes key 16-tile m = w & 1 and the
+// queries (w >> 1) + 4 t; lane (g, cq) builds the embedding of keys
+// 16m + g and 16m + g + 8 (xk: the coordinates of key 16m + g + 8 (cq &
+// 1)).  Within a k-step, columns cq and cq + 4 stand for embedding dims
+// 2cq and 2cq + 1 (of 8k on): a sum over e takes them in any order, and
+// so each B fragment is one 8-byte load, and lane (g, cq) builds
+// frequencies 8kk + 2cq and 8kk + 2cq + 1.
+template <int HD>
+__device__ __forceinline__ void dkv_phase_a(
+    const float* __restrict__ qtd, float* __restrict__ ae_s,
+    const float* __restrict__ fr, const float* __restrict__ xq_s,
+    const float (&xk)[4], int nh, int hg) {
+  constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
+  constexpr int LDH = dkv_qtd_ld<HD>();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, cq = lane & 3, m = w & 1;
+  const int ntiles = (nh + 7) / 8;
+#pragma unroll 1
+  for (int task = 0; task < kDkvQueries / 4; ++task) {
+    const int i = (w >> 1) + 4 * task;  // the query row in the tile
+    const float arg = pair_arg(xq_s + 4 * i, xk);
+    const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
+                           __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
+    // A fragments (keys x e), big and small: frequency 8kk + 2cq + s is
+    // column cq + 4s of k-step kk (sin) and KS/2 + kk (cos), row g
+    // (rh = 0) or g + 8 (rh = 1)
+    uint32_t ab[KS][4], as[KS][4];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int kk = 0; kk < KS / 2; ++kk)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          // |x| <= 4096 (pair_arg's clip, frequencies <= 1): sincosf
+          // never takes its large-argument path, and the compiler, told
+          // so, interleaves the calls
+          const float x = __fmul_rn(args[rh], fr[8 * kk + 2 * cq + s]);
+          __builtin_assume(fabsf(x) <= 4096.f);
+          float sn, cs;
+          sincosf(x, &sn, &cs);
+          tf32_split(sn, ab[kk][2 * s + rh], as[kk][2 * s + rh]);
+          tf32_split(cs, ab[KS / 2 + kk][2 * s + rh],
+                     as[KS / 2 + kk][2 * s + rh]);
+        }
+    // the place of element e of lane (g, cq)'s tile n in phase B:
+    // element 2 (e >> 1) + (i & 1) of lane 4g + (i & 7) / 2 of fragment
+    // (head 8n + 2cq + (e & 1), m, i >> 3), the lane swizzled by cq
+    const int at0 = 2 * cq * 512 + (m * 2 + (i >> 3)) * 128 + (i & 1) * 32 +
+                    ((4 * g + ((i & 7) >> 1)) ^ cq);
+#pragma unroll 1
+    for (int n = 0; n < ntiles; ++n) {
+      // B fragments (e x heads): head 8n + g (a head past nh reads head
+      // nh - 1; its column of D is dropped)
+      const float* qr = qtd + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
+      const float* dr = qr + hg * LDH;
+      float eb[4] = {0.f, 0.f, 0.f, 0.f}, ec[4] = {0.f, 0.f, 0.f, 0.f};
+      float db[4] = {0.f, 0.f, 0.f, 0.f}, dc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
+        const float2 y = *reinterpret_cast<const float2*>(dr + 8 * k);
+        uint32_t xb0, xs0, xb1, xs1, yb0, ys0, yb1, ys1;
+        tf32_split(x.x, xb0, xs0);
+        tf32_split(x.y, xb1, xs1);
+        tf32_split(y.x, yb0, ys0);
+        tf32_split(y.y, yb1, ys1);
+        hopper::mma_tf32(ec, as[k], xb0, xb1);
+        hopper::mma_tf32(ec, ab[k], xs0, xs1);
+        hopper::mma_tf32(eb, ab[k], xb0, xb1);
+        hopper::mma_tf32(dc, as[k], yb0, yb1);
+        hopper::mma_tf32(dc, ab[k], ys0, ys1);
+        hopper::mma_tf32(db, ab[k], yb0, yb1);
+      }
+      // element e: key row g + 8 (e >> 1), head 8n + 2cq + (e & 1)
+      float* out = ae_s + 8 * n * 512 + at0;
+      const bool full = 8 * n + 8 <= nh;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (full || 8 * n + 2 * cq + (e & 1) < nh) {
+          const int off = (e & 1) * 512 + (e >> 1) * 64;
+          out[off] = eb[e] + ec[e];
+          out[hg * 512 + off] = db[e] + dc[e];
+        }
+      }
+    }
+  }
+}
+
+// p and ds of an element of a unit's accumulators from S^T and dP^T
+// (in st, dp), in place: slot is the element's place in ae_s, stats the
+// row statistics of the unit's head, i the query row within the tile
+__device__ __forceinline__ void dkv_p_ds(float& st, float& dp,
+                                         const float* __restrict__ ae_s,
+                                         int slot, int dpe_off,
+                                         const float* __restrict__ stats,
+                                         int hg, int i, float val) {
+  float s = (st + ae_s[slot]) + stats[i];
+  s = val != 0.f ? s : kNeg;
+  const float p = expf(s - stats[hg * kDkvQueries + i]);
+  st = p;
+  dp = p * ((dp + ae_s[slot + dpe_off]) - stats[2 * hg * kDkvQueries + i]) *
+       val;
+}
+
+// dkv, bf16: tensor cores for the four products.
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    rel_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const float* __restrict__ qt,
+                       const float* __restrict__ qb,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ x0,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ freqs,
+                       const float* __restrict__ lse,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ doe,
+                       const float* __restrict__ delta, int H, int L, int XF,
+                       int hg, __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv) {
+  using T = __nv_bfloat16;
+  constexpr int LD = flash::pad_ld<T, HD>();
+  constexpr int KS = HD / 16;  // k-steps of K.Q^T
+  constexpr int UPW = (2 * kDkvHeads<T>() + kDkvWarps - 1) / kDkvWarps;
+  extern __shared__ __align__(16) float smem[];
+  const DkvSmem<T, HD> sm(hg);
+  float* qtd = smem + sm.qtd;
+  T* qdo = reinterpret_cast<T*>(smem + sm.qdo);
+  float* stats = smem + sm.stats;
+  float* ae_s = smem + sm.ae;
+  float* kval = smem + sm.kval;
+  float* xq_s = smem + sm.xq;
+  float* fr = smem + sm.freqs;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + sm.bars);
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int b = blockIdx.z, h0 = blockIdx.y * hg;
+  const int nh = min(hg, H - h0), units = 2 * nh;
+  const int k0 = blockIdx.x * kDkvKeys;
+  const size_t bh0 = (size_t)b * H + h0;
+  const float* x0b = x0 + (size_t)b * L * XF;
+  const int nt = (L + kDkvQueries - 1) / kDkvQueries;
+  const int qtd_stage = 2 * hg * dkv_qtd_ld<HD>();
+  const DkvTiles<T, HD> tiles{qt + bh0 * L * HD, doe + bh0 * L * HD,
+                              q + bh0 * L * HD,  dout + bh0 * L * HD,
+                              qtd,               qdo,
+                              bars,              nh,
+                              hg,                L};
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2; ++j) hopper::mbar_init(bars + j, 1);
+    hopper::fence_mbar_init();
+  }
+  // the block's K and V rows, staged in the qt/doe region, into the
+  // units' A fragments
+  dkv_load_rows<T, HD, kDkvKeys, LD>(reinterpret_cast<T*>(qtd),
+                                     k + bh0 * L * HD, nh, L, k0);
+  dkv_load_rows<T, HD, kDkvKeys, LD>(
+      reinterpret_cast<T*>(qtd) + hg * kDkvKeys * LD, v + bh0 * L * HD, nh,
+      L, k0);
+  flash::cp_async_commit();
+  for (int j = threadIdx.x; j < kDkvKeys; j += blockDim.x)
+    kval[j] = (k0 + j < L && mask[(size_t)b * L + k0 + j]) ? 1.f : 0.f;
+  for (int f = threadIdx.x; f < HD / 2; f += blockDim.x) fr[f] = freqs[f];
+  float xk[4];  // the key of this lane's pair_arg in phase A
+  {
+    const int key = min(k0 + (w & 1) * 16 + g + 8 * (lane & 1), L - 1);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) xk[d] = x0b[(size_t)key * XF + d];
+  }
+  flash::cp_async_wait_all();
+  __syncthreads();
+  uint32_t ka[UPW][KS][4], va[UPW][KS][4];
+  float dka[UPW][HD / 8][4], dva[UPW][HD / 8][4];
+#pragma unroll
+  for (int u = 0; u < UPW; ++u) {
+    const int unit = w + kDkvWarps * u;
+    const int hh = unit >> 1, mm = unit & 1;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int at = (mm * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      if (unit < units) {
+        const T* ks = reinterpret_cast<const T*>(qtd) + hh * kDkvKeys * LD;
+        flash::ldmatrix_x4(ka[u][kk], ks + at);
+        flash::ldmatrix_x4(va[u][kk], ks + hg * kDkvKeys * LD + at);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[u][d][e] = dva[u][d][e] = 0.f;
+  }
+  __syncthreads();  // the K/V staging is done with
+  for (int e = threadIdx.x; e < sm.kv - sm.qtd; e += blockDim.x) qtd[e] = 0.f;
+  DkvRows rows;
+  rows.read(qb + bh0 * L, lse + bh0 * L, delta + bh0 * L, x0b, XF, nh, L, 0);
+  rows.store(stats, xq_s, nh, hg);
+  __syncthreads();
+  if (w == 0) {
+    tiles.issue_qtd(0);
+  }
+  tiles.load_qdo(0);
+
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = t * kDkvQueries;
+    if (t + 1 < nt) {
+      if (w == 0) tiles.issue_qtd(t + 1);
+      rows.read(qb + bh0 * L, lse + bh0 * L, delta + bh0 * L, x0b, XF, nh, L,
+                t0 + kDkvQueries);
+    }
+    tiles.wait_qtd(t);
+    __syncthreads();  // also: this tile's row statistics and coordinates
+    dkv_phase_a<HD>(qtd + (t & 1) * qtd_stage, ae_s, fr, xq_s, xk, nh, hg);
+    flash::cp_async_wait_all();  // this tile's q/do
+    __syncthreads();  // the embedding dots
+
+#pragma unroll
+    for (int u = 0; u < UPW; ++u) {
+      const int unit = w + kDkvWarps * u;
+      if (unit >= units) continue;
+      const int hh = unit >> 1, mm = unit & 1;
+      const T* qs = qdo + hh * kDkvQueries * LD;
+      const T* gs = qdo + (hg + hh) * kDkvQueries * LD;
+      float st[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = ((lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                       ((lane >> 3) & 1) * 8;
+        uint32_t bq[4];
+        flash::ldmatrix_x4(bq, qs + at);
+        flash::mma_bf16(st[0], ka[u][kk], bq[0], bq[1]);
+        flash::mma_bf16(st[1], ka[u][kk], bq[2], bq[3]);
+        flash::ldmatrix_x4(bq, gs + at);
+        flash::mma_bf16(dp[0], va[u][kk], bq[0], bq[1]);
+        flash::mma_bf16(dp[1], va[u][kk], bq[2], bq[3]);
+      }
+      const float* sh = stats + hh * kDkvQueries;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int slot = dkv_slot(hh, mm, n, e, lane);
+          dkv_p_ds(st[n][e], dp[n][e], ae_s, slot, hg * 512, sh, hg,
+                   n * 8 + c + (e & 1), kval[mm * 16 + g + 8 * (e >> 1)]);
+        }
+      uint32_t pa[4], da[4];
+      flash::pack_a(pa, st[0], st[1]);
+      flash::pack_a(da, dp[0], dp[1]);
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        const int at = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + np * 16 +
+                       (lane >> 4) * 8;
+        uint32_t bt[4];
+        flash::ldmatrix_x4_trans(bt, gs + at);
+        flash::mma_bf16(dva[u][2 * np], pa, bt[0], bt[1]);
+        flash::mma_bf16(dva[u][2 * np + 1], pa, bt[2], bt[3]);
+        flash::ldmatrix_x4_trans(bt, qs + at);
+        flash::mma_bf16(dka[u][2 * np], da, bt[0], bt[1]);
+        flash::mma_bf16(dka[u][2 * np + 1], da, bt[2], bt[3]);
+      }
+    }
+    __syncthreads();  // the q/do tile and the embedding dots are free
+    if (t + 1 < nt) {
+      tiles.load_qdo(t + 1);
+      rows.store(stats, xq_s, nh, hg);
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < UPW; ++u) {
+    const int unit = w + kDkvWarps * u;
+    if (unit >= units) continue;
+    const int hh = unit >> 1, mm = unit & 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + mm * 16 + g + 8 * r;
+      if (key < L) {
+        const size_t at = ((bh0 + hh) * L + key) * HD + c;
+#pragma unroll
+        for (int d = 0; d < HD / 8; ++d) {
+          *reinterpret_cast<uint32_t*>(dk + at + d * 8) =
+              flash::pack_bf16(dka[u][d][2 * r], dka[u][d][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dv + at + d * 8) =
+              flash::pack_bf16(dva[u][d][2 * r], dva[u][d][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dkv, fp32: the four products on the CUDA cores in full fp32 (no
+// TF32; phase A as in bf16).  Warp w takes head
+// w; lane (g, cq) its keys g + 8r (r = 0..3: key 16-tile r >> 1, row
+// half r & 1) against queries 8n + 2cq + s, the places of its mma
+// accumulator fragments, so it reads the embedding dots as the bf16
+// kernel does.
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    rel_dkv_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ qt,
+                       const float* __restrict__ qb,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ x0,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ freqs,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ doe,
+                       const float* __restrict__ delta, int H, int L, int XF,
+                       int hg, float* __restrict__ dk,
+                       float* __restrict__ dv) {
+  constexpr int LD = flash::pad_ld<float, HD>();
+  constexpr int NK = HD / 16;  // 4-dim chunks of dK, dV a lane owns
+  extern __shared__ __align__(16) float smem[];
+  const DkvSmem<float, HD> sm(hg);
+  float* qtd = smem + sm.qtd;
+  float* qdo = smem + sm.qdo;
+  float* kvs = smem + sm.kv;
+  float* stats = smem + sm.stats;
+  float* ae_s = smem + sm.ae;
+  float* kval = smem + sm.kval;
+  float* xq_s = smem + sm.xq;
+  float* fr = smem + sm.freqs;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + sm.bars);
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int b = blockIdx.z, h0 = blockIdx.y * hg;
+  const int nh = min(hg, H - h0);
+  const int k0 = blockIdx.x * kDkvKeys;
+  const size_t bh0 = (size_t)b * H + h0;
+  const float* x0b = x0 + (size_t)b * L * XF;
+  const int nt = (L + kDkvQueries - 1) / kDkvQueries;
+  const int qtd_stage = 2 * hg * dkv_qtd_ld<HD>();
+  const DkvTiles<float, HD> tiles{qt + bh0 * L * HD, doe + bh0 * L * HD,
+                                  q + bh0 * L * HD,  dout + bh0 * L * HD,
+                                  qtd,               qdo,
+                                  bars,              nh,
+                                  hg,                L};
+
+  dkv_load_rows<float, HD, kDkvKeys, LD>(kvs, k + bh0 * L * HD, nh, L, k0);
+  dkv_load_rows<float, HD, kDkvKeys, LD>(kvs + hg * kDkvKeys * LD,
+                                         v + bh0 * L * HD, nh, L, k0);
+  flash::cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2; ++j) hopper::mbar_init(bars + j, 1);
+    hopper::fence_mbar_init();
+  }
+  for (int e = threadIdx.x; e < sm.kv - sm.qtd; e += blockDim.x) qtd[e] = 0.f;
+  DkvRows rows;
+  rows.read(qb + bh0 * L, lse + bh0 * L, delta + bh0 * L, x0b, XF, nh, L, 0);
+  rows.store(stats, xq_s, nh, hg);
+  for (int j = threadIdx.x; j < kDkvKeys; j += blockDim.x)
+    kval[j] = (k0 + j < L && mask[(size_t)b * L + k0 + j]) ? 1.f : 0.f;
+  for (int f = threadIdx.x; f < HD / 2; f += blockDim.x) fr[f] = freqs[f];
+  float xk[4];  // the key of this lane's pair_arg in phase A
+  {
+    const int key = min(k0 + (w & 1) * 16 + g + 8 * (lane & 1), L - 1);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) xk[d] = x0b[(size_t)key * XF + d];
+  }
+
+  flash::cp_async_wait_all();  // the K/V rows
+  __syncthreads();
+  if (w == 0) {
+    tiles.issue_qtd(0);
+  }
+  tiles.load_qdo(0);
+
+  const bool owner = w < nh;  // the warp's head takes part in phase B
+  float dka[4][NK][4], dva[4][NK][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[r][kk][e] = dva[r][kk][e] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = t * kDkvQueries;
+    if (t + 1 < nt) {
+      if (w == 0) tiles.issue_qtd(t + 1);
+      rows.read(qb + bh0 * L, lse + bh0 * L, delta + bh0 * L, x0b, XF, nh, L,
+                t0 + kDkvQueries);
+    }
+    tiles.wait_qtd(t);
+    __syncthreads();  // also: this tile's row statistics and coordinates
+    dkv_phase_a<HD>(qtd + (t & 1) * qtd_stage, ae_s, fr, xq_s, xk, nh, hg);
+    flash::cp_async_wait_all();  // this tile's q/do
+    __syncthreads();  // the embedding dots
+
+    if (owner) {
+      const int hh = w;
+      const float* ks = kvs + hh * kDkvKeys * LD;
+      const float* vs = kvs + (hg + hh) * kDkvKeys * LD;
+      const float* qs = qdo + hh * kDkvQueries * LD;
+      const float* gs = qdo + (hg + hh) * kDkvQueries * LD;
+      // S^T and dP^T: st[r][j] for key g + 8r and query qi(j) =
+      // 8 (j >> 1) + 2cq + (j & 1)
+      float st[4][4], dp[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[r][j] = dp[r][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += 4) {
+        float4 a[4], bq[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          a[r] = flash::ld4(ks + (g + 8 * r) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bq[j] = flash::ld4(qs + (8 * (j >> 1) + 2 * cq + (j & 1)) * LD + d);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[r][j] = fmaf(a[r].x, bq[j].x, st[r][j]);
+            st[r][j] = fmaf(a[r].y, bq[j].y, st[r][j]);
+            st[r][j] = fmaf(a[r].z, bq[j].z, st[r][j]);
+            st[r][j] = fmaf(a[r].w, bq[j].w, st[r][j]);
+          }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          a[r] = flash::ld4(vs + (g + 8 * r) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bq[j] = flash::ld4(gs + (8 * (j >> 1) + 2 * cq + (j & 1)) * LD + d);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dp[r][j] = fmaf(a[r].x, bq[j].x, dp[r][j]);
+            dp[r][j] = fmaf(a[r].y, bq[j].y, dp[r][j]);
+            dp[r][j] = fmaf(a[r].z, bq[j].z, dp[r][j]);
+            dp[r][j] = fmaf(a[r].w, bq[j].w, dp[r][j]);
+          }
+      }
+      const float* sh = stats + hh * kDkvQueries;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // fragment (m = r >> 1, n = j >> 1), element 2 (r & 1) + (j & 1)
+          const int slot =
+              dkv_slot(hh, r >> 1, j >> 1, 2 * (r & 1) + (j & 1), lane);
+          dkv_p_ds(st[r][j], dp[r][j], ae_s, slot, hg * 512, sh, hg,
+                   8 * (j >> 1) + 2 * cq + (j & 1), kval[g + 8 * r]);
+        }
+      // P^T and dS^T ([key][query], the query's float4 slot swizzled by
+      // the key) over the head's embedding dots, which are read
+      __syncwarp();
+      float* ps = ae_s + hh * 512;
+      float* dss = ae_s + (hg + hh) * 512;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = g + 8 * r, i = 8 * (j >> 1) + 2 * cq + (j & 1);
+          const int at = key * 16 + 4 * ((i >> 2) ^ ((key >> 1) & 3)) + (i & 3);
+          ps[at] = st[r][j];
+          dss[at] = dp[r][j];
+        }
+      __syncwarp();
+      // dV += P^T.G and dK += dS^T.Q: keys g + 8r, dims 4 (cq + 4 kk) ..
+      // + 3, four queries a step
+#pragma unroll 1
+      for (int q4 = 0; q4 < kDkvQueries / 4; ++q4) {
+        float4 pr[4], sr[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int at = (g + 8 * r) * 16 + 4 * (q4 ^ ((g >> 1) & 3));
+          pr[r] = flash::ld4(ps + at);
+          sr[r] = flash::ld4(dss + at);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = 4 * q4 + u;
+#pragma unroll
+          for (int kk = 0; kk < NK; ++kk) {
+            const float4 x = flash::ld4(gs + row * LD + 4 * (cq + 4 * kk));
+            const float4 y = flash::ld4(qs + row * LD + 4 * (cq + 4 * kk));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float pu = flash::at4(pr[r], u), su = flash::at4(sr[r], u);
+              dva[r][kk][0] = fmaf(pu, x.x, dva[r][kk][0]);
+              dva[r][kk][1] = fmaf(pu, x.y, dva[r][kk][1]);
+              dva[r][kk][2] = fmaf(pu, x.z, dva[r][kk][2]);
+              dva[r][kk][3] = fmaf(pu, x.w, dva[r][kk][3]);
+              dka[r][kk][0] = fmaf(su, y.x, dka[r][kk][0]);
+              dka[r][kk][1] = fmaf(su, y.y, dka[r][kk][1]);
+              dka[r][kk][2] = fmaf(su, y.z, dka[r][kk][2]);
+              dka[r][kk][3] = fmaf(su, y.w, dka[r][kk][3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the q/do tile and the embedding dots are free
+    if (t + 1 < nt) {
+      tiles.load_qdo(t + 1);
+      rows.store(stats, xq_s, nh, hg);
+    }
+  }
+
+  if (owner) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = k0 + g + 8 * r;
+      if (key < L) {
+        const size_t at = ((bh0 + w) * L + key) * HD;
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          const int d = 4 * (cq + 4 * kk);
+          *reinterpret_cast<float4*>(dk + at + d) = make_float4(
+              dka[r][kk][0], dka[r][kk][1], dka[r][kk][2], dka[r][kk][3]);
+          *reinterpret_cast<float4*>(dv + at + d) = make_float4(
+              dva[r][kk][0], dva[r][kk][1], dva[r][kk][2], dva[r][kk][3]);
+        }
+      }
+    }
+  }
+}
+
+// the dkv kernel of each input dtype
+template <int HD>
+auto dkv_kernel(const float*) {
+  return rel_dkv_f32_kernel<HD>;
+}
+template <int HD>
+auto dkv_kernel(const __nv_bfloat16*) {
+  return rel_dkv_mma_kernel<HD>;
+}
+
 template <typename T, int HD>
 cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
                        const void* k, const void* v, const void* x0,
@@ -282,22 +955,24 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
                        const void* dout, const void* doe, const void* delta,
                        int B, int H, int L, int XF, void* dk, void* dv,
                        cudaStream_t stream) {
-  const int hg = head_group(H, kBwdHeads);
-  const size_t bytes = sizeof(float) * (kTile * HD * kLanes +
-                                        4 * hg * kTile * HD + 3 * hg * kTile);
-  auto kern = rel_dkv_kernel<T, HD>;
+  if (!flash::aligned16(q, qt, k, v) || !flash::aligned16(dout, doe, dk, dv))
+    return cudaErrorMisalignedAddress;
+  int groups, hg;
+  dkv_groups<T>(H, &groups, &hg);
+  const size_t bytes = dkv_smem_bytes<T, HD>(hg);
+  auto kern = dkv_kernel<HD>(static_cast<const T*>(nullptr));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((L + kLanes - 1) / kLanes, H / hg, B);
-  kern<<<grid, kLanes * hg, bytes, stream>>>(
+  dim3 grid((L + kDkvKeys - 1) / kDkvKeys, groups, B);
+  kern<<<grid, kDkvThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const float*>(qt),
       static_cast<const float*>(qb), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(x0),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(freqs),
       static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<const float*>(doe), static_cast<const float*>(delta), H, L,
-      XF, static_cast<T*>(dk), static_cast<T*>(dv));
+      XF, hg, static_cast<T*>(dk), static_cast<T*>(dv));
   return cudaGetLastError();
 }
 
@@ -334,6 +1009,7 @@ extern "C" int rel_bwd_dq_launch(const void* q, const void* qt,
 #undef DQ
 }
 
+
 extern "C" int rel_bwd_dkv_launch(const void* q, const void* qt,
                                   const void* qb, const void* k,
                                   const void* v, const void* x0,
@@ -348,4 +1024,23 @@ extern "C" int rel_bwd_dkv_launch(const void* q, const void* qt,
                             delta, B, H, L, XF, dk, dv, s)
   REL_DISPATCH(DKV);
 #undef DKV
+}
+
+// The dynamic shared memory of a launch over H heads at head dim HD (0
+// for a head dim the kernels are not built for).
+extern "C" int rel_bwd_dq_smem_bytes(int HD, int H) {
+  if (HD != 16 && HD != 32) return 0;
+  return (int)relattn::dq_smem_bytes(
+      HD, relattn::head_group(H, relattn::kBwdHeads));
+}
+
+extern "C" int rel_bwd_dkv_smem_bytes(int HD, int bf16, int H) {
+  int groups, hg;
+#define SMEM(T, D)                                                    \
+  (relattn::dkv_groups<T>(H, &groups, &hg),                           \
+   (int)relattn::dkv_smem_bytes<T, D>(hg))
+  if (HD == 16) return bf16 ? SMEM(__nv_bfloat16, 16) : SMEM(float, 16);
+  if (HD == 32) return bf16 ? SMEM(__nv_bfloat16, 32) : SMEM(float, 32);
+#undef SMEM
+  return 0;
 }

@@ -22,16 +22,28 @@ class StandardModel(nn.Module):
     seed)`` on the CPU and then moved to ``device`` (the GPU unless the
     caller asks for the CPU).  The tasks are registered as ``tasks_0``,
     ``tasks_1``, ..., the JAX package's parameter names.
+
+    ``edge_definition`` is the JAX field of that name, in its place after
+    ``tasks``: ``None`` (every configuration passes it so) leaves the
+    backbone to build its own graph.  An edge rule evaluated before the
+    backbone is not ported yet and raises ``NotImplementedError``.
     """
 
     def __init__(
         self,
         backbone: GNN,
         tasks: Sequence[Task],
+        edge_definition: Optional[object] = None,
         seed: int = 0,
         device: DeviceLike = "cuda",
     ):
         super().__init__()
+        if edge_definition is not None:
+            raise NotImplementedError(
+                "StandardModel(edge_definition=...) with an edge rule is not "
+                "ported yet (ROADMAP.md queue 1, item 8); pass None to let "
+                "the backbone build its graph"
+            )
         dev = resolve_device(device)
         self.backbone = backbone
         self.n_tasks = len(tasks)

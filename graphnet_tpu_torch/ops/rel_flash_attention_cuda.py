@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from graphnet_tpu_torch.ops.flash_attention_cuda import _cuda_device
+from graphnet_tpu_torch.ops.flash_attention_cuda import _cuda_device, aligned16
 from graphnet_tpu_torch.ops.rel_flash_attention import (
     HEAD_DIMS,
     _freqs,
@@ -112,15 +112,26 @@ def _check_kernel(q):
         )
 
 
+# the frequency table on each device, per head dim (copied once)
+_FREQS = {}
+
+
+def _freqs_on(dev, hd: int) -> torch.Tensor:
+    key = (str(dev), hd)
+    if key not in _FREQS:
+        _FREQS[key] = torch.from_numpy(_freqs(hd)).to(dev)
+    return _FREQS[key]
+
+
 def _launch(fn, counter, name, ins, outs, q, x0, dev):
-    """Call a kernel's C entry on ``ins`` (made contiguous) and the
+    """Call a kernel's C entry on ``ins`` (made contiguous and 16-byte
+    aligned, as the dkv kernel's asynchronous copies need) and the
     frequency table, writing into the fresh ``outs``; raises on a launch
     error."""
     B, H, L, hd = q.shape
     with torch.cuda.device(dev):
-        ins = [t.contiguous() for t in ins]
-        freqs = torch.from_numpy(_freqs(hd)).to(dev)
-        ins.insert(7, freqs)  # after q, qt, qb, k, v, x0, mask
+        ins = [aligned16(t) for t in ins]
+        ins.insert(7, _freqs_on(dev, hd))  # after q, qt, qb, k, v, x0, mask
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             *(t.data_ptr() for t in ins), B, H, L, hd, x0.shape[-1],

@@ -37,9 +37,9 @@ def _x0(rng, L):
     ).astype(np.float32)
 
 
-def _inputs(L, seed=0):
+def _inputs(L, seed=0, heads=H):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.standard_normal((B, H, L, HD)).astype(np.float32)
+    q, k, v, g = (rng.standard_normal((B, heads, L, HD)).astype(np.float32)
                   for _ in range(4))
     q *= np.float32(HD ** -0.5)
     w = (rng.standard_normal((HD, HD)) / 4).astype(np.float32)  # flax [in, out]
@@ -122,6 +122,43 @@ def test_rel_attention_matches_jax(ref, L):
         np.testing.assert_allclose(
             got.numpy(), exp, rtol=2e-4, atol=2e-5 * np.abs(exp).max(),
             err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("L", [1, 63, 65])
+def test_rel_dk_dv_match_jax_streaming_at_tile_edges(L, heads):
+    """dk and dv of the plain backward (the values the card holds the dkv
+    kernel to) against the JAX streaming version at the edges of that
+    kernel's 32-key blocks and 16-query tiles, with one head and three
+    (at L = 1 event 0 has no valid key): rtol 2e-4, an absolute floor of
+    2e-5 of each gradient's max, in each event with a valid key.  At L = 1
+    no event has two keys, so ds = dp - delta is rounding noise and dk
+    with it (exactly 0 in JAX): its floor is then 2e-5 of dv's max, as
+    ``chip_smoke.py``'s ``check_bwd`` holds one-key events.  The event
+    with no valid key follows the dense formula, a uniform softmax over
+    the L keys: dk exactly 0 and dv the mean of the output gradient over
+    the queries (the streaming version pads L to its tile and spreads it
+    over 32 keys; ROADMAP.md queue 3)."""
+    q, k, v, x0, w, b, g = _inputs(L, seed=L + heads, heads=heads)
+    mask = _mask(L)
+    _, grads_j = _jax_out_and_grads(REFERENCES["streaming"], q, k, v, x0, w,
+                                    b, mask, g)
+    _, grads_t = _port_out_and_grads(q, k, v, x0, w, b, mask, g)
+    keyed = mask.any(axis=1)
+    for name, i in (("k", 1), ("v", 2)):
+        exp = grads_j[i][keyed]
+        scale = np.abs(exp).max()
+        if L == 1:
+            scale = max(scale, np.abs(grads_j[2][keyed]).max())
+        np.testing.assert_allclose(
+            grads_t[i].numpy()[keyed], exp, rtol=2e-4, atol=2e-5 * scale,
+            err_msg=f"d{name}")
+    if not keyed.all():
+        assert not grads_t[1][~keyed].any()
+        mean_g = g.transpose(0, 2, 1, 3)[~keyed].mean(axis=2, keepdims=True)
+        dv = grads_t[2].numpy()[~keyed]
+        np.testing.assert_allclose(dv, np.broadcast_to(mean_g, dv.shape),
+                                   rtol=2e-4, atol=2e-5 * np.abs(mean_g).max())
 
 
 def test_pair_distance_and_freqs_bit_for_bit():

@@ -1,6 +1,7 @@
 """The port's training path against the JAX package on the CPU: losses,
-the task loss, a narrow DynEdge's loss and gradients, ``Trainer.fit``,
-the ``state_dict.pkl`` round trip and gradient clipping."""
+the task loss, a narrow DynEdge's loss and gradients, StandardModel's
+``edge_definition``, ``Trainer.fit``, the ``state_dict.pkl`` round trip
+and gradient clipping."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from graphnet_tpu.deployment.deployment_module import (
     DeploymentModule as JaxDeploymentModule,
 )
 from graphnet_tpu.models.gnn.dynedge import DynEdge as JaxDynEdge
+from graphnet_tpu.models.graphs.edges import MinkowskiKNNEdges as JaxMinkowskiKNNEdges
 from graphnet_tpu.models.graphs.graph_definition import Event as JaxEvent
 from graphnet_tpu.models.standard_model import StandardModel as JaxStandardModel
 from graphnet_tpu.models.task.reconstruction import (
@@ -25,6 +27,7 @@ from graphnet_tpu.training.trainer import Trainer as JaxTrainer
 from graphnet_tpu.utils.config import TRANSFORM_REGISTRY, save_model_config
 from graphnet_tpu_torch.batch import make_batch
 from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+from graphnet_tpu_torch.models.graphs.edges import KNNEdges
 from graphnet_tpu_torch.models.standard_model import StandardModel
 from graphnet_tpu_torch.models.task.reconstruction import EnergyReconstruction
 from graphnet_tpu_torch.training import loss_functions as tlf
@@ -210,6 +213,51 @@ def test_narrow_dynedge_loss_and_grads_match_jax():
             p.grad.numpy(), e, rtol=2e-4, atol=2e-5 * np.abs(e).max(),
             err_msg=name,
         )
+
+
+# ------------------------------------------------------ edge_definition
+def _energy_model(**kwargs):
+    return StandardModel(
+        DynEdge(nb_inputs=4, **NARROW),
+        [EnergyReconstruction(hidden_size=8, target_labels=("total_energy",))],
+        device="cpu",
+        **kwargs,
+    )
+
+
+def test_edge_definition_none_keeps_the_model():
+    """``edge_definition=None`` (what every StandardModel config passes)
+    builds the model built without it, bit for bit, and that model
+    answers as the JAX model with ``edge_definition=None``."""
+    jbs, tbs = _batches(10, [5])
+    plain, with_none = _energy_model(), _energy_model(edge_definition=None)
+    for (name, a), (_, b) in zip(plain.state_dict().items(),
+                                 with_none.state_dict().items()):
+        assert torch.equal(a, b), name
+    out, out_none = plain(tbs[0]), with_none(tbs[0])
+    for (p, r), (pn, rn) in zip(out, out_none):
+        assert torch.equal(p, pn) and torch.equal(r, rn)
+
+    jmodel = JaxStandardModel(
+        backbone=JaxDynEdge(nb_inputs=4, **NARROW),
+        tasks=(JaxEnergy(target_labels=("total_energy",)),),
+        edge_definition=None,
+    )
+    params = jax.device_get(jmodel.init(jax.random.PRNGKey(0), jbs[0]))
+    with_none.load_state_dict(params_from_jax(params, with_none.state_dict()))
+    j_pred = np.asarray(jmodel.apply(params, jbs[0])[0][0])
+    pred = with_none(tbs[0])[0][0].detach().numpy()
+    np.testing.assert_allclose(pred, j_pred, rtol=2e-4,
+                               atol=2e-5 * np.abs(j_pred).max())
+
+
+@pytest.mark.parametrize("rule", ["port_knn", "jax_minkowski"])
+def test_edge_definition_rule_raises_not_implemented(rule):
+    """An edge rule evaluated before the backbone is not ported: the port
+    refuses it rather than ignore it."""
+    edges = KNNEdges() if rule == "port_knn" else JaxMinkowskiKNNEdges()
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        _energy_model(edge_definition=edges)
 
 
 # -------------------------------------------------------------- Trainer
