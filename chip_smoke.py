@@ -36,6 +36,10 @@ Phases, each printing one JSON line:
    (both layer shapes and H1=100, H2=72, add/max/mean, fp32 and bf16,
    k = 8, 1, 12 and 64, a 1-node and an all-masked event, L=512 and
    L=4096); two runs must give the same bits;
+   edgeconv_bwd_route: under max, the edge the backward routes each
+   gradient to against the forward's winner, at planted near-ties and
+   exact ties, nothing zeroed (fp32 and bf16, both layer shapes and
+   H1=100, H2=72);
 6. flash, flash_bwd: the flash-attention forward, dq and dkv kernels
    against their plain versions (head dims 32 and 64, L = 1, 63, 64,
    65, 129, 128, 1000 and 1024, and the DeepIce path's shapes, 12 heads
@@ -80,8 +84,10 @@ Phases, each printing one JSON line:
    and dkv kernels against their plain versions (12 heads of 32, L =
    128, 768, 1000 and 1024; at the dkv kernel's tile edges, L = 1, 63,
    65 and 129, and 3 heads of 16 at L = 65; 1 and 24 heads of 32 at
-   L = 200; fp32 and bf16, an event with no pulse and one with a single
-   pulse), and whether two backward runs give the same bits;
+   L = 200; at the dq kernel's 16-query and 16-key tile edges, L = 15,
+   17, 31 and 33 with 12, 3, 1 (of 16) and 24 heads; fp32 and bf16, an
+   event with no pulse and one with a single pulse), and whether two
+   backward runs give the same bits;
 11. serve_deepice, train_deepice: the same two paths for the full-width
    DeepIce direction model at the JAX bench's DeepIce shape, B=16,
    L=768 (serving: 16 events of 100-768 pulses, and a request with
@@ -938,6 +944,84 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
             "rel_err_to_max": rel, "same_bits_twice": same,
         })
     return worst, report
+
+
+def check_max_routing(torch, ops, rng, dev, B=64, L=16, k=8,
+                      shapes=((128, 256), (336, 256), (100, 72))):
+    """Phase: under max aggregation the EdgeConv backward kernel (row 3)
+    routes each (node, column) gradient to the edge whose message won in
+    the forward kernel (row 2), at planted near-ties and exact ties, with
+    nothing zeroed.  Node 0 of each event has k private neighbours (nodes
+    1..k, no other edge is valid), whose b rows are one row, each
+    neighbour's with a few components moved by one rounding of the dtype
+    or not at all (an exact copy), so every column's messages tie or lie
+    within roundings of each other.  The output gradient is one-hot in
+    one column per event, so db is non-zero only at the routed
+    neighbour's row.  The forward kernel run with one valid edge gives
+    that edge's own message bits (an edge's message does not depend on
+    the others); the winner is the first edge whose message equals their
+    max, and the full forward's output must be that max, bit for bit.
+    Both dtypes, both DynEdge layer shapes and widths that are no
+    multiple of the kernels' tiles."""
+    f32, b16 = torch.float32, torch.bfloat16
+    report = []
+    for dtype in (f32, b16):
+        eps = float(torch.finfo(dtype).eps)
+        for h1, h2 in shapes:
+            gen = torch.Generator(device=dev).manual_seed(h1 + h2 + (dtype == b16))
+            idx = torch.zeros(B, L, k, dtype=torch.int32, device=dev)
+            idx[:, 0] = torch.arange(1, k + 1, dtype=torch.int32, device=dev)
+            em = torch.zeros(B, L, k, dtype=torch.bool, device=dev)
+            em[:, 0] = True
+            a = torch.randn(B, L, h1, device=dev, generator=gen).to(dtype)
+            base = torch.randn(B, 1, h1, device=dev, generator=gen)
+            # neighbour e's row: base with about two components moved by
+            # one rounding up or down; about a third of the neighbours
+            # are exact copies
+            step = torch.randint(-1, 2, (B, k, h1), device=dev, generator=gen)
+            step *= torch.rand(B, k, h1, device=dev, generator=gen) < 3.0 / h1
+            step *= (torch.rand(B, k, 1, device=dev, generator=gen) > 0.33)
+            b = torch.zeros(B, L, h1, device=dev)
+            b[:, 1:k + 1] = base * (1 + eps * step)
+            b = b.to(dtype)
+            w2 = (torch.randn(h1, h2, device=dev, generator=gen) / h1 ** 0.5).to(dtype)
+            b2 = (torch.randn(h2, device=dev, generator=gen) * 0.1).to(dtype)
+            col = torch.from_numpy(rng.integers(0, h2, B)).to(dev)
+            g = torch.zeros(B, L, h2, device=dev)
+            g[torch.arange(B, device=dev), 0, col] = 1.0
+            kw = dict(aggr="max", slope=0.01)
+            _, db, _, _ = ops["edgeconv_bwd"](a, b, idx, em, w2, b2, g, **kw)
+            nz = db[:, 1:k + 1].abs().sum(dim=2) > 0  # [B, k]
+            assert bool((nz.sum(dim=1) == 1).all()), (
+                f"H1={h1} {dtype}: db is not non-zero at exactly one "
+                "neighbour of each event")
+            routed = nz.int().argmax(dim=1)
+            # each edge's own message: B * k events, one valid edge each
+            one = torch.eye(k, dtype=torch.bool, device=dev).repeat(B, 1)
+            em1 = torch.zeros(B * k, L, k, dtype=torch.bool, device=dev)
+            em1[:, 0] = one
+            rep = [t.repeat_interleave(k, dim=0) for t in (a, b, idx)]
+            msg = ops["edgeconv"](rep[0], rep[1], rep[2], em1, w2, b2, **kw)
+            msg = msg[:, 0].reshape(B, k, h2)
+            full = ops["edgeconv"](a, b, idx, em, w2, b2, **kw)[:, 0]
+            assert torch.equal(full, msg.amax(dim=1)), (
+                f"H1={h1} {dtype}: the forward's max is not its edges' max")
+            vals = msg[torch.arange(B, device=dev), :, col]  # [B, k]
+            top = vals.amax(dim=1, keepdim=True)
+            winner = (vals == top).int().argmax(dim=1)
+            second = torch.where(vals == top, -torch.inf, vals).amax(dim=1)
+            gap = (top[:, 0] - second) / top[:, 0].abs().clamp_min(1e-30)
+            wrong = int((routed != winner).sum())
+            assert wrong == 0, (
+                f"H1={h1} {dtype}: {wrong} of {B} events route the gradient "
+                "to another edge than the forward's winner")
+            report.append({
+                "dtype": str(dtype).replace("torch.", ""), "H1": h1, "H2": h2,
+                "k": k, "events": B,
+                "exact_ties_at_max": int(((vals == top).sum(dim=1) > 1).sum()),
+                "within_2_eps_of_max": int((gap <= 2 * eps).sum()),
+                "routed_to_winner": B - wrong})
+    return report
 
 
 def synthetic_batch(make_batch, rng, B=128, L=128):
@@ -2008,8 +2092,10 @@ def rel_cases(torch, rng, dev):
     L = 1000; at the dkv kernel's tile edges (32-key blocks, 16-query
     tiles), L = 1, 63, 65 and 129 with 12 heads of 32 and L = 65 with 3
     heads of 16; and at its head groups, one head and the zoo's 24
-    (B_d32: two groups in bf16, three in fp32) at L = 200; q scaled by
-    hd^-0.5; ``_key_mask``'s events."""
+    (B_d32: two groups in bf16, three in fp32) at L = 200; at the dq
+    kernel's 16-query blocks and 16-key tiles, L = 15 (12 heads), 17 (3
+    heads), 31 (one head of 16) and 33 (24 heads: two groups in bf16,
+    three in fp32); q scaled by hd^-0.5; ``_key_mask``'s events."""
     cases = []
     for L, B, H, hd in ((128, 4, ICE_HEADS, ICE_HD), (ICE_L, ICE_B, ICE_HEADS, ICE_HD),
                         (1000, 4, ICE_HEADS, ICE_HD), (1024, 4, ICE_HEADS, ICE_HD),
@@ -2017,7 +2103,9 @@ def rel_cases(torch, rng, dev):
                         (1, 4, ICE_HEADS, ICE_HD), (63, 4, ICE_HEADS, ICE_HD),
                         (65, 4, ICE_HEADS, ICE_HD), (129, 4, ICE_HEADS, ICE_HD),
                         (65, 4, 3, 16), (200, 4, 1, ICE_HD),
-                        (200, 4, 2 * ICE_HEADS, ICE_HD)):
+                        (200, 4, 2 * ICE_HEADS, ICE_HD),
+                        (15, 4, ICE_HEADS, ICE_HD), (17, 4, 3, ICE_HD),
+                        (31, 4, 1, 16), (33, 4, 2 * ICE_HEADS, ICE_HD)):
         gen = torch.Generator(device=dev).manual_seed(L + 7 + hd)
         q, k, v = (torch.randn(B, H, L, hd, device=dev, generator=gen)
                    for _ in range(3))
@@ -2328,6 +2416,11 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd_err, report = check_edgeconv_bwd(torch, ops, rng, dev)
     emit({"phase": "edgeconv_bwd", "k": K, "cases": report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    # 5a. row 3's max routing against row 2's winners, near-ties kept
+    t0 = time.perf_counter()
+    report = check_max_routing(torch, ops, np.random.default_rng(SEED + 9), dev)
+    emit({"phase": "edgeconv_bwd_route", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
 
     # 5b. flash-attention kernels vs plain

@@ -1,16 +1,16 @@
 // Pieces shared by the relative-bias attention kernels
 // (rel_flash_attention.cu, rel_flash_attention_bwd.cu): the pair
-// argument of DeepIce's SpacetimeEncoder (all three kernels), its
-// embedding built per tile in shared memory, and the tile sizes (the
-// forward and dq kernels).
+// argument of DeepIce's SpacetimeEncoder (all three kernels), and the
+// forward kernel's embedding built per tile in shared memory and its
+// tile sizes.
 //
-// A forward or dq block owns 32 query rows, one row per lane, and a
-// group of heads, one warp per head.  It streams key tiles.  The pair
-// embedding of a (32 rows x tile) block of pairs is computed once into
-// shared memory and read by every head of the group: the
-// transcendentals are the costly part of the work, and they do not
-// depend on the head.  (The dkv kernel builds its embeddings in
-// registers; see rel_flash_attention_bwd.cu.)
+// A forward block owns 32 query rows, one row per lane, and a group of
+// heads, one warp per head.  It streams key tiles.  The pair embedding
+// of a (32 rows x tile) block of pairs is computed once into shared
+// memory and read by every head of the group: the transcendentals are
+// the costly part of the work, and they do not depend on the head.
+// (The backward kernels build their embeddings in registers, straight
+// into tensor-core fragments; see rel_flash_attention_bwd.cu.)
 
 #pragma once
 
@@ -23,9 +23,9 @@ using flash::kNeg;
 using flash::round_t;
 using flash::to_f;
 
-constexpr int kLanes = 32;  // rows a block owns, one per lane
-constexpr int kTile = 16;   // rows of the other side per streamed tile
-                            // (KEY_TILE of the plain version)
+constexpr int kLanes = 32;  // rows a forward block owns, one per lane
+constexpr int kTile = 16;   // keys per streamed tile (KEY_TILE of the
+                            // plain version)
 
 // light speed in the scaled detector units, the interval's clip, the
 // argument's scale (the SpacetimeEncoder's constants)

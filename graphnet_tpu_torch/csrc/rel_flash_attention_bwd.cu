@@ -10,165 +10,23 @@
 // dq = sum_j ds.k (ds rounded to the input dtype), dqt = sum_j ds.emb_ij
 // and dqb = sum_j ds in fp32; dk = sum_i ds.q (ds rounded), dv =
 // sum_i p.do (p rounded), over every query row.  The two kernels form
-// the logits with other operations in another order (the dkv kernel's
-// q.k runs on the tensor cores in bf16), so each is held to the plain
-// version on its own.  Neither uses atomics; every sum runs in a fixed
-// order, so two runs give the same bits.
+// the logits with other operations in another order, so each is held to
+// the plain version on its own.  Neither uses atomics; every sum runs in
+// a fixed order, so two runs give the same bits.
 //
-// dq: ~12*hd flops per (b, h, i, j) (two logit dots, two dp dots, two
-// updates) plus hd/2 precise sincos per (b, i, j).  It owns 32 query
-// rows per block (one per lane) and streams key tiles; a block holds a
-// group of up to 4 heads (a warp each) and computes each tile's pair
-// embedding once for the group, in shared memory.
-//
-// dkv: see the notes at its kernels below.
+// Both build each pair's embedding once for all heads of a block,
+// straight into tf32 mma fragments (emb_frags), and form the embedding
+// dots as three tf32 products, which keep fp32 accuracy.  See the notes
+// at each kernel below.
 
+
+#include <algorithm>
 
 #include "flash_mma.cuh"
 #include "rel_flash_attention.cuh"
 
 namespace relattn {
 namespace {
-
-constexpr int kBwdHeads = 4;  // most heads a block holds
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kLanes * kBwdHeads)
-    rel_dq_kernel(const T* __restrict__ q, const float* __restrict__ qt,
-                  const float* __restrict__ qb, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ x0,
-                  const uint8_t* __restrict__ mask,
-                  const float* __restrict__ freqs,
-                  const float* __restrict__ lse, const T* __restrict__ dout,
-                  const float* __restrict__ doe,
-                  const float* __restrict__ delta, int H, int L, int XF,
-                  T* __restrict__ dq, float* __restrict__ dqt,
-                  float* __restrict__ dqb) {
-  constexpr int E = HD;
-  extern __shared__ __align__(16) float smem[];
-  const int hg = blockDim.x / kLanes;
-  float* emb = smem;                     // [kTile][E][32]
-  float* ks = emb + kTile * E * kLanes;  // [hg][kTile][HD]
-  float* vs = ks + hg * kTile * HD;      // [hg][kTile][HD]
-  float* kval = vs + hg * kTile * HD;    // [kTile]
-
-  const int lane = threadIdx.x % kLanes, w = threadIdx.x / kLanes;
-  const int b = blockIdx.z, h0 = blockIdx.y * hg;
-  const int row0 = blockIdx.x * kLanes, row = row0 + lane;
-  const bool active = row < L;
-  const size_t bh = (size_t)b * H + h0 + w;
-  const size_t at = (bh * L + min(row, L - 1)) * HD;
-  const size_t st = bh * L + min(row, L - 1);
-  const float* x0b = x0 + (size_t)b * L * XF;
-  const uint8_t* mb = mask + (size_t)b * L;
-
-  float qr[HD], qtr[E], dor[HD], doer[E], acc[HD], acce[E];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? to_f<T>(q[at + d]) : 0.f;
-    qtr[d] = active ? qt[at + d] : 0.f;
-    dor[d] = active ? to_f<T>(dout[at + d]) : 0.f;
-    doer[d] = active ? doe[at + d] : 0.f;
-    acc[d] = 0.f;
-    acce[d] = 0.f;
-  }
-  const float qbr = active ? qb[st] : 0.f;
-  const float lser = active ? lse[st] : 0.f;
-  const float deltar = active ? delta[st] : 0.f;
-  float accb = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int n = min(kTile, L - t0);  // the same in every thread
-    __syncthreads();
-    emb_tile<E>(emb, x0b, XF, L, row0, t0, freqs);
-    for (int e = threadIdx.x; e < hg * kTile * HD; e += blockDim.x) {
-      const int hh = e / (kTile * HD), r = (e / HD) % kTile, c = e % HD;
-      float kx = 0.f, vx = 0.f;
-      if (r < n) {
-        const size_t g = (((size_t)b * H + h0 + hh) * L + t0 + r) * HD + c;
-        kx = to_f<T>(k[g]);
-        vx = to_f<T>(v[g]);
-      }
-      ks[e] = kx;
-      vs[e] = vx;
-    }
-    for (int j = threadIdx.x; j < kTile; j += blockDim.x)
-      kval[j] = (j < n && mb[t0 + j]) ? 1.f : 0.f;
-    __syncthreads();
-
-    const float* kh = ks + w * kTile * HD;
-    const float* vh = vs + w * kTile * HD;
-    for (int j = 0; j < n; ++j) {
-      const float* kj = kh + j * HD;
-      const float* vj = vh + j * HD;
-      const float* ej = emb + j * E * kLanes + lane;
-      const float valid = kval[j];
-      float a = 0.f, ae = 0.f, dpv = 0.f, dpe = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        a = fmaf(qr[d], kj[d], a);
-        dpv = fmaf(dor[d], vj[d], dpv);
-      }
-#pragma unroll
-      for (int d = 0; d < E; ++d) {
-        const float x = ej[d * kLanes];
-        ae = fmaf(qtr[d], x, ae);
-        dpe = fmaf(doer[d], x, dpe);
-      }
-      float s = (a + ae) + qbr;
-      s = valid != 0.f ? s : kNeg;
-      const float p = expf(s - lser);
-      const float ds = p * (dpv + dpe - deltar) * valid;
-      const float dsr = round_t<T>(ds);
-      accb += ds;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        acc[d] = fmaf(dsr, kj[d], acc[d]);
-        acce[d] = fmaf(ds, ej[d * kLanes], acce[d]);
-      }
-    }
-  }
-
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      dq[at + d] = from_f<T>(acc[d]);
-      dqt[at + d] = acce[d];
-    }
-    dqb[st] = accb;
-  }
-}
-
-// the dynamic shared memory of a dq block of hg heads
-inline size_t dq_smem_bytes(int HD, int hg) {
-  return sizeof(float) * (kTile * HD * kLanes + 2 * hg * kTile * HD + kTile);
-}
-
-template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* qt, const void* qb,
-                      const void* k, const void* v, const void* x0,
-                      const void* mask, const void* freqs, const void* lse,
-                      const void* dout, const void* doe, const void* delta,
-                      int B, int H, int L, int XF, void* dq, void* dqt,
-                      void* dqb, cudaStream_t stream) {
-  const int hg = head_group(H, kBwdHeads);
-  const size_t bytes = dq_smem_bytes(HD, hg);
-  auto kern = rel_dq_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L + kLanes - 1) / kLanes, H / hg, B);
-  kern<<<grid, kLanes * hg, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const float*>(qt),
-      static_cast<const float*>(qb), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(x0),
-      static_cast<const uint8_t*>(mask), static_cast<const float*>(freqs),
-      static_cast<const float*>(lse), static_cast<const T*>(dout),
-      static_cast<const float*>(doe), static_cast<const float*>(delta), H, L,
-      XF, static_cast<T*>(dq), static_cast<float*>(dqt),
-      static_cast<float*>(dqb));
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------ dK, dV
 //
@@ -272,11 +130,10 @@ size_t dkv_smem_bytes(int hg) {
   return sizeof(float) * (size_t)DkvSmem<T, HD>(hg).floats;
 }
 
-// head groups of a dkv launch over H heads, and the heads of each (the
-// last group may hold fewer)
-template <typename T>
-inline void dkv_groups(int H, int* groups, int* hg) {
-  *groups = (H + kDkvHeads<T>() - 1) / kDkvHeads<T>();
+// the head groups of a launch over H heads, at most cap heads a group,
+// and the heads of each (the last group may hold fewer)
+inline void head_groups(int H, int cap, int* groups, int* hg) {
+  *groups = (H + cap - 1) / cap;
   *hg = (H + *groups - 1) / *groups;
 }
 
@@ -397,6 +254,39 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& big,
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
+// The pair embeddings of rows g and g + 8 of a block of 16 pairs (lane
+// (g, cq) of a warp; args[rh] is the pair argument of row g + 8 rh)
+// straight into the A fragments of the KS tf32 k-steps of a product over
+// the embedding, split big + small: frequency 8kk + 2cq + s is column
+// cq + 4s of k-step kk (its sin) and of k-step KS/2 + kk (its cos), so
+// column cq + 4s of k-step k stands for embedding dim 8k + 2cq + s.
+// Each lane builds 2 KS of the block's pairs' sincosf, no pair twice
+// (pair_arg and the precise sincosf: the plain version's bits).
+template <int KS>
+__device__ __forceinline__ void emb_frags(const float (&args)[2],
+                                          const float* __restrict__ fr,
+                                          uint32_t (&ab)[KS][4],
+                                          uint32_t (&as)[KS][4]) {
+  const int cq = threadIdx.x & 3;
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+    for (int kk = 0; kk < KS / 2; ++kk)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        // |x| <= 4096 (pair_arg's clip, frequencies <= 1): sincosf never
+        // takes its large-argument path, and the compiler, told so,
+        // interleaves the calls
+        const float x = __fmul_rn(args[rh], fr[8 * kk + 2 * cq + s]);
+        __builtin_assume(fabsf(x) <= 4096.f);
+        float sn, cs;
+        sincosf(x, &sn, &cs);
+        tf32_split(sn, ab[kk][2 * s + rh], as[kk][2 * s + rh]);
+        tf32_split(cs, ab[KS / 2 + kk][2 * s + rh],
+                   as[KS / 2 + kk][2 * s + rh]);
+      }
+}
+
 // the place of element e (key row g + 8 (e >> 1), query parity e & 1)
 // of lane `lane`'s accumulator fragment (unit (h, m), query 8-tile n)
 // in the embedding-dot buffer
@@ -430,27 +320,8 @@ __device__ __forceinline__ void dkv_phase_a(
     const float arg = pair_arg(xq_s + 4 * i, xk);
     const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
                            __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
-    // A fragments (keys x e), big and small: frequency 8kk + 2cq + s is
-    // column cq + 4s of k-step kk (sin) and KS/2 + kk (cos), row g
-    // (rh = 0) or g + 8 (rh = 1)
-    uint32_t ab[KS][4], as[KS][4];
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh)
-#pragma unroll
-      for (int kk = 0; kk < KS / 2; ++kk)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          // |x| <= 4096 (pair_arg's clip, frequencies <= 1): sincosf
-          // never takes its large-argument path, and the compiler, told
-          // so, interleaves the calls
-          const float x = __fmul_rn(args[rh], fr[8 * kk + 2 * cq + s]);
-          __builtin_assume(fabsf(x) <= 4096.f);
-          float sn, cs;
-          sincosf(x, &sn, &cs);
-          tf32_split(sn, ab[kk][2 * s + rh], as[kk][2 * s + rh]);
-          tf32_split(cs, ab[KS / 2 + kk][2 * s + rh],
-                     as[KS / 2 + kk][2 * s + rh]);
-        }
+    uint32_t ab[KS][4], as[KS][4];  // A fragments (keys x e)
+    emb_frags<KS>(args, fr, ab, as);
     // the place of element e of lane (g, cq)'s tile n in phase B:
     // element 2 (e >> 1) + (i & 1) of lane 4g + (i & 7) / 2 of fragment
     // (head 8n + 2cq + (e & 1), m, i >> 3), the lane swizzled by cq
@@ -958,7 +829,7 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
   if (!flash::aligned16(q, qt, k, v) || !flash::aligned16(dout, doe, dk, dv))
     return cudaErrorMisalignedAddress;
   int groups, hg;
-  dkv_groups<T>(H, &groups, &hg);
+  head_groups(H, kDkvHeads<T>(), &groups, &hg);
   const size_t bytes = dkv_smem_bytes<T, HD>(hg);
   auto kern = dkv_kernel<HD>(static_cast<const T*>(nullptr));
   cudaError_t err = cudaFuncSetAttribute(
@@ -973,6 +844,745 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
       static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<const float*>(doe), static_cast<const float*>(delta), H, L,
       XF, hg, static_cast<T*>(dk), static_cast<T*>(dv));
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ dQ
+//
+// What bounds the dq kernel on the H100: operations.  Per (b, h, i, j)
+// the three embedding dots qt.emb_ij, doe.emb_ij and ds.emb_ij (6*hd
+// flops, fp32 by the contract) and the three products q.k, do.v and
+// ds.k (6*hd flops, in the input dtype), and per (b, i, j) hd/2 precise
+// sincos: at DeepIce's shape (B=16, H=12, L=768, hd=32) 0.35 ms in bf16
+// and 0.65 ms in fp32 at the card's peaks.
+//
+// The design is the dkv kernel's with the two sides swapped.  A block
+// owns 16 query rows of one event and a group of heads (all of them up
+// to kDqHeads<T>: one group at H = 12 in bf16, two of 6 in fp32), and
+// streams tiles of 16 keys.  The query side stays resident in shared
+// memory: qt, doe, q, do and the row statistics.  Per key tile, three
+// phases:
+//
+// A. qt.emb and doe.emb, once per pair for the whole group, on the
+//    tensor cores: for one query and 16 keys the lanes of a warp build
+//    the pair embeddings into tf32 A fragments (emb_frags), the query's
+//    qt and doe rows of 8 heads are the B fragments, three tf32 products
+//    each (dkv_phase_a's loop).  The dots go to shared memory in the
+//    order of phase B's accumulator fragments (dq_slot), and the split
+//    embedding to the query's buffer for phase C ([key][dim pair], the
+//    pair XOR-swizzled by the key).
+// B. The products, a unit (head, 16 queries) a warp: S = Q.K^T and
+//    dP = dO.V^T, the dots and qb added in fp32, p = exp(s - lse),
+//    ds = p (dp - delta) valid; ds, unrounded, back into the dots' slot
+//    for phase C and into the row sums of dqb; dQ += round(dS).K with dS
+//    repacked from the accumulators as A fragments, each tile's dQ begun
+//    at zero and added in fp32 to the running dQ in shared memory.  bf16
+//    on mma.sync.m16n8k16 (Q, dO, K and V by ldmatrix); fp32 as three
+//    tf32 products (big . big, big . small, small . big) on
+//    mma.sync.m16n8k8, fp32-accurate.
+// C. dqt += ds.emb on the tensor cores, three tf32 products: for query i
+//    [heads x 16 keys] . [16 keys x e], ds from its slots as A fragments
+//    (split big + small), the embedding from phase A's buffer as B
+//    fragments.  Phase A's fragments hold the keys as rows, phase C sums
+//    over them, so the embedding goes through shared memory rather than
+//    being built again.  Each tile's sum begins at zero and is added to
+//    the query's running dqt in fp32.
+//
+// What holds it on the card is latency: the phases' chains of mma.sync,
+// shared-memory loads and sincosf, between barriers.  So bf16 runs 16
+// warps a block, a query each in phases A and C, in 128 registers (the
+// running dQ and the row statistics kept in shared memory for that);
+// fp32, whose phase B needs more, runs 8 warps of two queries.  A warp
+// works on its own queries in phases A and C, so phase C of tile t and
+// phase A of tile t + 1 follow each other without a block barrier: two
+// barriers a tile.  The K/V tile of t + 1 streams in by cp.async
+// meanwhile, and the key coordinates and flags are double-buffered.
+// Rows past L have lse = +inf, so their p and ds are exactly 0; keys
+// past L come as zeros with flag 0.  No atomics, every sum in a fixed
+// order.
+
+constexpr int kDqQueries = 16;  // query rows a block owns
+constexpr int kDqKeys = 16;     // keys per streamed tile
+constexpr int kDqPairs = kDqQueries * kDqKeys;  // dots a head a tile
+
+// warps a dq block runs: a query each in bf16, whose registers fit the
+// 128 of 16 warps; two each in fp32, whose do not
+template <typename T>
+__host__ __device__ constexpr int kDqWarps() {
+  return sizeof(T) == 2 ? 16 : 8;
+}
+
+static_assert(kDqQueries == kDkvQueries, "the qt/doe rows use dkv_qtd_ld");
+static_assert(4 * kDqKeys <= 32 * kDqWarps<float>(), "dq_key_rows: a value a thread");
+
+// most heads a dq block holds (a unit a warp in phase B), by the shared
+// memory of their K/V tile and Q/dO rows beside the rest: one group at
+// H = 12 in bf16, two of 6 in fp32
+template <typename T>
+__host__ __device__ constexpr int kDqHeads() {
+  return sizeof(T) == 2 ? 12 : 8;
+}
+static_assert(kDqHeads<__nv_bfloat16>() <= kDqWarps<__nv_bfloat16>() &&
+                  kDqHeads<float>() <= kDqWarps<float>(),
+              "phase B: a unit a warp");
+
+// elements of a staged Q or dO row: HD and 8 of pad, so that ldmatrix
+// (bf16) and the 8-byte fragment loads (fp32) are free of bank conflicts
+template <int HD>
+__host__ __device__ constexpr int dq_q_ld() {
+  return HD + 8;
+}
+
+// The place of the dots (and then ds) of (head h, query i, key j) of a
+// tile: the order of phase B's accumulator fragments (lane 4 (i & 7) +
+// ((j & 7) >> 1), element 2 (i >> 3) + (j & 1), key 8-tile j >> 3), the
+// lane XOR-swizzled by h and j so that phase A's stores (one query,
+// lanes over keys and heads) and phase C's loads (one query, lanes over
+// heads and keys) are free of bank conflicts too.
+__device__ __forceinline__ int dq_slot(int h, int i, int j) {
+  const int sw = (((h >> 1) & 3) << 3) | ((j & 1) << 2) | ((h & 1) << 1);
+  return ((h * 2 + (j >> 3)) * 4 + 2 * (i >> 3) + (j & 1)) * 32 +
+         ((4 * (i & 7) + ((j & 7) >> 1)) ^ sw);
+}
+
+// The place of key j's embedding dims 2p and 2p + 1 (big and small of
+// each, 4 floats) in a query's phase-C buffer (2E floats a key), the
+// pair XOR-swizzled by the key: phase A stores 16 bytes a lane (keys g,
+// g + 8, pairs 4k + cq), phase C loads 8 (keys cq, cq + 4 of a k-step,
+// dim g of an n-tile), both free of bank conflicts.
+template <int E>
+__device__ __forceinline__ int dq_emb_at(int j, int p) {
+  return j * 2 * E + 4 * (p ^ (((j & 1) << 2) | (((j >> 1) & 1) << 1)));
+}
+
+// The shared memory of a dq block of hg heads, in floats from the start:
+// the resident qt/doe rows ([qt|doe][head][dkv_qtd_ld]), the resident
+// Q/dO rows ([q|do][head][16][dq_q_ld] of T), the K/V tile
+// ([k|v][head][16][pad_ld] of T), the dots ([ae|dpe][head][kDqPairs],
+// ae then ds), the running dQ of each unit ([head][HD/8][4][32], a
+// lane's accumulator fragments), the embeddings for phase C
+// ([query][key][2 HD]), the row
+// statistics ([qb|lse|delta][head][16]), the query coordinates ([16][4]),
+// the key coordinates ([2][16][4]) and flags ([2][16]) and the
+// frequencies.
+template <typename T, int HD>
+struct DqSmem {
+  static constexpr int LD = flash::pad_ld<T, HD>();
+  static constexpr int kEl = (int)sizeof(T);
+  int qtd, qdo, kv, dots, dqacc, emb, stats, xq, xk, kval, freqs, floats;
+  __host__ __device__ explicit DqSmem(int hg) {
+    qtd = 0;
+    qdo = qtd + 2 * hg * dkv_qtd_ld<HD>();
+    kv = qdo + 2 * hg * kDqQueries * dq_q_ld<HD>() * kEl / 4;
+    dots = kv + 2 * hg * kDqKeys * LD * kEl / 4;
+    dqacc = dots + 2 * hg * kDqPairs;
+    emb = dqacc + hg * kDqQueries * HD;
+    stats = emb + kDqPairs * 2 * HD;
+    xq = stats + 3 * hg * kDqQueries;
+    xk = xq + 4 * kDqQueries;
+    kval = xk + 2 * 4 * kDqKeys;
+    freqs = kval + 2 * kDqKeys;
+    floats = freqs + HD / 2;
+  }
+};
+
+template <typename T, int HD>
+size_t dq_smem_bytes(int hg) {
+  return sizeof(float) * (size_t)DqSmem<T, HD>(hg).floats;
+}
+
+// the coordinates (x, y, z, t; past L key L - 1's) and flags (1 valid, 0
+// masked or past L) of keys [t0, t0 + 16) into xk [16][4] and kval [16]
+__device__ __forceinline__ void dq_key_rows(float* xk, float* kval,
+                                            const float* __restrict__ x0b,
+                                            const uint8_t* __restrict__ mb,
+                                            int XF, int L, int t0) {
+  const int e = threadIdx.x;
+  if (e < 4 * kDqKeys)
+    xk[e] = x0b[(size_t)min(t0 + e / 4, L - 1) * XF + e % 4];
+  if (e < kDqKeys) kval[e] = (t0 + e < L && mb[t0 + e]) ? 1.f : 0.f;
+}
+
+// the row statistics of the block's queries for each head into stats
+// ([qb|lse|delta][head][16]; rows past L 0, +inf and 0, so their p and
+// ds are exactly 0) and their coordinates into xq ([16][4]; rows past L
+// take row L - 1's)
+__device__ __forceinline__ void dq_query_rows(
+    float* stats, float* xq, const float* __restrict__ qb,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ x0b, int XF, size_t bh0, int nh, int hg, int L,
+    int row0) {
+  for (int c = threadIdx.x; c < nh * kDqQueries; c += blockDim.x) {
+    const int row = row0 + c % kDqQueries;
+    const size_t at = (bh0 + c / kDqQueries) * L + min(row, L - 1);
+    const bool in = row < L;
+    const int h = c / kDqQueries, r = c % kDqQueries;
+    stats[h * kDqQueries + r] = in ? qb[at] : 0.f;
+    stats[(hg + h) * kDqQueries + r] = in ? lse[at] : INFINITY;
+    stats[(2 * hg + h) * kDqQueries + r] = in ? delta[at] : 0.f;
+  }
+  for (int e = threadIdx.x; e < 4 * kDqQueries; e += blockDim.x)
+    xq[e] = x0b[(size_t)min(row0 + e / 4, L - 1) * XF + e % 4];
+}
+
+// every thread: the K and V rows of keys [t0, t0 + 16) of nh heads
+// (zeros past L) into the tile, one cp.async commit group
+template <typename T, int HD>
+__device__ __forceinline__ void dq_load_kv(T* kvs, const T* __restrict__ k,
+                                           const T* __restrict__ v, int nh,
+                                           int hg, int L, int t0) {
+  constexpr int LD = flash::pad_ld<T, HD>();
+  dkv_load_rows<T, HD, kDqKeys, LD>(kvs, k, nh, L, t0);
+  dkv_load_rows<T, HD, kDqKeys, LD>(kvs + hg * kDqKeys * LD, v, nh, L, t0);
+  flash::cp_async_commit();
+}
+
+// Phase A for query i of the block and the tile's 16 keys (coordinates
+// xks, [16][4]): qt.emb and doe.emb of every head into the dots (ae, and
+// dpe hg * kDqPairs on) at dq_slot, and the split embedding into embq for
+// phase C.  Lane (g, cq) builds the embeddings of keys g and g + 8 (its
+// pair_arg that of key g + 8 (cq & 1)); the B fragments are the query's
+// qt and doe rows, as
+// in dkv_phase_a (dims 2cq and 2cq + 1 of a k-step in columns cq and
+// cq + 4, one 8-byte load; a head past nh reads head nh - 1 and its
+// column of D is dropped).
+template <int HD>
+__device__ __forceinline__ void dq_phase_a(const float* __restrict__ qtd,
+                                           float* __restrict__ dots,
+                                           float* __restrict__ embq,
+                                           const float* __restrict__ fr,
+                                           const float* __restrict__ xq,
+                                           const float* __restrict__ xks,
+                                           int i, int nh, int hg) {
+  constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
+  constexpr int LDH = dkv_qtd_ld<HD>();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  const float arg = pair_arg(xq, xks + 4 * (g + 8 * (lane & 1)));
+  const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
+                         __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
+  uint32_t ab[KS][4], as[KS][4];  // A fragments (keys x e)
+  emb_frags<KS>(args, fr, ab, as);
+  // for phase C: key g + 8 rh, dims 8k + 2cq and 8k + 2cq + 1
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      *reinterpret_cast<float4*>(embq + dq_emb_at<HD>(g + 8 * rh, 4 * k + cq)) =
+          make_float4(__uint_as_float(ab[k][rh]), __uint_as_float(as[k][rh]),
+                      __uint_as_float(ab[k][2 + rh]),
+                      __uint_as_float(as[k][2 + rh]));
+  const int ntiles = (nh + 7) / 8;
+#pragma unroll 1
+  for (int n = 0; n < ntiles; ++n) {
+    // B fragments (e x heads): head 8n + g
+    const float* qr = qtd + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
+    const float* dr = qr + hg * LDH;
+    // a k-step's two corrections before its big . big product, all in
+    // one accumulator (the sum runs over e = hd terms only)
+    float ea[4] = {0.f, 0.f, 0.f, 0.f}, da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
+      const float2 y = *reinterpret_cast<const float2*>(dr + 8 * k);
+      uint32_t xb0, xs0, xb1, xs1, yb0, ys0, yb1, ys1;
+      tf32_split(x.x, xb0, xs0);
+      tf32_split(x.y, xb1, xs1);
+      tf32_split(y.x, yb0, ys0);
+      tf32_split(y.y, yb1, ys1);
+      hopper::mma_tf32(ea, as[k], xb0, xb1);
+      hopper::mma_tf32(ea, ab[k], xs0, xs1);
+      hopper::mma_tf32(ea, ab[k], xb0, xb1);
+      hopper::mma_tf32(da, as[k], yb0, yb1);
+      hopper::mma_tf32(da, ab[k], ys0, ys1);
+      hopper::mma_tf32(da, ab[k], yb0, yb1);
+    }
+    // element e: key g + 8 (e >> 1), head 8n + 2cq + (e & 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = 8 * n + 2 * cq + (e & 1);
+      if (h < nh) {
+        const int slot = dq_slot(h, i, g + 8 * (e >> 1));
+        dots[slot] = ea[e];
+        dots[hg * kDqPairs + slot] = da[e];
+      }
+    }
+  }
+}
+
+// Phase C for query i of the block: dqt (rows: heads g and g + 8,
+// columns: dims 8nt + 2cq and + 1) += ds . emb over the tile's 16 keys,
+// three tf32 products a step, begun at zero.  A: ds (head, key) from its
+// slot (0 for a head past nh); B: the embedding from phase A's buffer.
+template <int HD>
+__device__ __forceinline__ void dq_phase_c(const float* __restrict__ ds_s,
+                                           const float* __restrict__ embq,
+                                           float (&dqt)[HD / 8][4], int i,
+                                           int nh) {
+  constexpr int NT = HD / 8;  // n-tiles over the embedding
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kDqKeys / 8; ++ks) {
+    // a0 (head g, key 8ks + cq), a1 (head g + 8), a2 / a3 (key + 4)
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int h = g + 8 * (r & 1), j = 8 * ks + cq + 4 * (r >> 1);
+      const float x = ds_s[dq_slot(min(h, nh - 1), i, j)];
+      tf32_split(h < nh ? x : 0.f, ab[r], as[r]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // b0 (key 8ks + cq, dim 8nt + g), b1 (key 8ks + cq + 4): big, small
+      const int d = 8 * nt + g;
+      const float2 x0 = *reinterpret_cast<const float2*>(
+          embq + dq_emb_at<HD>(8 * ks + cq, d >> 1) + 2 * (d & 1));
+      const float2 x1 = *reinterpret_cast<const float2*>(
+          embq + dq_emb_at<HD>(8 * ks + cq + 4, d >> 1) + 2 * (d & 1));
+      const uint32_t b0 = __float_as_uint(x0.x), b1 = __float_as_uint(x1.x);
+      hopper::mma_tf32(acc[nt], as, b0, b1);
+      hopper::mma_tf32(acc[nt], ab, __float_as_uint(x0.y),
+                       __float_as_uint(x1.y));
+      hopper::mma_tf32(acc[nt], ab, b0, b1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqt[nt][e] += acc[nt][e];
+}
+
+// p and ds of an element of S and dP (st, dp) at `slot` of the dots, with
+// the row's statistics and the key's flag; st becomes ds, which also goes
+// back into the slot (in place of ae) for phase C
+__device__ __forceinline__ void dq_p_ds(float& st, float dp,
+                                        float* __restrict__ dots, int slot,
+                                        int dpe_off, float qb, float lse,
+                                        float delta, float val) {
+  float s = (st + dots[slot]) + qb;
+  s = val != 0.f ? s : kNeg;
+  const float p = expf(s - lse);
+  const float ds = p * ((dp + dots[slot + dpe_off]) - delta) * val;
+  dots[slot] = ds;
+  st = ds;
+}
+
+// A unit's row statistics (rows g and g + 8 of its head, from the
+// block's stats) and the lane's dqb row sums, stored at the end.
+struct DqRows {
+  float qb[2], lse[2], delta[2], sum[2] = {0.f, 0.f};
+
+  __device__ void read(const float* __restrict__ stats, int h, int hg) {
+    const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qb[r] = stats[h * kDqQueries + g + 8 * r];
+      lse[r] = stats[(hg + h) * kDqQueries + g + 8 * r];
+      delta[r] = stats[(2 * hg + h) * kDqQueries + g + 8 * r];
+    }
+  }
+
+  // the row sums over the four lanes of a row, in a fixed order; lane
+  // cq = 0 writes them (the whole warp calls this)
+  __device__ void store(float* __restrict__ dqb, size_t bh, int L,
+                        int row0) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float s = sum[r];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      const int row = row0 + g + 8 * r;
+      if ((lane & 3) == 0 && row < L) dqb[bh * L + row] = s;
+    }
+  }
+};
+
+// the running dQ of unit w (lane's fragments, [HD/8][4][32]) += part,
+// in fp32
+template <int HD>
+__device__ __forceinline__ void dq_add(float* __restrict__ dqacc,
+                                       const float (&part)[HD / 8][4]) {
+  float* at = dqacc + (threadIdx.x >> 5) * kDqQueries * HD + (threadIdx.x & 31);
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) at[(d * 4 + e) * 32] += part[d][e];
+}
+
+// Phase B's state and work of a warp, by input dtype.
+template <typename T, int HD>
+struct DqUnits;
+
+// bf16: warp w takes the unit (head w, 16 queries); its Q and dO A
+// fragments (rows: queries) by ldmatrix from the staged rows each tile;
+// each tile's dQ begun at zero and added to the running dQ.
+template <int HD>
+struct DqUnits<__nv_bfloat16, HD> {
+  using T = __nv_bfloat16;
+  static constexpr int KQ = HD / 16, LD = dq_q_ld<HD>();
+  DqRows rs;
+
+  __device__ void tile(const T* __restrict__ kvs, const T* __restrict__ qdo,
+                       float* __restrict__ dots, float* __restrict__ dqacc,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ kval, int nh, int hg) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int g = lane >> 2, c = 2 * (lane & 3);
+    if (w >= nh) return;
+    rs.read(stats, w, hg);
+    const T* ks = kvs + w * kDqKeys * flash::pad_ld<T, HD>();
+    const T* vs = kvs + (hg + w) * kDqKeys * flash::pad_ld<T, HD>();
+    const T* qs = qdo + w * kDqQueries * LD;
+    const T* gs = qdo + (hg + w) * kDqQueries * LD;
+    float st[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int at = ((lane & 7) + (lane >> 4) * 8) * flash::pad_ld<T, HD>() +
+                     kk * 16 + ((lane >> 3) & 1) * 8;
+      const int aq = (lane & 15) * LD + kk * 16 + (lane >> 4) * 8;
+      uint32_t a[4], bk[4];
+      flash::ldmatrix_x4(a, qs + aq);
+      flash::ldmatrix_x4(bk, ks + at);
+      flash::mma_bf16(st[0], a, bk[0], bk[1]);
+      flash::mma_bf16(st[1], a, bk[2], bk[3]);
+      flash::ldmatrix_x4(a, gs + aq);
+      flash::ldmatrix_x4(bk, vs + at);
+      flash::mma_bf16(dp[0], a, bk[0], bk[1]);
+      flash::mma_bf16(dp[1], a, bk[2], bk[3]);
+    }
+    // element e of n-tile n: query g + 8 (e >> 1), key 8n + c + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, j = 8 * n + c + (e & 1);
+        dq_p_ds(st[n][e], dp[n][e], dots, dq_slot(w, g + 8 * r, j),
+                hg * kDqPairs, rs.qb[r], rs.lse[r], rs.delta[r], kval[j]);
+        rs.sum[r] += st[n][e];
+      }
+    uint32_t pa[4];  // dS rounded to bf16, the A fragment over the keys
+    flash::pack_a(pa, st[0], st[1]);
+    float part[HD / 8][4] = {};
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      const int at = ((lane & 7) + ((lane >> 3) & 1) * 8) *
+                         flash::pad_ld<T, HD>() +
+                     np * 16 + (lane >> 4) * 8;
+      uint32_t bt[4];
+      flash::ldmatrix_x4_trans(bt, ks + at);
+      flash::mma_bf16(part[2 * np], pa, bt[0], bt[1]);
+      flash::mma_bf16(part[2 * np + 1], pa, bt[2], bt[3]);
+    }
+    dq_add<HD>(dqacc, part);
+  }
+
+  __device__ void store(T* __restrict__ dq, float* __restrict__ dqb,
+                        const float* __restrict__ dqacc, size_t bh0, int nh,
+                        int L, int row0) const {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int g = lane >> 2, c = 2 * (lane & 3);
+    if (w >= nh) return;
+    rs.store(dqb, bh0 + w, L, row0);
+    const float* acc = dqacc + w * kDqQueries * HD + lane;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= L) continue;
+      T* out = dq + ((bh0 + w) * L + row) * HD + c;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<uint32_t*>(out + 8 * d) = flash::pack_bf16(
+            acc[(d * 4 + 2 * r) * 32], acc[(d * 4 + 2 * r + 1) * 32]);
+    }
+  }
+};
+
+// fp32: warp w takes the unit (head w, 16 queries); its Q and dO tf32 A
+// fragments (dims 8k + 2cq and + 1 in columns cq and cq + 4, one 8-byte
+// load) from the staged rows each tile, split big + small; each product
+// as three tf32 products, the smaller terms first; each tile's dQ as in
+// bf16.
+template <int HD>
+struct DqUnits<float, HD> {
+  static constexpr int KQ = HD / 8, LD = dq_q_ld<HD>();
+  static constexpr int LK = flash::pad_ld<float, HD>();
+  DqRows rs;
+
+  // s (rows g, g + 8 of 16 queries; keys 8n + 2cq and + 1) = A . B^T, A
+  // the rows at a (this lane's row g, dims 2cq on), B the 16 key rows at b
+  __device__ static void products(float (&s)[2][4],
+                                  const float* __restrict__ a,
+                                  const float* __restrict__ b) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+#pragma unroll
+    for (int k = 0; k < KQ; ++k) {
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(a + 8 * r * LD + 8 * k);
+        tf32_split(x.x, ab[r], as[r]);
+        tf32_split(x.y, ab[2 + r], as[2 + r]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        // B: dims 8k + 2cq and + 1 of key 8n + g
+        const float2 x = *reinterpret_cast<const float2*>(
+            b + (8 * n + g) * LK + 8 * k + 2 * cq);
+        uint32_t xb0, xs0, xb1, xs1;
+        tf32_split(x.x, xb0, xs0);
+        tf32_split(x.y, xb1, xs1);
+        hopper::mma_tf32(s[n], as, xb0, xb1);
+        hopper::mma_tf32(s[n], ab, xs0, xs1);
+        hopper::mma_tf32(s[n], ab, xb0, xb1);
+      }
+    }
+  }
+
+  __device__ void tile(const float* __restrict__ kvs,
+                       const float* __restrict__ qdo,
+                       float* __restrict__ dots, float* __restrict__ dqacc,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ kval, int nh, int hg) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int g = lane >> 2, cq = lane & 3;
+    if (w >= nh) return;
+    rs.read(stats, w, hg);
+    const float* ks = kvs + w * kDqKeys * LK;
+    const float* vs = kvs + (hg + w) * kDqKeys * LK;
+    const float* qs = qdo + w * kDqQueries * LD + g * LD + 2 * cq;
+    const float* gs = qdo + (hg + w) * kDqQueries * LD + g * LD + 2 * cq;
+    float st[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
+    products(st, qs, ks);
+    products(dp, gs, vs);
+    // element e of n-tile n: query g + 8 (e >> 1), key 8n + 2cq + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, j = 8 * n + 2 * cq + (e & 1);
+        dq_p_ds(st[n][e], dp[n][e], dots, dq_slot(w, g + 8 * r, j),
+                hg * kDqPairs, rs.qb[r], rs.lse[r], rs.delta[r], kval[j]);
+        rs.sum[r] += st[n][e];
+      }
+    // dQ += dS.K in k-steps of 8 keys: A (query g, key 8kt + 2cq) in
+    // column cq and key 8kt + 2cq + 1 in column cq + 4, straight from the
+    // accumulator of S's n-tile kt; B (those keys, dim 8nt + g)
+    float part[HD / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      uint32_t ab[4], as[4];
+      tf32_split(st[kt][0], ab[0], as[0]);
+      tf32_split(st[kt][2], ab[1], as[1]);
+      tf32_split(st[kt][1], ab[2], as[2]);
+      tf32_split(st[kt][3], ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+        const float* kr = ks + (8 * kt + 2 * cq) * LK + 8 * nt + g;
+        uint32_t b0, s0, b1, s1;
+        tf32_split(kr[0], b0, s0);
+        tf32_split(kr[LK], b1, s1);
+        hopper::mma_tf32(part[nt], as, b0, b1);
+        hopper::mma_tf32(part[nt], ab, s0, s1);
+        hopper::mma_tf32(part[nt], ab, b0, b1);
+      }
+    }
+    dq_add<HD>(dqacc, part);
+  }
+
+  __device__ void store(float* __restrict__ dq, float* __restrict__ dqb,
+                        const float* __restrict__ dqacc, size_t bh0, int nh,
+                        int L, int row0) const {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int g = lane >> 2, cq = lane & 3;
+    if (w >= nh) return;
+    rs.store(dqb, bh0 + w, L, row0);
+    const float* acc = dqacc + w * kDqQueries * HD + lane;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= L) continue;
+      float* out = dq + ((bh0 + w) * L + row) * HD + 2 * cq;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<float2*>(out + 8 * d) = make_float2(
+            acc[(d * 4 + 2 * r) * 32], acc[(d * 4 + 2 * r + 1) * 32]);
+    }
+  }
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
+    rel_dq_kernel(const T* __restrict__ q, const float* __restrict__ qt,
+                  const float* __restrict__ qb, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ x0,
+                  const uint8_t* __restrict__ mask,
+                  const float* __restrict__ freqs,
+                  const float* __restrict__ lse, const T* __restrict__ dout,
+                  const float* __restrict__ doe,
+                  const float* __restrict__ delta, int H, int L, int XF,
+                  int hg, T* __restrict__ dq, float* __restrict__ dqt,
+                  float* __restrict__ dqb) {
+  constexpr int E = HD, LDH = dkv_qtd_ld<HD>();
+  extern __shared__ __align__(16) float smem[];
+  const DqSmem<T, HD> sm(hg);
+  float* qtd = smem + sm.qtd;
+  T* qdo = reinterpret_cast<T*>(smem + sm.qdo);
+  T* kvs = reinterpret_cast<T*>(smem + sm.kv);
+  float* dots = smem + sm.dots;
+  float* dqacc = smem + sm.dqacc;
+  float* embs = smem + sm.emb;
+  float* stats = smem + sm.stats;
+  float* xqs = smem + sm.xq;
+  float* xks = smem + sm.xk;
+  float* kvals = smem + sm.kval;
+  float* fr = smem + sm.freqs;
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int b = blockIdx.z, h0 = blockIdx.y * hg;
+  const int nh = min(hg, H - h0);
+  const int row0 = blockIdx.x * kDqQueries;
+  const size_t bh0 = (size_t)b * H + h0;
+  const float* x0b = x0 + (size_t)b * L * XF;
+  const uint8_t* mb = mask + (size_t)b * L;
+  const T* kg = k + bh0 * L * HD;
+  const T* vg = v + bh0 * L * HD;
+  const int nt = (L + kDqKeys - 1) / kDqKeys;
+
+  // the resident qt/doe and Q/dO rows (zeros past L), the first K/V tile
+  {
+    constexpr int C4 = HD / 4;  // 16-byte chunks a row
+    const int per = nh * kDqQueries * C4;
+    for (int c = threadIdx.x; c < 2 * per; c += blockDim.x) {
+      const int tn = c / per, hh = (c % per) / (kDqQueries * C4);
+      const int r = (c / C4) % kDqQueries, e = (c % C4) * 4;
+      const bool in = row0 + r < L;
+      const float* src = (tn ? doe : qt) +
+                         ((bh0 + hh) * L + (in ? row0 + r : 0)) * HD + e;
+      flash::cp_async16(qtd + (tn * hg + hh) * LDH + r * HD + e, src,
+                        in ? 16 : 0);
+    }
+  }
+  dkv_load_rows<T, HD, kDqQueries, dq_q_ld<HD>()>(qdo, q + bh0 * L * HD, nh,
+                                                  L, row0);
+  dkv_load_rows<T, HD, kDqQueries, dq_q_ld<HD>()>(
+      qdo + hg * kDqQueries * dq_q_ld<HD>(), dout + bh0 * L * HD, nh, L, row0);
+  dq_load_kv<T, HD>(kvs, kg, vg, nh, hg, L, 0);
+  for (int f = threadIdx.x; f < HD / 2; f += blockDim.x) fr[f] = freqs[f];
+  dq_key_rows(xks, kvals, x0b, mb, XF, L, 0);
+  dq_query_rows(stats, xqs, qb, lse, delta, x0b, XF, bh0, nh, hg, L, row0);
+  for (int e = threadIdx.x; e < hg * kDqQueries * HD; e += blockDim.x)
+    dqacc[e] = 0.f;
+  // the warp's queries in phases A and C, w + kDqWarps<T>() task, and
+  // their running dqt
+  constexpr int QW = kDqQueries / kDqWarps<T>();
+  float dqta[QW][E / 8][4];
+#pragma unroll
+  for (int task = 0; task < QW; ++task)
+#pragma unroll
+    for (int n = 0; n < E / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqta[task][n][e] = 0.f;
+  DqUnits<T, HD> units;
+  flash::cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int task = 0; task < QW; ++task) {
+    const int i = w + kDqWarps<T>() * task;
+    dq_phase_a<HD>(qtd, dots, embs + i * kDqKeys * 2 * E, fr, xqs + 4 * i,
+                   xks, i, nh, hg);
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    const int nb = (t + 1) & 1;  // the buffer of tile t + 1's key rows
+    const bool next = t + 1 < nt;
+    if (next)
+      dq_key_rows(xks + nb * 4 * kDqKeys, kvals + nb * kDqKeys, x0b, mb, XF,
+                  L, (t + 1) * kDqKeys);
+    flash::cp_async_wait_all();  // this tile's K/V
+    __syncthreads();             // and phase A's dots and embeddings
+    units.tile(kvs, qdo, dots, dqacc, stats, kvals + (t & 1) * kDqKeys, nh,
+               hg);
+    __syncthreads();  // ds in the dots' slots; the K/V tile is free
+    if (next) dq_load_kv<T, HD>(kvs, kg, vg, nh, hg, L, (t + 1) * kDqKeys);
+#pragma unroll
+    for (int task = 0; task < QW; ++task) {
+      const int i = w + kDqWarps<T>() * task;
+      float* embq = embs + i * kDqKeys * 2 * E;
+      dq_phase_c<HD>(dots, embq, dqta[task], i, nh);
+      if (next) {
+        __syncwarp();  // phase C's reads of this query's slots and buffer
+        dq_phase_a<HD>(qtd, dots, embq, fr, xqs + 4 * i,
+                       xks + nb * 4 * kDqKeys, i, nh, hg);
+      }
+    }
+  }
+
+  units.store(dq, dqb, dqacc, bh0, nh, L, row0);
+#pragma unroll
+  for (int task = 0; task < QW; ++task) {
+    const int row = row0 + w + kDqWarps<T>() * task;
+    if (row >= L) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int h = g + 8 * r;
+      if (h >= nh) continue;
+      float* out = dqt + ((bh0 + h) * L + row) * HD + 2 * cq;
+#pragma unroll
+      for (int n = 0; n < E / 8; ++n)
+        *reinterpret_cast<float2*>(out + 8 * n) = make_float2(
+            dqta[task][n][2 * r], dqta[task][n][2 * r + 1]);
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_dq(const void* q, const void* qt, const void* qb,
+                      const void* k, const void* v, const void* x0,
+                      const void* mask, const void* freqs, const void* lse,
+                      const void* dout, const void* doe, const void* delta,
+                      int B, int H, int L, int XF, void* dq, void* dqt,
+                      void* dqb, cudaStream_t stream) {
+  if (!flash::aligned16(q, qt, k, v) || !flash::aligned16(dout, doe, dq, dqt))
+    return cudaErrorMisalignedAddress;
+  int groups, hg;
+  head_groups(H, kDqHeads<T>(), &groups, &hg);
+  const size_t bytes = dq_smem_bytes<T, HD>(hg);
+  auto kern = rel_dq_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + kDqQueries - 1) / kDqQueries, groups, B);
+  const int threads = 32 * kDqWarps<T>();
+  kern<<<grid, threads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const float*>(qt),
+      static_cast<const float*>(qb), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(x0),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(freqs),
+      static_cast<const float*>(lse), static_cast<const T*>(dout),
+      static_cast<const float*>(doe), static_cast<const float*>(delta), H, L,
+      XF, hg, static_cast<T*>(dq), static_cast<float*>(dqt),
+      static_cast<float*>(dqb));
   return cudaGetLastError();
 }
 
@@ -1029,15 +1639,23 @@ extern "C" int rel_bwd_dkv_launch(const void* q, const void* qt,
 // The dynamic shared memory of a launch over H heads at head dim HD (0
 // for a head dim the kernels are not built for).
 extern "C" int rel_bwd_dq_smem_bytes(int HD, int H) {
-  if (HD != 16 && HD != 32) return 0;
-  return (int)relattn::dq_smem_bytes(
-      HD, relattn::head_group(H, relattn::kBwdHeads));
+  // the larger of a bf16 and a fp32 launch's (bf16's at 12 and 24 heads)
+  int groups, hb, hf;
+  relattn::head_groups(H, relattn::kDqHeads<__nv_bfloat16>(), &groups, &hb);
+  relattn::head_groups(H, relattn::kDqHeads<float>(), &groups, &hf);
+#define SMEM(D)                                                  \
+  (int)std::max(relattn::dq_smem_bytes<__nv_bfloat16, D>(hb), \
+                relattn::dq_smem_bytes<float, D>(hf))
+  if (HD == 16) return SMEM(16);
+  if (HD == 32) return SMEM(32);
+#undef SMEM
+  return 0;
 }
 
 extern "C" int rel_bwd_dkv_smem_bytes(int HD, int bf16, int H) {
   int groups, hg;
 #define SMEM(T, D)                                                    \
-  (relattn::dkv_groups<T>(H, &groups, &hg),                           \
+  (relattn::head_groups(H, relattn::kDkvHeads<T>(), &groups, &hg),    \
    (int)relattn::dkv_smem_bytes<T, D>(hg))
   if (HD == 16) return bf16 ? SMEM(__nv_bfloat16, 16) : SMEM(float, 16);
   if (HD == 32) return bf16 ? SMEM(__nv_bfloat16, 32) : SMEM(float, 32);

@@ -161,6 +161,55 @@ def test_rel_dk_dv_match_jax_streaming_at_tile_edges(L, heads):
                                    rtol=2e-4, atol=2e-5 * np.abs(mean_g).max())
 
 
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("L", [1, 15, 17, 31, 33, 65])
+def test_rel_dq_matches_jax_at_tile_edges(L, heads):
+    """The q, W and b gradients of the plain backward (which dq, dqt and
+    dqb feed: the values the card holds the dq kernel to) against the
+    JAX package at the edges of that kernel's 16-query blocks and 16-key
+    tiles, with one head and three: rtol 2e-4, an absolute floor of 2e-5
+    of each gradient's max.  The reference is the materialised dense
+    path: at these shapes the JAX streaming version's q and W gradients
+    lie 2e-5 to 5e-5 of their max from both the dense path and the port
+    (which agree within 3e-7), beyond the floor.  Event 0 has no valid
+    key, event 1 a ragged count (one at L = 1, where ds = dp - delta is
+    rounding noise and dq with it: its floor is then 2e-5 of dv's max,
+    as for dk in the dk/dv test).  W and b are summed over the events and
+    a no-key event's value path differs between the kernels' contract
+    and the dense path (ROADMAP.md queue 3), so the gradients are
+    compared on event 1 alone.  The no-key event follows the dense
+    formula: a masked logit is a constant, so dq, dqt and dqb are exactly
+    0 there."""
+    q, k, v, x0, w, b, g = _inputs(L, seed=3 * L + heads, heads=heads)
+    mask = np.zeros((B, L), bool)
+    mask[1, :max(1, 3 * L // 4)] = True
+    one = [a[1:] for a in (q, k, v, x0)]
+    _, grads_j = _jax_out_and_grads(REFERENCES["dense"], *one, w, b, mask[1:],
+                                    g[1:])
+    _, grads_t = _port_out_and_grads(*one, w, b, mask[1:], g[1:])
+    for name, i in (("q", 0), ("W", 3), ("b", 4)):
+        exp = grads_j[i]
+        scale = np.abs(exp).max()
+        if L == 1 and name == "q":
+            scale = max(scale, np.abs(grads_j[2]).max())
+        np.testing.assert_allclose(grads_t[i].numpy(), exp, rtol=2e-4,
+                                   atol=2e-5 * scale, err_msg=f"d{name}")
+    _, grads_both = _port_out_and_grads(q, k, v, x0, w, b, mask, g)
+    assert not grads_both[0][0].any()
+    # the core's own gradients of the no-key event
+    qt = torch.from_numpy(q) @ torch.from_numpy(w)
+    qb = torch.from_numpy(q) @ torch.from_numpy(b)
+    args = (torch.from_numpy(q), qt, qb, torch.from_numpy(k),
+            torch.from_numpy(v), torch.from_numpy(x0), torch.from_numpy(mask))
+    o, oe, lse = trel.rel_attention_plain(*args)
+    do = torch.from_numpy(g.transpose(0, 2, 1, 3).copy())
+    doe = do @ torch.from_numpy(w.T.copy())
+    delta = trel.rel_attention_delta(do, o, doe, oe)
+    dq, dqt, dqb = trel.rel_attention_bwd_plain(*args, lse, do, doe, delta)[:3]
+    assert not dq[0].any() and not dqt[0].any() and not dqb[0].any()
+    assert dq[1].any() and dqt[1].any()
+
+
 def test_pair_distance_and_freqs_bit_for_bit():
     rng = np.random.default_rng(1)
     xq, xk = _x0(rng, 100), _x0(rng, 37)

@@ -48,8 +48,8 @@ PHASE_B = [
     ("    if (owner) {\n      const int hh = w;",
      "    if (owner && w < 0) {\n      const int hh = w;", 1),
 ]
-SINCOS = ("          float sn, cs;\n          sincosf(x, &sn, &cs);",
-          "          float sn = x, cs = x * 0.5f;", 1)
+SINCOS = ("        float sn, cs;\n        sincosf(x, &sn, &cs);",
+          "        float sn = x, cs = x * 0.5f;", 1)
 CUTS = {
     "whole": [],
     "no_phase_a": [PHASE_A],
@@ -68,10 +68,13 @@ def cut_source(cuts) -> str:
     return text
 
 
-def build_all(tmp: str):
-    """One library a cut, all nvcc processes at once."""
+def build_all(tmp: str, cuts_by_name=None, entry: str = "rel_bwd_dkv_launch",
+              n_out: int = 2):
+    """One library a cut (``CUTS`` by default), all nvcc processes at
+    once: each library's C entry ``entry`` (``n_out`` output pointers),
+    and the whole build's compiler log."""
     procs = {}
-    for name, cuts in CUTS.items():
+    for name, cuts in (cuts_by_name or CUTS).items():
         src = os.path.join(tmp, f"{name}.cu")
         with open(src, "w") as f:
             f.write(cut_source(cuts))
@@ -80,17 +83,18 @@ def build_all(tmp: str):
                "-o", so, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
-    fns = {}
+    fns, log = {}, ""
     for name, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        fn = ctypes.CDLL(so).rel_bwd_dkv_launch
+        fn = getattr(ctypes.CDLL(so), entry)
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 12 + [I] * 6 + [P] * 2 + [P]
+        fn.argtypes = [P] * 12 + [I] * 6 + [P] * n_out + [P]
         fn.restype = I
         fns[name] = fn
-    return fns
+        log = out if name == "whole" else log
+    return fns, log
 
 
 def inputs(dtype, dev):
@@ -116,17 +120,20 @@ def inputs(dtype, dev):
     return [t.contiguous() for t in full]
 
 
-def time_ms(fn, ins, dtype, dev, runs=20):
-    dk = torch.empty(ins[3].shape, dtype=dtype, device=dev)
-    dv = torch.empty_like(dk)
+def time_ms(fn, ins, dtype, dev, runs=20, outs=None):
+    """The median of ``runs`` calls of ``fn`` by CUDA events; ``outs``
+    the output tensors (by default the dkv kernel's dk and dv)."""
+    if outs is None:
+        dk = torch.empty(ins[3].shape, dtype=dtype, device=dev)
+        outs = (dk, torch.empty_like(dk))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def call():
         err = fn(*(t.data_ptr() for t in ins), B, H, L, HD, ins[5].shape[-1],
-                 int(dtype == torch.bfloat16), dk.data_ptr(), dv.data_ptr(),
+                 int(dtype == torch.bfloat16), *(t.data_ptr() for t in outs),
                  stream)
         if err:
-            raise RuntimeError(f"rel_bwd_dkv_launch: CUDA error {err}")
+            raise RuntimeError(f"rel kernel launch: CUDA error {err}")
 
     for _ in range(3):
         call()
@@ -152,7 +159,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
         flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build_all(tmp)
+        fns, _ = build_all(tmp)
         result = {}
         for dtype in (torch.bfloat16, torch.float32):
             ins = inputs(dtype, dev)
