@@ -46,7 +46,7 @@ Phases, each printing one JSON line:
    of 32 at L = 768 and 1024 with scale 1 and at L = 769 and 1025 with
    the cls key; fp32 and
    bf16, an event with no valid key and one with a single key), and
-   whether two backward runs give the same bits;
+   whether two runs of each kernel give the same bits;
 7. serve: the serving path.  A full-width DynEdge energy model is loaded
    from a JAX-layout ``state_dict.pkl`` (random weights from a seed)
    through ``DeploymentModule`` on the card and answers requests; the
@@ -84,10 +84,12 @@ Phases, each printing one JSON line:
    and dkv kernels against their plain versions (12 heads of 32, L =
    128, 768, 1000 and 1024; at the dkv kernel's tile edges, L = 1, 63,
    65 and 129, and 3 heads of 16 at L = 65; 1 and 24 heads of 32 at
-   L = 200; at the dq kernel's 16-query and 16-key tile edges, L = 15,
-   17, 31 and 33 with 12, 3, 1 (of 16) and 24 heads; fp32 and bf16, an
-   event with no pulse and one with a single pulse), and whether two
-   backward runs give the same bits;
+   L = 200; at the dq and forward kernels' 16-query and 16-key tile
+   edges, L = 15, 17, 31 and 33 with 12, 3, 1 (of 16) and 24 heads; at
+   the forward kernel's head tiles and groups, 9 heads of 32 at L = 16
+   and 13 of 16 at L = 48; fp32 and bf16, an event with no pulse and one
+   with a single pulse), and whether two runs of each kernel give the
+   same bits;
 11. serve_deepice, train_deepice: the same two paths for the full-width
    DeepIce direction model at the JAX bench's DeepIce shape, B=16,
    L=768 (serving: 16 events of 100-768 pulses, and a request with
@@ -1542,7 +1544,8 @@ def check_fwd(torch, cases, fwd, plain, names, tol, vi=2):
     an event with one key that key's v exactly, on both sides; lse in
     fp32 in both modes, within 1e-4 of max(|lse|, 1) where a key is
     valid and within one fp32 step at 1e5 (-1e5 + log L) where none
-    is."""
+    is.  The kernel runs twice and the bits of the two runs are
+    compared."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     report = []
     for label, make, mask in cases:
@@ -1552,7 +1555,9 @@ def check_fwd(torch, cases, fwd, plain, names, tol, vi=2):
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).replace("torch.", "")
             args = make(dtype)
-            got, exp = fwd(*args), plain(*args)
+            got, again, exp = fwd(*args), fwd(*args), plain(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            assert same, f"{label} {key}: two runs gave other bits"
             o, op, lse, lsep = got[0], exp[0], got[-1], exp[-1]
             assert o.dtype == dtype and all(
                 t.dtype == torch.float32 for t in got[1:])
@@ -1588,7 +1593,8 @@ def check_fwd(torch, cases, fwd, plain, names, tol, vi=2):
                 "case": label, "dtype": key, "rel_to_event_max": rel,
                 "no_key_o_rel_to_mean_v": no_key,
                 "o_differing_share": float((o != op).float().mean()),
-                "lse_rel_err": lrel, "lse_fully_masked_max_abs_err": merr})
+                "lse_rel_err": lrel, "lse_fully_masked_max_abs_err": merr,
+                "same_bits_twice": same})
     return worst, report
 
 
@@ -2095,7 +2101,14 @@ def rel_cases(torch, rng, dev):
     (B_d32: two groups in bf16, three in fp32) at L = 200; at the dq
     kernel's 16-query blocks and 16-key tiles, L = 15 (12 heads), 17 (3
     heads), 31 (one head of 16) and 33 (24 heads: two groups in bf16,
-    three in fp32); q scaled by hd^-0.5; ``_key_mask``'s events."""
+    three in fp32); the forward kernel has the dq kernel's 16-query
+    blocks and 16-key tiles (so L = 15, 17, 31 and 33 again) and groups
+    of at most 12 heads in both dtypes (24 heads: two groups), and two
+    cases more: L = 16 (one whole tile, one query block) with 9 heads of
+    32 (phase A's second 8-head tile holds one head), and L = 48 (three
+    whole tiles) with 13 heads of 16 (two groups of 7 and 6 heads, the
+    last group smaller, in every kernel); q scaled by hd^-0.5;
+    ``_key_mask``'s events."""
     cases = []
     for L, B, H, hd in ((128, 4, ICE_HEADS, ICE_HD), (ICE_L, ICE_B, ICE_HEADS, ICE_HD),
                         (1000, 4, ICE_HEADS, ICE_HD), (1024, 4, ICE_HEADS, ICE_HD),
@@ -2105,7 +2118,8 @@ def rel_cases(torch, rng, dev):
                         (65, 4, 3, 16), (200, 4, 1, ICE_HD),
                         (200, 4, 2 * ICE_HEADS, ICE_HD),
                         (15, 4, ICE_HEADS, ICE_HD), (17, 4, 3, ICE_HD),
-                        (31, 4, 1, 16), (33, 4, 2 * ICE_HEADS, ICE_HD)):
+                        (31, 4, 1, 16), (33, 4, 2 * ICE_HEADS, ICE_HD),
+                        (16, 4, 9, ICE_HD), (48, 4, 13, 16)):
         gen = torch.Generator(device=dev).manual_seed(L + 7 + hd)
         q, k, v = (torch.randn(B, H, L, hd, device=dev, generator=gen)
                    for _ in range(3))

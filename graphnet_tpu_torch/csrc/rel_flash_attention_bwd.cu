@@ -91,15 +91,8 @@ __host__ __device__ constexpr int kDkvHeads() {
   return sizeof(T) == 2 ? 12 : 8;
 }
 
-// floats per head of a staged qt or doe tile: 16 rows and 8 of pad, so
-// that the 8-byte B-fragment loads of 8 heads fall in distinct banks
-template <int HD>
-__host__ __device__ constexpr int dkv_qtd_ld() {
-  return kDkvQueries * HD + 8;
-}
-
 // The shared memory of a dkv block of hg heads, in floats from the
-// start: the qt/doe tiles (two stages, [stage][qt|doe][head][dkv_qtd_ld]),
+// start: the qt/doe tiles (two stages, [stage][qt|doe][head][qt_ld]),
 // the q/do tile ([q|do][head][16][pad_ld]), in fp32 the K/V rows
 // ([k|v][head][32][pad_ld]), the row statistics ([qb|lse|delta][head]
 // [16]), the embedding dots ([ae|dpe][head][512]), the key flags [32],
@@ -113,7 +106,7 @@ struct DkvSmem {
   int qtd, qdo, kv, stats, ae, kval, xq, freqs, bars, floats;
   __host__ __device__ explicit DkvSmem(int hg) {
     qtd = 0;
-    qdo = qtd + 2 * 2 * hg * dkv_qtd_ld<HD>();
+    qdo = qtd + 2 * 2 * hg * qt_ld<HD>();
     kv = qdo + 2 * hg * kDkvQueries * LD * kEl / 4;
     stats = kv + (kEl == 4 ? 2 * hg * kDkvKeys * LD : 0);
     ae = stats + 3 * hg * kDkvQueries;
@@ -130,32 +123,8 @@ size_t dkv_smem_bytes(int hg) {
   return sizeof(float) * (size_t)DkvSmem<T, HD>(hg).floats;
 }
 
-// the head groups of a launch over H heads, at most cap heads a group,
-// and the heads of each (the last group may hold fewer)
-inline void head_groups(int H, int cap, int* groups, int* hg) {
-  *groups = (H + cap - 1) / cap;
-  *hg = (H + *groups - 1) / *groups;
-}
-
-// rows [row0, row0 + ROWS) of nh heads of one event ([head][L][HD] of T
-// from src) into dst ([head][ROWS][LD]); rows at or past L as zeros
-template <typename T, int HD, int ROWS, int LD>
-__device__ __forceinline__ void dkv_load_rows(T* dst,
-                                              const T* __restrict__ src,
-                                              int nh, int L, int row0) {
-  constexpr int kPer = 16 / (int)sizeof(T);
-  constexpr int kChunks = HD / kPer;
-  for (int c = threadIdx.x; c < nh * ROWS * kChunks; c += blockDim.x) {
-    const int h = c / (ROWS * kChunks), r = (c / kChunks) % ROWS;
-    const int e = (c % kChunks) * kPer;
-    const bool in = row0 + r < L;
-    const T* g = src + ((size_t)h * L + (in ? row0 + r : 0)) * HD + e;
-    flash::cp_async16(dst + (h * ROWS + r) * LD + e, g, in ? 16 : 0);
-  }
-}
-
 // The streamed query tiles of a dkv block: qt/doe in two stages
-// (dkv_qtd_ld floats a head, rows contiguous), filled by bulk copies
+// (qt_ld floats a head, rows contiguous), filled by bulk copies
 // that warp 0 issues (one a head and tensor), completing on the stage's
 // mbarrier; q/do in one stage of padded rows, by cp.async.  Rows past L
 // are not copied (qt/doe) or come as zeros (q/do): the buffers start
@@ -163,7 +132,7 @@ __device__ __forceinline__ void dkv_load_rows(T* dst,
 template <typename T, int HD>
 struct DkvTiles {
   static constexpr int LD = flash::pad_ld<T, HD>();
-  static constexpr int LDH = dkv_qtd_ld<HD>();
+  static constexpr int LDH = qt_ld<HD>();
   const float* qt;  // the block's first head of the event, [head][L][HD]
   const float* doe;
   const T* q;
@@ -194,8 +163,8 @@ struct DkvTiles {
   // group; the padded rows keep ldmatrix free of bank conflicts)
   __device__ void load_qdo(int t) const {
     const int row0 = t * kDkvQueries;
-    dkv_load_rows<T, HD, kDkvQueries, LD>(qdo, q, nh, L, row0);
-    dkv_load_rows<T, HD, kDkvQueries, LD>(qdo + hg * kDkvQueries * LD, dout,
+    load_rows<T, HD, kDkvQueries, LD>(qdo, q, nh, L, row0);
+    load_rows<T, HD, kDkvQueries, LD>(qdo + hg * kDkvQueries * LD, dout,
                                           nh, L, row0);
     flash::cp_async_commit();
   }
@@ -244,49 +213,6 @@ struct DkvRows {
   }
 };
 
-// x as a tf32 pair, x ~ big + small: big is x rounded to tf32 (half an
-// ulp added, the low 13 bits cleared; x is finite), small the exact rest,
-// which the tensor core reads truncated to tf32 (|small| <= 2^-11 |x|, so
-// it carries x to ~2^-22)
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// The pair embeddings of rows g and g + 8 of a block of 16 pairs (lane
-// (g, cq) of a warp; args[rh] is the pair argument of row g + 8 rh)
-// straight into the A fragments of the KS tf32 k-steps of a product over
-// the embedding, split big + small: frequency 8kk + 2cq + s is column
-// cq + 4s of k-step kk (its sin) and of k-step KS/2 + kk (its cos), so
-// column cq + 4s of k-step k stands for embedding dim 8k + 2cq + s.
-// Each lane builds 2 KS of the block's pairs' sincosf, no pair twice
-// (pair_arg and the precise sincosf: the plain version's bits).
-template <int KS>
-__device__ __forceinline__ void emb_frags(const float (&args)[2],
-                                          const float* __restrict__ fr,
-                                          uint32_t (&ab)[KS][4],
-                                          uint32_t (&as)[KS][4]) {
-  const int cq = threadIdx.x & 3;
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh)
-#pragma unroll
-    for (int kk = 0; kk < KS / 2; ++kk)
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        // |x| <= 4096 (pair_arg's clip, frequencies <= 1): sincosf never
-        // takes its large-argument path, and the compiler, told so,
-        // interleaves the calls
-        const float x = __fmul_rn(args[rh], fr[8 * kk + 2 * cq + s]);
-        __builtin_assume(fabsf(x) <= 4096.f);
-        float sn, cs;
-        sincosf(x, &sn, &cs);
-        tf32_split(sn, ab[kk][2 * s + rh], as[kk][2 * s + rh]);
-        tf32_split(cs, ab[KS / 2 + kk][2 * s + rh],
-                   as[KS / 2 + kk][2 * s + rh]);
-      }
-}
-
 // the place of element e (key row g + 8 (e >> 1), query parity e & 1)
 // of lane `lane`'s accumulator fragment (unit (h, m), query 8-tile n)
 // in the embedding-dot buffer
@@ -310,7 +236,7 @@ __device__ __forceinline__ void dkv_phase_a(
     const float* __restrict__ fr, const float* __restrict__ xq_s,
     const float (&xk)[4], int nh, int hg) {
   constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
-  constexpr int LDH = dkv_qtd_ld<HD>();
+  constexpr int LDH = qt_ld<HD>();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, cq = lane & 3, m = w & 1;
   const int ntiles = (nh + 7) / 8;
@@ -422,7 +348,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const size_t bh0 = (size_t)b * H + h0;
   const float* x0b = x0 + (size_t)b * L * XF;
   const int nt = (L + kDkvQueries - 1) / kDkvQueries;
-  const int qtd_stage = 2 * hg * dkv_qtd_ld<HD>();
+  const int qtd_stage = 2 * hg * qt_ld<HD>();
   const DkvTiles<T, HD> tiles{qt + bh0 * L * HD, doe + bh0 * L * HD,
                               q + bh0 * L * HD,  dout + bh0 * L * HD,
                               qtd,               qdo,
@@ -435,9 +361,9 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
   // the block's K and V rows, staged in the qt/doe region, into the
   // units' A fragments
-  dkv_load_rows<T, HD, kDkvKeys, LD>(reinterpret_cast<T*>(qtd),
+  load_rows<T, HD, kDkvKeys, LD>(reinterpret_cast<T*>(qtd),
                                      k + bh0 * L * HD, nh, L, k0);
-  dkv_load_rows<T, HD, kDkvKeys, LD>(
+  load_rows<T, HD, kDkvKeys, LD>(
       reinterpret_cast<T*>(qtd) + hg * kDkvKeys * LD, v + bh0 * L * HD, nh,
       L, k0);
   flash::cp_async_commit();
@@ -618,15 +544,15 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const size_t bh0 = (size_t)b * H + h0;
   const float* x0b = x0 + (size_t)b * L * XF;
   const int nt = (L + kDkvQueries - 1) / kDkvQueries;
-  const int qtd_stage = 2 * hg * dkv_qtd_ld<HD>();
+  const int qtd_stage = 2 * hg * qt_ld<HD>();
   const DkvTiles<float, HD> tiles{qt + bh0 * L * HD, doe + bh0 * L * HD,
                                   q + bh0 * L * HD,  dout + bh0 * L * HD,
                                   qtd,               qdo,
                                   bars,              nh,
                                   hg,                L};
 
-  dkv_load_rows<float, HD, kDkvKeys, LD>(kvs, k + bh0 * L * HD, nh, L, k0);
-  dkv_load_rows<float, HD, kDkvKeys, LD>(kvs + hg * kDkvKeys * LD,
+  load_rows<float, HD, kDkvKeys, LD>(kvs, k + bh0 * L * HD, nh, L, k0);
+  load_rows<float, HD, kDkvKeys, LD>(kvs + hg * kDkvKeys * LD,
                                          v + bh0 * L * HD, nh, L, k0);
   flash::cp_async_commit();
   if (threadIdx.x == 0) {
@@ -868,7 +794,7 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
 //    the pair embeddings into tf32 A fragments (emb_frags), the query's
 //    qt and doe rows of 8 heads are the B fragments, three tf32 products
 //    each (dkv_phase_a's loop).  The dots go to shared memory in the
-//    order of phase B's accumulator fragments (dq_slot), and the split
+//    order of phase B's accumulator fragments (dot_slot), and the split
 //    embedding to the query's buffer for phase C ([key][dim pair], the
 //    pair XOR-swizzled by the key).
 // B. The products, a unit (head, 16 queries) a warp: S = Q.K^T and
@@ -912,7 +838,7 @@ __host__ __device__ constexpr int kDqWarps() {
   return sizeof(T) == 2 ? 16 : 8;
 }
 
-static_assert(kDqQueries == kDkvQueries, "the qt/doe rows use dkv_qtd_ld");
+static_assert(kDqQueries == kDkvQueries, "the qt/doe rows use qt_ld");
 static_assert(4 * kDqKeys <= 32 * kDqWarps<float>(), "dq_key_rows: a value a thread");
 
 // most heads a dq block holds (a unit a warp in phase B), by the shared
@@ -926,38 +852,9 @@ static_assert(kDqHeads<__nv_bfloat16>() <= kDqWarps<__nv_bfloat16>() &&
                   kDqHeads<float>() <= kDqWarps<float>(),
               "phase B: a unit a warp");
 
-// elements of a staged Q or dO row: HD and 8 of pad, so that ldmatrix
-// (bf16) and the 8-byte fragment loads (fp32) are free of bank conflicts
-template <int HD>
-__host__ __device__ constexpr int dq_q_ld() {
-  return HD + 8;
-}
-
-// The place of the dots (and then ds) of (head h, query i, key j) of a
-// tile: the order of phase B's accumulator fragments (lane 4 (i & 7) +
-// ((j & 7) >> 1), element 2 (i >> 3) + (j & 1), key 8-tile j >> 3), the
-// lane XOR-swizzled by h and j so that phase A's stores (one query,
-// lanes over keys and heads) and phase C's loads (one query, lanes over
-// heads and keys) are free of bank conflicts too.
-__device__ __forceinline__ int dq_slot(int h, int i, int j) {
-  const int sw = (((h >> 1) & 3) << 3) | ((j & 1) << 2) | ((h & 1) << 1);
-  return ((h * 2 + (j >> 3)) * 4 + 2 * (i >> 3) + (j & 1)) * 32 +
-         ((4 * (i & 7) + ((j & 7) >> 1)) ^ sw);
-}
-
-// The place of key j's embedding dims 2p and 2p + 1 (big and small of
-// each, 4 floats) in a query's phase-C buffer (2E floats a key), the
-// pair XOR-swizzled by the key: phase A stores 16 bytes a lane (keys g,
-// g + 8, pairs 4k + cq), phase C loads 8 (keys cq, cq + 4 of a k-step,
-// dim g of an n-tile), both free of bank conflicts.
-template <int E>
-__device__ __forceinline__ int dq_emb_at(int j, int p) {
-  return j * 2 * E + 4 * (p ^ (((j & 1) << 2) | (((j >> 1) & 1) << 1)));
-}
-
 // The shared memory of a dq block of hg heads, in floats from the start:
-// the resident qt/doe rows ([qt|doe][head][dkv_qtd_ld]), the resident
-// Q/dO rows ([q|do][head][16][dq_q_ld] of T), the K/V tile
+// the resident qt/doe rows ([qt|doe][head][qt_ld]), the resident
+// Q/dO rows ([q|do][head][16][q_ld] of T), the K/V tile
 // ([k|v][head][16][pad_ld] of T), the dots ([ae|dpe][head][kDqPairs],
 // ae then ds), the running dQ of each unit ([head][HD/8][4][32], a
 // lane's accumulator fragments), the embeddings for phase C
@@ -972,8 +869,8 @@ struct DqSmem {
   int qtd, qdo, kv, dots, dqacc, emb, stats, xq, xk, kval, freqs, floats;
   __host__ __device__ explicit DqSmem(int hg) {
     qtd = 0;
-    qdo = qtd + 2 * hg * dkv_qtd_ld<HD>();
-    kv = qdo + 2 * hg * kDqQueries * dq_q_ld<HD>() * kEl / 4;
+    qdo = qtd + 2 * hg * qt_ld<HD>();
+    kv = qdo + 2 * hg * kDqQueries * q_ld<HD>() * kEl / 4;
     dots = kv + 2 * hg * kDqKeys * LD * kEl / 4;
     dqacc = dots + 2 * hg * kDqPairs;
     emb = dqacc + hg * kDqQueries * HD;
@@ -1025,25 +922,11 @@ __device__ __forceinline__ void dq_query_rows(
     xq[e] = x0b[(size_t)min(row0 + e / 4, L - 1) * XF + e % 4];
 }
 
-// every thread: the K and V rows of keys [t0, t0 + 16) of nh heads
-// (zeros past L) into the tile, one cp.async commit group
-template <typename T, int HD>
-__device__ __forceinline__ void dq_load_kv(T* kvs, const T* __restrict__ k,
-                                           const T* __restrict__ v, int nh,
-                                           int hg, int L, int t0) {
-  constexpr int LD = flash::pad_ld<T, HD>();
-  dkv_load_rows<T, HD, kDqKeys, LD>(kvs, k, nh, L, t0);
-  dkv_load_rows<T, HD, kDqKeys, LD>(kvs + hg * kDqKeys * LD, v, nh, L, t0);
-  flash::cp_async_commit();
-}
-
 // Phase A for query i of the block and the tile's 16 keys (coordinates
 // xks, [16][4]): qt.emb and doe.emb of every head into the dots (ae, and
-// dpe hg * kDqPairs on) at dq_slot, and the split embedding into embq for
-// phase C.  Lane (g, cq) builds the embeddings of keys g and g + 8 (its
-// pair_arg that of key g + 8 (cq & 1)); the B fragments are the query's
-// qt and doe rows, as
-// in dkv_phase_a (dims 2cq and 2cq + 1 of a k-step in columns cq and
+// dpe hg * kDqPairs on) at dot_slot, and the split embedding into embq for
+// phase C (query_emb).  The B fragments are the query's qt and doe rows,
+// as in dkv_phase_a (dims 2cq and 2cq + 1 of a k-step in columns cq and
 // cq + 4, one 8-byte load; a head past nh reads head nh - 1 and its
 // column of D is dropped).
 template <int HD>
@@ -1055,23 +938,11 @@ __device__ __forceinline__ void dq_phase_a(const float* __restrict__ qtd,
                                            const float* __restrict__ xks,
                                            int i, int nh, int hg) {
   constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
-  constexpr int LDH = dkv_qtd_ld<HD>();
+  constexpr int LDH = qt_ld<HD>();
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, cq = lane & 3;
-  const float arg = pair_arg(xq, xks + 4 * (g + 8 * (lane & 1)));
-  const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
-                         __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
   uint32_t ab[KS][4], as[KS][4];  // A fragments (keys x e)
-  emb_frags<KS>(args, fr, ab, as);
-  // for phase C: key g + 8 rh, dims 8k + 2cq and 8k + 2cq + 1
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh)
-#pragma unroll
-    for (int k = 0; k < KS; ++k)
-      *reinterpret_cast<float4*>(embq + dq_emb_at<HD>(g + 8 * rh, 4 * k + cq)) =
-          make_float4(__uint_as_float(ab[k][rh]), __uint_as_float(as[k][rh]),
-                      __uint_as_float(ab[k][2 + rh]),
-                      __uint_as_float(as[k][2 + rh]));
+  query_emb<HD>(xq, xks, fr, embq, ab, as);
   const int ntiles = (nh + 7) / 8;
 #pragma unroll 1
   for (int n = 0; n < ntiles; ++n) {
@@ -1102,7 +973,7 @@ __device__ __forceinline__ void dq_phase_a(const float* __restrict__ qtd,
     for (int e = 0; e < 4; ++e) {
       const int h = 8 * n + 2 * cq + (e & 1);
       if (h < nh) {
-        const int slot = dq_slot(h, i, g + 8 * (e >> 1));
+        const int slot = dot_slot(h, i, g + 8 * (e >> 1));
         dots[slot] = ea[e];
         dots[hg * kDqPairs + slot] = da[e];
       }
@@ -1111,47 +982,17 @@ __device__ __forceinline__ void dq_phase_a(const float* __restrict__ qtd,
 }
 
 // Phase C for query i of the block: dqt (rows: heads g and g + 8,
-// columns: dims 8nt + 2cq and + 1) += ds . emb over the tile's 16 keys,
-// three tf32 products a step, begun at zero.  A: ds (head, key) from its
-// slot (0 for a head past nh); B: the embedding from phase A's buffer.
+// columns: dims 8nt + 2cq and + 1) += ds . emb over the tile's 16 keys
+// (slot_emb_product: ds from its slots, the embedding from phase A's
+// buffer, three tf32 products, begun at zero).
 template <int HD>
 __device__ __forceinline__ void dq_phase_c(const float* __restrict__ ds_s,
                                            const float* __restrict__ embq,
                                            float (&dqt)[HD / 8][4], int i,
                                            int nh) {
   constexpr int NT = HD / 8;  // n-tiles over the embedding
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, cq = lane & 3;
   float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kDqKeys / 8; ++ks) {
-    // a0 (head g, key 8ks + cq), a1 (head g + 8), a2 / a3 (key + 4)
-    uint32_t ab[4], as[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int h = g + 8 * (r & 1), j = 8 * ks + cq + 4 * (r >> 1);
-      const float x = ds_s[dq_slot(min(h, nh - 1), i, j)];
-      tf32_split(h < nh ? x : 0.f, ab[r], as[r]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      // b0 (key 8ks + cq, dim 8nt + g), b1 (key 8ks + cq + 4): big, small
-      const int d = 8 * nt + g;
-      const float2 x0 = *reinterpret_cast<const float2*>(
-          embq + dq_emb_at<HD>(8 * ks + cq, d >> 1) + 2 * (d & 1));
-      const float2 x1 = *reinterpret_cast<const float2*>(
-          embq + dq_emb_at<HD>(8 * ks + cq + 4, d >> 1) + 2 * (d & 1));
-      const uint32_t b0 = __float_as_uint(x0.x), b1 = __float_as_uint(x1.x);
-      hopper::mma_tf32(acc[nt], as, b0, b1);
-      hopper::mma_tf32(acc[nt], ab, __float_as_uint(x0.y),
-                       __float_as_uint(x1.y));
-      hopper::mma_tf32(acc[nt], ab, b0, b1);
-    }
-  }
+  slot_emb_product<HD>(ds_s, embq, acc, i, nh);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -1226,7 +1067,7 @@ struct DqUnits;
 template <int HD>
 struct DqUnits<__nv_bfloat16, HD> {
   using T = __nv_bfloat16;
-  static constexpr int KQ = HD / 16, LD = dq_q_ld<HD>();
+  static constexpr int KQ = HD / 16, LD = q_ld<HD>();
   DqRows rs;
 
   __device__ void tile(const T* __restrict__ kvs, const T* __restrict__ qdo,
@@ -1267,7 +1108,7 @@ struct DqUnits<__nv_bfloat16, HD> {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, j = 8 * n + c + (e & 1);
-        dq_p_ds(st[n][e], dp[n][e], dots, dq_slot(w, g + 8 * r, j),
+        dq_p_ds(st[n][e], dp[n][e], dots, dot_slot(w, g + 8 * r, j),
                 hg * kDqPairs, rs.qb[r], rs.lse[r], rs.delta[r], kval[j]);
         rs.sum[r] += st[n][e];
       }
@@ -1315,40 +1156,9 @@ struct DqUnits<__nv_bfloat16, HD> {
 // bf16.
 template <int HD>
 struct DqUnits<float, HD> {
-  static constexpr int KQ = HD / 8, LD = dq_q_ld<HD>();
+  static constexpr int LD = q_ld<HD>();
   static constexpr int LK = flash::pad_ld<float, HD>();
   DqRows rs;
-
-  // s (rows g, g + 8 of 16 queries; keys 8n + 2cq and + 1) = A . B^T, A
-  // the rows at a (this lane's row g, dims 2cq on), B the 16 key rows at b
-  __device__ static void products(float (&s)[2][4],
-                                  const float* __restrict__ a,
-                                  const float* __restrict__ b) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
-#pragma unroll
-    for (int k = 0; k < KQ; ++k) {
-      uint32_t ab[4], as[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float2 x =
-            *reinterpret_cast<const float2*>(a + 8 * r * LD + 8 * k);
-        tf32_split(x.x, ab[r], as[r]);
-        tf32_split(x.y, ab[2 + r], as[2 + r]);
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        // B: dims 8k + 2cq and + 1 of key 8n + g
-        const float2 x = *reinterpret_cast<const float2*>(
-            b + (8 * n + g) * LK + 8 * k + 2 * cq);
-        uint32_t xb0, xs0, xb1, xs1;
-        tf32_split(x.x, xb0, xs0);
-        tf32_split(x.y, xb1, xs1);
-        hopper::mma_tf32(s[n], as, xb0, xb1);
-        hopper::mma_tf32(s[n], ab, xs0, xs1);
-        hopper::mma_tf32(s[n], ab, xb0, xb1);
-      }
-    }
-  }
 
   __device__ void tile(const float* __restrict__ kvs,
                        const float* __restrict__ qdo,
@@ -1368,15 +1178,15 @@ struct DqUnits<float, HD> {
     for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
-    products(st, qs, ks);
-    products(dp, gs, vs);
+    tf32x3_products<HD, LD, LK>(st, qs, ks);
+    tf32x3_products<HD, LD, LK>(dp, gs, vs);
     // element e of n-tile n: query g + 8 (e >> 1), key 8n + 2cq + (e & 1)
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, j = 8 * n + 2 * cq + (e & 1);
-        dq_p_ds(st[n][e], dp[n][e], dots, dq_slot(w, g + 8 * r, j),
+        dq_p_ds(st[n][e], dp[n][e], dots, dot_slot(w, g + 8 * r, j),
                 hg * kDqPairs, rs.qb[r], rs.lse[r], rs.delta[r], kval[j]);
         rs.sum[r] += st[n][e];
       }
@@ -1442,7 +1252,7 @@ __global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
                   const float* __restrict__ delta, int H, int L, int XF,
                   int hg, T* __restrict__ dq, float* __restrict__ dqt,
                   float* __restrict__ dqb) {
-  constexpr int E = HD, LDH = dkv_qtd_ld<HD>();
+  constexpr int E = HD, LDH = qt_ld<HD>();
   extern __shared__ __align__(16) float smem[];
   const DqSmem<T, HD> sm(hg);
   float* qtd = smem + sm.qtd;
@@ -1483,11 +1293,11 @@ __global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
                         in ? 16 : 0);
     }
   }
-  dkv_load_rows<T, HD, kDqQueries, dq_q_ld<HD>()>(qdo, q + bh0 * L * HD, nh,
+  load_rows<T, HD, kDqQueries, q_ld<HD>()>(qdo, q + bh0 * L * HD, nh,
                                                   L, row0);
-  dkv_load_rows<T, HD, kDqQueries, dq_q_ld<HD>()>(
-      qdo + hg * kDqQueries * dq_q_ld<HD>(), dout + bh0 * L * HD, nh, L, row0);
-  dq_load_kv<T, HD>(kvs, kg, vg, nh, hg, L, 0);
+  load_rows<T, HD, kDqQueries, q_ld<HD>()>(
+      qdo + hg * kDqQueries * q_ld<HD>(), dout + bh0 * L * HD, nh, L, row0);
+  load_kv<T, HD>(kvs, kg, vg, nh, hg, L, 0);
   for (int f = threadIdx.x; f < HD / 2; f += blockDim.x) fr[f] = freqs[f];
   dq_key_rows(xks, kvals, x0b, mb, XF, L, 0);
   dq_query_rows(stats, xqs, qb, lse, delta, x0b, XF, bh0, nh, hg, L, row0);
@@ -1524,7 +1334,7 @@ __global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
     units.tile(kvs, qdo, dots, dqacc, stats, kvals + (t & 1) * kDqKeys, nh,
                hg);
     __syncthreads();  // ds in the dots' slots; the K/V tile is free
-    if (next) dq_load_kv<T, HD>(kvs, kg, vg, nh, hg, L, (t + 1) * kDqKeys);
+    if (next) load_kv<T, HD>(kvs, kg, vg, nh, hg, L, (t + 1) * kDqKeys);
 #pragma unroll
     for (int task = 0; task < QW; ++task) {
       const int i = w + kDqWarps<T>() * task;

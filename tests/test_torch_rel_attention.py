@@ -210,6 +210,47 @@ def test_rel_dq_matches_jax_at_tile_edges(L, heads):
     assert dq[1].any() and dqt[1].any()
 
 
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("L", [1, 15, 17, 31, 33, 65])
+def test_rel_fwd_matches_jax_at_tile_edges(L, heads):
+    """The output of the plain forward (through ``rel_flash_attention``:
+    the values the card holds the forward kernel to) against the JAX
+    package's materialised dense path at the edges of that kernel's
+    16-query blocks and 16-key tiles, with one head and three: rtol 2e-4
+    with the floor ``OUT_ATOL``.  Event 0 has no valid key, event 1 a
+    ragged count (one at L = 1).  Then the core's contract at the same
+    shapes, in fp32 and bf16: the no-key event's o is the mean of v over
+    the L keys (within 2e-5 of its max in fp32, one bf16 rounding, 1e-2,
+    in bf16), and an event whose one key sits in the last tile has that
+    key's v as its o, exactly."""
+    q, k, v, x0, w, b, _ = _inputs(L, seed=5 * L + heads, heads=heads)
+    mask = np.zeros((B, L), bool)
+    mask[1, :max(1, 3 * L // 4)] = True
+    out_j = np.asarray(_materialised(*(jnp.asarray(a) for a in
+                                       (q, k, v, x0, w, b, mask))))
+    with torch.no_grad():
+        out_t = tcuda.rel_flash_attention(
+            *(torch.from_numpy(a) for a in (q, k, v, x0)),
+            torch.from_numpy(w.T.copy()), torch.from_numpy(b),
+            torch.from_numpy(mask))
+    assert out_t.shape == (B, L, heads, HD)
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=2e-4, atol=OUT_ATOL)
+    one = mask.copy()
+    one[1] = False
+    one[1, L - 1] = True
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        qc, kc, vc = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+        qt = qc.float() @ torch.from_numpy(w.T.copy())
+        qb = qc.float() @ torch.from_numpy(b)
+        o = trel.rel_attention_plain(qc, qt, qb, kc, vc, torch.from_numpy(x0),
+                                     torch.from_numpy(one))[0]
+        assert o.dtype == dtype
+        assert torch.equal(o[1], vc[1, :, L - 1:].expand_as(o[1]))
+        mean_v = vc[0].float().mean(dim=1, keepdim=True).expand_as(o[0])
+        err = (o[0].float() - mean_v).abs().max()
+        assert err <= tol * o[0].float().abs().max(), err
+
+
 def test_pair_distance_and_freqs_bit_for_bit():
     rng = np.random.default_rng(1)
     xq, xk = _x0(rng, 100), _x0(rng, 37)

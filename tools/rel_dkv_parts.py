@@ -39,6 +39,7 @@ from graphnet_tpu_torch.ops import rel_flash_attention as rp  # noqa: E402
 from graphnet_tpu_torch.ops import rel_flash_attention_cuda as rc  # noqa: E402
 
 SOURCE = build.CSRC / "rel_flash_attention_bwd.cu"
+HEADER = build.CSRC / "rel_flash_attention.cuh"  # emb_frags, shared code
 B, H, L, HD = 16, 12, 768, 32
 
 # (text of the source, its replacement, occurrences)
@@ -59,25 +60,30 @@ CUTS = {
 }
 
 
-def cut_source(cuts) -> str:
-    text = SOURCE.read_text()
+def cut_sources(cuts, source=SOURCE):
+    """The texts of ``source`` and of the rel header with the cuts made:
+    each cut's text must occur ``count`` times in the two together."""
+    texts = {p.name: p.read_text() for p in (source, HEADER)}
     for old, new, count in cuts:
-        if text.count(old) != count:
+        if sum(t.count(old) for t in texts.values()) != count:
             raise RuntimeError(f"the cut {old!r} no longer matches the source")
-        text = text.replace(old, new)
-    return text
+        texts = {n: t.replace(old, new) for n, t in texts.items()}
+    return texts
 
 
 def build_all(tmp: str, cuts_by_name=None, entry: str = "rel_bwd_dkv_launch",
-              n_out: int = 2):
-    """One library a cut (``CUTS`` by default), all nvcc processes at
-    once: each library's C entry ``entry`` (``n_out`` output pointers),
-    and the whole build's compiler log."""
+              n_out: int = 2, source=SOURCE, n_in: int = 12):
+    """One library a cut (``CUTS`` by default) of ``source``, all nvcc
+    processes at once, each in its own directory beside its cut copy of
+    the rel header: each library's C entry ``entry`` (``n_in`` input and
+    ``n_out`` output pointers), and the whole build's compiler log."""
     procs = {}
     for name, cuts in (cuts_by_name or CUTS).items():
-        src = os.path.join(tmp, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(cut_source(cuts))
+        os.makedirs(os.path.join(tmp, name))
+        for fname, text in cut_sources(cuts, source).items():
+            with open(os.path.join(tmp, name, fname), "w") as f:
+                f.write(text)
+        src = os.path.join(tmp, name, source.name)
         so = os.path.join(tmp, f"{name}.so")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
                "-o", so, src]
@@ -90,7 +96,7 @@ def build_all(tmp: str, cuts_by_name=None, entry: str = "rel_bwd_dkv_launch",
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         fn = getattr(ctypes.CDLL(so), entry)
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 12 + [I] * 6 + [P] * n_out + [P]
+        fn.argtypes = [P] * n_in + [I] * 6 + [P] * n_out + [P]
         fn.restype = I
         fns[name] = fn
         log = out if name == "whole" else log
