@@ -17,12 +17,12 @@
 // (4*hd flops in the input dtype) and qt.emb and p.emb (4*hd flops, fp32
 // by the contract), and per (b, i, j) hd/2 precise sincos: at DeepIce's
 // shape (B=16, H=12, L=768, hd=32) 0.24 ms in bf16 and 0.44 ms in fp32
-// at the card's peaks.
+// at the card's peaks; at hd 64 (B_d64) 0.47 and 0.87 ms.
 //
 // The design is the dQ kernel's (rel_flash_attention_bwd.cu) with the
 // forward's side of the contract.  A block owns 16 query rows of one
-// event and a group of heads (all of them up to kFwdHeads: one group at
-// H = 12 in both dtypes), and streams tiles of 16 keys.  The query side
+// event and a group of heads (all of them up to fwd_heads: one group at
+// H = 12 in both dtypes at hd 16 and 32), and streams tiles of 16 keys.  The query side
 // stays resident in shared memory: qt, Q, qb and the running O.  Per key
 // tile, three phases:
 //
@@ -54,6 +54,14 @@
 //    from phase A's buffer as B fragments; each tile's sum begins at
 //    zero and is added in fp32 to the query's running oe, in registers.
 //
+// Head dim 64 (rel_flash_attention.cuh): phase A in two halves of the
+// frequencies, so that its fragments fit the 128 registers beside the
+// running oe, and the phase-C buffer with each embedding value once in
+// fp32, split again in phase C: 64 KB where the split pairs would take
+// 128 and leave room for 4 heads in fp32 (6 in bf16).  With it a block
+// holds up to 7 heads in fp32 and 10 in bf16 (fwd_heads), two groups of
+// 6 at H = 12, each building the pair embeddings once.
+//
 // What holds it is latency (the dQ kernel's lesson): the phases' chains
 // of mma.sync, shared-memory loads and sincosf between barriers.  So a
 // block runs 16 warps, a query each in phases A and C and a head each in
@@ -75,10 +83,17 @@ namespace relattn {
 namespace {
 
 constexpr int kFwdWarps = kTile;  // a query each in phases A and C
-constexpr int kFwdHeads = 12;     // most heads a block holds (a head a
-                                  // warp in phase B), by shared memory
 
-static_assert(kFwdHeads <= kFwdWarps, "phase B: a unit a warp");
+// most heads a block holds (a head a warp in phase B), by shared memory:
+// 12 at hd 16 and 32; at hd 64 7 in fp32 and 10 in bf16
+template <typename T, int HD>
+__host__ __device__ constexpr int fwd_heads() {
+  return HD <= 32 ? 12 : (sizeof(T) == 2 ? 10 : 7);
+}
+
+static_assert(fwd_heads<float, 32>() <= kFwdWarps &&
+                  fwd_heads<__nv_bfloat16, 64>() <= kFwdWarps,
+              "phase B: a unit a warp");
 static_assert(4 * kTile <= 32 * kFwdWarps, "fwd_key_rows: a value a thread");
 
 // The shared memory of a forward block of hg heads, in floats from the
@@ -86,7 +101,7 @@ static_assert(4 * kTile <= 32 * kFwdWarps, "fwd_key_rows: a value a thread");
 // ([head][16][q_ld] of T), the K/V tile ([k|v][head][16][pad_ld] of T),
 // the dots ([head][kPairs], qt.emb then p), the running O of each head
 // ([head][HD/8][4][32], a lane's accumulator fragments), the embeddings
-// for phase C ([query][key][2 HD]), the row statistics
+// for phase C ([query][key][emb_ld]), the row statistics
 // ([qb|corr|l][head][16]), the query coordinates ([16][4]), the key
 // coordinates ([2][16][4]) and flags ([2][16]) and the frequencies.
 template <typename T, int HD>
@@ -100,7 +115,7 @@ struct FwdSmem {
     dots = kv + 2 * hg * kTile * flash::pad_ld<T, HD>() * kEl / 4;
     oacc = dots + hg * kPairs;
     emb = oacc + hg * kTile * HD;
-    stats = emb + kTile * kTile * 2 * HD;
+    stats = emb + kTile * kTile * emb_ld<HD>();
     xq = stats + 3 * hg * kTile;
     xk = xq + 4 * kTile;
     kval = xk + 2 * 4 * kTile;
@@ -128,12 +143,13 @@ __device__ __forceinline__ void fwd_key_rows(float* xk, float* kval,
 }
 
 // Phase A for query i of the block and the tile's 16 keys (coordinates
-// xks): qt.emb of every head into the dots at dot_slot, and the split
-// embedding into embq (query_emb).  The B fragments are the query's qt
-// rows of 8 heads (dims 2cq and 2cq + 1 of a k-step in columns cq and
-// cq + 4, one 8-byte load; a head past nh reads head nh - 1 and its
-// column of D is dropped); the big . big products and the corrections
-// run in two accumulators.
+// xks): qt.emb of every head into the dots at dot_slot, and the
+// embedding into embq (query_emb), in emb_halves halves (the second's
+// dots added to the first's).  The B fragments are the query's qt rows
+// of 8 heads (dims 2cq and 2cq + 1 of a k-step in columns cq and cq + 4,
+// one 8-byte load; a head past nh reads head nh - 1 and its column of D
+// is dropped); the big . big products and the corrections run in two
+// accumulators.
 template <int HD>
 __device__ __forceinline__ void fwd_phase_a(const float* __restrict__ qts,
                                             float* __restrict__ dots,
@@ -142,33 +158,42 @@ __device__ __forceinline__ void fwd_phase_a(const float* __restrict__ qts,
                                             const float* __restrict__ xq,
                                             const float* __restrict__ xks,
                                             int i, int nh) {
-  constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
+  constexpr int KH = HD / 8 / emb_halves<HD>();  // tf32 k-steps a half
   constexpr int LDH = qt_ld<HD>();
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, cq = lane & 3;
-  uint32_t ab[KS][4], as[KS][4];  // A fragments (keys x e)
-  query_emb<HD>(xq, xks, fr, embq, ab, as);
+  float args[2];
+  query_args(xq, xks, args);
   const int ntiles = (nh + 7) / 8;
+#pragma unroll
+  for (int hf = 0; hf < emb_halves<HD>(); ++hf) {
+    uint32_t ab[KH][4], as[KH][4];  // A fragments (keys x e)
+    query_emb<HD>(args, fr, embq, hf, ab, as);
 #pragma unroll 1
-  for (int n = 0; n < ntiles; ++n) {
-    // B fragments (e x heads): head 8n + g
-    const float* qr = qts + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
-    float eb[4] = {0.f, 0.f, 0.f, 0.f}, ec[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int n = 0; n < ntiles; ++n) {
+      // B fragments (e x heads): head 8n + g
+      const float* qr = qts + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
+      float eb[4] = {0.f, 0.f, 0.f, 0.f}, ec[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
-      uint32_t xb0, xs0, xb1, xs1;
-      tf32_split(x.x, xb0, xs0);
-      tf32_split(x.y, xb1, xs1);
-      hopper::mma_tf32(ec, as[k], xb0, xb1);
-      hopper::mma_tf32(ec, ab[k], xs0, xs1);
-      hopper::mma_tf32(eb, ab[k], xb0, xb1);
-    }
-    // element e: key g + 8 (e >> 1), head 8n + 2cq + (e & 1)
+      for (int l = 0; l < KH; ++l) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            qr + 8 * emb_kstep<HD>(hf, l));
+        uint32_t xb0, xs0, xb1, xs1;
+        tf32_split(x.x, xb0, xs0);
+        tf32_split(x.y, xb1, xs1);
+        hopper::mma_tf32(ec, as[l], xb0, xb1);
+        hopper::mma_tf32(ec, ab[l], xs0, xs1);
+        hopper::mma_tf32(eb, ab[l], xb0, xb1);
+      }
+      // element e: key g + 8 (e >> 1), head 8n + 2cq + (e & 1)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = 8 * n + 2 * cq + (e & 1);
-      if (h < nh) dots[dot_slot(h, i, g + 8 * (e >> 1))] = eb[e] + ec[e];
+      for (int e = 0; e < 4; ++e) {
+        const int h = 8 * n + 2 * cq + (e & 1);
+        if (h < nh) {
+          float* d = dots + dot_slot(h, i, g + 8 * (e >> 1));
+          *d = hf == 0 ? eb[e] + ec[e] : *d + (eb[e] + ec[e]);
+        }
+      }
     }
   }
 }
@@ -419,7 +444,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
                    const float* __restrict__ freqs, int H, int L, int XF,
                    int hg, T* __restrict__ o, float* __restrict__ oe,
                    float* __restrict__ lse) {
-  constexpr int E = HD, LDH = qt_ld<HD>();
+  constexpr int E = HD, LDH = qt_ld<HD>(), EQ = kTile * emb_ld<HD>();
   extern __shared__ __align__(16) float smem[];
   const FwdSmem<T, HD> sm(hg);
   float* qts = smem + sm.qt;
@@ -481,8 +506,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   flash::cp_async_wait_all();
   __syncthreads();
   FwdRows rs = {{kNeg, kNeg}, {0.f, 0.f}};
-  fwd_phase_a<HD>(qts, dots, embs + w * kTile * 2 * E, fr, xqs + 4 * w, xks,
-                  w, nh);
+  fwd_phase_a<HD>(qts, dots, embs + w * EQ, fr, xqs + 4 * w, xks, w, nh);
 
   for (int t = 0; t < nt; ++t) {
     const int nb = (t + 1) & 1;  // the buffer of tile t + 1's key rows
@@ -496,7 +520,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
                        kvals + (t & 1) * kTile, rs, nh, hg);
     __syncthreads();  // p in the dots' slots, corr; the K/V tile is free
     if (next) load_kv<T, HD>(kvs, kg, vg, nh, hg, L, (t + 1) * kTile);
-    float* embq = embs + w * kTile * 2 * E;
+    float* embq = embs + w * EQ;
     fwd_phase_c<HD>(dots, embq, corr_s, oea, w, nh);
     if (next) {
       __syncwarp();  // phase C's reads of this query's slots and buffer
@@ -529,7 +553,7 @@ cudaError_t launch(const void* q, const void* qt, const void* qb,
                    cudaStream_t stream) {
   if (!flash::aligned16(q, qt, k, v)) return cudaErrorMisalignedAddress;
   int groups, hg;
-  head_groups(H, kFwdHeads, &groups, &hg);
+  head_groups(H, fwd_heads<T, HD>(), &groups, &hg);
   const size_t bytes = fwd_smem_bytes<T, HD>(hg);
   auto kern = rel_fwd_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -566,8 +590,10 @@ extern "C" int rel_fwd_launch(const void* q, const void* qt, const void* qb,
   launch<T, D>(q, qt, qb, k, v, x0, mask, freqs, B, H, L, XF, o, oe, lse, s)
   if (HD == 16 && !bf16) return (int)FWD(float, 16);
   if (HD == 32 && !bf16) return (int)FWD(float, 32);
+  if (HD == 64 && !bf16) return (int)FWD(float, 64);
   if (HD == 16 && bf16) return (int)FWD(__nv_bfloat16, 16);
   if (HD == 32 && bf16) return (int)FWD(__nv_bfloat16, 32);
+  if (HD == 64 && bf16) return (int)FWD(__nv_bfloat16, 64);
 #undef FWD
   return (int)cudaErrorInvalidValue;
 }
@@ -576,13 +602,16 @@ extern "C" int rel_fwd_launch(const void* q, const void* qt, const void* qb,
 // for a head dim the kernel is not built for): the larger of a bf16 and
 // a fp32 launch's.
 extern "C" int rel_fwd_smem_bytes(int HD, int H) {
-  int groups, hg;
-  relattn::head_groups(H, relattn::kFwdHeads, &groups, &hg);
-#define SMEM(D)                                              \
-  (int)std::max(relattn::fwd_smem_bytes<__nv_bfloat16, D>(hg), \
-                relattn::fwd_smem_bytes<float, D>(hg))
+  int groups, hb, hf;
+#define SMEM(D)                                                            \
+  (relattn::head_groups(H, relattn::fwd_heads<__nv_bfloat16, D>(), &groups, \
+                        &hb),                                              \
+   relattn::head_groups(H, relattn::fwd_heads<float, D>(), &groups, &hf),   \
+   (int)std::max(relattn::fwd_smem_bytes<__nv_bfloat16, D>(hb),            \
+                 relattn::fwd_smem_bytes<float, D>(hf)))
   if (HD == 16) return SMEM(16);
   if (HD == 32) return SMEM(32);
+  if (HD == 64) return SMEM(64);
 #undef SMEM
   return 0;
 }

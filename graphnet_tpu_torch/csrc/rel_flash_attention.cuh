@@ -9,6 +9,19 @@
 // kernel): the place of each pair's dot in shared memory, read and
 // written in three orders, and the per-query buffer that hands phase
 // A's split embedding to phase C transposed.
+//
+// Head dim 64.  Phase A's fragments of all HD / 8 k-steps take HD
+// registers, all 64 at hd 64, half of what a thread of a 16-warp block
+// has; so at hd 64 every phase A builds and consumes them in two halves
+// of the frequencies (each half the sin and the cos k-steps of HD / 4
+// frequencies, 32 registers), the second half's dots added to the
+// first's in fp32.  And the per-query buffer that hands the embedding to
+// phase C holds each value once, in fp32 (64 KB for a block's 16
+// queries, where the split pairs would take 128 of the 227 a block may
+// have), split again where phase C reads it: the same two parts, since
+// big + small is the value exactly.  Building the embedding again in
+// phase C instead would double the sincos.  Hd 16 and 32 keep one half
+// and the split buffer.
 
 #pragma once
 
@@ -142,6 +155,35 @@ __device__ __forceinline__ void emb_frags(const float (&args)[2],
       }
 }
 
+// the halves of phase A's fragments (above: 2 at hd 64, else 1)
+template <int HD>
+__host__ __device__ constexpr int emb_halves() {
+  return HD > 32 ? 2 : 1;
+}
+
+// whether a query's phase-C buffer holds the embedding split (big and
+// small of each value: hd 16, 32) or each value once in fp32 (hd 64)
+template <int HD>
+__host__ __device__ constexpr bool emb_split() {
+  return HD <= 32;
+}
+
+// floats of one key's embedding in a query's phase-C buffer
+template <int HD>
+__host__ __device__ constexpr int emb_ld() {
+  return emb_split<HD>() ? 2 * HD : HD;
+}
+
+// the k-step over the embedding (of HD / 8) that k-step l of half hf's
+// fragments stands for: the half's sin k-steps, then their cos; the
+// half's frequencies start at 4 KH hf (KH the k-steps of a half)
+template <int HD>
+__device__ __forceinline__ int emb_kstep(int hf, int l) {
+  constexpr int KH = HD / 8 / emb_halves<HD>();
+  return l < KH / 2 ? hf * (KH / 2) + l
+                    : HD / 16 + hf * (KH / 2) + (l - KH / 2);
+}
+
 // The place of the dot (and then of p or ds) of (head h, query i, key j)
 // of a 16 x 16 block of pairs: the order of a phase-B unit's accumulator
 // fragments (lane 4 (i & 7) + ((j & 7) >> 1), element 2 (i >> 3) + (j &
@@ -164,41 +206,71 @@ __device__ __forceinline__ int emb_at(int j, int p) {
   return j * 2 * E + 4 * (p ^ (((j & 1) << 2) | (((j >> 1) & 1) << 1)));
 }
 
-// Phase A's embedding of query xq (its coordinates) against the tile's
-// 16 keys (coordinates xks, [16][4]), for a whole warp: lane (g, cq)
-// builds the embeddings of keys g and g + 8 (its pair_arg that of key
-// g + 8 (cq & 1)) into the A fragments ab / as (keys x e, split big +
-// small) and stores them into embq (emb_at) for phase C.
+// The place of key j's embedding dim d in a query's phase-C buffer at
+// hd 64 (HD floats a key), the dim XOR-swizzled by the key: phase A
+// stores 8 bytes a lane (keys g, g + 8; dims 8k + 2cq and + 1), phase C
+// loads 4 (keys cq, cq + 4 of a k-step; dim 8nt + g), both free of bank
+// conflicts.
 template <int HD>
-__device__ __forceinline__ void query_emb(const float* __restrict__ xq,
-                                          const float* __restrict__ xks,
-                                          const float* __restrict__ fr,
-                                          float* __restrict__ embq,
-                                          uint32_t (&ab)[HD / 8][4],
-                                          uint32_t (&as)[HD / 8][4]) {
-  constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
+__device__ __forceinline__ int emb1_at(int j, int d) {
+  return j * HD + (d ^ ((j & 3) << 3));
+}
+
+// The pair arguments of query xq (its coordinates) against keys g and
+// g + 8 of the tile (coordinates xks, [16][4]) for lane (g, cq), whose
+// own pair_arg is that of key g + 8 (cq & 1).
+__device__ __forceinline__ void query_args(const float* __restrict__ xq,
+                                           const float* __restrict__ xks,
+                                           float (&args)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const float arg = pair_arg(xq, xks + 4 * (g + 8 * (lane & 1)));
+  args[0] = __shfl_sync(0xffffffffu, arg, g * 4);
+  args[1] = __shfl_sync(0xffffffffu, arg, g * 4 + 1);
+}
+
+// Phase A's embedding of a query against the tile's 16 keys (args from
+// query_args), half hf of it (emb_halves), for a whole warp: lane (g,
+// cq) builds the embeddings of keys g and g + 8 into the A fragments ab
+// / as (keys x e, split big + small; k-step l stands for emb_kstep(hf,
+// l)) and stores them into embq for phase C (emb_at, or emb1_at at
+// hd 64).
+template <int HD>
+__device__ __forceinline__ void query_emb(
+    const float (&args)[2], const float* __restrict__ fr,
+    float* __restrict__ embq, int hf,
+    uint32_t (&ab)[HD / 8 / emb_halves<HD>()][4],
+    uint32_t (&as)[HD / 8 / emb_halves<HD>()][4]) {
+  constexpr int KH = HD / 8 / emb_halves<HD>();  // k-steps of the half
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, cq = lane & 3;
-  const float arg = pair_arg(xq, xks + 4 * (g + 8 * (lane & 1)));
-  const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
-                         __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
-  emb_frags<KS>(args, fr, ab, as);
+  emb_frags<KH>(args, fr + 4 * KH * hf, ab, as);
   // for phase C: key g + 8 rh, dims 8k + 2cq and 8k + 2cq + 1
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh)
 #pragma unroll
-    for (int k = 0; k < KS; ++k)
-      *reinterpret_cast<float4*>(embq + emb_at<HD>(g + 8 * rh, 4 * k + cq)) =
-          make_float4(__uint_as_float(ab[k][rh]), __uint_as_float(as[k][rh]),
-                      __uint_as_float(ab[k][2 + rh]),
-                      __uint_as_float(as[k][2 + rh]));
+    for (int l = 0; l < KH; ++l) {
+      const int k = emb_kstep<HD>(hf, l);
+      if constexpr (emb_split<HD>()) {
+        *reinterpret_cast<float4*>(embq + emb_at<HD>(g + 8 * rh, 4 * k + cq)) =
+            make_float4(__uint_as_float(ab[l][rh]), __uint_as_float(as[l][rh]),
+                        __uint_as_float(ab[l][2 + rh]),
+                        __uint_as_float(as[l][2 + rh]));
+      } else {
+        *reinterpret_cast<float2*>(embq +
+                                   emb1_at<HD>(g + 8 * rh, 8 * k + 2 * cq)) =
+            make_float2(
+                __uint_as_float(ab[l][rh]) + __uint_as_float(as[l][rh]),
+                __uint_as_float(ab[l][2 + rh]) + __uint_as_float(as[l][2 + rh]));
+      }
+    }
 }
 
 // Phase C's product for query i of the block: acc (rows: heads g and
 // g + 8, columns: dims 8nt + 2cq and + 1) = x . emb over the tile's 16
 // keys, three tf32 products a step, begun at zero.  A: x (head, key)
 // from its dot_slot in xs (0 for a head past nh); B: the embedding from
-// phase A's buffer embq.
+// phase A's buffer embq (at hd 64 each value split here).
 template <int HD>
 __device__ __forceinline__ void slot_emb_product(
     const float* __restrict__ xs, const float* __restrict__ embq,
@@ -224,15 +296,24 @@ __device__ __forceinline__ void slot_emb_product(
     for (int nt = 0; nt < NT; ++nt) {
       // b0 (key 8ks + cq, dim 8nt + g), b1 (key 8ks + cq + 4): big, small
       const int d = 8 * nt + g;
-      const float2 x0 = *reinterpret_cast<const float2*>(
-          embq + emb_at<HD>(8 * ks + cq, d >> 1) + 2 * (d & 1));
-      const float2 x1 = *reinterpret_cast<const float2*>(
-          embq + emb_at<HD>(8 * ks + cq + 4, d >> 1) + 2 * (d & 1));
-      const uint32_t b0 = __float_as_uint(x0.x), b1 = __float_as_uint(x1.x);
-      hopper::mma_tf32(acc[nt], as, b0, b1);
-      hopper::mma_tf32(acc[nt], ab, __float_as_uint(x0.y),
-                       __float_as_uint(x1.y));
-      hopper::mma_tf32(acc[nt], ab, b0, b1);
+      if constexpr (emb_split<HD>()) {
+        const float2 x0 = *reinterpret_cast<const float2*>(
+            embq + emb_at<HD>(8 * ks + cq, d >> 1) + 2 * (d & 1));
+        const float2 x1 = *reinterpret_cast<const float2*>(
+            embq + emb_at<HD>(8 * ks + cq + 4, d >> 1) + 2 * (d & 1));
+        const uint32_t b0 = __float_as_uint(x0.x), b1 = __float_as_uint(x1.x);
+        hopper::mma_tf32(acc[nt], as, b0, b1);
+        hopper::mma_tf32(acc[nt], ab, __float_as_uint(x0.y),
+                         __float_as_uint(x1.y));
+        hopper::mma_tf32(acc[nt], ab, b0, b1);
+      } else {
+        uint32_t b0, s0, b1, s1;
+        tf32_split(embq[emb1_at<HD>(8 * ks + cq, d)], b0, s0);
+        tf32_split(embq[emb1_at<HD>(8 * ks + cq + 4, d)], b1, s1);
+        hopper::mma_tf32(acc[nt], as, b0, b1);
+        hopper::mma_tf32(acc[nt], ab, s0, s1);
+        hopper::mma_tf32(acc[nt], ab, b0, b1);
+      }
     }
   }
 }

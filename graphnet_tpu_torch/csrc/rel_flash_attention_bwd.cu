@@ -35,10 +35,10 @@ namespace {
 // the contract) and the four products q.k, do.v, ds.q and p.do (8*hd
 // flops, in the input dtype), and per (b, i, j) hd/2 precise sincos: at
 // DeepIce's shape (B=16, H=12, L=768, hd=32) 0.25 ms in bf16 and 0.65
-// ms in fp32 at the card's peaks.
+// ms in fp32 at the card's peaks; at hd 64 (B_d64) 0.50 and 1.31 ms.
 //
 // The design.  A block owns 32 keys of one event and a group of heads
-// (all of them up to kDkvHeads<T>: one group at H = 12 in bf16), and
+// (all of them up to kDkvHeads: one group at H = 12 in bf16), and
 // streams tiles of 16 query rows.  Per tile, two phases:
 //
 // A. The embedding dots, once per pair for the whole group, on the
@@ -72,6 +72,15 @@ namespace {
 //    P^T and dS^T in the head's slot of the embedding-dot buffer it has
 //    just read, and accumulates 4 keys x 8 dims of dK and of dV.
 //
+// Head dim 64.  Phase A builds its fragments in two halves
+// (rel_flash_attention.cuh).  bf16: a warp's three units would hold 3 x
+// 96 registers of K/V fragments and dK/dV accumulators, so a warp takes
+// one unit and a block 4 heads.  fp32: a lane's 4 keys x 16 dims of dK
+// and dV would be 128 registers, so two warps share a head, each the 16
+// keys of one key 16-tile (2 keys x 16 dims a lane, the 64 registers of
+// hd 32), and a block holds 4 heads.  Three groups at H = 12 in both
+// dtypes, each building the pair embeddings once.
+//
 // The tiles stream in asynchronously: the qt/doe tile of the next query
 // tile (double-buffered, by bulk copies on an mbarrier) while this one
 // is worked on, the q/do tile (16-byte cp.async into padded rows) while
@@ -85,10 +94,17 @@ constexpr int kDkvThreads = 256;
 constexpr int kDkvWarps = kDkvThreads / 32;
 
 // most heads a dkv block holds: bf16 by the registers of its units (3 a
-// warp), fp32 by a warp per head
-template <typename T>
+// warp; 1 at hd 64), fp32 by a warp per head (two at hd 64)
+template <typename T, int HD>
 __host__ __device__ constexpr int kDkvHeads() {
-  return sizeof(T) == 2 ? 12 : 8;
+  return HD > 32 ? 4 : (sizeof(T) == 2 ? 12 : 8);
+}
+
+// fp32 dkv: warps a head, each the keys of 2 / dkv_f32_wph of the
+// block's two key 16-tiles
+template <int HD>
+__host__ __device__ constexpr int dkv_f32_wph() {
+  return HD > 32 ? 2 : 1;
 }
 
 // The shared memory of a dkv block of hg heads, in floats from the
@@ -175,9 +191,11 @@ struct DkvTiles {
   }
 };
 
-static_assert(kDkvHeads<__nv_bfloat16>() * kDkvQueries <= kDkvThreads &&
-                  kDkvHeads<float>() * kDkvQueries <= kDkvThreads,
-              "DkvRows reads one row statistic of the tile a thread");
+static_assert(kDkvHeads<__nv_bfloat16, 32>() * kDkvQueries <= kDkvThreads &&
+                  kDkvHeads<float, 32>() * kDkvQueries <= kDkvThreads &&
+                  kDkvHeads<float, 64>() * dkv_f32_wph<64>() <= kDkvWarps,
+              "DkvRows reads one row statistic of the tile a thread; fp32 "
+              "phase B takes dkv_f32_wph warps a head");
 
 // The row statistics (qb, lse, delta; past L 0, +inf, 0) and the query
 // coordinates (x, y, z, t of rows past L: row L - 1's) of one query
@@ -226,16 +244,17 @@ __device__ __forceinline__ int dkv_slot(int h, int m, int n, int e,
 // on) in fragment order.  Warp w takes key 16-tile m = w & 1 and the
 // queries (w >> 1) + 4 t; lane (g, cq) builds the embedding of keys
 // 16m + g and 16m + g + 8 (xk: the coordinates of key 16m + g + 8 (cq &
-// 1)).  Within a k-step, columns cq and cq + 4 stand for embedding dims
-// 2cq and 2cq + 1 (of 8k on): a sum over e takes them in any order, and
-// so each B fragment is one 8-byte load, and lane (g, cq) builds
+// 1)), in emb_halves halves (the second's dots added to the first's).
+// Within a k-step, columns cq and cq + 4 stand for embedding dims 2cq
+// and 2cq + 1 (of 8k on): a sum over e takes them in any order, and so
+// each B fragment is one 8-byte load, and lane (g, cq) builds
 // frequencies 8kk + 2cq and 8kk + 2cq + 1.
 template <int HD>
 __device__ __forceinline__ void dkv_phase_a(
     const float* __restrict__ qtd, float* __restrict__ ae_s,
     const float* __restrict__ fr, const float* __restrict__ xq_s,
     const float (&xk)[4], int nh, int hg) {
-  constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
+  constexpr int KH = HD / 8 / emb_halves<HD>();  // tf32 k-steps a half
   constexpr int LDH = qt_ld<HD>();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, cq = lane & 3, m = w & 1;
@@ -246,46 +265,53 @@ __device__ __forceinline__ void dkv_phase_a(
     const float arg = pair_arg(xq_s + 4 * i, xk);
     const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
                            __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
-    uint32_t ab[KS][4], as[KS][4];  // A fragments (keys x e)
-    emb_frags<KS>(args, fr, ab, as);
-    // the place of element e of lane (g, cq)'s tile n in phase B:
-    // element 2 (e >> 1) + (i & 1) of lane 4g + (i & 7) / 2 of fragment
-    // (head 8n + 2cq + (e & 1), m, i >> 3), the lane swizzled by cq
-    const int at0 = 2 * cq * 512 + (m * 2 + (i >> 3)) * 128 + (i & 1) * 32 +
-                    ((4 * g + ((i & 7) >> 1)) ^ cq);
+#pragma unroll
+    for (int hf = 0; hf < emb_halves<HD>(); ++hf) {
+      uint32_t ab[KH][4], as[KH][4];  // A fragments (keys x e)
+      emb_frags<KH>(args, fr + 4 * KH * hf, ab, as);
+      // the place of element e of lane (g, cq)'s tile n in phase B:
+      // element 2 (e >> 1) + (i & 1) of lane 4g + (i & 7) / 2 of fragment
+      // (head 8n + 2cq + (e & 1), m, i >> 3), the lane swizzled by cq
+      const int at0 = 2 * cq * 512 + (m * 2 + (i >> 3)) * 128 +
+                      (i & 1) * 32 + ((4 * g + ((i & 7) >> 1)) ^ cq);
 #pragma unroll 1
-    for (int n = 0; n < ntiles; ++n) {
-      // B fragments (e x heads): head 8n + g (a head past nh reads head
-      // nh - 1; its column of D is dropped)
-      const float* qr = qtd + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
-      const float* dr = qr + hg * LDH;
-      float eb[4] = {0.f, 0.f, 0.f, 0.f}, ec[4] = {0.f, 0.f, 0.f, 0.f};
-      float db[4] = {0.f, 0.f, 0.f, 0.f}, dc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int n = 0; n < ntiles; ++n) {
+        // B fragments (e x heads): head 8n + g (a head past nh reads head
+        // nh - 1; its column of D is dropped)
+        const float* qr =
+            qtd + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
+        const float* dr = qr + hg * LDH;
+        float eb[4] = {0.f, 0.f, 0.f, 0.f}, ec[4] = {0.f, 0.f, 0.f, 0.f};
+        float db[4] = {0.f, 0.f, 0.f, 0.f}, dc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int k = 0; k < KS; ++k) {
-        const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
-        const float2 y = *reinterpret_cast<const float2*>(dr + 8 * k);
-        uint32_t xb0, xs0, xb1, xs1, yb0, ys0, yb1, ys1;
-        tf32_split(x.x, xb0, xs0);
-        tf32_split(x.y, xb1, xs1);
-        tf32_split(y.x, yb0, ys0);
-        tf32_split(y.y, yb1, ys1);
-        hopper::mma_tf32(ec, as[k], xb0, xb1);
-        hopper::mma_tf32(ec, ab[k], xs0, xs1);
-        hopper::mma_tf32(eb, ab[k], xb0, xb1);
-        hopper::mma_tf32(dc, as[k], yb0, yb1);
-        hopper::mma_tf32(dc, ab[k], ys0, ys1);
-        hopper::mma_tf32(db, ab[k], yb0, yb1);
-      }
-      // element e: key row g + 8 (e >> 1), head 8n + 2cq + (e & 1)
-      float* out = ae_s + 8 * n * 512 + at0;
-      const bool full = 8 * n + 8 <= nh;
+        for (int l = 0; l < KH; ++l) {
+          const int k = emb_kstep<HD>(hf, l);
+          const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
+          const float2 y = *reinterpret_cast<const float2*>(dr + 8 * k);
+          uint32_t xb0, xs0, xb1, xs1, yb0, ys0, yb1, ys1;
+          tf32_split(x.x, xb0, xs0);
+          tf32_split(x.y, xb1, xs1);
+          tf32_split(y.x, yb0, ys0);
+          tf32_split(y.y, yb1, ys1);
+          hopper::mma_tf32(ec, as[l], xb0, xb1);
+          hopper::mma_tf32(ec, ab[l], xs0, xs1);
+          hopper::mma_tf32(eb, ab[l], xb0, xb1);
+          hopper::mma_tf32(dc, as[l], yb0, yb1);
+          hopper::mma_tf32(dc, ab[l], ys0, ys1);
+          hopper::mma_tf32(db, ab[l], yb0, yb1);
+        }
+        // element e: key row g + 8 (e >> 1), head 8n + 2cq + (e & 1)
+        float* out = ae_s + 8 * n * 512 + at0;
+        const bool full = 8 * n + 8 <= nh;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (full || 8 * n + 2 * cq + (e & 1) < nh) {
-          const int off = (e & 1) * 512 + (e >> 1) * 64;
-          out[off] = eb[e] + ec[e];
-          out[hg * 512 + off] = db[e] + dc[e];
+        for (int e = 0; e < 4; ++e) {
+          if (full || 8 * n + 2 * cq + (e & 1) < nh) {
+            const int off = (e & 1) * 512 + (e >> 1) * 64;
+            float* a = out + off;
+            float* d = out + hg * 512 + off;
+            *a = hf == 0 ? eb[e] + ec[e] : *a + (eb[e] + ec[e]);
+            *d = hf == 0 ? db[e] + dc[e] : *d + (db[e] + dc[e]);
+          }
         }
       }
     }
@@ -328,7 +354,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   using T = __nv_bfloat16;
   constexpr int LD = flash::pad_ld<T, HD>();
   constexpr int KS = HD / 16;  // k-steps of K.Q^T
-  constexpr int UPW = (2 * kDkvHeads<T>() + kDkvWarps - 1) / kDkvWarps;
+  constexpr int UPW = (2 * kDkvHeads<T, HD>() + kDkvWarps - 1) / kDkvWarps;
   extern __shared__ __align__(16) float smem[];
   const DkvSmem<T, HD> sm(hg);
   float* qtd = smem + sm.qtd;
@@ -501,11 +527,13 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 }
 
 // dkv, fp32: the four products on the CUDA cores in full fp32 (no
-// TF32; phase A as in bf16).  Warp w takes head
-// w; lane (g, cq) its keys g + 8r (r = 0..3: key 16-tile r >> 1, row
-// half r & 1) against queries 8n + 2cq + s, the places of its mma
-// accumulator fragments, so it reads the embedding dots as the bf16
-// kernel does.
+// TF32; phase A as in bf16).  Warp w takes head w / WPH and part
+// p = w % WPH of its keys (WPH = dkv_f32_wph: 1, at hd 64 2); lane (g,
+// cq) its keys g + 8kr, kr = r + R p (r < R = 4 / WPH: key 16-tile
+// kr >> 1, row half kr & 1) against queries 8n + 2cq + s, the places of
+// its mma accumulator fragments, so it reads the embedding dots as the
+// bf16 kernel does.  The P^T and dS^T a warp puts over its head's
+// embedding dots fall on its own key rows' dots.
 template <int HD>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     rel_dkv_f32_kernel(const float* __restrict__ q,
@@ -524,6 +552,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
                        float* __restrict__ dv) {
   constexpr int LD = flash::pad_ld<float, HD>();
   constexpr int NK = HD / 16;  // 4-dim chunks of dK, dV a lane owns
+  constexpr int WPH = dkv_f32_wph<HD>(), R = 4 / WPH;
   extern __shared__ __align__(16) float smem[];
   const DkvSmem<float, HD> sm(hg);
   float* qtd = smem + sm.qtd;
@@ -580,10 +609,12 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
   tiles.load_qdo(0);
 
-  const bool owner = w < nh;  // the warp's head takes part in phase B
-  float dka[4][NK][4], dva[4][NK][4];
+  // the warp's head (and part of its keys) in phase B, if it takes part
+  const int hh = w / WPH, part = w % WPH;
+  const bool owner = hh < nh;
+  float dka[R][NK][4], dva[R][NK][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk)
 #pragma unroll
@@ -603,29 +634,28 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     __syncthreads();  // the embedding dots
 
     if (owner) {
-      const int hh = w;
       const float* ks = kvs + hh * kDkvKeys * LD;
       const float* vs = kvs + (hg + hh) * kDkvKeys * LD;
       const float* qs = qdo + hh * kDkvQueries * LD;
       const float* gs = qdo + (hg + hh) * kDkvQueries * LD;
-      // S^T and dP^T: st[r][j] for key g + 8r and query qi(j) =
+      // S^T and dP^T: st[r][j] for key g + 8kr and query qi(j) =
       // 8 (j >> 1) + 2cq + (j & 1)
-      float st[4][4], dp[4][4];
+      float st[R][4], dp[R][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j) st[r][j] = dp[r][j] = 0.f;
 #pragma unroll 2
       for (int d = 0; d < HD; d += 4) {
-        float4 a[4], bq[4];
+        float4 a[R], bq[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          a[r] = flash::ld4(ks + (g + 8 * r) * LD + d);
+        for (int r = 0; r < R; ++r)
+          a[r] = flash::ld4(ks + (g + 8 * (r + R * part)) * LD + d);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           bq[j] = flash::ld4(qs + (8 * (j >> 1) + 2 * cq + (j & 1)) * LD + d);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             st[r][j] = fmaf(a[r].x, bq[j].x, st[r][j]);
@@ -634,13 +664,13 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             st[r][j] = fmaf(a[r].w, bq[j].w, st[r][j]);
           }
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          a[r] = flash::ld4(vs + (g + 8 * r) * LD + d);
+        for (int r = 0; r < R; ++r)
+          a[r] = flash::ld4(vs + (g + 8 * (r + R * part)) * LD + d);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           bq[j] = flash::ld4(gs + (8 * (j >> 1) + 2 * cq + (j & 1)) * LD + d);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             dp[r][j] = fmaf(a[r].x, bq[j].x, dp[r][j]);
@@ -651,14 +681,15 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       }
       const float* sh = stats + hh * kDkvQueries;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          // fragment (m = r >> 1, n = j >> 1), element 2 (r & 1) + (j & 1)
+          // fragment (m = kr >> 1, n = j >> 1), element 2 (kr & 1) + (j & 1)
+          const int kr = r + R * part;
           const int slot =
-              dkv_slot(hh, r >> 1, j >> 1, 2 * (r & 1) + (j & 1), lane);
+              dkv_slot(hh, kr >> 1, j >> 1, 2 * (kr & 1) + (j & 1), lane);
           dkv_p_ds(st[r][j], dp[r][j], ae_s, slot, hg * 512, sh, hg,
-                   8 * (j >> 1) + 2 * cq + (j & 1), kval[g + 8 * r]);
+                   8 * (j >> 1) + 2 * cq + (j & 1), kval[g + 8 * kr]);
         }
       // P^T and dS^T ([key][query], the query's float4 slot swizzled by
       // the key) over the head's embedding dots, which are read
@@ -666,23 +697,25 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       float* ps = ae_s + hh * 512;
       float* dss = ae_s + (hg + hh) * 512;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int key = g + 8 * r, i = 8 * (j >> 1) + 2 * cq + (j & 1);
+          const int key = g + 8 * (r + R * part);
+          const int i = 8 * (j >> 1) + 2 * cq + (j & 1);
           const int at = key * 16 + 4 * ((i >> 2) ^ ((key >> 1) & 3)) + (i & 3);
           ps[at] = st[r][j];
           dss[at] = dp[r][j];
         }
       __syncwarp();
-      // dV += P^T.G and dK += dS^T.Q: keys g + 8r, dims 4 (cq + 4 kk) ..
+      // dV += P^T.G and dK += dS^T.Q: keys g + 8kr, dims 4 (cq + 4 kk) ..
       // + 3, four queries a step
 #pragma unroll 1
       for (int q4 = 0; q4 < kDkvQueries / 4; ++q4) {
-        float4 pr[4], sr[4];
+        float4 pr[R], sr[R];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int at = (g + 8 * r) * 16 + 4 * (q4 ^ ((g >> 1) & 3));
+        for (int r = 0; r < R; ++r) {
+          const int at =
+              (g + 8 * (r + R * part)) * 16 + 4 * (q4 ^ ((g >> 1) & 3));
           pr[r] = flash::ld4(ps + at);
           sr[r] = flash::ld4(dss + at);
         }
@@ -694,7 +727,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             const float4 x = flash::ld4(gs + row * LD + 4 * (cq + 4 * kk));
             const float4 y = flash::ld4(qs + row * LD + 4 * (cq + 4 * kk));
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
+            for (int r = 0; r < R; ++r) {
               const float pu = flash::at4(pr[r], u), su = flash::at4(sr[r], u);
               dva[r][kk][0] = fmaf(pu, x.x, dva[r][kk][0]);
               dva[r][kk][1] = fmaf(pu, x.y, dva[r][kk][1]);
@@ -718,10 +751,10 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 
   if (owner) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int key = k0 + g + 8 * r;
+    for (int r = 0; r < R; ++r) {
+      const int key = k0 + g + 8 * (r + R * part);
       if (key < L) {
-        const size_t at = ((bh0 + w) * L + key) * HD;
+        const size_t at = ((bh0 + hh) * L + key) * HD;
 #pragma unroll
         for (int kk = 0; kk < NK; ++kk) {
           const int d = 4 * (cq + 4 * kk);
@@ -755,7 +788,7 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
   if (!flash::aligned16(q, qt, k, v) || !flash::aligned16(dout, doe, dk, dv))
     return cudaErrorMisalignedAddress;
   int groups, hg;
-  head_groups(H, kDkvHeads<T>(), &groups, &hg);
+  head_groups(H, kDkvHeads<T, HD>(), &groups, &hg);
   const size_t bytes = dkv_smem_bytes<T, HD>(hg);
   auto kern = dkv_kernel<HD>(static_cast<const T*>(nullptr));
   cudaError_t err = cudaFuncSetAttribute(
@@ -780,11 +813,12 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
 // flops, fp32 by the contract) and the three products q.k, do.v and
 // ds.k (6*hd flops, in the input dtype), and per (b, i, j) hd/2 precise
 // sincos: at DeepIce's shape (B=16, H=12, L=768, hd=32) 0.35 ms in bf16
-// and 0.65 ms in fp32 at the card's peaks.
+// and 0.65 ms in fp32 at the card's peaks; at hd 64 (B_d64) 0.70 and
+// 1.31 ms.
 //
 // The design is the dkv kernel's with the two sides swapped.  A block
 // owns 16 query rows of one event and a group of heads (all of them up
-// to kDqHeads<T>: one group at H = 12 in bf16, two of 6 in fp32), and
+// to kDqHeads: one group at H = 12 in bf16, two of 6 in fp32), and
 // streams tiles of 16 keys.  The query side stays resident in shared
 // memory: qt, doe, q, do and the row statistics.  Per key tile, three
 // phases:
@@ -813,6 +847,13 @@ cudaError_t launch_dkv(const void* q, const void* qt, const void* qb,
 //    over them, so the embedding goes through shared memory rather than
 //    being built again.  Each tile's sum begins at zero and is added to
 //    the query's running dqt in fp32.
+//
+// Head dim 64 (rel_flash_attention.cuh): phase A in two halves of the
+// frequencies, and the phase-C buffer with each embedding value once in
+// fp32 (64 KB, not 128).  The resident rows and the K/V tile of a head
+// take 32 KB in fp32 and 23 in bf16 there, so a block holds up to 5
+// heads in fp32 and 6 in bf16 (kDqHeads): three groups of 4 and two of
+// 6 at H = 12, each building the pair embeddings once.
 //
 // What holds it on the card is latency: the phases' chains of mma.sync,
 // shared-memory loads and sincosf, between barriers.  So bf16 runs 16
@@ -843,13 +884,14 @@ static_assert(4 * kDqKeys <= 32 * kDqWarps<float>(), "dq_key_rows: a value a thr
 
 // most heads a dq block holds (a unit a warp in phase B), by the shared
 // memory of their K/V tile and Q/dO rows beside the rest: one group at
-// H = 12 in bf16, two of 6 in fp32
-template <typename T>
+// H = 12 in bf16, two of 6 in fp32 (hd 64: 6 and 5 heads)
+template <typename T, int HD>
 __host__ __device__ constexpr int kDqHeads() {
-  return sizeof(T) == 2 ? 12 : 8;
+  return HD > 32 ? (sizeof(T) == 2 ? 6 : 5) : (sizeof(T) == 2 ? 12 : 8);
 }
-static_assert(kDqHeads<__nv_bfloat16>() <= kDqWarps<__nv_bfloat16>() &&
-                  kDqHeads<float>() <= kDqWarps<float>(),
+static_assert(kDqHeads<__nv_bfloat16, 32>() <= kDqWarps<__nv_bfloat16>() &&
+                  kDqHeads<float, 32>() <= kDqWarps<float>() &&
+                  kDqHeads<float, 64>() <= kDqWarps<float>(),
               "phase B: a unit a warp");
 
 // The shared memory of a dq block of hg heads, in floats from the start:
@@ -858,7 +900,7 @@ static_assert(kDqHeads<__nv_bfloat16>() <= kDqWarps<__nv_bfloat16>() &&
 // ([k|v][head][16][pad_ld] of T), the dots ([ae|dpe][head][kDqPairs],
 // ae then ds), the running dQ of each unit ([head][HD/8][4][32], a
 // lane's accumulator fragments), the embeddings for phase C
-// ([query][key][2 HD]), the row
+// ([query][key][emb_ld]), the row
 // statistics ([qb|lse|delta][head][16]), the query coordinates ([16][4]),
 // the key coordinates ([2][16][4]) and flags ([2][16]) and the
 // frequencies.
@@ -874,7 +916,7 @@ struct DqSmem {
     dots = kv + 2 * hg * kDqKeys * LD * kEl / 4;
     dqacc = dots + 2 * hg * kDqPairs;
     emb = dqacc + hg * kDqQueries * HD;
-    stats = emb + kDqPairs * 2 * HD;
+    stats = emb + kDqPairs * emb_ld<HD>();
     xq = stats + 3 * hg * kDqQueries;
     xk = xq + 4 * kDqQueries;
     kval = xk + 2 * 4 * kDqKeys;
@@ -924,11 +966,12 @@ __device__ __forceinline__ void dq_query_rows(
 
 // Phase A for query i of the block and the tile's 16 keys (coordinates
 // xks, [16][4]): qt.emb and doe.emb of every head into the dots (ae, and
-// dpe hg * kDqPairs on) at dot_slot, and the split embedding into embq for
-// phase C (query_emb).  The B fragments are the query's qt and doe rows,
-// as in dkv_phase_a (dims 2cq and 2cq + 1 of a k-step in columns cq and
-// cq + 4, one 8-byte load; a head past nh reads head nh - 1 and its
-// column of D is dropped).
+// dpe hg * kDqPairs on) at dot_slot, and the embedding into embq for
+// phase C (query_emb), in emb_halves halves (the second's dots added to
+// the first's).  The B fragments are the query's qt and doe rows, as in
+// dkv_phase_a (dims 2cq and 2cq + 1 of a k-step in columns cq and cq +
+// 4, one 8-byte load; a head past nh reads head nh - 1 and its column of
+// D is dropped).
 template <int HD>
 __device__ __forceinline__ void dq_phase_a(const float* __restrict__ qtd,
                                            float* __restrict__ dots,
@@ -937,45 +980,59 @@ __device__ __forceinline__ void dq_phase_a(const float* __restrict__ qtd,
                                            const float* __restrict__ xq,
                                            const float* __restrict__ xks,
                                            int i, int nh, int hg) {
-  constexpr int KS = HD / 8;  // tf32 k-steps over the embedding
+  constexpr int KH = HD / 8 / emb_halves<HD>();  // tf32 k-steps a half
   constexpr int LDH = qt_ld<HD>();
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, cq = lane & 3;
-  uint32_t ab[KS][4], as[KS][4];  // A fragments (keys x e)
-  query_emb<HD>(xq, xks, fr, embq, ab, as);
-  const int ntiles = (nh + 7) / 8;
+  // query_args' arguments, computed here: through query_args the fp32
+  // hd-16 build allocates its registers otherwise
+  const float arg = pair_arg(xq, xks + 4 * (g + 8 * (lane & 1)));
+  const float args[2] = {__shfl_sync(0xffffffffu, arg, g * 4),
+                         __shfl_sync(0xffffffffu, arg, g * 4 + 1)};
+#pragma unroll
+  for (int hf = 0; hf < emb_halves<HD>(); ++hf) {
+    uint32_t ab[KH][4], as[KH][4];  // A fragments (keys x e)
+    query_emb<HD>(args, fr, embq, hf, ab, as);
+    const int ntiles = (nh + 7) / 8;
 #pragma unroll 1
-  for (int n = 0; n < ntiles; ++n) {
-    // B fragments (e x heads): head 8n + g
-    const float* qr = qtd + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
-    const float* dr = qr + hg * LDH;
-    // a k-step's two corrections before its big . big product, all in
-    // one accumulator (the sum runs over e = hd terms only)
-    float ea[4] = {0.f, 0.f, 0.f, 0.f}, da[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int n = 0; n < ntiles; ++n) {
+      // B fragments (e x heads): head 8n + g
+      const float* qr = qtd + min(8 * n + g, nh - 1) * LDH + i * HD + 2 * cq;
+      const float* dr = qr + hg * LDH;
+      // a k-step's two corrections before its big . big product, all in
+      // one accumulator (the sum runs over e = hd terms only)
+      float ea[4] = {0.f, 0.f, 0.f, 0.f}, da[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
-      const float2 y = *reinterpret_cast<const float2*>(dr + 8 * k);
-      uint32_t xb0, xs0, xb1, xs1, yb0, ys0, yb1, ys1;
-      tf32_split(x.x, xb0, xs0);
-      tf32_split(x.y, xb1, xs1);
-      tf32_split(y.x, yb0, ys0);
-      tf32_split(y.y, yb1, ys1);
-      hopper::mma_tf32(ea, as[k], xb0, xb1);
-      hopper::mma_tf32(ea, ab[k], xs0, xs1);
-      hopper::mma_tf32(ea, ab[k], xb0, xb1);
-      hopper::mma_tf32(da, as[k], yb0, yb1);
-      hopper::mma_tf32(da, ab[k], ys0, ys1);
-      hopper::mma_tf32(da, ab[k], yb0, yb1);
-    }
-    // element e: key g + 8 (e >> 1), head 8n + 2cq + (e & 1)
+      for (int l = 0; l < KH; ++l) {
+        const int k = emb_kstep<HD>(hf, l);
+        const float2 x = *reinterpret_cast<const float2*>(qr + 8 * k);
+        const float2 y = *reinterpret_cast<const float2*>(dr + 8 * k);
+        uint32_t xb0, xs0, xb1, xs1, yb0, ys0, yb1, ys1;
+        tf32_split(x.x, xb0, xs0);
+        tf32_split(x.y, xb1, xs1);
+        tf32_split(y.x, yb0, ys0);
+        tf32_split(y.y, yb1, ys1);
+        hopper::mma_tf32(ea, as[l], xb0, xb1);
+        hopper::mma_tf32(ea, ab[l], xs0, xs1);
+        hopper::mma_tf32(ea, ab[l], xb0, xb1);
+        hopper::mma_tf32(da, as[l], yb0, yb1);
+        hopper::mma_tf32(da, ab[l], ys0, ys1);
+        hopper::mma_tf32(da, ab[l], yb0, yb1);
+      }
+      // element e: key g + 8 (e >> 1), head 8n + 2cq + (e & 1)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = 8 * n + 2 * cq + (e & 1);
-      if (h < nh) {
-        const int slot = dot_slot(h, i, g + 8 * (e >> 1));
-        dots[slot] = ea[e];
-        dots[hg * kDqPairs + slot] = da[e];
+      for (int e = 0; e < 4; ++e) {
+        const int h = 8 * n + 2 * cq + (e & 1);
+        if (h < nh) {
+          const int slot = dot_slot(h, i, g + 8 * (e >> 1));
+          if (hf == 0) {
+            dots[slot] = ea[e];
+            dots[hg * kDqPairs + slot] = da[e];
+          } else {
+            dots[slot] += ea[e];
+            dots[hg * kDqPairs + slot] += da[e];
+          }
+        }
       }
     }
   }
@@ -1252,7 +1309,7 @@ __global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
                   const float* __restrict__ delta, int H, int L, int XF,
                   int hg, T* __restrict__ dq, float* __restrict__ dqt,
                   float* __restrict__ dqb) {
-  constexpr int E = HD, LDH = qt_ld<HD>();
+  constexpr int E = HD, LDH = qt_ld<HD>(), EQ = kDqKeys * emb_ld<HD>();
   extern __shared__ __align__(16) float smem[];
   const DqSmem<T, HD> sm(hg);
   float* qtd = smem + sm.qtd;
@@ -1319,8 +1376,8 @@ __global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
 #pragma unroll
   for (int task = 0; task < QW; ++task) {
     const int i = w + kDqWarps<T>() * task;
-    dq_phase_a<HD>(qtd, dots, embs + i * kDqKeys * 2 * E, fr, xqs + 4 * i,
-                   xks, i, nh, hg);
+    dq_phase_a<HD>(qtd, dots, embs + i * EQ, fr, xqs + 4 * i, xks, i, nh,
+                   hg);
   }
 
   for (int t = 0; t < nt; ++t) {
@@ -1338,7 +1395,7 @@ __global__ void __launch_bounds__(32 * kDqWarps<T>(), 1)
 #pragma unroll
     for (int task = 0; task < QW; ++task) {
       const int i = w + kDqWarps<T>() * task;
-      float* embq = embs + i * kDqKeys * 2 * E;
+      float* embq = embs + i * EQ;
       dq_phase_c<HD>(dots, embq, dqta[task], i, nh);
       if (next) {
         __syncwarp();  // phase C's reads of this query's slots and buffer
@@ -1376,7 +1433,7 @@ cudaError_t launch_dq(const void* q, const void* qt, const void* qb,
   if (!flash::aligned16(q, qt, k, v) || !flash::aligned16(dout, doe, dq, dqt))
     return cudaErrorMisalignedAddress;
   int groups, hg;
-  head_groups(H, kDqHeads<T>(), &groups, &hg);
+  head_groups(H, kDqHeads<T, HD>(), &groups, &hg);
   const size_t bytes = dq_smem_bytes<T, HD>(hg);
   auto kern = rel_dq_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1408,8 +1465,10 @@ cudaError_t launch_dq(const void* q, const void* qt, const void* qb,
   if (H < 0 || XF < 4) return (int)cudaErrorInvalidValue;  \
   if (HD == 16 && !bf16) return (int)CALL(float, 16);      \
   if (HD == 32 && !bf16) return (int)CALL(float, 32);      \
+  if (HD == 64 && !bf16) return (int)CALL(float, 64);      \
   if (HD == 16 && bf16) return (int)CALL(__nv_bfloat16, 16); \
   if (HD == 32 && bf16) return (int)CALL(__nv_bfloat16, 32); \
+  if (HD == 64 && bf16) return (int)CALL(__nv_bfloat16, 64); \
   return (int)cudaErrorInvalidValue
 
 extern "C" int rel_bwd_dq_launch(const void* q, const void* qt,
@@ -1451,13 +1510,15 @@ extern "C" int rel_bwd_dkv_launch(const void* q, const void* qt,
 extern "C" int rel_bwd_dq_smem_bytes(int HD, int H) {
   // the larger of a bf16 and a fp32 launch's (bf16's at 12 and 24 heads)
   int groups, hb, hf;
-  relattn::head_groups(H, relattn::kDqHeads<__nv_bfloat16>(), &groups, &hb);
-  relattn::head_groups(H, relattn::kDqHeads<float>(), &groups, &hf);
-#define SMEM(D)                                                  \
-  (int)std::max(relattn::dq_smem_bytes<__nv_bfloat16, D>(hb), \
-                relattn::dq_smem_bytes<float, D>(hf))
+#define SMEM(D)                                                            \
+  (relattn::head_groups(H, relattn::kDqHeads<__nv_bfloat16, D>(), &groups, \
+                        &hb),                                              \
+   relattn::head_groups(H, relattn::kDqHeads<float, D>(), &groups, &hf),   \
+   (int)std::max(relattn::dq_smem_bytes<__nv_bfloat16, D>(hb),             \
+                 relattn::dq_smem_bytes<float, D>(hf)))
   if (HD == 16) return SMEM(16);
   if (HD == 32) return SMEM(32);
+  if (HD == 64) return SMEM(64);
 #undef SMEM
   return 0;
 }
@@ -1465,10 +1526,11 @@ extern "C" int rel_bwd_dq_smem_bytes(int HD, int H) {
 extern "C" int rel_bwd_dkv_smem_bytes(int HD, int bf16, int H) {
   int groups, hg;
 #define SMEM(T, D)                                                    \
-  (relattn::head_groups(H, relattn::kDkvHeads<T>(), &groups, &hg),    \
+  (relattn::head_groups(H, relattn::kDkvHeads<T, D>(), &groups, &hg), \
    (int)relattn::dkv_smem_bytes<T, D>(hg))
   if (HD == 16) return bf16 ? SMEM(__nv_bfloat16, 16) : SMEM(float, 16);
   if (HD == 32) return bf16 ? SMEM(__nv_bfloat16, 32) : SMEM(float, 32);
+  if (HD == 64) return bf16 ? SMEM(__nv_bfloat16, 64) : SMEM(float, 64);
 #undef SMEM
   return 0;
 }

@@ -52,6 +52,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument(
         "--device", default="cuda", help="cuda (default) or cpu"
     )
+    parser.add_argument(
+        "--seed", type=int, default=None,
+        help="seed of the training loader's shuffle (default: none, a new "
+        "order every run)",
+    )
     return parser.parse_args(argv)
 
 
@@ -67,7 +72,8 @@ def build(args: argparse.Namespace):
             truth=TRUTH.PROMETHEUS,
             truth_table=args.truth_table,
         ),
-        train_dataloader_kwargs={"batch_size": args.batch_size},
+        train_dataloader_kwargs={"batch_size": args.batch_size,
+                                 "seed": args.seed},
         validation_dataloader_kwargs={"batch_size": args.batch_size},
     )
     model = StandardModel(

@@ -102,7 +102,7 @@ def attention_delta(g: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return (g.float() * o.float()).sum(dim=-1)
 
 
-def _bwd_plain(q, k, v, mask, lse, g, delta, scale):
+def _bwd_plain(q, k, v, mask, lse, g, delta, scale, out_dtype=None):
     dt = q.dtype
     qs = _scaled_q(q, scale)
     p = torch.exp(_masked_logits(qs, k, mask) - lse[..., None])
@@ -112,7 +112,8 @@ def _bwd_plain(q, k, v, mask, lse, g, delta, scale):
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qs.float())
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g.float())
-    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(out_dtype or dt), dk.to(out_dtype or k.dtype),
+            dv.to(out_dtype or v.dtype))
 
 
 def flash_attention_bwd_plain(
@@ -124,13 +125,16 @@ def flash_attention_bwd_plain(
     lse: torch.Tensor,
     g: torch.Tensor,
     scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` in
-    the inputs' dtypes, recomputing the probabilities from ``lse``."""
+    the inputs' dtypes, recomputing the probabilities from ``lse``.
+    ``out_dtype=torch.float32`` returns them before that last rounding
+    (the values a kernel's bf16 gradients are held to)."""
     mask = _full_mask(q, key_padding_mask)
     return _bwd_plain(
         q, k, v, mask, lse, g.to(q.dtype), attention_delta(g, o),
-        _scale(q, scale),
+        _scale(q, scale), out_dtype,
     )
 
 

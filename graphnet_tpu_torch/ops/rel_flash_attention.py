@@ -54,7 +54,7 @@ NEG = -1e5
 # tiling makes the bf16 roundings of p against the running max agree)
 KEY_TILE = 16
 # head dims the kernels are built for (the pair-feature dim equals it)
-HEAD_DIMS = (16, 32)
+HEAD_DIMS = (16, 32, 64)
 
 
 def supported(head_dim: int, pair_dim: int) -> bool:
@@ -164,12 +164,15 @@ def rel_attention_delta(do, o, doe, oe) -> torch.Tensor:
 
 
 def rel_attention_bwd_plain(
-    q, qt, qb, k, v, x0, mask, lse, do, doe, delta, tile: int = KEY_TILE
+    q, qt, qb, k, v, x0, mask, lse, do, doe, delta, tile: int = KEY_TILE,
+    out_dtype=None,
 ):
     """Plain PyTorch version of the backward kernels: ``(dq, dqt, dqb,
     dk, dv)``, dq/dk/dv in the inputs' dtypes, dqt and dqb fp32, from
     the forward's ``lse``, the output gradients ``do`` (rounded to q's
-    dtype) and ``doe`` and :func:`rel_attention_delta`."""
+    dtype) and ``doe`` and :func:`rel_attention_delta`.
+    ``out_dtype=torch.float32`` returns dq, dk and dv before their last
+    rounding (the values a kernel's bf16 gradients are held to)."""
     B, H, L, hd = q.shape
     e = qt.shape[-1]
     dt = q.dtype
@@ -197,4 +200,5 @@ def rel_attention_bwd_plain(
         dqb = dqb + ds.sum(dim=-1)
         dk[:, :, sl] = torch.matmul(ds_t.transpose(-1, -2), qf)
         dv[:, :, sl] = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
-    return dq.to(dt), dqt, dqb, dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(out_dtype or dt), dqt, dqb, dk.to(out_dtype or k.dtype),
+            dv.to(out_dtype or v.dtype))

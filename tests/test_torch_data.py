@@ -299,3 +299,23 @@ def test_training_example_on_the_cpu(tmp_path, capsys):
     assert train_dynedge.parse_args([]).device == "cuda"
     _, model = train_dynedge.build(args)
     Trainer(model).load_state_dict(str(pkl))
+
+
+def test_training_example_seed_fixes_the_shuffle():
+    """``--seed`` seeds the training loader's shuffle (none by default):
+    two datamodules built with one seed give the same batches in the same
+    order, another seed another order."""
+    from graphnet_tpu_torch.examples import train_dynedge
+
+    assert train_dynedge.parse_args([]).seed is None
+
+    def first_batches(seed):
+        dm, _ = train_dynedge.build(train_dynedge.parse_args(
+            ["--device", "cpu", "--seed", str(seed)]))
+        batches = iter(dm.train_dataloader())
+        return [next(batches).labels["total_energy"] for _ in range(3)]
+
+    a, b, c = first_batches(3), first_batches(3), first_batches(4)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not all(x.shape == y.shape and torch.equal(x, y)
+                   for x, y in zip(a, c))

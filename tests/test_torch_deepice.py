@@ -293,15 +293,15 @@ def _zoo_arguments(name):
 @pytest.mark.parametrize("name", ["B_d32", "B_d32_4rel", "B_d64"])
 def test_zoo_config_builds_and_matches_jax(name):
     """The backbone arguments of each zoo file whose options the port
-    has build the port's DeepIce unchanged (``B_d64``: head dim 64 takes
-    the dense rel path).  Narrowed to two heads and one block, the port
-    model matches the JAX model built from the same arguments (rtol
-    2e-4, as the narrow models above)."""
+    has build the port's DeepIce unchanged, each on the rel kernels (head
+    dims 32 and 64).  Narrowed to two heads and one block, the port
+    model (its rel path the plain streaming versions on the CPU) matches
+    the JAX model built from the same arguments (rtol 2e-4, as the
+    narrow models above)."""
     args = _zoo_arguments(name)
     model = DeepIce(**args)
     assert model.hidden_dim == args["hidden_dim"] and model.depth == args["depth"]
-    assert model.sandwich_0.attn.uses_rel_kernel(args["head_size"]) == (
-        args["head_size"] != 64)
+    assert model.sandwich_0.attn.uses_rel_kernel(args["head_size"])
     del model
     narrow = {**args, "hidden_dim": 2 * args["head_size"], "depth": 1}
     jbs, tbs = _batches(12, [[40, 3, 17]], length=64)
@@ -316,6 +316,7 @@ def test_zoo_config_builds_and_matches_jax(name):
         [DirectionReconstructionWithKappa(hidden_size=narrow["hidden_dim"])],
         device="cpu")
     model.load_state_dict(params_from_jax(params, model.state_dict()))
+    assert model.backbone.sandwich_0.attn.uses_rel_kernel(narrow["head_size"])
     with torch.no_grad():
         pred = model(tbs[0])[0][0]
     np.testing.assert_allclose(pred.numpy(), j_pred, rtol=2e-4, atol=2e-5)

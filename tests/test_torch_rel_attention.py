@@ -37,13 +37,14 @@ def _x0(rng, L):
     ).astype(np.float32)
 
 
-def _inputs(L, seed=0, heads=H):
+def _inputs(L, seed=0, heads=H, hd=HD):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.standard_normal((B, heads, L, HD)).astype(np.float32)
+    q, k, v, g = (rng.standard_normal((B, heads, L, hd)).astype(np.float32)
                   for _ in range(4))
-    q *= np.float32(HD ** -0.5)
-    w = (rng.standard_normal((HD, HD)) / 4).astype(np.float32)  # flax [in, out]
-    b = (rng.standard_normal(HD) * 0.1).astype(np.float32)
+    q *= np.float32(hd ** -0.5)
+    # flax [in, out]
+    w = (rng.standard_normal((hd, hd)) / np.sqrt(hd)).astype(np.float32)
+    b = (rng.standard_normal(hd) * 0.1).astype(np.float32)
     g = g.transpose(0, 2, 1, 3)  # the output's layout [B, L, H, hd]
     return q, k, v, _x0(rng, L), w, b, g
 
@@ -102,21 +103,27 @@ REFERENCES = {
 }
 
 
+_REL_CASES = [("streaming", 128), ("streaming", 100), ("dense", 100),
+              ("pallas_interpret", 128)]
+
+
 @pytest.mark.parametrize(
-    "ref,L",
-    [("streaming", 128), ("streaming", 100), ("dense", 100),
-     ("pallas_interpret", 128)],
+    "ref,L,hd",
+    [pytest.param(r, L, HD, id=f"{r}-{L}") for r, L in _REL_CASES]
+    + [pytest.param(r, L, 64, id=f"{r}-{L}-hd64")
+       for r, L in _REL_CASES + [("dense", 48)]],
 )
-def test_rel_attention_matches_jax(ref, L):
+def test_rel_attention_matches_jax(ref, L, hd):
     """Outputs and the gradients of q, k, v, W and b, rtol 2e-4 with an
     absolute floor of 2e-5 of each gradient's max.  The outputs' floor is
-    OUT_ATOL."""
-    q, k, v, x0, w, b, g = _inputs(L)
+    OUT_ATOL.  Head dims 16 and 64 (the zoo's ``B_d64``, which the
+    kernels take as well)."""
+    q, k, v, x0, w, b, g = _inputs(L, hd=hd)
     mask = _mask(L)
     out_j, grads_j = _jax_out_and_grads(REFERENCES[ref], q, k, v, x0, w, b,
                                         mask, g)
     out_t, grads_t = _port_out_and_grads(q, k, v, x0, w, b, mask, g)
-    assert out_t.shape == (B, L, H, HD) and out_t.dtype == torch.float32
+    assert out_t.shape == (B, L, H, hd) and out_t.dtype == torch.float32
     np.testing.assert_allclose(out_t.numpy(), out_j, rtol=2e-4, atol=OUT_ATOL)
     for name, got, exp in zip(("q", "k", "v", "W", "b"), grads_t, grads_j):
         np.testing.assert_allclose(
@@ -348,58 +355,75 @@ def test_rel_wrappers_take_the_plain_versions_on_the_cpu_and_check_inputs():
     with pytest.raises(ValueError, match="lse"):
         tcuda.rel_attention_bwd_dq(q, qt, qb, k, v, x0, mask, lse[0], do, doe,
                                    delta)
-    with pytest.raises(ValueError, match="head dims"):
-        tcuda._check_kernel(torch.zeros(1, 1, 4, 64))
+    for hd in (16, 32, 64):
+        tcuda._check_kernel(torch.zeros(1, 1, 4, hd))
+        tcuda._check_kernel(torch.zeros(1, 1, 4, hd, dtype=torch.bfloat16))
+    for hd in (48, 128):
+        with pytest.raises(ValueError, match="head dims"):
+            tcuda._check_kernel(torch.zeros(1, 1, 4, hd))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tcuda._check_kernel(torch.zeros(1, 1, 4, 32, dtype=torch.float16))
     # the gate: pair dim = head dim, a head dim the kernels are built for
     assert trel.supported(32, 32) and trel.supported(16, 16)
-    assert not trel.supported(32, 16) and not trel.supported(64, 64)
+    assert trel.supported(64, 64)
+    assert not trel.supported(32, 16) and not trel.supported(48, 48)
+    assert not trel.supported(128, 128)
 
 
 class _JaxRelLayer(fnn.Module):
     """AttentionRel with a SpacetimeEncoder as its relative source."""
 
     rel_flash: str
+    hd: int = HD
 
     @fnn.compact
     def __call__(self, x, x0, mask):
-        enc = JaxSpacetimeEncoder(HD, name="rel_pos")
+        enc = JaxSpacetimeEncoder(self.hd, name="rel_pos")
         return JaxAttentionRel(H, qkv_bias=True, rel_flash=self.rel_flash,
                                name="attn")(x, x, x, key_padding_mask=mask,
                                             rel_source=(enc, x0))
 
 
 class _PortRelLayer(torch.nn.Module):
-    def __init__(self, rel_flash):
+    def __init__(self, rel_flash, hd=HD):
         super().__init__()
-        self.rel_pos = SpacetimeEncoder(HD)
-        self.attn = AttentionRel(H * HD, H, qkv_bias=True, rel_flash=rel_flash)
+        self.rel_pos = SpacetimeEncoder(hd)
+        self.attn = AttentionRel(H * hd, H, qkv_bias=True, rel_flash=rel_flash)
 
     def forward(self, x, x0, mask):
         return self.attn(x, x, x, key_padding_mask=mask,
                          rel_source=(self.rel_pos, x0))
 
 
-@pytest.mark.parametrize("rel_flash", ["never", "always"])
-def test_attention_rel_layer_matches_jax(rel_flash):
+@pytest.mark.parametrize(
+    "rel_flash,hd,jax_rel_flash",
+    [pytest.param(r, HD, r, id=r) for r in ("never", "always")]
+    + [pytest.param("never", 64, "never", id="never-hd64"),
+       pytest.param("always", 64, "never", id="always-hd64")],
+)
+def test_attention_rel_layer_matches_jax(rel_flash, hd, jax_rel_flash):
     """The layer with its projections: the dense path ("never": JAX's
     single-chunk path, the port's materialised one) and the kernel path
     ("always": JAX's Pallas kernel in interpret mode, the port's plain
-    versions), output and input gradient."""
+    versions), output and input gradient, at head dims 16 and 64.  At
+    hd 64 the port's kernel path is held against JAX's dense path: on
+    these inputs JAX's Pallas kernel (interpret mode) lies 2.3e-5 of the
+    input gradient's max from JAX's own dense path, the port's plain
+    versions 3.4e-6 (measured); the core alone is held against the
+    Pallas kernel at hd 64 in ``test_rel_attention_matches_jax``."""
     L = 128
     rng = np.random.default_rng(5)
-    x = rng.standard_normal((B, L, H * HD)).astype(np.float32)
+    x = rng.standard_normal((B, L, H * hd)).astype(np.float32)
     x0, mask = _x0(rng, L), _mask(L)
-    jmod = _JaxRelLayer(rel_flash)
+    jmod = _JaxRelLayer(jax_rel_flash, hd)
     params = jax.device_get(jmod.init(jax.random.PRNGKey(0), x, x0, mask))
     params = jax.tree_util.tree_map(
         lambda a: (rng.standard_normal(a.shape)
                    * (1 / np.sqrt(a.shape[0]) if a.ndim == 2 else 0.3)
                    ).astype(np.float32), params)
-    tmod = _PortRelLayer(rel_flash)
+    tmod = _PortRelLayer(rel_flash, hd)
     tmod.load_state_dict(params_from_jax(params, tmod.state_dict()))
-    assert tmod.attn.uses_rel_kernel(HD) == (rel_flash == "always")
+    assert tmod.attn.uses_rel_kernel(hd) == (rel_flash == "always")
     gw = rng.standard_normal(x.shape).astype(np.float32)
     exp = np.asarray(jmod.apply(params, x, x0, mask))
     jg = jax.grad(lambda x: jnp.sum(jmod.apply(params, x, x0, mask) * gw))(x)
@@ -409,3 +433,36 @@ def test_attention_rel_layer_matches_jax(rel_flash):
     np.testing.assert_allclose(got.detach().numpy(), exp, rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), rtol=2e-4,
                                atol=2e-5 * np.abs(jg).max())
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+def test_plain_backwards_unrounded_round_to_their_outputs(hd):
+    """``out_dtype=torch.float32`` gives the plain backwards' bf16
+    gradients before their last rounding (what ``chip_smoke.py`` holds
+    the kernels to): rounded, they are the default outputs bit for bit;
+    dqt and dqb are fp32 either way."""
+    from graphnet_tpu_torch.ops import flash_attention_cuda as tfa
+
+    L = 40
+    q, k, v, x0, w, b, g = _inputs(L, seed=7, hd=hd)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    mask = torch.from_numpy(_mask(L))
+    qt = q.float() @ torch.from_numpy(w)
+    qb = q.float() @ torch.from_numpy(b)
+    x0 = torch.from_numpy(x0)
+    o, oe, lse = trel.rel_attention_plain(q, qt, qb, k, v, x0, mask)
+    do = torch.from_numpy(g).transpose(1, 2).to(torch.bfloat16)
+    doe = torch.randn(oe.shape, generator=torch.Generator().manual_seed(hd))
+    args = (q, qt, qb, k, v, x0, mask, lse, do, doe,
+            trel.rel_attention_delta(do, o, doe, oe))
+    rounded = trel.rel_attention_bwd_plain(*args)
+    exact = trel.rel_attention_bwd_plain(*args, out_dtype=torch.float32)
+    for r, e in zip(rounded, exact):
+        assert e.dtype == torch.float32 and torch.equal(e.to(r.dtype), r)
+    fo, flse = tfa.flash_attention_plain(q, k, v, mask)
+    rounded = tfa.flash_attention_bwd_plain(q, k, v, mask, fo, flse, do)
+    exact = tfa.flash_attention_bwd_plain(q, k, v, mask, fo, flse, do,
+                                          out_dtype=torch.float32)
+    for r, e in zip(rounded, exact):
+        assert r.dtype == torch.bfloat16 and e.dtype == torch.float32
+        assert torch.equal(e.to(torch.bfloat16), r)

@@ -46,8 +46,8 @@ B, H, L, HD = 16, 12, 768, 32
 PHASE_A = ("    dkv_phase_a<HD>(", "    if (t < 0) dkv_phase_a<HD>(", 2)
 PHASE_B = [
     ("      if (unit >= units) continue;", "      if (unit >= 0) continue;", 1),
-    ("    if (owner) {\n      const int hh = w;",
-     "    if (owner && w < 0) {\n      const int hh = w;", 1),
+    ("    if (owner) {\n      const float* ks =",
+     "    if (owner && w < 0) {\n      const float* ks =", 1),
 ]
 SINCOS = ("        float sn, cs;\n        sincosf(x, &sn, &cs);",
           "        float sn = x, cs = x * 0.5f;", 1)
