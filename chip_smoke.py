@@ -20,7 +20,13 @@ Phases, each printing one JSON line:
    spills, and at H1 = 128 and 336 its dynamic shared memory and blocks
    an SM;
 3. knn: the kNN kernel against its plain PyTorch version on the card,
-   for x, y, z (D=3) and x, y, z, t (D=4, TITO's graph);
+   for x, y, z (D=3) and x, y, z, t (D=4, TITO's graph): both centre by
+   one rule, so indices and edge masks must be identical, and two runs
+   the same bits (B=128 at L=128, events of 0, 1 and 5 nodes, B=1 at L =
+   16, 128, 512 and 1024, B=2 at L=4096, TITO's B=8 at L=1024, D=4 at
+   L=4096, integer grids with exact ties, strided views of 7 feature
+   columns, the query itself allowed, k = 1, 12 and 16, an all-masked
+   batch, and events whose centre the kernel sums serially);
 4. edgeconv: the fused EdgeConv forward kernel against its plain version
    (both layer shapes and H1=100, H2=72, add/max/mean, fp32 and bf16,
    k = 8, 1, 3, 12 and 64, events of 0, 1, 2, k and k+1 nodes at L = 48
@@ -55,7 +61,8 @@ Phases, each printing one JSON line:
    module on the CPU, which runs the plain versions.  Then the bfloat16
    mode.  serve_fused: the requests at L <= 128 again with
    ``FUSE_CONV_KNN`` on (1 kNN and 4 fused EdgeConv + kNN launches per
-   forward), fp32 and bf16;
+   forward), fp32 and bf16; with it off and on the same graphs and
+   latents, bit for bit;
 7b. train_sqlite: the training example's path
    (``graphnet_tpu_torch.examples.train_dynedge``): the bundled SQLite
    database through ``SQLiteDataset``, ``KNNGraph(Prometheus())``, the
@@ -105,12 +112,17 @@ Phases, each printing one JSON line:
    serve_deepice_d64, train_deepice_d64: the same for the zoo's DeepIce
    B_d64 at full width (hidden 768, 12 heads of 64: the rel kernels at
    head dim 64), the same requests and batch, 2 training steps;
-12. times: each kernel, its plain version and its bound (the EdgeConv
+12. times: each kernel, its plain version and its bound (the kNN at
+   B=128, L=128, at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
+   its profiled device time, the device work and host time of a call,
+   beside an empty kernel's; ``torch.profiler`` must find one device
+   kernel a kNN call there and nothing else, also on the unfused
+   route's view ``out[..., :3]``; the EdgeConv
    forward also at conv 0's H1=128 and at TITO's shape, and with the
    fused EdgeConv + kNN its profiled device time a launch; the fused
-   EdgeConv + kNN also against the forward kernel, centring and kNN
-   kernel it replaces, and the DynEdge step and request with
-   ``FUSE_CONV_KNN`` off, on, on, off); the flash
+   EdgeConv + kNN also against the forward kernel and kNN kernel it
+   replaces, and the DynEdge steps (fp32 and bf16) and
+   requests with ``FUSE_CONV_KNN`` off, on, on, off); the flash
    kernels beside the port's dense attention and
    ``F.scaled_dot_product_attention`` at TITO's B=8, H=8, Dh=32 and
    L = 128, 512 and 1024, at the DeepIce path's B=16, H=12 and L = 768
@@ -402,32 +414,39 @@ def ragged_coords(torch, rng, B, L, lo, dev, D=3):
     return x.to(dev), mask.to(dev)
 
 
-def knn_flips(torch, x, mask, ia, ma, ib, mb):
-    """Compare two kNN graphs of the same points.  ``edge_mask`` must be
-    identical; where indices differ, the chosen squared distances
-    (recomputed in fp64) must agree within 1e-5 relative: a near-tie.
-    Returns (flips, max |d2a - d2b| over the valid edges)."""
-    assert torch.equal(ma, mb), "edge_mask differs"
-    xd = x.double()
-
-    D = x.shape[-1]
-
-    def d2(i):
-        flat = i.long().reshape(i.shape[0], -1, 1).expand(-1, -1, D)
-        nb = torch.gather(xd, 1, flat).reshape(*i.shape, D)
-        return ((nb - xd[:, :, None, :]) ** 2).sum(-1)
-
-    da, db = d2(ia), d2(ib)
-    diff = torch.where(ma, (da - db).abs(), 0.0)
-    scale = torch.maximum(da.abs(), db.abs()).clamp_min(1e-30)
-    assert bool((diff <= 1e-5 * scale).all()), "kNN picks differ beyond a tie"
-    return int(((ia != ib) & ma).sum()), float(diff.max())
+def grid_events(torch, rng, dev):
+    """Two events of integer grid points in shuffled order (4 x 4 x 4 and
+    2 x 2 x 4, L=64): every distance is exact, so many ties are exact and
+    only the lower-index rule decides them."""
+    g4 = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"), -1)
+    g2 = np.stack(np.meshgrid(np.arange(2), np.arange(2), np.arange(4),
+                              indexing="ij"), -1)
+    x = np.zeros((2, 64, 3), np.float32)
+    x[0] = rng.permutation(g4.reshape(-1, 3))
+    x[1, :16] = rng.permutation(g2.reshape(-1, 3))
+    mask = np.arange(64)[None] < np.array([64, 16])[:, None]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
 
 
-def check_knn(torch, ops, rng, dev):
-    """Phase 3: the kNN kernel against its plain version, for DynEdge's
-    x, y, z (D=3) and TITO's x, y, z, t (D=4; there the two must give
-    identical indices and edge masks)."""
+def tie_centre_events(torch, rng, dev, D):
+    """Events whose centre the kernel must sum serially: event 0 holds 4,
+    3, -2.5, 2^-22 and two half-ulp terms 2^-51 (values 2^53 apart: the
+    float64 sum depends on its order, ``tests/test_torch_ops.py``'s
+    ``_tie_event``), event 1 coordinates of ~1e3 beside one of 1e-9 and
+    a subnormal, the others ragged normal ones (the parallel sum)."""
+    x, mask = ragged_coords(torch, rng, 4, 64, 32, "cpu", D=D)
+    x[0], mask[0] = 0.0, False
+    for j, v in ((0, 4.0), (1, 2.0 ** -22), (2, 2.0 ** -51), (18, 2.0 ** -51),
+                 (5, 3.0), (9, -2.5)):
+        x[0, j], mask[0, j] = v, True
+    x[1] *= 1e3
+    x[1, 3, 0], x[1, 4, D - 1] = 1e-9, 2.0 ** -140
+    mask[1, 3:5] = True
+    return x.to(dev), mask.to(dev)
+
+
+def knn_cases(torch, rng, dev):
+    """The kNN phase's cases: ``(label, coords, mask, k, exclude_self)``."""
     cases = [("B128_L128_ragged",) + ragged_coords(torch, rng, 128, 128, 64, dev)]
     x, m = ragged_coords(torch, rng, 3, 16, 16, dev)
     m[0, 1:] = False  # 1 node
@@ -445,20 +464,90 @@ def check_knn(torch, ops, rng, dev):
         torch, rng4, 8, 1024, 1024, dev, D=4))
     cases.append(("xyzt_B8_L1024_ragged",) + ragged_coords(
         torch, rng4, 8, 1024, 2, dev, D=4))
+    cases = [c + (K, True) for c in cases]
+    # one request's event at the lanes-a-query extremes, exact ties, views
+    # of wider features, the query itself allowed, other k, all masked, the
+    # serial centre, and D=4 above 48 KB of shared memory
+    r = np.random.default_rng(SEED + 12)
+    for L in (16, 128, 512):
+        cases.append((f"B1_L{L}",) + ragged_coords(torch, r, 1, L, L * 3 // 4, dev)
+                     + (K, True))
+    g = grid_events(torch, r, dev)
+    cases += [("grid_ties_k8",) + g + (K, True), ("grid_ties_k16",) + g + (16, True),
+              ("grid_ties_with_self",) + g + (K, False)]
+    wide, mw = ragged_coords(torch, r, 16, 128, 64, dev, D=7)
+    cases += [("view_0_3_of_7_columns", wide[..., 0:3], mw, K, True),
+              ("view_2_5_of_7_columns", wide[..., 2:5], mw, K, True),
+              ("xyzt_view_1_5_of_7_columns", wide[..., 1:5], mw, K, True)]
+    x, m = ragged_coords(torch, r, 8, 64, 2, dev)
+    cases += [("with_self_B8_L64", x, m, K, False), ("k1_B8_L64", x, m, 1, True),
+              ("k12_B8_L64", x, m, 12, True), ("k16_B8_L64", x, m, 16, True)]
+    x, m = ragged_coords(torch, r, 4, 32, 32, dev)
+    cases.append(("all_masked_B4_L32", x, torch.zeros_like(m), K, True))
+    for D in (3, 4):
+        cases.append((f"serial_centre_D{D}",) + tie_centre_events(torch, r, dev, D)
+                     + (3, True))
+    cases.append(("xyzt_B1_L4096",) + ragged_coords(torch, r, 1, 4096, 4000, dev, D=4)
+                 + (K, True))
+    return cases
+
+
+def chosen_d2(torch, x, idx, em):
+    """The squared distance of each chosen neighbour, recomputed in
+    float64 from the raw coordinates (0 where ``em`` is False)."""
+    xd = x.double()
+    D = x.shape[-1]
+    flat = idx.long().reshape(idx.shape[0], -1, 1).expand(-1, -1, D)
+    nb = torch.gather(xd, 1, flat).reshape(*idx.shape, D)
+    return torch.where(em, ((nb - xd[:, :, None, :]) ** 2).sum(-1), 0.0)
+
+
+def check_knn(torch, ops, rng, dev):
+    """Phase 3: the kNN kernel against its plain version on the same card
+    (both centre by one rule, so indices and edge masks must be
+    identical, for D=3 and D=4), the same bits twice.  Returns the
+    largest difference of a chosen neighbour's squared distance
+    (``chosen_d2``) between the two over all cases, and the report.  One
+    device kernel a call is asserted on the times phase's profiles
+    (``assert_one_knn_kernel``)."""
     worst, report = 0.0, []
-    for label, x, m in cases:
-        ik, mk = ops["knn"](x, m, K)
-        ip, mp = ops["knn_plain"](x, m, K)
-        assert not bool(mk[~m].any()), "an edge on an invalid query"
-        if x.shape[-1] == 4:
-            assert torch.equal(mk, mp) and torch.equal(
-                torch.where(mk, ik, -1), torch.where(mp, ip, -1)), (
-                f"{label}: the D=4 kernel's graph differs from the plain one")
-        flips, err = knn_flips(torch, x, m, ik, mk, ip, mp)
+    for label, x, m, k, self_out in knn_cases(torch, rng, dev):
+        ik, mk = ops["knn"](x, m, k, self_out)
+        again = ops["knn"](x, m, k, self_out)
+        ip, mp = ops["knn_plain"](x, m, k, self_out)
+        differ = int((mk != mp).sum()) + int(((ik != ip) & (mk | mp)).sum())
+        err = float((chosen_d2(torch, x, ik, mk)
+                     - chosen_d2(torch, x, ip, mp)).abs().max())
         worst = max(worst, err)
-        report.append({"case": label, "D": x.shape[-1], "edges": int(mk.sum()),
-                       "tie_flips": flips, "max_abs_d2_err": err})
+        assert not bool(mk[~m].any()), f"{label}: an edge on an invalid query"
+        assert differ == 0, (
+            f"{label}: the kernel's graph differs from the plain one in "
+            f"{differ} entries (max |d2| difference {err})")
+        same = torch.equal(ik, again[0]) and torch.equal(mk, again[1])
+        assert same, f"{label}: two runs differ"
+        report.append({"case": label, "B": x.shape[0], "L": x.shape[1],
+                       "D": x.shape[-1], "k": k, "exclude_self": self_out,
+                       "row_stride": x.stride(1), "edges": int(mk.sum()),
+                       "entries_differing_from_plain": differ,
+                       "max_abs_d2_err": err, "same_bits_twice": same})
     return worst, report
+
+
+def assert_one_knn_kernel(costs):
+    """Each of ``call_costs``' kNN results ``{label: costs}`` launched
+    exactly one device activity a call, the kNN kernel: no centring op,
+    no copy of the coordinates."""
+    for label, c in costs.items():
+        assert c["kernels_per_call"] == 1 and len(c["device_work"]) == 1 and (
+            "knn_kernel" in c["device_work"][0]), (
+            f"{label}: device work of a kNN call: {c['kernels_per_call']} "
+            f"activities, {c['device_work']}")
+
+
+def device_kernels(torch, fn, calls):
+    """``[(name, count)]`` of every device activity (kernels, copies,
+    memsets) over ``calls`` calls of ``fn`` (``torch.profiler``)."""
+    return [(name, count) for _, name, count in profiled_rows(torch, fn, calls)[0]]
 
 
 def tiny_events(torch, rng, B, L, dev):
@@ -770,6 +859,37 @@ def serve(torch, gpu, cpu, requests, counters, expect, dev, collate_events):
     return answers, launches, report
 
 
+def fused_graphs_equal(torch, layers, module, requests):
+    """Every request through ``module`` with ``FUSE_CONV_KNN`` off and
+    on: row 4 centres by row 1's rule and its ``out`` is row 2's bit for
+    bit (phase edgeconv_knn), so from the same latents both routes must
+    build the same graphs, and then every layer's latents agree too."""
+    report = []
+    for label, evs in requests.items():
+        runs = []
+        for on in (False, True):
+            layers.FUSE_CONV_KNN = on
+            store = []
+            handles = _record(module, store)
+            answers = module(evs)
+            for h in handles:
+                h.remove()
+            runs.append((answers, _adjacencies(store), [s[2] for s in store]))
+        layers.FUSE_CONV_KNN = False
+        (a_off, g_off, x_off), (a_on, g_on, x_on) = runs
+        for i, ((io, mo), (in_, mn)) in enumerate(zip(g_off, g_on)):
+            assert torch.equal(mo, mn) and torch.equal(
+                torch.where(mo, io, -1), torch.where(mn, in_, -1)), (
+                f"{label}: graph {i} differs with FUSE_CONV_KNN on")
+        for i, (p, q) in enumerate(zip(x_off, x_on)):
+            assert torch.equal(p, q), f"{label}: conv {i}'s latents differ"
+        report.append({"request": label, "graphs_identical": len(g_off),
+                       "latents_identical": len(x_off),
+                       "answers_identical": bool(np.array_equal(
+                           a_off, a_on, equal_nan=True))})
+    return report
+
+
 def serve_bf16(gpu16, requests, answers, counters, expect):
     """The bfloat16 serving mode: finite answers, ``expect`` launches per
     request."""
@@ -785,36 +905,111 @@ def serve_bf16(gpu16, requests, answers, counters, expect):
     return launches, report
 
 
+KNN_SHAPES = (  # label, B, L, D, shortest event: row 1's shapes on the path
+    ("B128_L128_D3", 128, 128, 3, 65),
+    ("B8_L1024_D4", TITO_B, TITO_L, 4, TITO_L),
+    ("B1_L128_D3", 1, 128, 3, 128),
+    ("B1_L512_D3", 1, 512, 3, 512),
+)
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def knn_bound(m, D, peaks):
+    """Row 1's bound: ~10 flops a valid pair (12 for D=4) against every
+    input read and output written once; ``(ms, "bytes" | "operations")``."""
+    B, L = m.shape
+    n = m.sum(1).double()
+    flops = (10.0 if D == 3 else 12.0) * float((n * n).sum())
+    nbytes = B * L * (D * 4 + 1) + B * L * K * (4 + 1)
+    t_b, t_o = nbytes / peaks["bytes"], flops / peaks["fp32"]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def host_enqueue_ms(torch, fn, calls=100):
+    """Host wall time a call of ``fn`` takes to return (CUDA work is only
+    enqueued), mean over ``calls`` calls in a row."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def launch_floor(torch, build):
+    """An empty kernel (one block of 32 threads) on the current stream:
+    its profiled device time, its time between CUDA events and the host
+    time of its launch.  Built here from ``EMPTY_KERNEL``."""
+    src = build.BUILD_DIR / "launch_floor.cu"
+    so = build.BUILD_DIR / "liblaunch_floor.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_KERNEL)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(so)).empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        assert fn(torch.cuda.current_stream().cuda_stream) == 0
+
+    return {"device_ms": kernel_device_ms(torch, call, "empty_kernel", calls=20),
+            "ms": cuda_ms(torch, call), "host_ms": host_enqueue_ms(torch, call)}
+
+
+def call_costs(torch, fn, match, calls=5):
+    """One call of ``fn`` on the card: ms between CUDA events, the
+    profiled device time of the kernel named ``match`` and of all the
+    call's device work, the device activities it launches, and its host
+    time."""
+    fn()
+    rows = device_kernels(torch, fn, calls=calls)
+    return dict(
+        ms=cuda_ms(torch, fn),
+        device_ms=kernel_device_ms(torch, fn, match),
+        device_ms_all_work=device_profile(torch, fn, calls=calls)["device_ms"]
+        / calls,
+        kernels_per_call=sum(c for _, c in rows) / calls,
+        device_work=[name[:60] for name, _ in rows],
+        host_ms=host_enqueue_ms(torch, fn),
+    )
+
+
+def knn_times(torch, knn, knn_plain, dev, peaks):
+    """Row 1 at ``KNN_SHAPES``, inputs from a fixed seed: ``call_costs``
+    of one call, its plain version's ms and its bound."""
+    times = {}
+    for label, B, L, D, lo in KNN_SHAPES:
+        x, m = ragged_coords(torch, np.random.default_rng(SEED + 5), B, L, lo,
+                             dev, D=D)
+        bound, by = knn_bound(m, D, peaks)
+        times[label] = dict(
+            **call_costs(torch, lambda: knn(x, m, K), "knn_kernel"),
+            plain_ms=cuda_ms(torch, lambda: knn_plain(x, m, K), runs=5),
+            bound_ms=bound, bound_by=by)
+    return times
+
+
 def kernel_times(torch, ops, rng, dev, peaks):
     """Phase 8a: each kernel and its plain version at the serving shape
     (B=128, L=128, k=8; EdgeConv at H1=336, H2=256 and at conv 0's
-    H1=128), and the kNN and the EdgeConv (max, H1 = H2 = 256) at TITO's
-    (B=8, L=1024, D=4), with their bounds."""
+    H1=128), the kNN also at TITO's (B=8, L=1024, D=4) and a single
+    request's (B=1, L = 128 and 512) and the EdgeConv (max, H1 = H2 =
+    256) at TITO's, with their bounds."""
     B, L, H1, H2 = 128, 128, 336, 256
     x, m = ragged_coords(torch, rng, B, L, 65, dev)
     idx, em = ops["knn"](x, m, K)
-    n = m.sum(1).double()
-    ops_knn = 10.0 * float((n * n).sum())  # ~10 flops per valid pair
-    bytes_knn = B * L * (3 * 4 + 1) + B * L * K * (4 + 1)
-    t_b, t_o = bytes_knn / peaks["bytes"], ops_knn / peaks["fp32"]
-    times = {"knn": dict(
-        ms=cuda_ms(torch, lambda: ops["knn"](x, m, K)),
-        plain_ms=cuda_ms(torch, lambda: ops["knn_plain"](x, m, K)),
-        bound_ms=max(t_b, t_o) * 1e3,
-        bound_by="bytes" if t_b >= t_o else "operations",
-    )}
-    # TITO's graph: x, y, z, t of full-length events, B=8, L=1024
+    times = {"knn": knn_times(torch, ops["knn"], ops["knn_plain"], dev, peaks)}
     x4, m4 = ragged_coords(torch, np.random.default_rng(SEED + 5), TITO_B,
                            TITO_L, TITO_L, dev, D=4)
-    n4 = m4.sum(1).double()
-    t_b = (TITO_B * TITO_L * (4 * 4 + 1) + TITO_B * TITO_L * K * 5) / peaks["bytes"]
-    t_o = 12.0 * float((n4 * n4).sum()) / peaks["fp32"]  # ~12 flops a pair
-    times["knn_xyzt_B8_L1024"] = dict(
-        ms=cuda_ms(torch, lambda: ops["knn"](x4, m4, K)),
-        plain_ms=cuda_ms(torch, lambda: ops["knn_plain"](x4, m4, K)),
-        bound_ms=max(t_b, t_o) * 1e3,
-        bound_by="bytes" if t_b >= t_o else "operations",
-    )
     # row 2 at DynEdge's layers 1-3 (H1=336), its conv 0 (H1=128) and
     # TITO's shape (max)
     graph4 = ops["knn"](x4, m4, K)
@@ -850,6 +1045,39 @@ def kernel_times(torch, ops, rng, dev, peaks):
                 bound_by="bytes" if t_b >= t_o else "operations",
             )
     return times
+
+
+def dynedge_energy_model(device, compute_dtype=None, **task):
+    """The full-width DynEdge energy model of the serving and training
+    phases (random weights until a state is loaded)."""
+    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.models.task.reconstruction import (
+        EnergyReconstruction,
+    )
+
+    return StandardModel(
+        DynEdge(nb_inputs=NB_INPUTS, compute_dtype=compute_dtype),
+        [EnergyReconstruction(hidden_size=128, **task)],
+        device=device,
+    )
+
+
+def dynedge_energy_trainable(train_tree, device, compute_dtype=None):
+    """:func:`dynedge_energy_model` with ``LogCoshLoss`` on
+    ``log10(total_energy)`` and the weights of ``train_tree`` (a JAX-layout
+    tree, :func:`trainable_tree`)."""
+    import torch
+
+    from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
+    from graphnet_tpu_torch.utils.jax_params import params_from_jax
+
+    model = dynedge_energy_model(
+        device, compute_dtype, loss_function=LogCoshLoss(),
+        target_labels=("total_energy",),
+        transform_prediction_and_target=torch.log10)
+    model.load_state_dict(params_from_jax(train_tree, model.state_dict()))
+    return model
 
 
 def trainable_tree(tree):
@@ -1402,10 +1630,11 @@ def shuffle_seed():
 
 def fused_knn_times(torch, ops, rng, dev, peaks, B=128, L=128, H1=336,
                     H2=256):
-    """Row 4 alone against row 2, then row 1 with its centring (the
-    unfused route), and its plain version, at B=128, L=128, H1=336, with
-    its bound: row 2's operations plus ~10 per valid pair of the kNN, or
-    every input read and output written once."""
+    """Row 4 alone against row 2, then row 1 on the view ``out[..., :3]``
+    (the unfused route; also that kNN call alone, ``call_costs``), and
+    its plain version, at B=128, L=128, H1=336, with its bound: row 2's
+    operations plus ~10 per valid pair of the kNN, or every input read
+    and output written once."""
     x, m = ragged_coords(torch, rng, B, L, 65, dev)
     idx, em = ops["knn"](x, m, K)
     n = m.sum(1).double()
@@ -1429,6 +1658,9 @@ def fused_knn_times(torch, ops, rng, dev, peaks, B=128, L=128, H1=336,
             return ops["knn"](out[..., :3], m, K)
 
         fused = cuda_ms(torch, lambda: ops["edgeconv_knn"](a, b, idx, em, m, w2, b2))
+        out = ops["edgeconv"](a, b, idx, em, w2, b2)
+        times[key + "_unfused_knn_of_out_view"] = call_costs(
+            torch, lambda: ops["knn"](out[..., :3], m, K), "knn_kernel")
         times[key] = dict(
             ms=fused,
             device_ms=kernel_device_ms(
@@ -1453,6 +1685,28 @@ def switch_times(torch, layers, fn, timer):
         out[f"{i}_{'on' if on else 'off'}"] = timer(fn)
     layers.FUSE_CONV_KNN = False
     return out
+
+
+def dynedge_switch_times(torch, layers, gpu, gpu16, serving, single, trainer,
+                         trainer16, batch):
+    """The DynEdge path with ``FUSE_CONV_KNN`` off, on, on, off: a
+    training step's ms (CUDA events; fp32, bf16) on ``batch``, serving
+    ``serving`` (host ms; fp32, bf16) and the single event ``single``
+    (host p50 ms, fp32)."""
+    def step(t):
+        return switch_times(torch, layers, lambda: t.train_step(batch),
+                            lambda f: cuda_ms(torch, f, runs=20))
+
+    def host(fn, runs=25):
+        return switch_times(torch, layers, fn, lambda f: 1e3 * host_s(f, runs=runs))
+
+    return {
+        "train_step_ms_fp32_B128_L128": step(trainer),
+        "train_step_ms_bf16_B128_L128": step(trainer16),
+        "serving_ms_fp32_B128_L128": host(lambda: gpu(serving)),
+        "serving_ms_bf16_B128_L128": host(lambda: gpu16(serving)),
+        "single_event_p50_ms": host(lambda: gpu(single), runs=41),
+    }
 
 
 def bwd_times(torch, ops, rng, dev, peaks, B=128, L=128,
@@ -1509,28 +1763,40 @@ def train_times(torch, trainer, batch, runs=20):
             "allocated_before_step_mb": before / 2 ** 20}
 
 
+def profiled_rows(torch, fn, calls, attempts=3):
+    """``([(device ms, name, count)], wall ms)``: the device activities
+    over ``calls`` calls of ``fn`` by ``torch.profiler``, longest first,
+    and the calls' wall time.  On the H100 (PyTorch 2.11) a session now
+    and then records no device activity at all; such a session is run
+    again, up to ``attempts`` sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            rows.append((us / 1e3, ev.key, ev.count))
+        if rows:
+            break
+    return sorted(rows, reverse=True), wall_ms
+
+
 def device_profile(torch, fn, calls=5):
     """Phase 8d: device time by kernel over ``calls`` calls of ``fn``,
     and the share of the wall time the device was idle."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        rows.append((us / 1e3, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows, wall_ms = profiled_rows(torch, fn, calls)
     device_ms = sum(r[0] for r in rows)
     return {
         "calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
@@ -2384,14 +2650,12 @@ def main() -> int:
         _dense_rel_attention,
         dense_attention,
     )
-    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
     from graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito import DynEdgeTITO
     from graphnet_tpu_torch.models.gnn.icemix import DeepIce
     from graphnet_tpu_torch.models.graphs.graph_definition import Event
     from graphnet_tpu_torch.models.standard_model import StandardModel
     from graphnet_tpu_torch.models.task.reconstruction import (
         DirectionReconstructionWithKappa,
-        EnergyReconstruction,
     )
     from graphnet_tpu_torch.ops import flash_attention_cuda as fa
     from graphnet_tpu_torch.models.components import layers
@@ -2408,10 +2672,7 @@ def main() -> int:
     from graphnet_tpu_torch.ops.knn_cuda import knn_graph_cuda
     from graphnet_tpu_torch.ops import rel_flash_attention as rp
     from graphnet_tpu_torch.ops import rel_flash_attention_cuda as rc
-    from graphnet_tpu_torch.training.loss_functions import (
-        LogCoshLoss,
-        VonMisesFisher3DLoss,
-    )
+    from graphnet_tpu_torch.training.loss_functions import VonMisesFisher3DLoss
     from graphnet_tpu_torch.training.trainer import Trainer
     from graphnet_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
 
@@ -2512,7 +2773,7 @@ def main() -> int:
     # 3. kNN kernel vs plain
     t0 = time.perf_counter()
     knn_err, report = check_knn(torch, ops, rng, dev)
-    emit({"phase": "knn", "k": K, "cases": report,
+    emit({"phase": "knn", "cases": report, "max_abs_d2_err": knn_err,
           "seconds": round(time.perf_counter() - t0, 2)})
 
     # 4. EdgeConv forward kernel vs plain
@@ -2582,13 +2843,7 @@ def main() -> int:
     with open(pkl, "wb") as f:
         pickle.dump(tree, f)
 
-    def make_model(device, compute_dtype=None, **task):
-        return StandardModel(
-            DynEdge(nb_inputs=NB_INPUTS, compute_dtype=compute_dtype),
-            [EnergyReconstruction(hidden_size=128, **task)],
-            device=device,
-        )
-
+    make_model = dynedge_energy_model
     requests = make_requests(rng, Event)
     gpu = DeploymentModule(make_model("cuda"), pkl)
     cpu = DeploymentModule(make_model("cpu"), pkl, device="cpu")
@@ -2617,7 +2872,11 @@ def main() -> int:
     launches_f16, report16 = serve_bf16(gpu16, fused_requests, fused_answers,
                                         counters, fused_fwd)
     layers.FUSE_CONV_KNN = False
+    same_graphs = {
+        "float32": fused_graphs_equal(torch, layers, gpu, fused_requests),
+        "bfloat16": fused_graphs_equal(torch, layers, gpu16, fused_requests)}
     emit({"phase": "serve_fused", "requests": report, "bf16": report16,
+          "fuse_off_on_same_graphs": same_graphs,
           "launches": {**dict(zip(names, launches_f)),
                        "forwards": len(fused_requests)},
           "launches_bf16": dict(zip(names, launches_f16)),
@@ -2642,12 +2901,7 @@ def main() -> int:
     train_tree = trainable_tree(tree)
 
     def make_trainable(device, compute_dtype=None):
-        model = make_model(
-            device, compute_dtype, loss_function=LogCoshLoss(),
-            target_labels=("total_energy",),
-            transform_prediction_and_target=torch.log10)
-        model.load_state_dict(params_from_jax(train_tree, model.state_dict()))
-        return model
+        return dynedge_energy_trainable(train_tree, device, compute_dtype)
 
     t0 = time.perf_counter()
     batch = synthetic_batch(make_batch, np.random.default_rng(SEED))
@@ -2888,6 +3142,8 @@ def main() -> int:
     times = kernel_times(torch, ops, rng, dev, peaks)
     times_bwd = bwd_times(torch, ops, rng, dev, peaks)
     times_fused = fused_knn_times(torch, ops, rng, dev, peaks)
+    assert_one_knn_kernel({**times["knn"], **{
+        key: t for key, t in times_fused.items() if key.endswith("_knn_of_out_view")}})
     serving = requests["b128_L128"]
     single = requests["one_event"]
     on_card = batch.to(dev)
@@ -2949,17 +3205,10 @@ def main() -> int:
         "profile_train_fp32_B128_L128": device_profile(
             torch, lambda: trainer.train_step(on_card)),
         "edgeconv_knn_B128_L128_H1_336": times_fused,
-        "fused_switch_off_on_on_off": {
-            "train_step_ms_fp32_B128_L128": switch_times(
-                torch, layers, lambda: trainer.train_step(on_card),
-                lambda f: cuda_ms(torch, f, runs=20)),
-            "serving_ms_fp32_B128_L128": switch_times(
-                torch, layers, lambda: gpu(serving),
-                lambda f: 1e3 * host_s(f)),
-            "serving_ms_bf16_B128_L128": switch_times(
-                torch, layers, lambda: gpu16(serving),
-                lambda f: 1e3 * host_s(f)),
-        },
+        "launch_floor": launch_floor(torch, build),
+        "fused_switch_off_on_on_off": dynedge_switch_times(
+            torch, layers, gpu, gpu16, serving, single, trainer, trainer16,
+            on_card),
         "flash": flash,
         "tito_serving_B8_L1024": {
             "fp32_events_per_s": TITO_B / host_s(lambda: tito_gpu(tito_serving)),
@@ -2991,18 +3240,24 @@ def main() -> int:
 
     # 9. the kernels line
     bwd32, bwd16 = times_bwd["H1_336_float32"], times_bwd["H1_336_bfloat16"]
+
+    def row1(shape):
+        t = times["knn"][shape]
+        return {key: t[key] for key in (
+            "ms", "device_ms", "kernels_per_call", "host_ms", "plain_ms",
+            "bound_ms", "bound_by")}
+
     kernels = [
         dict(name="knn", row="1", route="cuda",
              source="graphnet_tpu_torch/csrc/knn.cu",
              replaces="graphnet_tpu/ops/knn_pallas.py:35",
              launches=launches[0], launches_per="DynEdge forward: 5 (D=3)",
-             max_abs_err=knn_err, **times["knn"], library_ms=None),
+             max_abs_err=knn_err, **row1("B128_L128_D3"), library_ms=None),
         dict(name="knn_xyzt", row="1", route="cuda",
              source="graphnet_tpu_torch/csrc/knn.cu",
              replaces="graphnet_tpu/ops/knn_pallas.py:35",
              launches=launches_s[0], launches_per="TITO forward: 1 (D=4)",
-             max_abs_err=knn_err, **times["knn_xyzt_B8_L1024"],
-             library_ms=None),
+             max_abs_err=knn_err, **row1("B8_L1024_D4"), library_ms=None),
         dict(name="edgeconv_fwd", row="2", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:66",

@@ -2,30 +2,77 @@
 //
 // Replaces the TPU kernel graphnet_tpu/ops/knn_pallas.py:_knn_kernel.
 // Same contract: squared distances |q|^2 + |k|^2 - 2 q.k on coordinates
-// already centred per event (the wrapper centres them, as the TPU
-// wrapper does), clamped at 0; invalid keys and, with exclude_self, the
-// query itself are never chosen; k nearest in ascending distance with
-// ties to the lower key index; edge_mask = "a real key was chosen" and
-// the query is valid.
+// centred per event, clamped at 0; invalid keys and, with exclude_self,
+// the query itself are never chosen; k nearest in ascending distance
+// with ties to the lower key index; edge_mask = "a real key was chosen"
+// and the query is valid.  D is 3 (DynEdge's xyz) or 4 (TITO's xyzt) and
+// k is 1-16, both template parameters.
 //
-// D is 3 (DynEdge's xyz) or 4 (TITO's xyzt), a template parameter like k.
-//
-// What bounds it on the H100: neither bytes nor FLOPs. At the serving
+// What bounds it on the H100: neither bytes nor FLOPs.  At the serving
 // shape (B=128, L=128, k=8, D=3) it reads 0.2 MB, writes 0.65 MB and
-// does ~20 M flops, so the floor is launch latency (a few us).  The
-// design keeps everything on chip and in one pass: one block per
-// (event, tile of queries), one thread per query, the event's key
-// coordinates streamed through shared memory in tiles of 256 (so any L
-// the buckets give, up to 4096, fits without the >48 KB opt-in), and a
-// sorted top-k kept in registers (k is a template parameter, so the
-// insertion network is unrolled and never spills to local memory).
-// Keys are scanned in ascending index order and a key is inserted only
-// when strictly closer than the current k-th, which reproduces the
-// lower-index tie rule of top_k.  Distances use the non-fused
-// __fmul_rn/__fadd_rn intrinsics in the same order as the plain PyTorch
-// version, so both give bit-identical distances and the same neighbours.
-// The distance and the insertion live in knn.cuh, which edgeconv_knn.cu
-// shares.
+// does ~20 M flops, a bound of ~0.3 us, below a launch's own latency.  So
+// the design is about the call: one launch and nothing else on the
+// device, and a grid that fills the card even for one event.
+//
+// One launch.  The kernel reads the raw coordinates where they lie: a
+// [B, L, D] float32 view whose last dimension has stride 1 (the xyz
+// columns of a wider feature tensor, say), given its batch and row
+// strides, and the [B, L] mask with its batch stride.  It centres them
+// itself, so the wrapper runs no centring ops and copies nothing.
+//
+// The centring rule (row 4's, csrc/edgeconv_knn.cu, and the plain
+// version's, ops/knn.py:event_centre): the centre is the
+// float64 sum of the valid nodes' coordinates in index order, divided by
+// their count (at least 1) and rounded once to float32; each coordinate
+// is centred by one float32 subtraction.  The fused and the unfused
+// DynEdge routes therefore pick the same neighbours from the same
+// latents.  The serial sum is ~L dependent float64 adds (several us at
+// L=1024), so a block sums in parallel wherever that gives the same
+// bits, and serially only where it might not:
+//   A finite float32 x != 0 with biased exponent e is a multiple of
+//   2^(max(e,1) - 150) and |x| < 2^(max(e,1) - 126).  Let lo and hi be
+//   the least and greatest max(e,1) over one coordinate's valid non-zero
+//   values and n the count of valid nodes.  Every sum of a subset of
+//   them is then a multiple of 2^(lo - 150) below n * 2^(hi - 126) in
+//   magnitude: an integer multiple m of 2^(lo - 150) with
+//   |m| < 2^(ceil(log2 n) + hi - lo + 24).  If ceil(log2 n) + hi - lo +
+//   24 <= 53, every such sum is a float64, so every float64 addition of
+//   any order is exact and all orders give the exact sum, the serial one
+//   included.  (+0.0 is added last: the serial sum, which starts at
+//   +0.0, never yields -0.0.)  Otherwise, or with an inf or NaN (e =
+//   255), D threads add the coordinates in index order.  Detector
+//   coordinates and latents pass the test; the chip check holds both
+//   paths against the plain version.
+//
+// Filling the card.  A block of up to 256 threads holds its whole event
+// in shared memory (at most 8192 nodes: 16 bytes a node for D=3, 20 for
+// D=4, above 48 KB through the opt-in) and serves 256/S of its queries;
+// the grid is (event, query tile).  Whole events, not tiles of keys: the
+// centre needs every node before any distance, and one pass over the
+// event then stages it once.  Each query's keys are split across S lanes
+// of a warp, strided (lane s takes keys s, s+S, ...); S, a power of two
+// up to 32, is chosen from B*L so that B*L*S lanes come to 64 x 1024
+// (B=128, L=128: 4; B=8, L=1024: 8; one event of 512 nodes: 32) while
+// each lane keeps at least 8 keys.  S is a run-time argument: it sets
+// only loop bounds and the merge's rounds, and as a template parameter
+// it would multiply the 32 instantiations by six.
+//
+// Each lane keeps its own sorted top-k in registers (knn.cuh's
+// topk_insert, keys in ascending index order, so ties stay with the
+// lower index), then the S lists are merged by warp shuffles in log2(S)
+// butterfly rounds: two sorted lists, padded to a power of two P >= k,
+// are merged by the elementwise minimum of one and the other reversed (a
+// bitonic sequence holding the P smallest) and a bitonic half-cleaner
+// network, all on registers.  Strided keys interleave the lanes'
+// indices, so the merge compares (distance, index) pairs; both partners
+// end with the same list.  A key is one 16-byte shared-memory read for
+// D=3, (cx, cy, cz, |c|^2), and a 16-byte plus a 4-byte read for D=4; an
+// invalid key has coordinates 0 and |c|^2 = +inf, so its distance is
+// +inf and it is never inserted.  Keys past the event's last valid node
+// are not scanned, and a lane of an invalid query scans nothing.
+// Distances use the non-fused __fmul_rn/__fadd_rn intrinsics of knn.cuh
+// in the plain version's order, so both give bit-identical distances and
+// the same neighbours.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,30 +81,207 @@
 
 namespace {
 
-constexpr int kKeyTile = 256;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxL = 8192;
+constexpr int kTargetLanes = 64 * 1024;
+constexpr int kMinKeysPerLane = 8;
+
+__host__ __device__ constexpr int pow2_at_least(int k) {
+  int p = 1;
+  while (p < k) p *= 2;
+  return p;
+}
+
+// (d1, i1) before (d2, i2): by distance, then by key index
+__device__ __forceinline__ bool before(float d1, int i1, float d2, int i2) {
+  return d1 < d2 || (d1 == d2 && i1 < i2);
+}
+
+// Merge the sorted list (bd, bi) with lane (lane ^ o)'s into the K first
+// (distance, index) pairs of both, on both lanes.
+template <int K>
+__device__ __forceinline__ void merge_lists(float (&bd)[K], int (&bi)[K],
+                                            int o) {
+  constexpr int P = pow2_at_least(K);
+  float od[K];
+  int oi[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    od[i] = __shfl_xor_sync(0xffffffffu, bd[i], o);
+    oi[i] = __shfl_xor_sync(0xffffffffu, bi[i], o);
+  }
+  float md[P];
+  int mi[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int r = P - 1 - i;
+    const float ad = i < K ? bd[i] : __int_as_float(0x7f800000);
+    const int ai = i < K ? bi[i] : 0x7fffffff;
+    const float cd = r < K ? od[r] : __int_as_float(0x7f800000);
+    const int ci = r < K ? oi[r] : 0x7fffffff;
+    const bool a = before(ad, ai, cd, ci);
+    md[i] = a ? ad : cd;
+    mi[i] = a ? ai : ci;
+  }
+#pragma unroll
+  for (int w = P / 2; w > 0; w /= 2) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if ((i & w) == 0 && before(md[i + w], mi[i + w], md[i], mi[i])) {
+        const float td = md[i];
+        const int ti = mi[i];
+        md[i] = md[i + w];
+        mi[i] = mi[i + w];
+        md[i + w] = td;
+        mi[i + w] = ti;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    bd[i] = md[i];
+    bi[i] = mi[i];
+  }
+}
+
+// max(biased exponent, 1) of a non-zero float
+__device__ __forceinline__ int exponent_of(float x) {
+  return max((int)((__float_as_uint(x) >> 23) & 0xffu), 1);
+}
 
 template <int K, int D>
-__global__ void knn_kernel(const float* __restrict__ coords,    // [B, L, D]
-                           const uint8_t* __restrict__ mask,    // [B, L]
-                           int L, int exclude_self,
-                           int32_t* __restrict__ idx_out,       // [B, L, K]
-                           uint8_t* __restrict__ em_out) {      // [B, L, K]
-  __shared__ float sc[kKeyTile][D];
-  __shared__ float ssq[kKeyTile];
-  __shared__ uint8_t sval[kKeyTile];
+__global__ void __launch_bounds__(kThreads)
+knn_kernel(const float* __restrict__ coords, long long sb, long long sl,
+           const uint8_t* __restrict__ mask, long long mb, int L, int tiles,
+           int S, int exclude_self, int32_t* __restrict__ idx_out,
+           uint8_t* __restrict__ em_out) {
+  extern __shared__ float4 key[];  // [L] (cx, cy, cz, |c|^2 | ct)
+  float* ksq = reinterpret_cast<float*>(key + L);  // [L] |c|^2, D=4 only
+  __shared__ double s_sum[kWarps][D];
+  __shared__ int s_n[kWarps], s_last[kWarps], s_lo[kWarps][D],
+      s_hi[kWarps][D];
+  __shared__ float s_centre[D];
 
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* ev = coords + (size_t)b * L * D;
-  const uint8_t* m = mask + (size_t)b * L;
-  const bool active = q < L;
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const float* ev = coords + b * sb;
+  const uint8_t* m = mask + b * mb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
 
-  float qc[D];
-  float qsq = 0.f;
+  // 1. the raw event into shared memory (validity in the |c|^2 slot),
+  // each thread's float64 sums, count, exponent range and last valid node
+  double sum[D];
+  int lo[D], hi[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qc[d] = active ? ev[q * D + d] : 0.f;
-  if (active) qsq = dot_rn<D>(qc, qc);
+  for (int d = 0; d < D; ++d) {
+    sum[d] = 0.0;
+    lo[d] = 255;
+    hi[d] = 0;
+  }
+  int n = 0, last = -1;
+  for (int j = tid; j < L; j += blockDim.x) {
+    const bool v = m[j] != 0;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < D; ++d) c[d] = __ldg(ev + j * sl + d);
+    if (v) {
+      ++n;
+      last = j;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        sum[d] += (double)c[d];
+        if (c[d] != 0.f) {
+          const int e = exponent_of(c[d]);
+          lo[d] = min(lo[d], e);
+          hi[d] = max(hi[d], e);
+        }
+      }
+    }
+    const float flag = v ? 1.f : 0.f;
+    if constexpr (D == 3) {
+      key[j] = make_float4(c[0], c[1], c[2], flag);
+    } else {
+      key[j] = make_float4(c[0], c[1], c[2], c[3]);
+      ksq[j] = flag;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      sum[d] += __shfl_xor_sync(0xffffffffu, sum[d], o);
+      lo[d] = min(lo[d], __shfl_xor_sync(0xffffffffu, lo[d], o));
+      hi[d] = max(hi[d], __shfl_xor_sync(0xffffffffu, hi[d], o));
+    }
+    n += __shfl_xor_sync(0xffffffffu, n, o);
+    last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      s_sum[warp][d] = sum[d];
+      s_lo[warp][d] = lo[d];
+      s_hi[warp][d] = hi[d];
+    }
+    s_n[warp] = n;
+    s_last[warp] = last;
+  }
+  __syncthreads();
 
+  // 2. the centre (the note's rule), then the event centred in place
+  n = 0;
+  last = -1;
+  for (int w = 0; w < nwarps; ++w) {
+    n += s_n[w];
+    last = max(last, s_last[w]);
+  }
+  const int nk = last + 1;  // keys past the last valid node are not scanned
+  if (tid < D) {
+    const int d = tid;
+    double s = 0.0;
+    int l = 255, h = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      s += s_sum[w][d];
+      l = min(l, s_lo[w][d]);
+      h = max(h, s_hi[w][d]);
+    }
+    const int clog = n > 1 ? 32 - __clz(n - 1) : 0;
+    if (h < 255 && h - l + 24 + clog <= 53) {
+      s += 0.0;
+    } else {
+      s = 0.0;
+      const float* raw = reinterpret_cast<const float*>(key);
+      for (int j = 0; j < nk; ++j) {
+        const float flag = D == 3 ? raw[4 * j + 3] : ksq[j];
+        if (flag != 0.f) s += (double)raw[4 * j + d];
+      }
+    }
+    s_centre[d] = (float)(s / (double)max(n, 1));
+  }
+  __syncthreads();
+  for (int j = tid; j < nk; j += blockDim.x) {
+    const float4 r = key[j];
+    const float raw[4] = {r.x, r.y, r.z, r.w};
+    const bool v = (D == 3 ? r.w : ksq[j]) != 0.f;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < D; ++d) c[d] = v ? __fsub_rn(raw[d], s_centre[d]) : 0.f;
+    const float sq = v ? dot_rn<D>(c, c) : __int_as_float(0x7f800000);
+    if constexpr (D == 3) {
+      key[j] = make_float4(c[0], c[1], c[2], sq);
+    } else {
+      key[j] = make_float4(c[0], c[1], c[2], c[3]);
+      ksq[j] = sq;
+    }
+  }
+  __syncthreads();
+
+  // 3. each lane's top K over its share of the keys
+  const int slot = tid / S, s = tid - slot * S;
+  const int q = tile * (blockDim.x / S) + slot;
+  const bool qvalid = q < L && m[q] != 0;
   float bd[K];
   int bi[K];
 #pragma unroll
@@ -65,60 +289,75 @@ __global__ void knn_kernel(const float* __restrict__ coords,    // [B, L, D]
     bd[i] = kBig;
     bi[i] = 0;
   }
-
-  for (int t0 = 0; t0 < L; t0 += kKeyTile) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < kKeyTile; j += blockDim.x) {
-      const int g = t0 + j;
-      if (g < L) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) sc[j][d] = ev[g * D + d];
-        ssq[j] = dot_rn<D>(sc[j], sc[j]);
-        sval[j] = m[g];
-      } else {
-        sval[j] = 0;
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-    const int n = min(kKeyTile, L - t0);
-    for (int j = 0; j < n; ++j) {
-      if (!sval[j] || (exclude_self && t0 + j == q)) continue;
-      topk_insert<K>(bd, bi, sq_dist(qsq, ssq[j], dot_rn<D>(qc, sc[j])),
-                     t0 + j);
+  if (qvalid) {
+    const float4 qv = key[q];
+    const float qc[4] = {qv.x, qv.y, qv.z, qv.w};
+    const float qsq = D == 3 ? qv.w : ksq[q];
+    const int self = exclude_self ? q : -1;
+    for (int j = s; j < nk; j += S) {
+      const float4 kv = key[j];
+      const float kc[4] = {kv.x, kv.y, kv.z, kv.w};
+      const float d = sq_dist(qsq, D == 3 ? kv.w : ksq[j], dot_rn<D>(qc, kc));
+      if (j != self) topk_insert<K>(bd, bi, d, j);
     }
   }
 
-  if (active) {
-    const bool qvalid = m[q] != 0;
-    const size_t o = ((size_t)b * L + q) * K;
+  // 4. the S lists merged, and written by the S lanes in turn
+  for (int o = 1; o < S; o <<= 1) merge_lists<K>(bd, bi, o);
+  if (q < L) {
+    const size_t base = ((size_t)b * L + q) * K;
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      idx_out[o + i] = bi[i];
-      em_out[o + i] = (qvalid && bd[i] < kBig * 0.5f) ? 1 : 0;
+      if ((i & (S - 1)) == s) {
+        idx_out[base + i] = bi[i];
+        em_out[base + i] = (qvalid && bd[i] < kBig * 0.5f) ? 1 : 0;
+      }
     }
   }
 }
 
+// Lanes a query: the smallest power of two S <= 32 with B*L*S >=
+// kTargetLanes, at most L / kMinKeysPerLane (and at least 1).
+int lanes_per_query(int B, int L) {
+  int s = 1;
+  const long long queries = (long long)B * L;
+  while (s < 32 && queries * s < kTargetLanes &&
+         2 * s * kMinKeysPerLane <= L) {
+    s *= 2;
+  }
+  return s;
+}
+
 template <int K, int D>
-cudaError_t launch(const float* coords, const uint8_t* mask, int B, int L,
+cudaError_t launch(const float* coords, long long sb, long long sl,
+                   const uint8_t* mask, long long mb, int B, int L,
                    int exclude_self, int32_t* idx, uint8_t* em,
                    cudaStream_t stream) {
-  const int threads = L >= 128 ? 128 : ((L + 31) / 32) * 32;
-  dim3 grid((L + threads - 1) / threads, B);
-  knn_kernel<K, D><<<grid, threads, 0, stream>>>(coords, mask, L,
-                                                  exclude_self, idx, em);
+  const int S = lanes_per_query(B, L);
+  const long long lanes = ((long long)L * S + 31) / 32 * 32;
+  const int threads = lanes < kThreads ? (int)lanes : kThreads;
+  const int tiles = (L + threads / S - 1) / (threads / S);
+  const size_t bytes = (size_t)L * (D == 3 ? 16 : 20);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_kernel<K, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  knn_kernel<K, D><<<(unsigned)B * tiles, threads, bytes, stream>>>(
+      coords, sb, sl, mask, mb, L, tiles, S, exclude_self, idx, em);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_k(const float* x, const uint8_t* m, int B, int L, int k,
+cudaError_t launch_k(const float* x, long long sb, long long sl,
+                     const uint8_t* m, long long mb, int B, int L, int k,
                      int exclude_self, int32_t* i, uint8_t* e,
                      cudaStream_t s) {
   switch (k) {
 #define KNN_CASE(K) \
   case K:           \
-    return launch<K, D>(x, m, B, L, exclude_self, i, e, s);
+    return launch<K, D>(x, sb, sl, m, mb, B, L, exclude_self, i, e, s);
     KNN_CASE(1) KNN_CASE(2) KNN_CASE(3) KNN_CASE(4)
     KNN_CASE(5) KNN_CASE(6) KNN_CASE(7) KNN_CASE(8)
     KNN_CASE(9) KNN_CASE(10) KNN_CASE(11) KNN_CASE(12)
@@ -131,16 +370,33 @@ cudaError_t launch_k(const float* x, const uint8_t* m, int B, int L, int k,
 
 }  // namespace
 
-extern "C" int knn_graph_launch(const void* coords, const void* mask, int B,
-                                int L, int D, int k, int exclude_self,
-                                void* idx, void* em, void* stream) {
+// One kNN graph launch on `stream` of CUDA device `device` (made current
+// for the launch if it is not).  coords: float32 [B, L, D] with element
+// strides (sb, sl, 1); mask: bool [B, L] with strides (mb, 1); idx int32
+// and em bool [B, L, k], contiguous.  Returns the CUDA error code.
+extern "C" int knn_graph_launch(const void* coords, long long sb,
+                                long long sl, const void* mask, long long mb,
+                                int B, int L, int D, int k, int exclude_self,
+                                void* idx, void* em, int device,
+                                void* stream) {
+  if (B == 0 || L == 0) return 0;
+  if (L > kMaxL) return (int)cudaErrorInvalidValue;
+  int current = device;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   const float* x = static_cast<const float*>(coords);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   int32_t* i = static_cast<int32_t*>(idx);
   uint8_t* e = static_cast<uint8_t*>(em);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || L == 0) return 0;
-  if (D == 3) return (int)launch_k<3>(x, m, B, L, k, exclude_self, i, e, s);
-  if (D == 4) return (int)launch_k<4>(x, m, B, L, k, exclude_self, i, e, s);
-  return (int)cudaErrorInvalidValue;
+  if (D == 3) {
+    err = launch_k<3>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s);
+  } else if (D == 4) {
+    err = launch_k<4>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
 }

@@ -35,7 +35,7 @@ from graphnet_tpu_torch.ops.flash_attention_cuda import (
 )
 from graphnet_tpu_torch.ops.gather_reduce import edge_reduce, gather_neighbors
 from graphnet_tpu_torch.ops.gelu import gelu_exact
-from graphnet_tpu_torch.ops.knn import knn_graph
+from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
 from graphnet_tpu_torch.ops.rel_flash_attention import (
     supported as rel_supported,
 )
@@ -341,7 +341,8 @@ class DynEdgeConv(nn.Module):
             return res
         x = res
         new_idx, new_edge_mask = knn_graph(
-            x[..., self.features_subset], mask, k=self.nb_neighbors
+            coordinate_view(x, self.features_subset), mask,
+            k=self.nb_neighbors,
         )
         return x, new_idx, new_edge_mask
 

@@ -23,7 +23,7 @@ from graphnet_tpu_torch.ops.gather_reduce import (
     homophily,
     masked_mean,
 )
-from graphnet_tpu_torch.ops.knn import knn_graph
+from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
 
 DEFAULT_DYNEDGE_LAYER_SIZES: Tuple[Tuple[int, ...], ...] = (
     (128, 256),
@@ -146,7 +146,8 @@ class DynEdge(GNN):
             idx, edge_mask = batch.edges, batch.edge_mask
         else:
             idx, edge_mask = knn_graph(
-                x[..., self.features_subset], mask, k=self.nb_neighbours
+                coordinate_view(x, self.features_subset), mask,
+                k=self.nb_neighbours,
             )
 
         global_variables = self._global_variables(

@@ -23,7 +23,7 @@ from graphnet_tpu_torch.ops.gather_reduce import (
     homophily,
     masked_mean,
 )
-from graphnet_tpu_torch.ops.knn import knn_graph
+from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
 
 
 class DynEdgeTITO(GNN):
@@ -110,7 +110,8 @@ class DynEdgeTITO(GNN):
             idx, edge_mask = batch.edges, batch.edge_mask
         else:
             idx, edge_mask = knn_graph(
-                x[..., self.features_subset], mask, k=self.nb_neighbours
+                coordinate_view(x, self.features_subset), mask,
+                k=self.nb_neighbours,
             )
 
         if self.use_global_features:

@@ -9,7 +9,7 @@ from typing import Tuple
 
 import torch
 
-from graphnet_tpu_torch.ops.knn import knn_graph
+from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
 
 
 @dataclass(frozen=True)
@@ -31,5 +31,6 @@ class KNNEdges(EdgeDefinition):
 
     def build(self, x, mask):
         return knn_graph(
-            x[..., list(self.columns)], mask, k=self.nb_nearest_neighbours
+            coordinate_view(x, self.columns), mask,
+            k=self.nb_nearest_neighbours,
         )

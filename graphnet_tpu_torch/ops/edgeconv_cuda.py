@@ -37,11 +37,7 @@ from torch.autograd.function import once_differentiable
 
 from graphnet_tpu_torch.ops.flash_attention_cuda import aligned16
 from graphnet_tpu_torch.ops.gather_reduce import gather_neighbors
-from graphnet_tpu_torch.ops.knn import (
-    centre_coords_sequential,
-    select_knn,
-    sq_dists,
-)
+from graphnet_tpu_torch.ops.knn import knn_graph_plain
 
 _NAME = "edgeconv"
 _BWD_NAME = "edgeconv_bwd"
@@ -109,7 +105,7 @@ def fused_edgeconv_knn_plain(
     :func:`fused_edgeconv_plain`, then the ``knn_k`` nearest valid nodes
     of each node over ``out[..., sub_lo:sub_hi]``, centred in the
     kernel's fixed order (:func:`~graphnet_tpu_torch.ops.knn.
-    centre_coords_sequential`).  Returns ``(out, nidx, nem)``."""
+    event_centre`).  Returns ``(out, nidx, nem)``."""
     out = fused_edgeconv_plain(a, b, idx, edge_mask, w2, b2, aggr, slope)
     return (out,) + output_knn_plain(out, nmask, knn_k, sub_lo, sub_hi)
 
@@ -123,11 +119,10 @@ def output_knn_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kNN half of :func:`fused_edgeconv_knn_plain`: ``(nidx, nem)``
     of the ``knn_k`` nearest valid nodes over ``out[..., sub_lo:sub_hi]``,
-    centred in the kernel's order.  Given the kernel's ``out`` it gives
-    the kernel's neighbours, bit for bit."""
+    centred in the kernel's order: ``knn_graph_plain``'s graph.  Given
+    the kernel's ``out`` it gives the kernel's neighbours, bit for bit."""
     with torch.no_grad():
-        c = centre_coords_sequential(out[..., sub_lo:sub_hi], nmask)
-        return select_knn(sq_dists(c, nmask), nmask, knn_k)
+        return knn_graph_plain(out[..., sub_lo:sub_hi], nmask, knn_k)
 
 
 def fused_edgeconv_bwd_plain(

@@ -5,7 +5,9 @@ Semantics of the JAX package (``torch_cluster.knn_graph(loop=False)``):
 self-edges excluded, ties broken toward the lower index, coordinates
 centred per event before the ``|a|^2 + |b|^2 - 2ab`` expansion, and
 events with fewer than ``k + 1`` valid nodes reporting the missing
-neighbours through ``edge_mask``.
+neighbours through ``edge_mask``.  The centre is summed in float64 in
+index order (:func:`event_centre`), a rule the kernels follow bit for
+bit.
 
 A tensor on the CPU takes the plain PyTorch path; a CUDA tensor takes
 the CUDA kernel (:mod:`graphnet_tpu_torch.ops.knn_cuda`).
@@ -13,36 +15,39 @@ the CUDA kernel (:mod:`graphnet_tpu_torch.ops.knn_cuda`).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 BIG = 1e30
 
 
-def centre_coords(coords: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Subtract each event's mean over its valid nodes (neighbour ranking
-    is translation invariant; centring cuts fp32 cancellation)."""
-    denom = mask.sum(dim=1, keepdim=True).clamp_min(1)  # [B, 1]
-    centre = torch.where(mask[..., None], coords, 0.0).sum(dim=1) / denom
-    return coords - centre[:, None, :]
+def event_centre(coords: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``[B, L, D], [B, L] -> [B, D]`` float32 centre of each event: the
+    sum of the valid nodes' coordinates in index order in float64,
+    divided by their count (at least 1) and rounded once to float32.  A
+    fixed order, which the kNN kernels (``csrc/knn.cu``, and the fused
+    EdgeConv + kNN ``csrc/edgeconv_knn.cu``) follow, so all get the same
+    bits on any device.
 
-
-def centre_coords_sequential(
-    coords: torch.Tensor, mask: torch.Tensor
-) -> torch.Tensor:
-    """:func:`centre_coords` with the centre summed over the valid nodes
-    in index order in float64, divided by their count (at least 1) and
-    rounded once to float32: a fixed order, which the fused EdgeConv +
-    kNN kernel (``csrc/edgeconv_knn.cu``) follows, so both get the same
-    bits on any device."""
-    c = coords.float()
-    s = torch.zeros(c.shape[0], c.shape[2], dtype=torch.float64,
-                    device=c.device)
-    for j in range(c.shape[1]):
-        s = s + torch.where(mask[:, j, None], c[:, j].double(), 0.0)
-    n = mask.sum(dim=1, keepdim=True).clamp_min(1).double()
-    return c - (s / n).float()[:, None, :]
+    As ``csrc/knn.cu`` (its note proves it), a coordinate whose valid
+    non-zero values pass the exponent test is summed in one vectorised
+    float64 sum, every addition of which is exact, so any order gives
+    the serial sum's bits; the others take the serial sum, a float64
+    ``cumsum`` on the CPU (a scan in index order there)."""
+    c = torch.where(mask[..., None], coords.float(), 0.0)
+    n = mask.sum(dim=1, keepdim=True).clamp_min(1)
+    e = ((c.view(torch.int32) >> 23) & 0xFF).clamp_min(1)
+    nz = c != 0
+    lo = torch.where(nz, e, 255).amin(dim=1)
+    hi = torch.where(nz, e, 0).amax(dim=1)
+    clog = torch.log2(n.double()).ceil().long()  # exact for n <= 2^52
+    exact = (hi < 255) & (hi - lo + 24 + clog <= 53)
+    s = c.double().sum(dim=1) + 0.0
+    if not bool(exact.all()):
+        serial = c.double().cpu().cumsum(dim=1)[:, -1].to(c.device)
+        s = torch.where(exact, s, serial)
+    return (s / n.double()).float()
 
 
 def sq_dists(c: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -66,8 +71,11 @@ def sq_dists(c: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def pairwise_sq_dists(coords: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``[B, L, D], [B, L] -> [B, L, L]`` squared distances after
-    :func:`centre_coords`; pairs with an invalid node get ``BIG``."""
-    return sq_dists(centre_coords(coords.float(), mask), mask)
+    subtracting each event's :func:`event_centre` in float32 (neighbour
+    ranking is translation invariant; centring cuts fp32 cancellation);
+    pairs with an invalid node get ``BIG``."""
+    c = coords.float() - event_centre(coords, mask)[:, None, :]
+    return sq_dists(c, mask)
 
 
 def select_knn(
@@ -99,6 +107,17 @@ def knn_graph_plain(
     return select_knn(pairwise_sq_dists(coords, mask), mask, k, exclude_self)
 
 
+def coordinate_view(x: torch.Tensor, columns: Sequence[int]) -> torch.Tensor:
+    """``x[..., columns]``: a view (no copy) where ``columns`` is a
+    contiguous ascending range, as the kNN kernel reads coordinates where
+    they lie; an index copy otherwise."""
+    cols = list(columns)
+    lo = cols[0]
+    if cols == list(range(lo, lo + len(cols))):
+        return x[..., lo:lo + len(cols)]
+    return x[..., cols]
+
+
 def knn_graph(
     coords: torch.Tensor,
     mask: torch.Tensor,
@@ -109,7 +128,8 @@ def knn_graph(
 
     Args:
         coords: ``[B, L, D]`` positions (already sliced to the kNN
-            feature subset, e.g. xyz).
+            feature subset, e.g. xyz; a strided view such as
+            :func:`coordinate_view`'s is read in place on the card).
         mask: ``[B, L]`` validity mask.
         k: number of neighbours.
 

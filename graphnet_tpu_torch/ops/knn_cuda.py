@@ -2,12 +2,17 @@
 
 Replaces ``graphnet_tpu/ops/knn_pallas.py:_knn_kernel`` (entry
 ``knn_graph_pallas``).  The kernel is ``csrc/knn.cu``; its header note
-says what bounds it on the H100 (launch latency at the serving shape)
-and how the design keeps the selection in registers.
+says what bounds it on the H100 (launch latency at the serving shape),
+how it centres the coordinates itself and how it splits each query's
+keys across the lanes of a warp.
 
 :func:`knn_graph_cuda` takes the plain version
 (:func:`graphnet_tpu_torch.ops.knn.knn_graph_plain`) for a tensor on the
-CPU and launches the kernel for a CUDA tensor; it never falls back.
+CPU and launches the kernel for a CUDA tensor; it never falls back.  A
+call on the card is one launch and nothing else on the device: the
+kernel reads a strided ``[B, L, D]`` view in place (its last dimension
+of stride 1) and centres it, and the wrapper only checks the inputs and
+allocates the outputs.
 """
 
 from __future__ import annotations
@@ -17,23 +22,66 @@ from typing import Tuple
 
 import torch
 
-from graphnet_tpu_torch.ops.knn import centre_coords, knn_graph_plain
+from graphnet_tpu_torch.ops.knn import knn_graph_plain
 
 MAX_K = 16
+MAX_L = 8192  # csrc/knn.cu holds a whole event in shared memory
 DIMS = (3, 4)  # coordinate counts the kernel is built for (xyz, xyzt)
 _NAME = "knn"
+_launch = None  # the C entry, once its signature is declared
 
 
-def _lib() -> ctypes.CDLL:
-    from graphnet_tpu_torch.kernels import build
+def _entry():
+    global _launch
+    if _launch is None:
+        from graphnet_tpu_torch.kernels import build
 
-    lib = build.load(_NAME)
-    fn = lib.knn_graph_launch
-    if fn.argtypes is None:  # first use: declare the C signature
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, I, P, P, P]
+        fn = build.load(_NAME).knn_graph_launch
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, LL, LL, P, LL, I, I, I, I, I, P, P, I, P]
         fn.restype = ctypes.c_int
-    return lib
+        _launch = fn
+    return _launch
+
+
+def _check_shapes(coords: torch.Tensor, mask: torch.Tensor) -> None:
+    if coords.dim() != 3 or mask.shape != coords.shape[:2]:
+        raise ValueError(
+            f"coords must be [B, L, D] and mask [B, L]; got "
+            f"{tuple(coords.shape)} and {tuple(mask.shape)}"
+        )
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+
+
+def check_launch(coords: torch.Tensor, mask: torch.Tensor, k: int) -> None:
+    """Raise on what the kernel does not take: shapes, types, ``D``
+    outside :data:`DIMS`, a last dimension of stride other than 1 (of the
+    coordinates or the mask), ``k`` outside ``[1, min(MAX_K, L)]``,
+    ``L > MAX_L``, and tensors that are not on one CUDA device (checked
+    last, so the other rules can be tested on the CPU)."""
+    _check_shapes(coords, mask)
+    B, L, D = coords.shape
+    if D not in DIMS:
+        raise ValueError(
+            f"the CUDA kNN kernel takes D in {DIMS} coordinates, got {D}"
+        )
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if coords.stride(2) != 1 or (L > 1 and mask.stride(1) != 1):
+        raise ValueError(
+            "the kNN kernel reads rows whose last dimension has stride 1; "
+            f"got coords strides {coords.stride()}, mask {mask.stride()}"
+        )
+    if not 1 <= k <= min(MAX_K, L):
+        raise ValueError(f"k={k} must lie in [1, min({MAX_K}, L={L})]")
+    if L > MAX_L:
+        raise ValueError(f"the kNN kernel takes L <= {MAX_L}, got {L}")
+    if coords.device.type != "cuda" or mask.device != coords.device:
+        raise ValueError(
+            f"coords on {coords.device} and mask on {mask.device}: both "
+            "must be on one CUDA device (or on the CPU)"
+        )
 
 
 def knn_graph_cuda(
@@ -46,48 +94,28 @@ def knn_graph_cuda(
     nearest valid nodes of each node; see :func:`~graphnet_tpu_torch.ops.
     knn.knn_graph` for the contract.  Counts its kernel launches in
     ``knn_graph_cuda.launches``."""
-    if coords.dim() != 3 or mask.shape != coords.shape[:2]:
-        raise ValueError(
-            f"coords must be [B, L, D] and mask [B, L]; got "
-            f"{tuple(coords.shape)} and {tuple(mask.shape)}"
-        )
-    if mask.dtype != torch.bool:
-        raise TypeError(f"mask must be bool, got {mask.dtype}")
-    # the output is integer and nothing differentiates it: build no
-    # autograd graph for the centring (the coordinates are latents that
-    # require grad during training)
-    with torch.no_grad():
-        if coords.device.type == "cpu":
+    if coords.device.type == "cpu":
+        _check_shapes(coords, mask)
+        # the output is integer and nothing differentiates it: build no
+        # autograd graph for the centring (the coordinates are latents
+        # that require grad during training)
+        with torch.no_grad():
             return knn_graph_plain(coords, mask, k, exclude_self)
-        return _knn_cuda(coords, mask, k, exclude_self)
+    return _knn_cuda(coords, mask, k, exclude_self)
 
 
 def _knn_cuda(coords, mask, k, exclude_self):
+    check_launch(coords, mask, k)
     B, L, D = coords.shape
-    if D not in DIMS:
-        raise ValueError(
-            f"the CUDA kNN kernel takes D in {DIMS} coordinates, got {D}"
-        )
-    if coords.device.type != "cuda" or mask.device != coords.device:
-        raise ValueError(
-            f"coords on {coords.device} and mask on {mask.device}: both "
-            "must be on one CUDA device (or on the CPU)"
-        )
-    if coords.dtype != torch.float32:
-        raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if not 1 <= k <= min(MAX_K, L):
-        raise ValueError(f"k={k} must lie in [1, min({MAX_K}, L={L})]")
-
-    with torch.cuda.device(coords.device):
-        c = centre_coords(coords, mask).contiguous()
-        m = mask.contiguous()
-        idx = torch.empty((B, L, k), dtype=torch.int32, device=coords.device)
-        em = torch.empty((B, L, k), dtype=torch.bool, device=coords.device)
-        stream = torch.cuda.current_stream(coords.device).cuda_stream
-        err = _lib().knn_graph_launch(
-            c.data_ptr(), m.data_ptr(), B, L, D, k, int(exclude_self),
-            idx.data_ptr(), em.data_ptr(), stream,
-        )
+    dev = coords.device
+    idx = torch.empty((B, L, k), dtype=torch.int32, device=dev)
+    em = torch.empty((B, L, k), dtype=torch.bool, device=dev)
+    err = _entry()(
+        coords.data_ptr(), coords.stride(0), coords.stride(1),
+        mask.data_ptr(), mask.stride(0), B, L, D, k, int(exclude_self),
+        idx.data_ptr(), em.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     knn_graph_cuda.launches += 1

@@ -247,12 +247,48 @@ class WithInputGraph:
                 yield replace(b, edges=idx, edge_mask=em)
 
 
-def test_trainer_fit_and_predict_as_dataframe_match_jax():
+class JaxLatentGraphs:
+    """The JAX model's latent kNN graphs, recorded in the order it builds
+    them (``jax.debug.callback``, also under ``jit``), fed to the port's
+    model in the same order in place of its own latent kNN.  The latents
+    of the two frameworks differ in their last bits, and on this data
+    many latent distances are near-ties that those bits decide: the two
+    packages' latent graphs differ in many edges over the run,
+    whichever package's kNN builds both.  So, as with the input graph
+    (:class:`WithInputGraph`), both models get one graph, built from the
+    JAX model's latents by the JAX package's kNN; the port's kNN is held
+    to the JAX package's in ``tests/test_torch_ops.py``."""
+
+    def __init__(self, monkeypatch):
+        import graphnet_tpu.models.components.layers as jax_layers
+        import graphnet_tpu_torch.models.components.layers as torch_layers
+
+        self.jax_knn, self.graphs, self.used = jax_layers.knn_graph, [], 0
+        monkeypatch.setattr(jax_layers, "knn_graph", self.record)
+        monkeypatch.setattr(torch_layers, "knn_graph", self.replay)
+
+    def record(self, coords, mask, k, exclude_self=True):
+        idx, em = self.jax_knn(coords, mask, k=k, exclude_self=exclude_self)
+        jax.debug.callback(
+            lambda *g: self.graphs.append([np.array(a) for a in g]),
+            idx, em, mask, ordered=True)
+        return idx, em
+
+    def replay(self, coords, mask, k, exclude_self=True):
+        idx, em, jax_mask = self.graphs[self.used]
+        self.used += 1
+        assert np.array_equal(jax_mask, mask.numpy()) and idx.shape[-1] == k
+        return torch.from_numpy(idx), torch.from_numpy(em)
+
+
+def test_trainer_fit_and_predict_as_dataframe_match_jax(monkeypatch):
     """Two epochs from the loaders (train shuffled, validation not), the
     default schedule, from the same initial parameters, the input graph
-    on the batches (:class:`WithInputGraph`): losses within 1e-4, as
+    on the batches (:class:`WithInputGraph`) and the JAX model's latent
+    graphs fed to both (:class:`JaxLatentGraphs`): losses within 1e-4, as
     ``tests/test_torch_training.py``; then the prediction frames of the
     validation loader, rtol 2e-4."""
+    latent = JaxLatentGraphs(monkeypatch)
     jax_ds, ds = _datasets()
     jtrain = WithInputGraph(JaxDataLoader(jax_ds, batch_size=16, shuffle=True,
                                           seed=5), True)
@@ -264,6 +300,7 @@ def test_trainer_fit_and_predict_as_dataframe_match_jax():
     jtrainer = JaxTrainer(jmodel, learning_rate=1e-2)
     jtrainer.init(next(iter(jtrain)))
     params0 = jax.device_get(jtrainer.state.params)
+    latent.graphs.clear()  # those of the JAX model's initialisation
     j_hist = jtrainer.fit(jtrain, jval, max_epochs=2)
     model.load_state_dict(params_from_jax(params0, model.state_dict()))
     trainer = Trainer(model, learning_rate=1e-2)
@@ -278,6 +315,7 @@ def test_trainer_fit_and_predict_as_dataframe_match_jax():
     assert len(got) == 50
     np.testing.assert_allclose(got["energy_pred"], exp["energy_pred"], rtol=2e-4)
     np.testing.assert_array_equal(got["total_energy"], exp["total_energy"])
+    assert latent.used == len(latent.graphs) > 0
 
 
 def test_training_example_on_the_cpu(tmp_path, capsys):

@@ -176,6 +176,139 @@ def test_knn_wrapper_routes_cpu_to_plain_and_checks_inputs():
         knn_graph_cuda(tb.x[0], tb.mask, 8)
 
 
+def _kernel_centre_rule(x, mask):
+    """``csrc/knn.cu``'s centre, mirrored in numpy: per coordinate, a sum
+    in any order where the exponent test proves every float64 addition
+    exact (here numpy's pairwise sum of the values reversed), else the
+    serial float64 sum in index order; divided by the count (at least 1)
+    and rounded once to float32.  Returns the centre and which
+    coordinates took the parallel sum."""
+    B, _, D = x.shape
+    centre = np.zeros((B, D), np.float32)
+    parallel = np.zeros((B, D), bool)
+    for b in range(B):
+        v = x[b, mask[b]]
+        n = len(v)
+        clog = int(np.ceil(np.log2(n))) if n > 1 else 0
+        for d in range(D):
+            col = v[:, d]
+            nz = col[col != 0]
+            e = np.maximum((nz.view(np.uint32) >> 23) & 0xFF, 1)
+            lo, hi = (e.min(), e.max()) if nz.size else (255, 0)
+            if hi < 255 and hi - lo + 24 + clog <= 53:
+                s = np.sum(col[::-1].astype(np.float64)) + 0.0
+                parallel[b, d] = True
+            else:
+                s = 0.0
+                for c in col:
+                    s += float(c)
+            centre[b, d] = np.float32(s / max(n, 1))
+    return centre, parallel
+
+
+def _tie_event(L=64, D=3):
+    """Four valid nodes whose float64 sum depends on the order: in index
+    order the two half-ulp terms 2^-51 are each absorbed (ties to even),
+    so the sum is 4 + 2^-22 and the centre 1 + 2^-24 rounds to 1.0;
+    added to each other first they give 4 + 2^-22 + 2^-50 and the centre
+    rounds up to 1 + 2^-23.  The exponent test sends it to the serial
+    sum."""
+    x = np.zeros((1, L, D), np.float32)
+    mask = np.zeros((1, L), bool)
+    for j, v in ((0, 4.0), (1, 2.0 ** -22), (2, 2.0 ** -51), (18, 2.0 ** -51)):
+        x[0, j], mask[0, j] = v, True
+    return x, mask
+
+
+@pytest.mark.parametrize("kind", ["detector", "wide", "masked", "tiny", "tie"])
+def test_knn_centre_is_the_kernels_rule_bit_for_bit(kind):
+    """The plain version's centre (serial float64 sum in index order)
+    equals the kernel's stated rule bit for bit: the parallel sum where
+    the exponent test passes, the serial sum where it fails."""
+    from graphnet_tpu_torch.ops.knn import event_centre
+
+    rng = np.random.default_rng(len(kind))
+    B, L, D = 6, 48, 4
+    if kind == "tie":
+        x, mask = _tie_event(L, D)
+    else:
+        scale = {"detector": 500.0, "wide": 1.0, "masked": 50.0, "tiny": 1e-38}[kind]
+        x = (rng.standard_normal((B, L, D)) * scale).astype(np.float32)
+        if kind == "wide":  # exponent spans of 2^4 to 2^80 by event
+            w = np.array([2, 5, 10, 20, 30, 40])[:, None, None]
+            x *= (2.0 ** rng.integers(-w, w, (B, L, D))).astype(np.float32)
+        mask = np.arange(L)[None] < rng.integers(0, L + 1, B)[:, None]
+        if kind == "masked":
+            mask &= rng.random((B, L)) > 0.3
+            mask[0] = False
+            x[1, :, 2] = 0.0
+    centre, parallel = _kernel_centre_rule(x, mask)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    got = event_centre(xt, mt)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), centre.view(np.uint32))
+    if kind == "tie":
+        assert not parallel.any()
+        assert centre[0, 0] == 1.0
+        s = np.float64(4.0) + 2.0 ** -22 + (2.0 ** -51 + 2.0 ** -51)
+        assert np.float32(s / 4) == np.float32(1 + 2.0 ** -23)  # the order matters
+    if kind == "wide":
+        assert parallel.any() and not parallel.all()
+    if kind == "detector":
+        assert parallel.all()
+
+
+def test_knn_on_a_strided_view_equals_a_contiguous_copy():
+    """``coordinate_view`` of a contiguous column range is a view, and the
+    kNN of that view equals the kNN of its contiguous copy; other column
+    sets are an index copy."""
+    from graphnet_tpu_torch.ops.knn import coordinate_view
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((3, 40, 7)).astype(np.float32))
+    mask = torch.arange(40)[None] < torch.tensor([40, 25, 3])[:, None]
+    for cols in ((0, 1, 2), (2, 3, 4), (1, 2, 3, 4)):
+        v = coordinate_view(x, cols)
+        assert v.data_ptr() == x[..., cols[0]:].data_ptr()
+        assert v.stride() == (280, 7, 1) and v.shape[-1] == len(cols)
+        i1, m1 = knn_graph(v, mask, k=8)
+        i2, m2 = knn_graph(v.contiguous(), mask, k=8)
+        assert torch.equal(m1, m2) and torch.equal(i1, i2)
+        assert torch.equal(v, x[..., list(cols)])
+    picked = coordinate_view(x, (0, 2, 4))
+    assert picked.is_contiguous() and torch.equal(picked, x[..., [0, 2, 4]])
+
+
+def test_knn_launch_checks_refuse_what_the_kernel_does_not_take():
+    """``check_launch``, the CUDA wrapper's validation, raises without
+    launching: a last stride other than 1, a non-bool mask, D outside
+    {3, 4}, k outside [1, 16], L above the shared-memory limit, and
+    (checked last) tensors that are not on a CUDA device."""
+    from graphnet_tpu_torch.ops.knn_cuda import MAX_L, check_launch
+
+    x = torch.zeros(2, 16, 6)
+    mask = torch.ones(2, 16, dtype=torch.bool)
+    with pytest.raises(ValueError, match="stride"):
+        check_launch(x[..., ::2], mask, 8)
+    with pytest.raises(ValueError, match="stride"):
+        check_launch(x[..., :3], torch.ones(2, 32, dtype=torch.bool)[:, ::2], 8)
+    with pytest.raises(TypeError, match="bool"):
+        check_launch(x[..., :3], mask.to(torch.uint8), 8)
+    with pytest.raises(TypeError, match="float32"):
+        check_launch(x[..., :3].double(), mask, 8)
+    for d in (2, 5):
+        with pytest.raises(ValueError, match="D in"):
+            check_launch(x[..., :d], mask, 8)
+    for k in (0, 17):
+        with pytest.raises(ValueError, match="k="):
+            check_launch(x[..., :3], mask, k)
+    big = torch.zeros(1, MAX_L + 1, 3)
+    with pytest.raises(ValueError, match="L <="):
+        check_launch(big, torch.ones(1, MAX_L + 1, dtype=torch.bool), 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        check_launch(x[..., 1:4], mask, 8)
+
+
 def test_pairwise_sq_dists_matches_jax():
     from graphnet_tpu.ops.knn import pairwise_sq_dists as jax_d2
 
