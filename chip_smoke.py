@@ -111,7 +111,25 @@ Phases, each printing one JSON line:
    model on the CPU;
    serve_deepice_d64, train_deepice_d64: the same for the zoo's DeepIce
    B_d64 at full width (hidden 768, 12 heads of 64: the rel kernels at
-   head dim 64), the same requests and batch, 2 training steps;
+   head dim 64), built from its model.yml, the same requests and batch,
+   2 training steps;
+11b. serve_config: six model files (``SERVE_CONFIGS``: DynEdge energy,
+   TITO direction, the zoo's DeepIce B_d32, and the QUESO energy
+   (IdentityTask, log10 / pow10), zenith and node-level pulse cleaner),
+   each built by ``load_model`` on the card at its full width, its
+   random weights carried through a ``state_dict.pkl`` that
+   ``save_model`` writes, and served through ``DeploymentModule(
+   model.yml, state_dict.pkl)`` on the card and on the CPU: the answers
+   within rtol 1e-3 (kNN near-tie flips explained), each launch count of
+   the model's path per forward (DynEdge rows 1 and 2, and row 4 with
+   ``FUSE_CONV_KNN`` on; TITO rows 1, 2 and 5a; DeepIce rows 5a and 6a);
+   serving_queue: ``serve_events_parallel`` (8 threads, batches of at
+   most 32) over 256 events of 1-512 pulses on the energy model, against
+   one direct call (rtol 1e-3, flips explained), with events/s and the
+   p50 / p99 latency from submit to answer; deployer: a ``Deployer``
+   subclass (``SmokeDeployer``) over 8 ``.npz`` files of events, in one
+   process and in 2 spawned workers that each build the module from its
+   files: the same answers, bit for bit;
 12. times: each kernel, its plain version and its bound (the kNN at
    B=128, L=128, at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
    its profiled device time, the device work and host time of a call,
@@ -131,6 +149,8 @@ Phases, each printing one JSON line:
    3072, and at head dim 64 (B_d64) at L = 768; B_d64's serving events/s,
    step ms and peak memory of a step on the kernels and on the dense
    path (fp32, B=16, L=768), and on the kernels at B=8, L=3072 (bf16);
+   the flash kernels at B_d64's Block shape (B=16, 12 heads of 64,
+   L=769);
    the EdgeConv backward's device time by launch over one call at
    H1=336; serving events/s and single-event latency; training step ms and
    events/s; device time by kernel for serving and for training; peak
@@ -150,6 +170,7 @@ import json
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,6 +179,10 @@ import time
 from dataclasses import replace
 
 import numpy as np
+
+# the deployer phase's workers are spawned and unpickle SmokeDeployer
+# from this module, so its base class is imported here
+from graphnet_tpu_torch.deployment.deployer import Deployer
 
 SEED = 0
 K = 8
@@ -228,11 +253,40 @@ TITO_BF16_TRAIN = dict(loss_rtol=1e-3, grad_tol=3e-2, grad_norm="l2",
 ICE_BF16_SERVE_TOL = 2e-2
 ICE_BF16_TRAIN = dict(loss_rtol=3e-3, grad_tol=3e-2, grad_norm="l2")
 ICE_FP32_TRAIN = dict(loss_rtol=1e-4, grad_tol=1e-4)
-# the zoo's DeepIce B_d64 (configs/models/zoo/kaggle_icemix/B_d64/
-# model.yml): hidden 768, 12 heads of 64, depth 12 + 4 BlockRel, at its
-# full width; the rel kernels at head dim 64
-ICE_D64 = dict(hidden_dim=768, mlp_ratio=4, seq_length=192, depth=12,
-               head_size=64, depth_rel=4, n_rel=1, n_features=6)
+# the repository root: the model configs are read from its configs/
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MODELS = os.path.join(ROOT, "configs", "models")
+# the zoo's DeepIce B_d64: hidden 768, 12 heads of 64, depth 12 + 4
+# BlockRel, at its full width, built from its file; the rel kernels at
+# head dim 64
+ICE_D64_FILE = os.path.join(MODELS, "zoo", "kaggle_icemix", "B_d64",
+                            "model.yml")
+ICE_D64_HIDDEN, ICE_D64_HD = 768, 64
+# the queue's and the deployer's model
+ENERGY_FILE = os.path.join(MODELS, "dynedge_energy_prometheus.yml")
+# the serve_config phase: (label, model file under configs/models); each
+# built by load_model, its random weights carried through save_model's
+# state_dict.pkl, and served through DeploymentModule(model.yml,
+# state_dict.pkl)
+SERVE_CONFIGS = (
+    ("dynedge_energy", "dynedge_energy_prometheus.yml"),
+    ("tito_direction", "tito_direction_prometheus.yml"),
+    ("deepice_B_d32", "zoo/kaggle_icemix/B_d32/model.yml"),
+    ("queso_total_neutrino_energy", "zoo/queso/total_neutrino_energy/model.yml"),
+    ("queso_neutrino_zenith", "zoo/queso/neutrino_zenith/model.yml"),
+    ("queso_cleaner", "zoo/queso/SplitInIcePulses_cleaner/model.yml"),
+)
+# the config models' answers against the same module on the CPU: each
+# within rtol 1e-3 (the serving limit of PERF.md section 2), an answer
+# smaller than CONFIG_FLOOR times its column's largest within 1e-3 of
+# that floor.  A head's affine output is a difference of large latent
+# sums, so near 0 (a zenith kappa, |x| + eps) its relative error says
+# nothing of the model
+CONFIG_RTOL, CONFIG_FLOOR = 1e-3, 1e-2
+# the serving_queue phase: events of 1-512 pulses, threads, batch cap
+QUEUE_EVENTS, QUEUE_THREADS, QUEUE_MAX_BATCH = 256, 8, 32
+# the deployer phase: .npz files of events, events a file, workers
+DEPLOY_FILES, DEPLOY_EVENTS, DEPLOY_WORKERS = 8, 16, 2
 # its training steps a phase, fewer than the default DeepIce's 3 (each
 # step at B=16, L=768 is ~4x the default's flops)
 ICE_D64_STEPS = 2
@@ -2632,6 +2686,343 @@ def rel_times(torch, rc, rp, rel_flash_attention, encoder, dense, dev, peaks,
     return out
 
 
+# ------------------------------------------------ serving from files
+
+
+def calibrate_heads(torch, model, requests, collate_events, peak=2.0):
+    """Scale each task head's affine map so that its largest output over
+    ``requests`` is ``peak``: with random weights a DynEdge's latents grow
+    ~8x a layer (a sum over 8 neighbours), and an unscaled head saturates
+    its sigmoid or overflows the QUESO energy head's pow10."""
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        for task in model.tasks:
+            top = max(
+                float(task.affine(model.backbone(collate_events(
+                    evs, min_pulses=1).to(dev))).abs().max())
+                for evs in requests.values())
+            task.affine.weight.mul_(peak / top)
+            task.affine.bias.mul_(peak / top)
+
+
+def config_requests(rng, Event, kind, nb_inputs):
+    """The requests of a model served from its file: DynEdge (a request
+    of 7 events with 0- and 1-pulse ones, and 32 events of 65-128 pulses,
+    both at L <= 128 so that FUSE_CONV_KNN engages), TITO (6 events to
+    700 pulses) and DeepIce (4 events to 100 pulses: the CPU holds every
+    event of a full-width model)."""
+    if kind == "DeepIce":
+        return {"four_with_empty": [Event(x=a, features=ICE_FEATURES)
+                                    for a in ice_events(rng, [0, 1, 60, 100])]}
+    if kind == "DynEdgeTITO":
+        return {"six_with_empty": [
+            Event(x=a, features=FEATURES)
+            for a in tito_events(rng, [30, 0, 5, 1, 300, 700])]}
+    feats = [f"f{i}" for i in range(nb_inputs)]
+
+    def events(lengths):
+        return [Event(x=rng.standard_normal((int(n), nb_inputs)).astype(
+            np.float32), features=feats) for n in lengths]
+
+    return {"seven_with_empty": events([30, 0, 5, 1, 64, 17, 100]),
+            "b32_L65_128": events(rng.integers(65, 129, 32))}
+
+
+def _event_rows(out, i):
+    """Event i's answer: a row (graph level) or a [n, cols] array."""
+    return out[i] if isinstance(out, list) else out[i: i + 1]
+
+
+def graph_flips(torch, rec_a, rec_b, rows):
+    """The events whose kNN graphs differ between two recorded runs of a
+    DynEdge (:func:`_record`): ``rows`` maps an event to ``(its row in
+    run a, its row in run b, its pulses)``."""
+    graphs = list(zip(_adjacencies(rec_a), _adjacencies(rec_b)))
+    flipped = set()
+    for e, (ia, ib, n) in rows.items():
+        for (ga, ma), (gb, mb) in graphs:
+            ma_, mb_ = ma[ia, :n].cpu(), mb[ib, :n].cpu()
+            same = torch.equal(ma_, mb_) and bool(
+                ((ga[ia, :n].cpu().long() == gb[ib, :n].cpu().long())
+                 | ~ma_).all())
+            if not same:
+                flipped.add(e)
+                break
+    return flipped
+
+
+def serve_config_dynedge(torch, gpu, cpu, requests, counters, expect):
+    """A DynEdge model served from its file: every request through
+    ``gpu`` with ``expect`` launches per forward, then through ``cpu``;
+    each event's answers (rows, or per-pulse rows of a node-level head)
+    within CONFIG_RTOL of the CPU's unless a kNN graph of the event
+    differs between the two (a latent near-tie flip)."""
+    store = []
+    handles = _record(gpu, store)
+    answers, launches = answer(gpu, requests, counters, expect)
+    for h in handles:
+        h.remove()
+    n_conv = len(_convs(gpu))
+    report = []
+    for r, (label, evs) in enumerate(requests.items()):
+        rec = store[r * n_conv:(r + 1) * n_conv]
+        cstore = []
+        handles = _record(cpu, cstore)
+        ref = cpu(evs)
+        for h in handles:
+            h.remove()
+        got = answers[label]
+        kept = [i for i, e in enumerate(evs) if e.n_pulses > 0]
+        flips = graph_flips(torch, rec, cstore, {
+            i: (j, j, evs[i].n_pulses) for j, i in enumerate(kept)})
+        worst, beyond, unexplained = 0.0, 0, []
+        kept_rows = [_event_rows(ref, i) for i in kept]
+        col_max = np.max(np.abs(np.concatenate(kept_rows)), axis=0)
+        for i, e in enumerate(evs):
+            g, c = _event_rows(got, i), _event_rows(ref, i)
+            assert g.shape == c.shape, f"{label}: event {i} {g.shape} {c.shape}"
+            if e.n_pulses == 0:
+                assert np.isnan(g).all()
+                continue
+            assert np.isfinite(g).all(), f"{label}: event {i} not finite"
+            err = float(np.max(np.abs(g - c) / np.maximum(
+                np.abs(c), CONFIG_FLOOR * col_max)))
+            worst = max(worst, err)
+            if err > CONFIG_RTOL:
+                beyond += 1
+                if i not in flips:
+                    unexplained.append((i, g.tolist()[:4], c.tolist()[:4]))
+        assert not unexplained, (
+            f"{label}: events differ from the CPU with no kNN flip (event, "
+            f"card, CPU; column max {col_max.tolist()}): {unexplained}")
+        report.append({"request": label, "events": len(evs),
+                       f"events_beyond_rtol_{CONFIG_RTOL}": beyond,
+                       "events_with_knn_flips": len(flips),
+                       "max_rel_err": worst})
+    return answers, launches, report
+
+
+def serve_config(torch, path, device, rng, counters, names, launch_expect,
+                 fused_fwd, layers, tito_flips):
+    """Phase serve_config for one model file: built by ``load_model`` on
+    ``device``, random weights (:func:`ice_jax_layout_tree`; DynEdge heads
+    scaled by :func:`calibrate_heads`) saved with
+    ``save_model``, then served through ``DeploymentModule(model.yml,
+    state_dict.pkl)`` on ``device`` and on the CPU (:func:`config_requests`)
+    with ``launch_expect[backbone]`` launches per forward: DynEdge held by
+    :func:`serve_config_dynedge` and served again with FUSE_CONV_KNN on
+    (``fused_fwd`` launches), TITO and DeepIce by
+    :func:`serve_direction`.  Returns the module on ``device`` and the
+    phase's report."""
+    from graphnet_tpu_torch.data.dataloader import collate_events
+    from graphnet_tpu_torch.deployment.deployment_module import (
+        DeploymentModule,
+    )
+    from graphnet_tpu_torch.models.graphs.graph_definition import Event
+    from graphnet_tpu_torch.utils.config import load_model, save_model
+    from graphnet_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
+
+    model = load_model(path, device=device, seed=SEED)
+    assert next(model.parameters()).device.type == torch.device(device).type
+    kind = type(model.backbone).__name__
+    requests = config_requests(
+        rng, Event, kind, getattr(model.backbone, "nb_inputs", None))
+    model.load_state_dict(params_from_jax(ice_jax_layout_tree(
+        rng, model, params_to_jax), model.state_dict()))
+    if kind == "DynEdge":
+        calibrate_heads(torch, model, requests, collate_events)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    save_model(model, tmp)
+    del model
+    pkl = os.path.join(tmp, "state_dict.pkl")
+    gpu = DeploymentModule(path, pkl, device=device)
+    cpu = DeploymentModule(path, pkl, device="cpu")
+    expect = launch_expect[kind]
+    extra = {}
+    if kind == "DynEdge":
+        answers, launches, report = serve_config_dynedge(
+            torch, gpu, cpu, requests, counters, expect)
+        # the same requests (L <= 128) with the fused EdgeConv + kNN on
+        layers.FUSE_CONV_KNN = True
+        try:
+            fused, launches_f = answer(gpu, requests, counters, fused_fwd)
+        finally:
+            layers.FUSE_CONV_KNN = False
+        extra = {"launches_fused": dict(zip(names, launches_f)),
+                 "fused_answers_identical": all(
+                     np.array_equal(a, b, equal_nan=True)
+                     for k in requests for a, b in zip(fused[k], answers[k]))}
+    else:
+        launches, report = serve_direction(
+            torch, gpu, cpu, requests, counters, expect,
+            flips=tito_flips if kind == "DynEdgeTITO" else None)
+    for name, n, got in zip(names, expect, launches):
+        assert got > 0 or not n, f"{name} was not launched: {launches}"
+    shutil.rmtree(tmp)
+    return gpu, {"file": os.path.relpath(path, ROOT), "backbone": kind,
+                 "columns": gpu.prediction_columns, "requests": report,
+                 "launches": {**dict(zip(names, launches)),
+                              "forwards": len(requests)}, **extra}
+
+
+def serving_queue_phase(torch, module, events, counters, expect):
+    """``serve_events_parallel`` (QUEUE_THREADS threads, batches of at
+    most QUEUE_MAX_BATCH) against one direct call of ``module`` (a
+    DynEdge ``DeploymentModule``) on the same events: each answer in its
+    place and within CONFIG_RTOL of the direct one unless a kNN graph of
+    the event differs between its queue batch and the direct batch; the
+    launches of the queue's forwards (``expect`` each).  Then, timed:
+    events/s of ``serve_events_parallel`` and each event's latency from
+    its submit to its answer through the same queue."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from graphnet_tpu_torch.deployment.serving_queue import (
+        ServingQueue,
+        serve_events_parallel,
+    )
+
+    index = {id(e): i for i, e in enumerate(events)}
+    direct_rec = []
+    handles = _record(module, direct_rec)
+    direct = module(events)
+    for h in handles:
+        h.remove()
+    direct_rows = {i: j for j, i in enumerate(
+        i for i, e in enumerate(events) if e.n_pulses > 0)}
+
+    batches = []
+    for c in counters:
+        c.launches = 0
+
+    def recording(evs):
+        rec = []
+        handles = _record(module, rec)
+        out = module(evs)
+        for h in handles:
+            h.remove()
+        batches.append(([index[id(e)] for e in evs], rec))
+        return out
+
+    got = np.stack(serve_events_parallel(
+        recording, events, n_workers=QUEUE_THREADS, max_batch=QUEUE_MAX_BATCH))
+    launches = [c.launches for c in counters]
+    assert launches == [n * len(batches) for n in expect], (
+        f"queue: launches {launches} over {len(batches)} forwards, not "
+        f"{expect} each")
+    flips = set()
+    for ids, rec in batches:
+        kept = [i for i in ids if events[i].n_pulses > 0]
+        flips |= graph_flips(torch, rec, direct_rec, {
+            i: (j, direct_rows[i], events[i].n_pulses)
+            for j, i in enumerate(kept)})
+    assert sorted(i for ids, _ in batches for i in ids) == list(range(len(events)))
+    rel = np.abs(got - direct) / np.maximum(
+        np.abs(direct), CONFIG_FLOOR * np.abs(direct).max(axis=0))
+    close = (rel <= CONFIG_RTOL).all(1)
+    unexplained = np.flatnonzero(~close & ~np.isin(np.arange(len(events)),
+                                                   list(flips)))
+    assert unexplained.size == 0, (
+        f"queue: events {unexplained.tolist()} differ from the direct call "
+        "with no kNN flip")
+    assert np.isfinite(got).all()
+
+    def one_run():
+        t0 = time.perf_counter()
+        serve_events_parallel(module, events, n_workers=QUEUE_THREADS,
+                              max_batch=QUEUE_MAX_BATCH)
+        return time.perf_counter() - t0
+
+    walls = [one_run() for _ in range(3)]
+    latencies = []
+    with ServingQueue(module, max_batch=QUEUE_MAX_BATCH) as sq:
+        def timed_submit(e):
+            t0 = time.perf_counter()
+            fut = sq.submit(e)
+            fut.add_done_callback(
+                lambda f: latencies.append(time.perf_counter() - t0))
+            return fut
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(QUEUE_THREADS) as pool:
+            futs = list(pool.map(timed_submit, events))
+        for f in futs:
+            f.result()
+        timed_wall = time.perf_counter() - t0
+    lat_ms = np.asarray(latencies) * 1e3
+    return {
+        "events": len(events), "threads": QUEUE_THREADS,
+        "max_batch": QUEUE_MAX_BATCH, "forwards": len(batches),
+        "batch_sizes": sorted(len(ids) for ids, _ in batches),
+        "launches": launches,
+        f"events_beyond_rtol_{CONFIG_RTOL}": int((~close).sum()),
+        "events_with_knn_flips": len(flips),
+        "max_rel_err": float(rel.max()),
+        "serve_events_parallel_s": walls,
+        "events_per_s": [len(events) / w for w in walls],
+        "latency_run_events_per_s": len(events) / timed_wall,
+        "latency_p50_ms": float(np.percentile(lat_ms, 50)),
+        "latency_p99_ms": float(np.percentile(lat_ms, 99)),
+        "latency_max_ms": float(lat_ms.max()),
+    }
+
+
+class SmokeDeployer(Deployer):
+    """The deployer phase's subclass: each ``.npz`` file of events
+    (arrays ``e0``, ``e1``, ...) is served in one call of the first
+    module, its answers saved to ``<out_dir>/<file name>.npy``."""
+
+    def __init__(self, modules, n_workers, out_dir):
+        super().__init__(modules, n_workers)
+        self.out_dir = out_dir
+
+    def _process_files(self, settings):
+        from graphnet_tpu_torch.models.graphs.graph_definition import Event
+
+        module = self._modules[0]
+        for path in settings:
+            with np.load(str(path)) as f:
+                events = [Event(x=f[f"e{i}"], features=FEATURES)
+                          for i in range(len(f.files))]
+            np.save(os.path.join(self.out_dir,
+                                 os.path.basename(str(path)) + ".npy"),
+                    module(events))
+
+
+def deployer_phase(module, rng, tmp):
+    """DEPLOY_FILES ``.npz`` files of DEPLOY_EVENTS events each (1-512
+    pulses, some files with a 0-pulse event) served by SmokeDeployer in
+    one process and by DEPLOY_WORKERS spawned workers (each builds the
+    module anew from its model.yml and state_dict.pkl): the same answers,
+    bit for bit.  A worker that fails fails the run."""
+    files = []
+    for i in range(DEPLOY_FILES):
+        lengths = rng.integers(1, 513, DEPLOY_EVENTS)
+        lengths[0] = 0 if i % 2 else lengths[0]
+        path = os.path.join(tmp, f"events_{i}.npz")
+        np.savez(path, **{f"e{j}": rng.standard_normal(
+            (int(n), NB_INPUTS)).astype(np.float32) for j, n in enumerate(lengths)})
+        files.append(path)
+    outs, walls = {}, {}
+    for n in (1, DEPLOY_WORKERS):
+        out = os.path.join(tmp, f"out_{n}")
+        os.mkdir(out)
+        t0 = time.perf_counter()
+        SmokeDeployer([module], n, out).run(files)
+        walls[n] = time.perf_counter() - t0
+        outs[n] = {name: np.load(os.path.join(out, name))
+                   for name in sorted(os.listdir(out))}
+    one, many = outs[1], outs[DEPLOY_WORKERS]
+    assert sorted(one) == sorted(many) and len(one) == DEPLOY_FILES
+    for name in one:
+        assert one[name].shape == (DEPLOY_EVENTS, 1)
+        assert np.array_equal(one[name], many[name], equal_nan=True), (
+            f"{name}: the workers' answers differ from one process's")
+    return {"files": DEPLOY_FILES, "events_per_file": DEPLOY_EVENTS,
+            "workers": DEPLOY_WORKERS, "identical_files": len(one),
+            "one_process_s": walls[1],
+            f"{DEPLOY_WORKERS}_workers_s": walls[DEPLOY_WORKERS]}
+
+
 def main() -> int:
     import torch
 
@@ -2674,6 +3065,8 @@ def main() -> int:
     from graphnet_tpu_torch.ops import rel_flash_attention_cuda as rc
     from graphnet_tpu_torch.training.loss_functions import VonMisesFisher3DLoss
     from graphnet_tpu_torch.training.trainer import Trainer
+    from graphnet_tpu_torch.utils.config import ModelConfig, load_model, save_model
+    from graphnet_tpu_torch.utils.config import build as build_config
     from graphnet_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
 
     ops = dict(knn=knn_graph_cuda, knn_plain=knn_graph_plain,
@@ -3077,14 +3470,14 @@ def main() -> int:
     # serving the DeepIce requests through DeploymentModule, and training
     # steps on the DeepIce batch, fp32 and bf16
     def make_d64(device, compute_dtype=None, rel_flash="auto"):
-        return StandardModel(
-            DeepIce(**ICE_D64, compute_dtype=compute_dtype,
-                    rel_flash=rel_flash),
-            [DirectionReconstructionWithKappa(
-                hidden_size=ICE_D64["hidden_dim"],
-                loss_function=VonMisesFisher3DLoss())],
-            device=device,
-        )
+        spec = ModelConfig.load(ICE_D64_FILE)
+        spec.arguments["backbone"]["__model__"]["arguments"].update(
+            compute_dtype=compute_dtype, rel_flash=rel_flash)
+        model = build_config(spec, seed=SEED, device=device)
+        assert model.backbone.hidden_dim == ICE_D64_HIDDEN
+        assert model.backbone.sandwich_0.attn.uses_rel_kernel(ICE_D64_HD) == (
+            rel_flash != "never")
+        return model
 
     t0 = time.perf_counter()
     d64_tree = ice_jax_layout_tree(np.random.default_rng(SEED + 10),
@@ -3136,6 +3529,52 @@ def main() -> int:
     emit({"phase": "train_deepice_d64_bf16", **report,
           "launches": dict(zip(names, launches_dt16)),
           "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 7g. models served from their files: load_model on the card, random
+    # weights through save_model's state_dict.pkl, DeploymentModule(
+    # model.yml, state_dict.pkl) on the card against the same on the CPU
+    launch_expect = {"DynEdge": dynedge_fwd, "DynEdgeTITO": tito_fwd,
+                     "DeepIce": ice_fwd}
+    crng = np.random.default_rng(SEED + 12)
+    config_modules = {}
+    for label, rel in SERVE_CONFIGS:
+        t0 = time.perf_counter()
+        config_modules[label], report = serve_config(
+            torch, os.path.join(MODELS, rel), "cuda", crng, counters, names,
+            launch_expect, fused_fwd, layers, tito_flips)
+        emit({"phase": "serve_config", "config": label, **report,
+              "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 7h. the micro-batching queue over the energy model from its file
+    t0 = time.perf_counter()
+    qrng = np.random.default_rng(SEED + 13)
+    queue_events = [
+        Event(x=qrng.standard_normal((int(n), NB_INPUTS)).astype(np.float32),
+              features=FEATURES)
+        for n in qrng.integers(1, 513, QUEUE_EVENTS)]
+    report = serving_queue_phase(torch, config_modules["dynedge_energy"],
+                                 queue_events, counters, dynedge_fwd)
+    report["launches"] = dict(zip(names, report["launches"]))
+    emit({"phase": "serving_queue", "card": smi, **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 7i. the deployer: spawned workers, each building the energy model
+    # from its model.yml and state_dict.pkl
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    emodel = load_model(ENERGY_FILE, device="cuda", seed=SEED)
+    emodel.load_state_dict(params_from_jax(ice_jax_layout_tree(
+        np.random.default_rng(SEED + 14), emodel, params_to_jax),
+        emodel.state_dict()))
+    save_model(emodel, os.path.join(tmp, "model"))
+    del emodel
+    emodule = DeploymentModule(ENERGY_FILE,
+                               os.path.join(tmp, "model", "state_dict.pkl"))
+    report = deployer_phase(emodule, np.random.default_rng(SEED + 15), tmp)
+    emit({"phase": "deployer", "card": smi, **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    del emodule, config_modules
+    shutil.rmtree(tmp)
 
     # 8. times
     t0 = time.perf_counter()
@@ -3235,6 +3674,11 @@ def main() -> int:
             torch, lambda: ice_trainer16.train_step(ice_on_card), calls=3),
         "rel_H12_Dh64": rel64,
         "deepice_d64": d64_times,
+        # rows 5a-c at B_d64's Block shape: 12 heads of 64, the cls key
+        "flash_B_d64": flash_times(
+            torch, fa, dense_attention, dev, peaks,
+            shapes=[(f"B{ICE_B}_H12_L{ICE_L + 1}_Dh{ICE_D64_HD}", ICE_B, 12,
+                     ICE_L + 1, ICE_D64_HD, True)]),
         "seconds": round(time.perf_counter() - t0, 2),
     })
 

@@ -17,6 +17,7 @@ from graphnet_tpu_torch.models.graphs.graph_definition import (
     Event,
     GraphDefinition,
 )
+from graphnet_tpu_torch.utils.config import save_config
 
 _CLASS_LABELS = ("muon", "muon_stopped", "noise", "neutrino", "v_e", "v_u",
                  "v_t", "track", "dbang", "corsika")
@@ -31,13 +32,15 @@ class Dataset:
 
     Subclasses implement ``_init``, ``_get_all_indices``,
     ``_get_event_index`` and ``query_table``.  Arguments and defaults are
-    the JAX package's.  Not ported yet: string selections (the JAX
-    package's ``StringSelectionResolver``); ``selection`` is None or a
-    list of event indices.  ``labels`` maps a key to a function of the
-    Event (the JAX package's ``Label`` objects wait for
-    ``training/labels.py``).
+    the JAX package's.  ``selection`` is None, a list of event indices or
+    a selection string (:class:`~graphnet_tpu_torch.data.
+    string_selection_resolver.StringSelectionResolver`); named selections
+    (a dict) belong in a dataset config (``utils.config.load_dataset``).
+    ``labels`` maps a key to a function of the Event (the JAX package's
+    ``Label`` objects wait for ``training/labels.py``).
     """
 
+    @save_config
     def __init__(
         self,
         path: Union[str, List[str]],
@@ -51,17 +54,18 @@ class Dataset:
         truth_table: str = "truth",
         node_truth_table: Optional[str] = None,
         string_selection: Optional[List[int]] = None,
-        selection: Optional[List[int]] = None,
+        selection: Optional[Union[str, List[int]]] = None,
         loss_weight_table: Optional[str] = None,
         loss_weight_column: Optional[str] = None,
         loss_weight_default_value: Optional[float] = None,
         seed: Optional[int] = None,
         labels: Optional[Dict[str, Callable]] = None,
     ):
-        if isinstance(selection, (str, dict)):
-            raise NotImplementedError(
-                "string and named selections are not ported yet; pass a "
-                "list of event indices"
+        if isinstance(selection, dict):
+            raise TypeError(
+                "dict selections build several datasets: put the dict in a "
+                "dataset-config YAML and use "
+                "graphnet_tpu_torch.utils.config.load_dataset()"
             )
         if isinstance(pulsemaps, str):
             pulsemaps = [pulsemaps]
@@ -109,6 +113,14 @@ class Dataset:
         self._init()
         if selection is None:
             self._indices = self._get_all_indices()
+        elif isinstance(selection, str):
+            from graphnet_tpu_torch.data.string_selection_resolver import (
+                StringSelectionResolver,
+            )
+
+            self._indices = StringSelectionResolver(
+                self, index_column=index_column, seed=seed
+            ).resolve(selection)
         else:
             self._indices = list(selection)
         self._post_init()
@@ -325,3 +337,20 @@ class Dataset:
         out["corsika"] = i32(abs_pid > 20)
         return out
 
+
+class EnsembleDataset:
+    """Concatenation of datasets."""
+
+    def __init__(self, datasets: List[Dataset]):
+        self._datasets = list(datasets)
+        self._cum = np.cumsum([len(d) for d in self._datasets])
+
+    def __len__(self) -> int:
+        return int(self._cum[-1]) if len(self._cum) else 0
+
+    def __getitem__(self, index: int) -> Event:
+        if index < 0 or index >= len(self):
+            raise IndexError(index)
+        d = int(np.searchsorted(self._cum, index, side="right"))
+        prev = 0 if d == 0 else int(self._cum[d - 1])
+        return self._datasets[d][index - prev]

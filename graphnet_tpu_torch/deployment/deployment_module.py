@@ -1,9 +1,10 @@
 """DeploymentModule: a trained model applied to raw events at inference
 time (counterpart of ``graphnet_tpu/deployment/deployment_module.py``).
 
-Loading a model from its ``model.yml`` needs the config registry, which
-is not ported yet: the caller builds the port model and passes it in,
-with either the JAX trainer's ``state_dict.pkl`` or a torch state dict.
+As in the JAX package, a module is built from a ``model.yml`` and a
+``state_dict.pkl`` (the JAX-layout parameter tree that either package's
+trainer or ``utils.config.save_model`` writes).  It also takes a port
+model object, with such a pickle or a torch state dict.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from graphnet_tpu_torch.data.dataloader import collate_events
 from graphnet_tpu_torch.device import DeviceLike, resolve_device
 from graphnet_tpu_torch.models.graphs.graph_definition import Event
 from graphnet_tpu_torch.models.standard_model import StandardModel
+from graphnet_tpu_torch.utils.config import load_model
 from graphnet_tpu_torch.utils.jax_params import load_jax_state_dict
 
 
@@ -27,23 +29,36 @@ class DeploymentModule:
 
     def __init__(
         self,
-        model: StandardModel,
+        model_config: Union[str, os.PathLike, StandardModel],
         state_dict: Union[str, os.PathLike, Mapping[str, torch.Tensor]],
         prediction_columns: Optional[List[str]] = None,
         device: DeviceLike = "cuda",
     ):
         """Args:
-        model: a port :class:`StandardModel`; it is moved to ``device``.
-        state_dict: path to the JAX trainer's pickled parameter tree
-            (``Trainer.save_state_dict``), or the model's torch
-            ``state_dict``.
+        model_config: path to a ``model.yml`` (built with
+            ``utils.config.load_model`` on ``device``), or a port
+            :class:`StandardModel`, which is moved to ``device``.
+        state_dict: path to a pickled JAX-layout parameter tree (the JAX
+            trainer's ``Trainer.save_state_dict``, either package's
+            ``save_model``), or the model's torch ``state_dict``.
         prediction_columns: names for the output columns; defaults to the
             model's ``prediction_labels``.
         device: where inference runs: the GPU unless the caller asks for
             the CPU.
+
+        A module built from two paths pickles as those paths and is
+        built anew where it is unpickled (a ``Deployer``'s spawned
+        workers).
         """
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        from_files = isinstance(model_config, (str, os.PathLike)) and isinstance(
+            state_dict, (str, os.PathLike))
+        self._files = ((os.fspath(model_config), os.fspath(state_dict),
+                        prediction_columns, str(self.device))
+                       if from_files else None)
+        if isinstance(model_config, (str, os.PathLike)):
+            model_config = load_model(os.fspath(model_config), self.device)
+        self.model = model_config.to(self.device).eval()
         if isinstance(state_dict, (str, os.PathLike)):
             state_dict = load_jax_state_dict(
                 os.fspath(state_dict), expected=self.model.state_dict()
@@ -52,6 +67,11 @@ class DeploymentModule:
         self.prediction_columns = list(
             prediction_columns or self.model.prediction_labels
         )
+
+    def __reduce_ex__(self, protocol):
+        if self._files is None:
+            return super().__reduce_ex__(protocol)
+        return (type(self), self._files)
 
     def _predict(self, events: List[Event]):
         """Collate, pad the batch axis, run the model; returns the

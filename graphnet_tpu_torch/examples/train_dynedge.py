@@ -5,9 +5,9 @@ database (counterpart of ``examples/03_training/01_train_dynedge.py``).
     python -m graphnet_tpu_torch.examples.train_dynedge --device cpu
 
 The model trains on the GPU unless ``--device cpu`` is given.  It writes
-``state_dict.pkl`` (the JAX Trainer's format, which both packages'
-``DeploymentModule`` load) to ``--output``; ``model.yml`` waits for the
-port's config registry.
+``model.yml`` and ``state_dict.pkl`` (the JAX package's formats) to
+``--output``; both packages' ``DeploymentModule(model.yml,
+state_dict.pkl)`` serve them.
 """
 
 from __future__ import annotations
@@ -16,8 +16,6 @@ import argparse
 import logging
 import os
 import tempfile
-
-import torch
 
 from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
 from graphnet_tpu_torch.data.constants import FEATURES, TRUTH
@@ -30,12 +28,13 @@ from graphnet_tpu_torch.models.standard_model import StandardModel
 from graphnet_tpu_torch.models.task.reconstruction import EnergyReconstruction
 from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
 from graphnet_tpu_torch.training.trainer import Trainer
+from graphnet_tpu_torch.utils.config import TRANSFORM_REGISTRY, save_model_config
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="Train DynEdge energy regression. Writes state_dict.pkl "
-        "to --output; model.yml waits for the port's config registry.",
+        description="Train DynEdge energy regression. Writes model.yml and "
+        "state_dict.pkl to --output.",
     )
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--max-epochs", type=int, default=5)
@@ -86,7 +85,7 @@ def build(args: argparse.Namespace):
                 hidden_size=128,
                 loss_function=LogCoshLoss(),
                 target_labels=(args.target,),
-                transform_prediction_and_target=torch.log10,
+                transform_prediction_and_target=TRANSFORM_REGISTRY["log10"],
             )
         ],
         device=args.device,
@@ -112,8 +111,9 @@ def main(argv=None) -> None:
     )
     print(df.head())
     os.makedirs(args.output, exist_ok=True)
+    save_model_config(model, os.path.join(args.output, "model.yml"))
     trainer.save_state_dict(os.path.join(args.output, "state_dict.pkl"))
-    print(f"Saved weights to {args.output}")
+    print(f"Saved model.yml and state_dict.pkl to {args.output}")
 
 
 if __name__ == "__main__":

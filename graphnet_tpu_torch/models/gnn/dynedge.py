@@ -24,6 +24,7 @@ from graphnet_tpu_torch.ops.gather_reduce import (
     masked_mean,
 )
 from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
+from graphnet_tpu_torch.utils.config import save_config
 
 DEFAULT_DYNEDGE_LAYER_SIZES: Tuple[Tuple[int, ...], ...] = (
     (128, 256),
@@ -41,6 +42,7 @@ class DynEdge(GNN):
     products; kNN distances, pooling and the readout stay fp32.
     """
 
+    @save_config
     def __init__(
         self,
         nb_inputs: int,

@@ -24,6 +24,7 @@ from graphnet_tpu_torch.ops.gather_reduce import (
     masked_mean,
 )
 from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
+from graphnet_tpu_torch.utils.config import save_config
 
 
 class DynEdgeTITO(GNN):
@@ -34,6 +35,7 @@ class DynEdgeTITO(GNN):
     ``deterministic`` (the JAX switch that turns dropout on in training)
     changes nothing: with no dropout both settings compute the same."""
 
+    @save_config
     def __init__(
         self,
         nb_inputs: int,

@@ -25,6 +25,7 @@ from graphnet_tpu_torch.models.components.embedding import (
 )
 from graphnet_tpu_torch.models.components.layers import Block, BlockRel
 from graphnet_tpu_torch.models.gnn.gnn import GNN, resolve_compute_dtype
+from graphnet_tpu_torch.utils.config import save_config
 
 
 class DeepIce(GNN):
@@ -44,6 +45,7 @@ class DeepIce(GNN):
     with ``include_dynedge``.
     """
 
+    @save_config
     def __init__(
         self,
         hidden_dim: int = 384,

@@ -20,6 +20,7 @@ import numpy as np
 from graphnet_tpu_torch.models.detector.detector import Detector
 from graphnet_tpu_torch.models.graphs.edges import EdgeDefinition
 from graphnet_tpu_torch.models.graphs.nodes import NodeDefinition, NodesAsPulses
+from graphnet_tpu_torch.utils.config import save_config
 
 
 @dataclass
@@ -40,6 +41,7 @@ class GraphDefinition:
     """Detector + NodeDefinition + EdgeDefinition pipeline; arguments and
     defaults are the JAX package's."""
 
+    @save_config
     def __init__(
         self,
         detector: Detector,

@@ -11,11 +11,13 @@ from graphnet_tpu_torch.models.detector.detector import Detector
 from graphnet_tpu_torch.models.graphs.edges import KNNEdges
 from graphnet_tpu_torch.models.graphs.graph_definition import GraphDefinition
 from graphnet_tpu_torch.models.graphs.nodes import NodeDefinition
+from graphnet_tpu_torch.utils.config import save_config
 
 
 class KNNGraph(GraphDefinition):
     """kNN (k=8) graph on columns (0, 1, 2) with one node per pulse."""
 
+    @save_config
     def __init__(
         self,
         detector: Detector,

@@ -9,10 +9,13 @@ from typing import List, Optional
 
 import numpy as np
 
+from graphnet_tpu_torch.utils.config import save_config
+
 
 class NodeDefinition:
     """Base node definition."""
 
+    @save_config
     def __init__(
         self, input_feature_names: Optional[List[str]] = None
     ) -> None:

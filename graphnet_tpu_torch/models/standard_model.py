@@ -13,6 +13,7 @@ from graphnet_tpu_torch.device import DeviceLike, resolve_device
 from graphnet_tpu_torch.models.components.layers import init_parameters
 from graphnet_tpu_torch.models.gnn.gnn import GNN
 from graphnet_tpu_torch.models.task.task import Task
+from graphnet_tpu_torch.utils.config import save_config
 
 
 class StandardModel(nn.Module):
@@ -29,6 +30,7 @@ class StandardModel(nn.Module):
     backbone is not ported yet and raises ``NotImplementedError``.
     """
 
+    @save_config(ignore=("seed", "device"))
     def __init__(
         self,
         backbone: GNN,

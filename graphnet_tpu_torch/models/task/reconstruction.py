@@ -1,11 +1,12 @@
 """Reconstruction task heads (counterpart of
 ``graphnet_tpu/models/task/reconstruction.py``).  Ported so far: the
-energy head and the 3D direction head with its concentration; both take
-``Task``'s arguments (``loss_function``, ``target_labels``,
-``transform_prediction_and_target``, ...)."""
+energy head, the 3D direction head with its concentration and the
+zenith heads; each takes ``Task``'s arguments (``loss_function``,
+``target_labels``, ``transform_prediction_and_target``, ...)."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -42,3 +43,26 @@ class DirectionReconstructionWithKappa(StandardLearnedTask):
         kappa = torch.linalg.vector_norm(x, dim=1) + EPS
         vec = x / kappa[:, None]
         return torch.cat([vec, kappa[:, None]], dim=1), x.new_zeros(())
+
+
+class ZenithReconstruction(StandardLearnedTask):
+    """Zenith as ``sigmoid(x) * pi``."""
+
+    task_nb_inputs = 1
+    default_target_labels = ("zenith",)
+    default_prediction_labels = ("zenith_pred",)
+
+    def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return torch.sigmoid(x[:, :1]) * math.pi, x.new_zeros(())
+
+
+class ZenithReconstructionWithKappa(ZenithReconstruction):
+    """Zenith and its concentration ``|x_1| + EPS``."""
+
+    task_nb_inputs = 2
+    default_prediction_labels = ("zenith_pred", "zenith_kappa")
+
+    def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        angle, _ = ZenithReconstruction._forward(self, x[:, :1])
+        kappa = torch.abs(x[:, 1]) + EPS
+        return torch.stack([angle[:, 0], kappa], dim=1), x.new_zeros(())

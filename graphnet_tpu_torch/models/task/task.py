@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from graphnet_tpu_torch.training.loss_functions import LossFunction
+from graphnet_tpu_torch.utils.config import save_config
 
 EPS = 1.1920929e-07  # float32 eps
 
@@ -56,25 +57,29 @@ class Task(nn.Module):
     Subclasses define ``_forward`` and the class attributes
     ``task_nb_inputs`` / ``default_target_labels`` /
     ``default_prediction_labels``.  ``hidden_size`` is the width of the
-    backbone latents the affine map reads.
+    backbone latents the affine map reads (a config does not carry it:
+    ``utils.config.build`` gives each task its backbone's
+    ``nb_outputs``); the other arguments are the JAX package's fields, in
+    their order.
     """
 
     task_nb_inputs = 1
     default_target_labels: Tuple[str, ...] = ()
     default_prediction_labels: Tuple[str, ...] = ()
 
+    @save_config(ignore=("hidden_size",))
     def __init__(
         self,
         hidden_size: int,
+        loss_function: Optional[LossFunction] = None,
         target_labels: Optional[Tuple[str, ...]] = None,
         prediction_labels: Optional[Tuple[str, ...]] = None,
         transform_prediction_and_target: Optional[Callable] = None,
         transform_target: Optional[Callable] = None,
         transform_inference: Optional[Callable] = None,
         transform_support: Optional[Tuple[float, float]] = None,
-        node_level: bool = False,
-        loss_function: Optional[LossFunction] = None,
         loss_weight: Optional[str] = None,
+        node_level: bool = False,
     ):
         super().__init__()
         validate_transforms(
@@ -204,3 +209,39 @@ class Task(nn.Module):
 
 class StandardLearnedTask(Task):
     """Affine head + fixed transform."""
+
+
+class IdentityTask(StandardLearnedTask):
+    """Head of configurable width returning its affine outputs."""
+
+    @save_config(ignore=("hidden_size",))
+    def __init__(
+        self,
+        hidden_size: int,
+        loss_function: Optional[LossFunction] = None,
+        target_labels: Optional[Tuple[str, ...]] = None,
+        prediction_labels: Optional[Tuple[str, ...]] = None,
+        transform_prediction_and_target: Optional[Callable] = None,
+        transform_target: Optional[Callable] = None,
+        transform_inference: Optional[Callable] = None,
+        transform_support: Optional[Tuple[float, float]] = None,
+        loss_weight: Optional[str] = None,
+        node_level: bool = False,
+        nb_outputs: int = 1,
+    ):
+        self.nb_outputs = nb_outputs  # read by nb_inputs in Task.__init__
+        super().__init__(
+            hidden_size, loss_function, target_labels, prediction_labels,
+            transform_prediction_and_target, transform_target,
+            transform_inference, transform_support, loss_weight, node_level,
+        )
+
+    @property
+    def nb_inputs(self) -> int:
+        return self.nb_outputs
+
+    @property
+    def predictions(self) -> Tuple[str, ...]:
+        if self.prediction_labels:
+            return tuple(self.prediction_labels)
+        return tuple(f"target_{i}_pred" for i in range(len(self.targets)))

@@ -1,22 +1,25 @@
 """Loss functions (counterpart of ``graphnet_tpu/training/
 loss_functions.py``).
 
-Ported so far: the base class, the regression losses DynEdge's energy
-task uses (``MSELoss``, ``RMSELoss``, ``LogCoshLoss``) and the
-von Mises-Fisher losses of TITO's direction task
-(``VonMisesFisherLoss``, ``VonMisesFisher3DLoss``) with the normaliser
+Ported so far: the base class, the regression losses (``MSELoss``,
+``RMSELoss``, ``LogCoshLoss``), the classification losses the repo's
+configs name (``CrossEntropyLoss``, ``BinaryCrossEntropyLoss``) and the
+von Mises-Fisher losses (``VonMisesFisherLoss``,
+``VonMisesFisher2DLoss``, ``VonMisesFisher3DLoss``) with the normaliser
 ``log C_m(kappa)`` for m = 2 and 3, computed on the device.  General m
-(the JAX package's ``log_iv_series``) and the classification losses wait
-for the models that need them.
+(the JAX package's ``log_iv_series``) waits for a model that needs it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from graphnet_tpu_torch.utils.config import save_config
 
 _LOG_2 = math.log(2.0)
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -77,6 +80,57 @@ class LogCoshLoss(LossFunction):
         return self._log_cosh(prediction - target)
 
 
+class CrossEntropyLoss(LossFunction):
+    """Multi-class cross entropy on logits.  ``options`` is an int (the
+    targets are already 0..C-1), a list (target values mapped to their
+    position) or a dict (an explicit value -> class map).  A target value
+    that no option names maps to class 0, as in the JAX package."""
+
+    @save_config
+    def __init__(self, options: Union[int, List[Any], Dict[Any, int]]):
+        self._options = options
+        if isinstance(options, int):
+            if options < 2:
+                raise ValueError(f"options must be at least 2; got {options}")
+            self._nb_classes = options
+            self._keys = self._vals = None
+        elif isinstance(options, list):
+            self._nb_classes = len(options)
+            self._keys = torch.tensor(options, dtype=torch.int64)
+            self._vals = torch.arange(len(options), dtype=torch.int64)
+        elif isinstance(options, dict):
+            self._nb_classes = len(np.unique(list(options.values())))
+            self._keys = torch.tensor(list(options.keys()), dtype=torch.int64)
+            self._vals = torch.tensor(list(options.values()), dtype=torch.int64)
+        else:
+            raise ValueError(f"Unsupported options type {type(options)}")
+
+    def _map_target(self, target: torch.Tensor) -> torch.Tensor:
+        if self._keys is None:
+            return target.to(torch.int64)
+        target = target.reshape(-1).to(torch.int64)
+        keys = self._keys.to(target.device)
+        vals = self._vals.to(target.device)
+        eq = target[:, None] == keys[None, :]
+        return torch.where(eq, vals[None, :], 0).sum(dim=1)
+
+    def _forward(self, prediction, target):
+        t = self._map_target(target.reshape(-1))
+        logp = F.log_softmax(prediction, dim=-1)
+        classes = torch.arange(self._nb_classes, device=t.device)
+        onehot = (t[:, None] == classes[None, :]).to(logp.dtype)
+        return -(onehot * logp).sum(dim=-1)
+
+
+class BinaryCrossEntropyLoss(LossFunction):
+    """Binary cross entropy on probabilities in (0, 1)."""
+
+    def _forward(self, prediction, target):
+        p = torch.clamp(prediction.reshape(-1), 1e-7, 1.0 - 1e-7)
+        t = target.reshape(-1).to(p.dtype)
+        return -(t * torch.log(p) + (1.0 - t) * torch.log1p(-p))
+
+
 # ------------------------------------------------------------ log C_m(k)
 def _log_sinh_over_x(x: torch.Tensor) -> torch.Tensor:
     """Stable ``log(sinh(x)/x)`` for x >= 0 (series below 0.1)."""
@@ -133,6 +187,21 @@ class VonMisesFisherLoss(LossFunction):
         k = torch.linalg.vector_norm(prediction, dim=1)
         dotprod = (prediction * target).sum(dim=1)
         return -log_cmk(m, k) - dotprod
+
+
+class VonMisesFisher2DLoss(VonMisesFisherLoss):
+    """prediction ``[N, 2] = (angle, kappa)``; target ``[N, >=1]``, the
+    angle in its first column."""
+
+    def _forward(self, prediction, target):
+        target = target.reshape(prediction.shape[0], -1)
+        angle_true = target[:, 0]
+        t = torch.stack([torch.cos(angle_true), torch.sin(angle_true)], dim=1)
+        angle_pred = prediction[:, 0]
+        kappa = prediction[:, 1]
+        p = kappa[:, None] * torch.stack(
+            [torch.cos(angle_pred), torch.sin(angle_pred)], dim=1)
+        return self._evaluate(p, t)
 
 
 class VonMisesFisher3DLoss(VonMisesFisherLoss):

@@ -26,6 +26,14 @@ from graphnet_tpu_torch.models.components.layers import (
 from graphnet_tpu_torch.ops import flash_attention_cuda as tfa
 from graphnet_tpu_torch.utils.jax_params import params_from_jax
 
+# The first multi-threaded torch.exp of a process can be wrong: in
+# PyTorch's CPU builds with MKL, ATen's exp calls MKL's VML chunk by
+# chunk from the OpenMP threads, and when two threads make the
+# process's first VML call at once (under load) the second chunk came
+# out 1.5e-4 off (relative) instead of 6e-8.  One VML call in a single
+# thread first (a tensor too small to split) initialises it; at import,
+# so before any test of the worker process runs.
+torch.exp(torch.zeros(16))
 torch.set_num_threads(2)
 
 

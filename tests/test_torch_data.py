@@ -180,10 +180,22 @@ def test_dataloader_options():
         _assert_same_batch(g, e)
     with pytest.raises(NotImplementedError, match="stack_k"):
         DataLoader(ds, stack_k=2)
-    with pytest.raises(NotImplementedError, match="selections"):
+    # a string selection gives the JAX dataset's events; named selections
+    # (a dict) belong in a dataset config
+    selected = SQLiteDataset(
+        EXAMPLE_SQLITE_DATA, KNNGraph(detector=Prometheus()),
+        features=FEATURES.PROMETHEUS, truth=TRUTH.PROMETHEUS,
+        selection="event_no % 5 > 0", **ARGS)
+    jax_selected = JaxSQLiteDataset(
+        EXAMPLE_SQLITE_DATA, JaxKNNGraph(detector=JaxPrometheus()),
+        features=JAX_FEATURES.PROMETHEUS, truth=JAX_TRUTH.PROMETHEUS,
+        selection="event_no % 5 > 0", **ARGS)
+    assert selected._indices == jax_selected._indices
+    assert 0 < len(selected) < len(ds)
+    with pytest.raises(TypeError, match="load_dataset"):
         SQLiteDataset(EXAMPLE_SQLITE_DATA, KNNGraph(detector=Prometheus()),
                       features=FEATURES.PROMETHEUS, truth=TRUTH.PROMETHEUS,
-                      selection="event_no > 10", **ARGS)
+                      selection={"train": "event_no % 5 > 0"}, **ARGS)
 
 
 def test_datamodule_split_matches_jax():
@@ -321,7 +333,8 @@ def test_trainer_fit_and_predict_as_dataframe_match_jax(monkeypatch):
 def test_training_example_on_the_cpu(tmp_path, capsys):
     """``python -m graphnet_tpu_torch.examples.train_dynedge --device cpu
     --max-epochs 1``: a prediction frame, and a ``state_dict.pkl`` that
-    loads into the same model."""
+    loads into the same model; with the ``model.yml`` beside it, both
+    packages' ``DeploymentModule`` serve the trained model alike."""
     from graphnet_tpu_torch.examples import train_dynedge
 
     out = tmp_path / "model"
@@ -337,6 +350,22 @@ def test_training_example_on_the_cpu(tmp_path, capsys):
     assert train_dynedge.parse_args([]).device == "cuda"
     _, model = train_dynedge.build(args)
     Trainer(model).load_state_dict(str(pkl))
+    from graphnet_tpu.deployment.deployment_module import (
+        DeploymentModule as JaxDeploymentModule,
+    )
+    from graphnet_tpu.models.graphs.graph_definition import Event as JaxEvent
+    from graphnet_tpu_torch.deployment.deployment_module import DeploymentModule
+    from graphnet_tpu_torch.models.graphs.graph_definition import Event
+
+    yml = str(out / "model.yml")
+    arrays = [np.random.default_rng(0).standard_normal((n, 4)).astype(
+        np.float32) for n in (12, 5)]
+    got = DeploymentModule(yml, str(pkl), device="cpu")(
+        [Event(x=a, features=FEATURES.PROMETHEUS) for a in arrays])
+    exp = JaxDeploymentModule(yml, str(pkl))(
+        [JaxEvent(x=a, features=FEATURES.PROMETHEUS) for a in arrays])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, exp, rtol=2e-4, atol=2e-5)
 
 
 def test_training_example_seed_fixes_the_shuffle():

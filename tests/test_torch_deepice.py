@@ -4,6 +4,7 @@ paths (the JAX kernels in Pallas interpret mode), ``Trainer.fit``,
 ``DeploymentModule``, the parameter carry-over at full width and the
 options that are not ported."""
 
+import copy
 import functools
 from pathlib import Path
 
@@ -28,6 +29,8 @@ from graphnet_tpu.models.task.reconstruction import (
 )
 from graphnet_tpu.training import loss_functions as jlf
 from graphnet_tpu.training.trainer import Trainer as JaxTrainer
+from graphnet_tpu.utils.config import ModelConfig as JaxModelConfig
+from graphnet_tpu.utils.config import build as jax_build
 from graphnet_tpu.utils.config import save_model_config
 from graphnet_tpu_torch.batch import make_batch
 from graphnet_tpu_torch.deployment.deployment_module import DeploymentModule
@@ -41,6 +44,7 @@ from graphnet_tpu_torch.models.task.reconstruction import (
 )
 from graphnet_tpu_torch.training import loss_functions as tlf
 from graphnet_tpu_torch.training.trainer import Trainer
+from graphnet_tpu_torch.utils.config import ModelConfig, build, load_model
 from graphnet_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
 
 torch.set_num_threads(2)
@@ -292,31 +296,32 @@ def _zoo_arguments(name):
 
 @pytest.mark.parametrize("name", ["B_d32", "B_d32_4rel", "B_d64"])
 def test_zoo_config_builds_and_matches_jax(name):
-    """The backbone arguments of each zoo file whose options the port
-    has build the port's DeepIce unchanged, each on the rel kernels (head
-    dims 32 and 64).  Narrowed to two heads and one block, the port
-    model (its rel path the plain streaming versions on the CPU) matches
-    the JAX model built from the same arguments (rtol 2e-4, as the
-    narrow models above)."""
+    """Each zoo file whose options the port has builds the port's model
+    through ``utils.config.load_model`` at the file's widths, its DeepIce
+    on the rel kernels (head dims 32 and 64).  The file cut to two heads
+    and one block, built by both packages' registries, gives the port
+    model (its rel path the plain streaming versions on the CPU) the
+    JAX model's predictions (rtol 2e-4, as the narrow models above)."""
+    path = ZOO / name / "model.yml"
     args = _zoo_arguments(name)
-    model = DeepIce(**args)
-    assert model.hidden_dim == args["hidden_dim"] and model.depth == args["depth"]
-    assert model.sandwich_0.attn.uses_rel_kernel(args["head_size"])
+    model = load_model(str(path), device="cpu")
+    assert isinstance(model.backbone, DeepIce)
+    assert model.backbone.hidden_dim == args["hidden_dim"]
+    assert model.backbone.depth == args["depth"]
+    assert model.backbone.sandwich_0.attn.uses_rel_kernel(args["head_size"])
     del model
-    narrow = {**args, "hidden_dim": 2 * args["head_size"], "depth": 1}
+    with open(path) as f:
+        spec = yaml.safe_load(f)
+    backbone = spec["arguments"]["backbone"]["__model__"]["arguments"]
+    backbone.update(hidden_dim=2 * args["head_size"], depth=1)
     jbs, tbs = _batches(12, [[40, 3, 17]], length=64)
-    jmodel = JaxStandardModel(
-        backbone=JaxDeepIce(**narrow),
-        tasks=(JaxDirection(loss_function=jlf.VonMisesFisher3DLoss()),))
+    jmodel = jax_build(JaxModelConfig.from_dict(copy.deepcopy(spec)))
     params = _random_tree(
         jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jbs[0]), 13)
     j_pred = np.asarray(jmodel.apply(params, jbs[0])[0][0])
-    model = StandardModel(
-        DeepIce(**narrow),
-        [DirectionReconstructionWithKappa(hidden_size=narrow["hidden_dim"])],
-        device="cpu")
+    model = build(ModelConfig.from_dict(spec), device="cpu")
     model.load_state_dict(params_from_jax(params, model.state_dict()))
-    assert model.backbone.sandwich_0.attn.uses_rel_kernel(narrow["head_size"])
+    assert model.backbone.sandwich_0.attn.uses_rel_kernel(args["head_size"])
     with torch.no_grad():
         pred = model(tbs[0])[0][0]
     np.testing.assert_allclose(pred.numpy(), j_pred, rtol=2e-4, atol=2e-5)
