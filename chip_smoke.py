@@ -63,6 +63,20 @@ Phases, each printing one JSON line:
    ``FUSE_CONV_KNN`` on (1 kNN and 4 fused EdgeConv + kNN launches per
    forward), fp32 and bf16; with it off and on the same graphs and
    latents, bit for bit;
+7a. export, export_bf16, export_fused: the serving artifact
+   (``graphnet_tpu_torch/deployment/export.py``).  The same DynEdge
+   modules exported by ``DeploymentModule.export_serving`` (one
+   ``torch.export`` program per (B, L): B = 1, 8, 32 at L = 128 and 512;
+   with ``FUSE_CONV_KNN`` on at L = 128) and the serving requests served
+   by ``ExportedModel``: each answer within rtol 1e-6 of the live model
+   at the artifact's shapes (the same bits expected; the largest
+   difference printed, and the difference to the module's own answers
+   at its own padding), each program call 5 kNN and 4 EdgeConv launches
+   (1 and 4 fused), as the live forward; each program's export seconds
+   and bytes, and a request's host ms exported and live.  The fp32
+   artifact is also served by a new process that imports only
+   ``graphnet_tpu_torch.deployment.export`` and must not import
+   ``graphnet_tpu_torch.models.gnn``: the same answers, bit for bit;
 7b. train_sqlite: the training example's path
    (``graphnet_tpu_torch.examples.train_dynedge``): the bundled SQLite
    database through ``SQLiteDataset``, ``KNNGraph(Prometheus())``, the
@@ -88,7 +102,9 @@ Phases, each printing one JSON line:
    launches per forward, and 4 EdgeConv-backward, 4 dq and 4 dkv more
    per training step; answers, losses and step-1 gradients held
    against the CPU.  Then the bfloat16 modes, against the bfloat16
-   model on the CPU;
+   model on the CPU; export_tito: the TITO module exported at B = 1 and
+   8, L = 1024 and held as in 7a (1 kNN, 4 EdgeConv and 4 flash
+   launches a program call);
 10. rel_flash, rel_flash_bwd: the relative-bias attention forward, dq
    and dkv kernels against their plain versions (12 heads of 32, L =
    128, 768, 1000 and 1024; at the dkv kernel's tile edges, L = 1, 63,
@@ -112,7 +128,12 @@ Phases, each printing one JSON line:
    serve_deepice_d64, train_deepice_d64: the same for the zoo's DeepIce
    B_d64 at full width (hidden 768, 12 heads of 64: the rel kernels at
    head dim 64), built from its model.yml, the same requests and batch,
-   2 training steps;
+   2 training steps; export_deepice, export_deepice_bf16: the DeepIce
+   modules exported at B = 4 and 16, L = 1024 (the requests' shapes) and
+   held as in 7a (1 rel and 15 flash forward launches a program call);
+   B_d64 is not exported (its kernels are the same operators at head
+   dim 64, and each program would carry its weights, about four times
+   the default DeepIce's);
 11b. serve_config: six model files (``SERVE_CONFIGS``: DynEdge energy,
    TITO direction, the zoo's DeepIce B_d32, and the QUESO energy
    (IdentityTask, log10 / pow10), zenith and node-level pulse cleaner),
@@ -283,6 +304,10 @@ SERVE_CONFIGS = (
 # sums, so near 0 (a zenith kappa, |x| + eps) its relative error says
 # nothing of the model
 CONFIG_RTOL, CONFIG_FLOOR = 1e-3, 1e-2
+# the export phases' grids of (batch, length) for DynEdge, and with the
+# fused EdgeConv + kNN (which takes L <= 128)
+DYNEDGE_GRID = dict(batch_sizes=(1, 8, 32), lengths=(128, 512))
+FUSED_GRID = dict(batch_sizes=(1, 8, 32), lengths=(128,))
 # the serving_queue phase: events of 1-512 pulses, threads, batch cap
 QUEUE_EVENTS, QUEUE_THREADS, QUEUE_MAX_BATCH = 256, 8, 32
 # the deployer phase: .npz files of events, events a file, workers
@@ -3023,6 +3048,142 @@ def deployer_phase(module, rng, tmp):
             f"{DEPLOY_WORKERS}_workers_s": walls[DEPLOY_WORKERS]}
 
 
+def export_phase(torch, module, requests, counters, expect, tmp, host=(),
+                 nb_inputs=None, **grid):
+    """Phases export*: ``module`` exported by ``DeploymentModule.
+    export_serving`` into ``tmp`` on its grid (``batch_sizes``,
+    ``lengths``) and every request served through ``ExportedModel``.
+    Each answer is held within rtol 1e-6 to the live model at the
+    artifact's shapes (``ExportedModel``'s padding with the live
+    ``Predict`` of the module in each program's place: the same kernels
+    in the same order, so the same bits are expected) and compared with
+    the module's own answers (its own padding, which may differ: printed).
+    Each program call, and each live call at its shapes, adds ``expect``
+    launches; the counts are set to 0 before the exported run and read
+    after it.  Also each program's export seconds and ``.pt2`` bytes, and
+    the host ms of the requests in ``host`` exported and live.  Returns
+    ``(answers, launches, report)``."""
+    import copy
+
+    from graphnet_tpu_torch.deployment.export import ExportedModel, Predict
+
+    t0 = time.perf_counter()
+    meta = module.export_serving(tmp, nb_inputs=nb_inputs, **grid)
+    export_s = time.perf_counter() - t0
+    served = ExportedModel(tmp)
+    load_s = time.perf_counter() - t0 - export_s
+    calls = {"exported": 0, "live": 0}
+
+    def counted(fn, kind):
+        def run(*args):
+            before = [c.launches for c in counters]
+            out = fn(*args)
+            rose = [c.launches - b for c, b in zip(counters, before)]
+            assert rose == expect, (
+                f"{kind} program: launches rose by {rose}, not {expect}")
+            calls[kind] += 1
+            return out
+        return run
+
+    checked, live = copy.copy(served), copy.copy(served)
+    checked.programs = {key: counted(p, "exported")
+                        for key, p in served.programs.items()}
+    live_fn = counted(Predict(module.model), "live")
+    live.programs = {key: live_fn for key in served.programs}
+    for c in counters:
+        c.launches = 0
+    answers = {label: checked(evs) for label, evs in requests.items()}
+    launches = [c.launches for c in counters]
+    assert calls["exported"] > 0 and all(
+        (n > 0) == (e > 0) for n, e in zip(launches, expect)), launches
+    report = []
+    for label, evs in requests.items():
+        got, ref, own = answers[label], live(evs), module(evs)
+        empty = np.array([e.n_pulses == 0 for e in evs])
+        assert got.shape == own.shape == (len(evs), len(
+            module.prediction_columns))
+        assert np.isnan(got[empty]).all() and np.isfinite(got[~empty]).all()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0.0,
+                                   err_msg=f"{label}: artifact against live")
+        scale = np.abs(ref[~empty])
+        report.append({
+            "request": label, "events": len(evs),
+            "bit_equal_to_live_at_artifact_shapes": bool(
+                np.array_equal(got, ref, equal_nan=True)),
+            "max_abs_diff_to_live_at_artifact_shapes": float(
+                np.abs(got[~empty] - ref[~empty]).max()),
+            "max_rel_diff_to_live_at_artifact_shapes": float(
+                (np.abs(got[~empty] - ref[~empty]) / scale).max()),
+            "bit_equal_to_deployment_module": bool(
+                np.array_equal(got, own, equal_nan=True)),
+            "max_rel_diff_to_deployment_module": float(
+                (np.abs(got[~empty] - own[~empty]) / np.abs(own[~empty])).max()),
+        })
+    host_ms = {label: {
+        "exported": 1e3 * host_s(lambda: served(requests[label]), runs=11),
+        "live": 1e3 * host_s(lambda: module(requests[label]), runs=11)}
+        for label in host}
+    return answers, launches, {
+        "requests": report,
+        "program_calls": calls,
+        "export_s": export_s, "load_s": load_s,
+        "programs": [{"file": s["file"], "export_s": s["seconds"],
+                      "bytes": os.path.getsize(os.path.join(tmp, s["file"]))}
+                     for s in meta["shapes"]],
+        "dtype": meta["dtype"], "device": meta["device"],
+        "request_host_ms": host_ms,
+    }
+
+
+FRESH_PROCESS = r"""
+import sys
+import numpy as np
+from graphnet_tpu_torch.deployment.export import ExportedModel
+from graphnet_tpu_torch.models.graphs.graph_definition import Event
+artifact, requests, out = sys.argv[1:4]
+served = ExportedModel(artifact)
+with np.load(requests) as f:
+    names = sorted(f.files, key=lambda n: (n.split("__")[0], int(n.split("__")[1])))
+    events = {}
+    for n in names:
+        events.setdefault(n.split("__")[0], []).append(
+            Event(x=f[n], features=[f"f{i}" for i in range(f[n].shape[1])]))
+answers = {label: served(evs) for label, evs in events.items()}
+np.savez(out, **answers)
+print("imported_model_code=" + ",".join(
+    m for m in ("graphnet_tpu_torch.models.gnn",
+                "graphnet_tpu_torch.models.standard_model",
+                "graphnet_tpu_torch.models.task") if m in sys.modules))
+"""
+
+
+def fresh_process_phase(artifact, requests, answers, tmp):
+    """Phase export: the artifact served by a new process that imports
+    only ``graphnet_tpu_torch.deployment.export`` (and ``Event``): it
+    must not import ``graphnet_tpu_torch.models.gnn`` (nor the
+    ``StandardModel`` or the tasks) and must give this process's answers
+    bit for bit."""
+    reqs = os.path.join(tmp, "requests.npz")
+    out = os.path.join(tmp, "fresh_answers.npz")
+    np.savez(reqs, **{f"{label}__{i}": e.x for label, evs in requests.items()
+                      for i, e in enumerate(evs)})
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-c", FRESH_PROCESS, artifact, reqs, out],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    assert done.returncode == 0, done.stderr[-4000:]
+    imported = done.stdout.strip().splitlines()[-1].split("=", 1)[1]
+    assert imported == "", f"the serving process imported {imported}"
+    with np.load(out) as f:
+        same = {label: bool(np.array_equal(f[label], answers[label],
+                                           equal_nan=True))
+                for label in requests}
+    assert all(same.values()), f"a fresh process answers otherwise: {same}"
+    return {"imported_model_code": [], "answers_bit_equal": same,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -3277,7 +3438,33 @@ def main() -> int:
     os.remove(pkl)
     os.rmdir(tmp)
 
-    # 6c. the training example's path (SQLite data, DataLoader,
+    # 6c. the serving artifact: the DynEdge forward exported per (B, L)
+    # through torch.export and served by ExportedModel, fp32 and bf16,
+    # and with the fused EdgeConv + kNN on; the fp32 artifact also served
+    # by a new process that imports no model code
+    for key, module, grid, expect, reqs, host in (
+        ("export", gpu, DYNEDGE_GRID, dynedge_fwd, requests,
+         ("one_event", "b128_L128")),
+        ("export_bf16", gpu16, DYNEDGE_GRID, dynedge_fwd, requests, ()),
+        ("export_fused", gpu, FUSED_GRID, fused_fwd, fused_requests, ()),
+    ):
+        t0 = time.perf_counter()
+        art = tempfile.mkdtemp(prefix="chip_smoke_export_")
+        layers.FUSE_CONV_KNN = key == "export_fused"
+        try:
+            answers_x, launches_x, report = export_phase(
+                torch, module, reqs, counters, expect, art, host=host, **grid)
+        finally:
+            layers.FUSE_CONV_KNN = False
+        if key == "export":
+            report["fresh_process"] = fresh_process_phase(art, reqs, answers_x,
+                                                          art)
+        shutil.rmtree(art)
+        emit({"phase": key, "card": smi, "grid": grid, **report,
+              "launches": dict(zip(names, launches_x)),
+              "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 6d. the training example's path (SQLite data, DataLoader,
     # Trainer.fit) with the fused EdgeConv + kNN on
     t0 = time.perf_counter()
 
@@ -3363,6 +3550,17 @@ def main() -> int:
     os.remove(tito_pkl)
     os.rmdir(tmp)
 
+    # 7b'. the TITO serving artifact
+    t0 = time.perf_counter()
+    art = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    tito_grid = dict(batch_sizes=(1, TITO_B), lengths=(TITO_L,))
+    _, launches_xt, report = export_phase(
+        torch, tito_gpu, tito_requests, counters, tito_fwd, art, **tito_grid)
+    shutil.rmtree(art)
+    emit({"phase": "export_tito", "card": smi, "grid": tito_grid, **report,
+          "launches": dict(zip(names, launches_xt)),
+          "seconds": round(time.perf_counter() - t0, 2)})
+
     # 7c. TITO training through Trainer, B=8, L=1024
     def make_tito_trainable(device, compute_dtype=None):
         model = make_tito(device, compute_dtype)
@@ -3435,6 +3633,21 @@ def main() -> int:
     os.remove(ice_pkl)
     os.rmdir(tmp)
     del ice_cpu, ice_cpu16
+
+    # 7d'. the DeepIce serving artifacts, fp32 and bf16, at the requests'
+    # shapes (B = 4 and 16 at L = 1024)
+    ice_grid = dict(batch_sizes=(4, ICE_B), lengths=(ICE_SERVE_L,))
+    for key, module in (("export_deepice", ice_gpu),
+                        ("export_deepice_bf16", ice_gpu16)):
+        t0 = time.perf_counter()
+        art = tempfile.mkdtemp(prefix="chip_smoke_export_")
+        _, launches_xi, report = export_phase(
+            torch, module, ice_requests, counters, ice_fwd, art,
+            nb_inputs=len(ICE_FEATURES), **ice_grid)
+        shutil.rmtree(art)
+        emit({"phase": key, "card": smi, "grid": ice_grid, **report,
+              "launches": dict(zip(names, launches_xi)),
+              "seconds": round(time.perf_counter() - t0, 2)})
 
     # 7e. DeepIce training through Trainer, B=16, L=768
     def make_ice_trainable(device, compute_dtype=None):

@@ -131,6 +131,36 @@ class DeploymentModule:
             out[i][:n] = stacked[j, :n]
         return out
 
+    def export_serving(
+        self,
+        path: str,
+        nb_inputs: Optional[int] = None,
+        batch_sizes=(1, 8, 32, 128),
+        lengths=(128,),
+    ) -> dict:
+        """Write a serving artifact (one ``torch.export`` program per
+        ``(B, L)``, the weights held in each) that :class:`~graphnet_tpu_
+        torch.deployment.export.ExportedModel` serves without any model
+        code, traced on this module's device; see ``deployment/
+        export.py``."""
+        from graphnet_tpu_torch.deployment.export import export_serving
+
+        if nb_inputs is None:
+            nb_inputs = getattr(self.model.backbone, "nb_inputs", None)
+            if nb_inputs is None:
+                raise ValueError(
+                    "backbone has no nb_inputs field; pass nb_inputs="
+                )
+        return export_serving(
+            self.model,
+            path,
+            nb_inputs=nb_inputs,
+            prediction_columns=self.prediction_columns,
+            batch_sizes=batch_sizes,
+            lengths=lengths,
+            device=self.device,
+        )
+
     @staticmethod
     def _pad_batch_size(batch: EventBatch) -> EventBatch:
         """Pad the batch axis up to the next power of two with all-masked

@@ -17,12 +17,16 @@ kernels are ``csrc/edgeconv.cu``, ``csrc/edgeconv_knn.cu`` and
 H100 and what the designs do about it (the backward keeps every sum in a
 fixed order, so it is deterministic).
 
-:func:`fused_edgeconv` and :func:`fused_edgeconv_knn` are
-``torch.autograd.Function`` classes on both devices: tensors on the CPU take
-the plain forwards and the plain backward (:func:`fused_edgeconv_plain`,
-:func:`fused_edgeconv_knn_plain`, :func:`fused_edgeconv_bwd_plain`),
-CUDA tensors launch the kernels.  There is no fallback from CUDA to the
-plain versions.
+Each kernel is an operator of :mod:`~graphnet_tpu_torch.ops.library`:
+``torch.ops.graphnet_tpu_torch.edgeconv_fwd`` (row 2),
+``edgeconv_knn_fwd`` (row 4) and ``edgeconv_bwd`` (row 3), whose CPU
+implementations are the plain versions (:func:`fused_edgeconv_plain`,
+:func:`fused_edgeconv_knn_plain`, :func:`fused_edgeconv_bwd_plain`) and
+whose CUDA implementations launch the kernels.  :func:`fused_edgeconv`
+and :func:`fused_edgeconv_knn` are ``torch.autograd.Function`` classes
+on both devices that call the forward operators and, in their backward,
+the backward operator.  There is no fallback from CUDA to the plain
+versions.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from graphnet_tpu_torch.ops import library
 from graphnet_tpu_torch.ops.flash_attention_cuda import aligned16
 from graphnet_tpu_torch.ops.gather_reduce import gather_neighbors
 from graphnet_tpu_torch.ops.knn import knn_graph_plain
@@ -258,11 +263,10 @@ def _check(a, b, idx, edge_mask, w2, b2, aggr, g=None):
         )
 
 
-def _cuda_device(tensors, name: str) -> Optional[torch.device]:
-    """None when every tensor lies on the CPU; the CUDA device when all
-    lie on one; raises otherwise.  Also checks the kernels' dtypes."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return None
+def _cuda_device(tensors, name: str) -> torch.device:
+    """The CUDA device of a kernel's tensors, all on one; raises
+    otherwise (a CUDA implementation never takes CPU tensors).  Also
+    checks the kernels' dtypes."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(
@@ -316,7 +320,9 @@ def pad_operands(
             pad(w2, (0, P2 - H2, 0, P1 - H1)), pad(b2, (0, P2 - H2)))
 
 
-def _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope, dev):
+def _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope):
+    _check(a, b, idx, edge_mask, w2, b2, aggr)
+    dev = _cuda_device((a, b, idx, edge_mask, w2, b2), "fused_edgeconv")
     H2, k = w2.shape[1], idx.shape[2]
     a, b, w2, b2 = pad_operands(a, b, w2, b2)
     B, L, H1 = a.shape
@@ -368,7 +374,11 @@ def _check_knn(nmask, a, w2, knn_k, sub_lo, sub_hi):
 
 
 def _fwd_knn_cuda(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
-                  sub_lo, sub_hi, dev):
+                  sub_lo, sub_hi):
+    _check(a, b, idx, edge_mask, w2, b2, aggr)
+    _check_knn(nmask, a, w2, knn_k, sub_lo, sub_hi)
+    dev = _cuda_device((a, b, idx, edge_mask, w2, b2, nmask),
+                       "fused_edgeconv_knn")
     B, L, H1 = a.shape
     H2, k = w2.shape[1], idx.shape[2]
     D = sub_hi - sub_lo
@@ -469,27 +479,28 @@ def fused_edgeconv_bwd(
     forward's inputs and the output gradient ``g [B, L, H2]`` (any float
     dtype and strides; it is made contiguous fp32).
 
-    Tensors on the CPU take :func:`fused_edgeconv_bwd_plain`; CUDA
-    tensors launch ``csrc/edgeconv_bwd.cu`` (six kernels, seven in fp32,
-    counted as one call in ``fused_edgeconv_bwd.launches``) with the
-    scratch of :func:`bwd_scratch_plan`.
+    The operator ``edgeconv_bwd``: tensors on the CPU take
+    :func:`fused_edgeconv_bwd_plain`; CUDA tensors launch
+    ``csrc/edgeconv_bwd.cu`` (six kernels, seven in fp32, counted as one
+    call in ``fused_edgeconv_bwd.launches``) with the scratch of
+    :func:`bwd_scratch_plan`.
     """
+    return edgeconv_bwd_op(a, b, idx, edge_mask, w2, b2, g, aggr, slope)
+
+
+def _bwd_cuda(a, b, idx, edge_mask, w2, b2, g, aggr, slope):
     _check(a, b, idx, edge_mask, w2, b2, aggr, g)
-    tensors = (a, b, idx, edge_mask, w2, b2, g)
-    dev = _cuda_device(tensors, "fused_edgeconv_bwd")
-    if dev is None:
-        return fused_edgeconv_bwd_plain(
-            a, b, idx, edge_mask, w2, b2, g, aggr, slope
-        )
+    dev = _cuda_device((a, b, idx, edge_mask, w2, b2, g), "fused_edgeconv_bwd")
     B, L, H1 = a.shape
     H2, k = w2.shape[1], idx.shape[2]
     pa, pb, pw2, pb2 = pad_operands(a, b, w2, b2)
     if pw2 is not w2:
         # zero columns change no gradient, and are cut off again
         pg = torch.nn.functional.pad(g, (0, pw2.shape[1] - H2))
-        da, db, dw2, db2 = fused_edgeconv_bwd(
+        da, db, dw2, db2 = _bwd_cuda(
             pa, pb, idx, edge_mask, pw2, pb2, pg, aggr, slope)
-        return da[..., :H1], db[..., :H1], dw2[:H1, :H2], db2[:H2]
+        return tuple(t.contiguous() for t in (
+            da[..., :H1], db[..., :H1], dw2[:H1, :H2], db2[:H2]))
     bf16 = int(a.dtype == torch.bfloat16)
     lib = _bwd_lib()
     starts, total, splits = _bwd_layout(lib, dev, B, L, H1, H2, k, a.dtype)
@@ -525,11 +536,7 @@ class _FusedEdgeConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, idx, edge_mask, w2, b2, aggr, slope):
-        dev = _cuda_device((a, b, idx, edge_mask, w2, b2), "fused_edgeconv")
-        if dev is None:
-            out = fused_edgeconv_plain(a, b, idx, edge_mask, w2, b2, aggr, slope)
-        else:
-            out = _fwd_cuda(a, b, idx, edge_mask, w2, b2, aggr, slope, dev)
+        out = edgeconv_fwd_op(a, b, idx, edge_mask, w2, b2, aggr, slope)
         ctx.save_for_backward(a, b, idx, edge_mask, w2, b2)
         ctx.aggr, ctx.slope = aggr, slope
         return out
@@ -570,7 +577,6 @@ def fused_edgeconv(
     ``fused_edgeconv.launches``; the backward counts its own in
     ``fused_edgeconv_bwd.launches``.
     """
-    _check(a, b, idx, edge_mask, w2, b2, aggr)
     return _FusedEdgeConv.apply(a, b, idx, edge_mask, w2, b2, aggr, slope)
 
 
@@ -585,16 +591,9 @@ class _FusedEdgeConvKnn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
                 sub_lo, sub_hi):
-        dev = _cuda_device((a, b, idx, edge_mask, w2, b2, nmask),
-                           "fused_edgeconv_knn")
-        if dev is None:
-            out, nidx, nem = fused_edgeconv_knn_plain(
-                a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
-                sub_lo, sub_hi)
-        else:
-            out, nidx, nem = _fwd_knn_cuda(
-                a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
-                sub_lo, sub_hi, dev)
+        out, nidx, nem = edgeconv_knn_fwd_op(
+            a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k, sub_lo,
+            sub_hi)
         ctx.mark_non_differentiable(nidx, nem)
         ctx.save_for_backward(a, b, idx, edge_mask, w2, b2)
         ctx.aggr, ctx.slope = aggr, slope
@@ -634,10 +633,66 @@ def fused_edgeconv_knn(
     ``knn_k`` <= 16 and 3 or 4 columns.  Counts its kernel launches in
     ``fused_edgeconv_knn.launches``.
     """
-    _check(a, b, idx, edge_mask, w2, b2, aggr)
-    _check_knn(nmask, a, w2, knn_k, sub_lo, sub_hi)
     return _FusedEdgeConvKnn.apply(a, b, idx, edge_mask, nmask, w2, b2, aggr,
                                    slope, knn_k, sub_lo, sub_hi)
 
 
 fused_edgeconv_knn.launches = 0
+
+
+# ----------------------------------------------------------- operators
+# Each implementation checks its inputs (an operator is an entry point of
+# its own).  The CPU implementations look the plain versions up at call
+# time, so that a test may count their calls by replacing the module
+# globals.
+def _fwd_cpu(a, b, idx, edge_mask, w2, b2, aggr, slope):
+    _check(a, b, idx, edge_mask, w2, b2, aggr)
+    return fused_edgeconv_plain(a, b, idx, edge_mask, w2, b2, aggr, slope)
+
+
+def _fwd_fake(a, b, idx, edge_mask, w2, b2, aggr, slope):
+    return a.new_empty(a.shape[:2] + w2.shape[1:], dtype=torch.float32)
+
+
+def _fwd_knn_cpu(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
+                 sub_lo, sub_hi):
+    _check(a, b, idx, edge_mask, w2, b2, aggr)
+    _check_knn(nmask, a, w2, knn_k, sub_lo, sub_hi)
+    return fused_edgeconv_knn_plain(a, b, idx, edge_mask, nmask, w2, b2, aggr,
+                                    slope, knn_k, sub_lo, sub_hi)
+
+
+def _fwd_knn_fake(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
+                  sub_lo, sub_hi):
+    B, L = a.shape[:2]
+    return (a.new_empty((B, L, w2.shape[1]), dtype=torch.float32),
+            a.new_empty((B, L, knn_k), dtype=torch.int32),
+            a.new_empty((B, L, knn_k), dtype=torch.bool))
+
+
+def _bwd_cpu(a, b, idx, edge_mask, w2, b2, g, aggr, slope):
+    _check(a, b, idx, edge_mask, w2, b2, aggr, g)
+    return fused_edgeconv_bwd_plain(a, b, idx, edge_mask, w2, b2, g, aggr,
+                                    slope)
+
+
+def _bwd_fake(a, b, idx, edge_mask, w2, b2, g, aggr, slope):
+    f32 = dict(dtype=torch.float32)
+    return (a.new_empty(a.shape, **f32), a.new_empty(a.shape, **f32),
+            a.new_empty(w2.shape, **f32), a.new_empty(b2.shape, **f32))
+
+
+_OPERANDS = "Tensor a, Tensor b, Tensor idx, Tensor edge_mask"
+edgeconv_fwd_op = library.define(
+    f"edgeconv_fwd({_OPERANDS}, Tensor w2, Tensor b2, str aggr, float slope)"
+    " -> Tensor",
+    _fwd_cpu, _fwd_cuda, _fwd_fake)
+edgeconv_knn_fwd_op = library.define(
+    f"edgeconv_knn_fwd({_OPERANDS}, Tensor nmask, Tensor w2, Tensor b2, "
+    "str aggr, float slope, int knn_k, int sub_lo, int sub_hi)"
+    " -> (Tensor, Tensor, Tensor)",
+    _fwd_knn_cpu, _fwd_knn_cuda, _fwd_knn_fake)
+edgeconv_bwd_op = library.define(
+    f"edgeconv_bwd({_OPERANDS}, Tensor w2, Tensor b2, Tensor g, str aggr, "
+    "float slope) -> (Tensor, Tensor, Tensor, Tensor)",
+    _bwd_cpu, _bwd_cuda, _bwd_fake)

@@ -29,10 +29,13 @@ a ragged L reads ``sum(v) / L`` where the JAX flash path reads
 ``sum(v) / Lp`` over its padded length.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` on both
-devices: tensors on the CPU take the plain forward and backward
-(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), CUDA
-tensors launch the kernels, and raise on what the kernels do not take.
-There is no fallback from CUDA to the plain versions.
+devices that calls the operators ``torch.ops.graphnet_tpu_torch.
+flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+(:mod:`~graphnet_tpu_torch.ops.library`): tensors on the CPU take the
+plain forward and backward (:func:`flash_attention_plain`,
+:func:`flash_attention_bwd_plain`), CUDA tensors launch the kernels, and
+raise on what the kernels do not take.  There is no fallback from CUDA
+to the plain versions.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from graphnet_tpu_torch.ops import library
 
 NEG = -1e5
 HEAD_DIMS = (32, 64)  # head dims the kernels are built for
@@ -152,11 +157,9 @@ def _lib(name: str, fn_name: str, n_ptr_in: int, n_ptr_out: int):
     return fn
 
 
-def _cuda_device(tensors, what: str) -> Optional[torch.device]:
-    """None when every tensor lies on the CPU; the CUDA device when all
-    lie on one; raises otherwise."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return None
+def _cuda_device(tensors, what: str) -> torch.device:
+    """The CUDA device of a kernel's tensors, all on one; raises
+    otherwise (a CUDA implementation never takes CPU tensors)."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(
@@ -247,15 +250,17 @@ def flash_attention_fwd(
     key_padding_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward: ``(o, lse)``.  Tensors on the CPU take
-    :func:`flash_attention_plain`; CUDA tensors launch
+    """The forward: ``(o, lse)``, the operator ``flash_fwd``.  Tensors on
+    the CPU take :func:`flash_attention_plain`; CUDA tensors launch
     ``csrc/flash_attention.cu`` (counted in
     ``flash_attention_fwd.launches``)."""
+    return flash_fwd_op(q, k, v, key_padding_mask, scale)
+
+
+def _fwd_cuda(q, k, v, key_padding_mask, scale):
     _check(q, k, v, key_padding_mask)
     mask = _full_mask(q, key_padding_mask)
     dev = _cuda_device((q, k, v, mask), "flash_attention")
-    if dev is None:
-        return flash_attention_plain(q, k, v, mask, scale)
     _check_kernel(q)
     B, H, L, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=dev)
@@ -269,33 +274,41 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
-def _bwd_inputs(q, k, v, key_padding_mask, lse, g, delta, scale):
-    """The checks and defaults shared by the two backward wrappers:
-    ``(mask, scale, device)``, the device None on the CPU."""
+def _bwd_cuda_device(q, k, v, key_padding_mask, lse, g, delta):
+    """``(mask, device)`` of a backward call on the card, its inputs
+    checked for the kernels."""
     _check(q, k, v, key_padding_mask)
     _check_stats(q, lse, g, delta)
     mask = _full_mask(q, key_padding_mask)
     dev = _cuda_device((q, k, v, mask, lse, g, delta), "flash_attention_bwd")
-    if dev is not None:
-        _check_kernel(q)
-    return mask, _scale(q, scale), dev
+    _check_kernel(q)
+    return mask, dev
+
+
+def _bwd_plain_ops(q, k, v, key_padding_mask, lse, g, delta, scale):
+    _check(q, k, v, key_padding_mask)
+    _check_stats(q, lse, g, delta)
+    return _bwd_plain(q, k, v, _full_mask(q, key_padding_mask), lse, g, delta,
+                      _scale(q, scale))
 
 
 def flash_attention_bwd_dq(q, k, v, key_padding_mask, lse, g, delta,
                            scale=None) -> torch.Tensor:
     """dQ for the output gradient ``g`` (q's dtype) and ``delta``
-    (:func:`attention_delta`).  CUDA tensors launch the dq kernel of
-    ``csrc/flash_attention_bwd.cu`` (counted in
-    ``flash_attention_bwd_dq.launches``); the CPU takes the plain
-    backward."""
-    mask, scale, dev = _bwd_inputs(q, k, v, key_padding_mask, lse, g, delta,
-                                   scale)
-    if dev is None:
-        return _bwd_plain(q, k, v, mask, lse, g, delta, scale)[0]
+    (:func:`attention_delta`), the operator ``flash_bwd_dq``.  CUDA
+    tensors launch the dq kernel of ``csrc/flash_attention_bwd.cu``
+    (counted in ``flash_attention_bwd_dq.launches``); the CPU takes the
+    plain backward."""
+    return flash_bwd_dq_op(q, k, v, key_padding_mask, lse, g, delta, scale)
+
+
+def _dq_cuda(q, k, v, key_padding_mask, lse, g, delta, scale):
+    mask, dev = _bwd_cuda_device(q, k, v, key_padding_mask, lse, g, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _launch(_lib(_BWD_NAME, "flash_bwd_dq_launch", 7, 1),
             flash_attention_bwd_dq, "flash dq",
-            (q, k, v, mask, lse, g.to(q.dtype), delta), (dq,), q, scale, dev)
+            (q, k, v, mask, lse, g.to(q.dtype), delta), (dq,), q,
+            _scale(q, scale), dev)
     return dq
 
 
@@ -304,18 +317,20 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dkv(q, k, v, key_padding_mask, lse, g, delta,
                             scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dK, dV)``, as :func:`flash_attention_bwd_dq` (counted in
+    """``(dK, dV)``, the operator ``flash_bwd_dkv``, as
+    :func:`flash_attention_bwd_dq` (counted in
     ``flash_attention_bwd_dkv.launches``)."""
-    mask, scale, dev = _bwd_inputs(q, k, v, key_padding_mask, lse, g, delta,
-                                   scale)
-    if dev is None:
-        return _bwd_plain(q, k, v, mask, lse, g, delta, scale)[1:]
+    return flash_bwd_dkv_op(q, k, v, key_padding_mask, lse, g, delta, scale)
+
+
+def _dkv_cuda(q, k, v, key_padding_mask, lse, g, delta, scale):
+    mask, dev = _bwd_cuda_device(q, k, v, key_padding_mask, lse, g, delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
     _launch(_lib(_BWD_NAME, "flash_bwd_dkv_launch", 7, 2),
             flash_attention_bwd_dkv, "flash dkv",
-            (q, k, v, mask, lse, g.to(q.dtype), delta), (dk, dv), q, scale,
-            dev)
+            (q, k, v, mask, lse, g.to(q.dtype), delta), (dk, dv), q,
+            _scale(q, scale), dev)
     return dk, dv
 
 
@@ -373,7 +388,46 @@ def flash_attention(
     Returns:
         ``[B, H, L, Dh]`` in q's dtype.
     """
+    return _FlashAttention.apply(q, k, v, key_padding_mask, scale)
+
+
+# ----------------------------------------------------------- operators
+# Each implementation checks its inputs (an operator is an entry point of
+# its own).  The CPU implementations look the plain versions up at call
+# time, so that a test may count their calls by replacing the module
+# globals.
+def _fwd_cpu(q, k, v, key_padding_mask, scale):
     _check(q, k, v, key_padding_mask)
-    return _FlashAttention.apply(
-        q, k, v, _full_mask(q, key_padding_mask), _scale(q, scale)
-    )
+    return flash_attention_plain(q, k, v, key_padding_mask, scale)
+
+
+def _fwd_fake(q, k, v, key_padding_mask, scale):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _dq_cpu(q, k, v, key_padding_mask, lse, g, delta, scale):
+    return _bwd_plain_ops(q, k, v, key_padding_mask, lse, g, delta, scale)[0]
+
+
+def _dq_fake(q, k, v, key_padding_mask, lse, g, delta, scale):
+    return q.new_empty(q.shape)
+
+
+def _dkv_cpu(q, k, v, key_padding_mask, lse, g, delta, scale):
+    return _bwd_plain_ops(q, k, v, key_padding_mask, lse, g, delta, scale)[1:]
+
+
+def _dkv_fake(q, k, v, key_padding_mask, lse, g, delta, scale):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_QKV = "Tensor q, Tensor k, Tensor v, Tensor? key_padding_mask"
+_BWD = f"{_QKV}, Tensor lse, Tensor g, Tensor delta, float? scale"
+flash_fwd_op = library.define(
+    f"flash_fwd({_QKV}, float? scale) -> (Tensor, Tensor)",
+    _fwd_cpu, _fwd_cuda, _fwd_fake)
+flash_bwd_dq_op = library.define(
+    f"flash_bwd_dq({_BWD}) -> Tensor", _dq_cpu, _dq_cuda, _dq_fake)
+flash_bwd_dkv_op = library.define(
+    f"flash_bwd_dkv({_BWD}) -> (Tensor, Tensor)", _dkv_cpu, _dkv_cuda,
+    _dkv_fake)

@@ -6,13 +6,15 @@ says what bounds it on the H100 (launch latency at the serving shape),
 how it centres the coordinates itself and how it splits each query's
 keys across the lanes of a warp.
 
-:func:`knn_graph_cuda` takes the plain version
-(:func:`graphnet_tpu_torch.ops.knn.knn_graph_plain`) for a tensor on the
-CPU and launches the kernel for a CUDA tensor; it never falls back.  A
-call on the card is one launch and nothing else on the device: the
-kernel reads a strided ``[B, L, D]`` view in place (its last dimension
-of stride 1) and centres it, and the wrapper only checks the inputs and
-allocates the outputs.
+:func:`knn_graph_cuda` calls the operator
+``torch.ops.graphnet_tpu_torch.knn_graph`` (:mod:`~graphnet_tpu_torch.
+ops.library`), whose CPU implementation is the plain version
+(:func:`graphnet_tpu_torch.ops.knn.knn_graph_plain`) and whose CUDA
+implementation launches the kernel; it never falls back.  A call on the
+card is one launch and nothing else on the device: the kernel reads a
+strided ``[B, L, D]`` view in place (its last dimension of stride 1) and
+centres it, and the implementation only checks the inputs and allocates
+the outputs.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from graphnet_tpu_torch.ops import library
 from graphnet_tpu_torch.ops.knn import knn_graph_plain
 
 MAX_K = 16
@@ -94,14 +97,12 @@ def knn_graph_cuda(
     nearest valid nodes of each node; see :func:`~graphnet_tpu_torch.ops.
     knn.knn_graph` for the contract.  Counts its kernel launches in
     ``knn_graph_cuda.launches``."""
-    if coords.device.type == "cpu":
-        _check_shapes(coords, mask)
-        # the output is integer and nothing differentiates it: build no
-        # autograd graph for the centring (the coordinates are latents
-        # that require grad during training)
-        with torch.no_grad():
-            return knn_graph_plain(coords, mask, k, exclude_self)
-    return _knn_cuda(coords, mask, k, exclude_self)
+    return knn_graph_op(coords, mask, k, exclude_self)
+
+
+def _knn_cpu(coords, mask, k, exclude_self):
+    _check_shapes(coords, mask)
+    return knn_graph_plain(coords, mask, k, exclude_self)
 
 
 def _knn_cuda(coords, mask, k, exclude_self):
@@ -122,4 +123,16 @@ def _knn_cuda(coords, mask, k, exclude_self):
     return idx, em
 
 
+def _knn_fake(coords, mask, k, exclude_self):
+    B, L, _ = coords.shape
+    return (coords.new_empty((B, L, k), dtype=torch.int32),
+            coords.new_empty((B, L, k), dtype=torch.bool))
+
+
 knn_graph_cuda.launches = 0
+# the coordinates may be a strided view (coordinate_view): the schema
+# takes any strides, and the CUDA implementation checks them
+knn_graph_op = library.define(
+    "knn_graph(Tensor coords, Tensor mask, int k, bool exclude_self)"
+    " -> (Tensor, Tensor)",
+    _knn_cpu, _knn_cuda, _knn_fake)

@@ -10,10 +10,12 @@ does about it.  The contract, which the plain versions of
 :mod:`graphnet_tpu_torch.ops.rel_flash_attention` share, is in that
 module's docstring.
 
-Each wrapper takes the plain version for tensors on the CPU and launches
-its kernel for CUDA tensors (counted in ``<wrapper>.launches``), raising
-on what the kernels do not take.  There is no fallback from CUDA to the
-plain versions.  :func:`rel_flash_attention` folds the SpacetimeEncoder
+Each wrapper calls its operator (``torch.ops.graphnet_tpu_torch.
+rel_fwd``, ``rel_bwd_dq``, ``rel_bwd_dkv``; :mod:`~graphnet_tpu_torch.
+ops.library`), which takes the plain version for tensors on the CPU and
+launches its kernel for CUDA tensors (counted in
+``<wrapper>.launches``), raising on what the kernels do not take.  There
+is no fallback from CUDA to the plain versions.  :func:`rel_flash_attention` folds the SpacetimeEncoder
 projection around the core as plain tensor operations, so autograd gives
 the projection's gradients; the core is a ``torch.autograd.Function``
 whose backward is the two kernels.
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from graphnet_tpu_torch.ops import library
 from graphnet_tpu_torch.ops.flash_attention_cuda import _cuda_device, aligned16
 from graphnet_tpu_torch.ops.rel_flash_attention import (
     HEAD_DIMS,
@@ -144,14 +147,17 @@ def _launch(fn, counter, name, ins, outs, q, x0, dev):
 
 
 def rel_attention_fwd(q, qt, qb, k, v, x0, mask):
-    """The forward core: ``(o, oe, lse)``.  Tensors on the CPU take
-    :func:`~graphnet_tpu_torch.ops.rel_flash_attention.rel_attention_plain`;
-    CUDA tensors launch ``csrc/rel_flash_attention.cu`` (counted in
+    """The forward core: ``(o, oe, lse)``, the operator ``rel_fwd``.
+    Tensors on the CPU take :func:`~graphnet_tpu_torch.ops.
+    rel_flash_attention.rel_attention_plain`; CUDA tensors launch
+    ``csrc/rel_flash_attention.cu`` (counted in
     ``rel_attention_fwd.launches``)."""
+    return rel_fwd_op(q, qt, qb, k, v, x0, mask)
+
+
+def _fwd_cuda(q, qt, qb, k, v, x0, mask):
     _check(q, qt, qb, k, v, x0, mask)
     dev = _cuda_device((q, qt, qb, k, v, x0, mask), "rel_attention")
-    if dev is None:
-        return rel_attention_plain(q, qt, qb, k, v, x0, mask)
     _check_kernel(q)
     o = torch.empty(q.shape, dtype=q.dtype, device=dev)
     oe = torch.empty(q.shape, dtype=torch.float32, device=dev)
@@ -166,31 +172,43 @@ rel_attention_fwd.launches = 0
 
 
 def _bwd_inputs(q, qt, qb, k, v, x0, mask, lse, do, doe, delta):
-    """The checks shared by the two backward wrappers: ``(ins, device)``,
-    the device None on the CPU, ``do`` rounded to q's dtype."""
+    """The two backward operators' inputs: ``do`` rounded to q's dtype
+    and ``doe`` to fp32."""
+    return (q, qt, qb, k, v, x0, mask, lse, do.to(q.dtype), doe.float(),
+            delta)
+
+
+def _check_bwd(q, qt, qb, k, v, x0, mask, lse, do, doe, delta):
     _check(q, qt, qb, k, v, x0, mask)
     _check_grads(q, lse, do, doe, delta)
-    ins = (q, qt, qb, k, v, x0, mask, lse, do.to(q.dtype), doe.float(), delta)
+
+
+def _bwd_cuda_device(ins):
+    _check_bwd(*ins)
     dev = _cuda_device(ins, "rel_attention_bwd")
-    if dev is not None:
-        _check_kernel(q)
-    return ins, dev
+    _check_kernel(ins[0])
+    return dev
 
 
 def rel_attention_bwd_dq(q, qt, qb, k, v, x0, mask, lse, do, doe, delta):
     """``(dq, dqt, dqb)`` for the output gradients ``do``, ``doe`` and
-    ``delta`` (:func:`rel_attention_delta`).  CUDA tensors launch the dq
-    kernel of ``csrc/rel_flash_attention_bwd.cu`` (counted in
+    ``delta`` (:func:`rel_attention_delta`), the operator ``rel_bwd_dq``.
+    CUDA tensors launch the dq kernel of
+    ``csrc/rel_flash_attention_bwd.cu`` (counted in
     ``rel_attention_bwd_dq.launches``); the CPU takes the plain
     backward."""
-    ins, dev = _bwd_inputs(q, qt, qb, k, v, x0, mask, lse, do, doe, delta)
-    if dev is None:
-        return rel_attention_bwd_plain(*ins)[:3]
+    return rel_bwd_dq_op(
+        *_bwd_inputs(q, qt, qb, k, v, x0, mask, lse, do, doe, delta))
+
+
+def _dq_cuda(*ins):
+    dev = _bwd_cuda_device(ins)
+    q, qb = ins[0], ins[2]
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dqt = torch.empty(q.shape, dtype=torch.float32, device=dev)
     dqb = torch.empty(qb.shape, dtype=torch.float32, device=dev)
     _launch(_lib(_BWD_NAME, "rel_bwd_dq_launch", 12, 3), rel_attention_bwd_dq,
-            "rel dq", ins, (dq, dqt, dqb), q, x0, dev)
+            "rel dq", ins, (dq, dqt, dqb), q, ins[5], dev)
     return dq, dqt, dqb
 
 
@@ -198,15 +216,20 @@ rel_attention_bwd_dq.launches = 0
 
 
 def rel_attention_bwd_dkv(q, qt, qb, k, v, x0, mask, lse, do, doe, delta):
-    """``(dk, dv)``, as :func:`rel_attention_bwd_dq` (counted in
+    """``(dk, dv)``, the operator ``rel_bwd_dkv``, as
+    :func:`rel_attention_bwd_dq` (counted in
     ``rel_attention_bwd_dkv.launches``)."""
-    ins, dev = _bwd_inputs(q, qt, qb, k, v, x0, mask, lse, do, doe, delta)
-    if dev is None:
-        return rel_attention_bwd_plain(*ins)[3:]
+    return rel_bwd_dkv_op(
+        *_bwd_inputs(q, qt, qb, k, v, x0, mask, lse, do, doe, delta))
+
+
+def _dkv_cuda(*ins):
+    dev = _bwd_cuda_device(ins)
+    q, k, v = ins[0], ins[3], ins[4]
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
     _launch(_lib(_BWD_NAME, "rel_bwd_dkv_launch", 12, 2),
-            rel_attention_bwd_dkv, "rel dkv", ins, (dk, dv), q, x0, dev)
+            rel_attention_bwd_dkv, "rel dkv", ins, (dk, dv), q, ins[5], dev)
     return dk, dv
 
 
@@ -274,3 +297,50 @@ def rel_flash_attention(
     out = o.float() + F.linear(oe, weight.float(), bias.float())
     return out.transpose(1, 2)
 
+
+
+# ----------------------------------------------------------- operators
+# Each implementation checks its inputs (an operator is an entry point of
+# its own).  The CPU implementations look the plain versions up at call
+# time, so that a test may count their calls by replacing the module
+# globals.
+def _fwd_cpu(q, qt, qb, k, v, x0, mask):
+    _check(q, qt, qb, k, v, x0, mask)
+    return rel_attention_plain(q, qt, qb, k, v, x0, mask)
+
+
+def _fwd_fake(q, qt, qb, k, v, x0, mask):
+    return (q.new_empty(q.shape), q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(qb.shape, dtype=torch.float32))
+
+
+def _dq_cpu(*ins):
+    _check_bwd(*ins)
+    return rel_attention_bwd_plain(*ins)[:3]
+
+
+def _dq_fake(q, qt, qb, *rest):
+    return (q.new_empty(q.shape), q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(qb.shape, dtype=torch.float32))
+
+
+def _dkv_cpu(*ins):
+    _check_bwd(*ins)
+    return rel_attention_bwd_plain(*ins)[3:]
+
+
+def _dkv_fake(q, qt, qb, k, v, *rest):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_CORE = "Tensor q, Tensor qt, Tensor qb, Tensor k, Tensor v, Tensor x0, Tensor mask"
+_BWD = f"{_CORE}, Tensor lse, Tensor g_o, Tensor g_oe, Tensor delta"
+rel_fwd_op = library.define(
+    f"rel_fwd({_CORE}) -> (Tensor, Tensor, Tensor)",
+    _fwd_cpu, _fwd_cuda, _fwd_fake)
+rel_bwd_dq_op = library.define(
+    f"rel_bwd_dq({_BWD}) -> (Tensor, Tensor, Tensor)",
+    _dq_cpu, _dq_cuda, _dq_fake)
+rel_bwd_dkv_op = library.define(
+    f"rel_bwd_dkv({_BWD}) -> (Tensor, Tensor)", _dkv_cpu, _dkv_cuda,
+    _dkv_fake)
