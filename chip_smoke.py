@@ -144,6 +144,21 @@ Phases, each printing one JSON line:
    within rtol 1e-3 (kNN near-tie flips explained), each launch count of
    the model's path per forward (DynEdge rows 1 and 2, and row 4 with
    ``FUSE_CONV_KNN`` on; TITO rows 1, 2 and 5a; DeepIce rows 5a and 6a);
+   serve_zoo: the 11 directories of the pretrained zoo
+   (``configs/models/zoo``: 6 QUESO DynEdge models, 5 Kaggle IceMix
+   DeepIce models, two with the nested DynEdge) at their published
+   widths: the ``graph_definition.yml`` and ``model.yml`` built by
+   ``load_model`` on the card, a checkpoint in GraphNeT's key layout with
+   random weights ported by the port's porters
+   (``utils/weight_port.py``), saved and served through
+   ``DeploymentModule(model.yml, state_dict.pkl)`` on the card and on
+   the CPU: 8 raw events of 0-700 pulses (the bundled database's pulse
+   positions and times, the other columns drawn by name; IceMix keeps
+   192) through the graph definition, the answers within rtol 1e-3
+   (kNN flips of the DynEdge explained), the launches of each model's
+   forward (QUESO 5 kNN and 4 EdgeConv; IceMix one rel launch a biased
+   block, one flash launch an unbiased one, and 5 kNN for the nested
+   DynEdge), the request's ms and events/s beside the card;
    serving_queue: ``serve_events_parallel`` (8 threads, batches of at
    most 32) over 256 events of 1-512 pulses on the energy model, against
    one direct call (rtol 1e-3, flips explained), with events/s and the
@@ -308,6 +323,30 @@ CONFIG_RTOL, CONFIG_FLOOR = 1e-3, 1e-2
 # fused EdgeConv + kNN (which takes L <= 128)
 DYNEDGE_GRID = dict(batch_sizes=(1, 8, 32), lengths=(128, 512))
 FUSED_GRID = dict(batch_sizes=(1, 8, 32), lengths=(128,))
+# the serve_zoo phase: the pretrained zoo's directories under
+# configs/models/zoo, each with its launches per forward (names as
+# ``names`` in main: kNN, EdgeConv, EdgeConv bwd, flash fwd, dq, dkv, rel
+# fwd, dq, dkv, fused EdgeConv + kNN).  QUESO: DynEdge's 5 kNN and 4
+# EdgeConv; IceMix: one rel launch a biased block and one flash launch
+# an unbiased one (depth_rel - n_rel + depth), and the nested DynEdge's
+# 5 kNN (its convs have norm layers: the plain path, as in the JAX
+# package)
+ZOO_DIR = os.path.join(MODELS, "zoo")
+ZOO_LAUNCHES = {
+    **{f"queso/{name}": [5, 4, 0, 0, 0, 0, 0, 0, 0, 0] for name in (
+        "SplitInIcePulses_cleaner", "neutrino_direction",
+        "neutrino_vs_muon_classifier", "neutrino_zenith",
+        "total_neutrino_energy", "track_vs_cascade_classifier")},
+    "kaggle_icemix/B_d32": [0, 0, 0, 15, 0, 0, 1, 0, 0, 0],
+    "kaggle_icemix/B_d64": [0, 0, 0, 15, 0, 0, 1, 0, 0, 0],
+    "kaggle_icemix/B_d32_4rel": [0, 0, 0, 12, 0, 0, 4, 0, 0, 0],
+    "kaggle_icemix/B+DynEdge_d64": [5, 0, 0, 12, 0, 0, 4, 0, 0, 0],
+    "kaggle_icemix/S+DynEdge_d32": [5, 0, 0, 8, 0, 0, 4, 0, 0, 0],
+}
+# its request: pulses a raw event (IceMix keeps at most 192, so the
+# last three are subsampled), and the timed repeats of the request
+ZOO_LENGTHS = (0, 1, 26, 99, 150, 250, 400, 700)
+ZOO_RUNS = 5
 # the serving_queue phase: events of 1-512 pulses, threads, batch cap
 QUEUE_EVENTS, QUEUE_THREADS, QUEUE_MAX_BATCH = 256, 8, 32
 # the deployer phase: .npz files of events, events a file, workers
@@ -823,8 +862,11 @@ def make_requests(rng, Event):
 
 
 def _convs(module):
+    """The DynEdgeConvs of a module's DynEdge: its backbone, or DeepIce's
+    nested ``dyn_edge`` (none for a DeepIce without one)."""
     bb = module.model.backbone
-    return [getattr(bb, f"conv_{i}") for i in range(bb.n_convs)]
+    bb = getattr(bb, "dyn_edge", bb)
+    return [getattr(bb, f"conv_{i}") for i in range(getattr(bb, "n_convs", 0))]
 
 
 def _record(module, store):
@@ -2777,11 +2819,13 @@ def graph_flips(torch, rec_a, rec_b, rows):
 
 
 def serve_config_dynedge(torch, gpu, cpu, requests, counters, expect):
-    """A DynEdge model served from its file: every request through
-    ``gpu`` with ``expect`` launches per forward, then through ``cpu``;
-    each event's answers (rows, or per-pulse rows of a node-level head)
-    within CONFIG_RTOL of the CPU's unless a kNN graph of the event
-    differs between the two (a latent near-tie flip)."""
+    """A model served from its file: every request through ``gpu`` with
+    ``expect`` launches per forward, then through ``cpu``; each event's
+    answers (rows, or per-pulse rows of a node-level head) within
+    CONFIG_RTOL of the CPU's unless a kNN graph of the event differs
+    between the two (a latent near-tie flip) in the model's DynEdge (its
+    backbone, or DeepIce's nested one; a model without one has no
+    flips)."""
     store = []
     handles = _record(gpu, store)
     answers, launches = answer(gpu, requests, counters, expect)
@@ -2799,7 +2843,8 @@ def serve_config_dynedge(torch, gpu, cpu, requests, counters, expect):
         got = answers[label]
         kept = [i for i, e in enumerate(evs) if e.n_pulses > 0]
         flips = graph_flips(torch, rec, cstore, {
-            i: (j, j, evs[i].n_pulses) for j, i in enumerate(kept)})
+            i: (j, j, evs[i].n_pulses) for j, i in enumerate(kept)}
+        ) if n_conv else set()
         worst, beyond, unexplained = 0.0, 0, []
         kept_rows = [_event_rows(ref, i) for i in kept]
         col_max = np.max(np.abs(np.concatenate(kept_rows)), axis=0)
@@ -2888,6 +2933,129 @@ def serve_config(torch, path, device, rng, counters, names, launch_expect,
                  "columns": gpu.prediction_columns, "requests": report,
                  "launches": {**dict(zip(names, launches)),
                               "forwards": len(requests)}, **extra}
+
+
+def sqlite_pulse_pool():
+    """Every pulse's x, y, z, t in the bundled SQLite database
+    (``[n, 4]`` float64): the real pulse geometry the zoo's raw events
+    are drawn from."""
+    import sqlite3
+
+    from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
+
+    conn = sqlite3.connect(EXAMPLE_SQLITE_DATA)
+    try:
+        rows = conn.execute(
+            "SELECT sensor_pos_x, sensor_pos_y, sensor_pos_z, t FROM total "
+            "ORDER BY event_no").fetchall()
+    finally:
+        conn.close()
+    return np.asarray(rows, np.float64)
+
+
+def zoo_column(name, xyzt, rng):
+    """A raw column of the zoo's IceCube detectors (IceCubeUpgrade's and
+    IceCubeKaggle's features) by name: positions from the pool, times
+    ``|t| * 1e3 + 1e4``, the rest drawn in their physical ranges."""
+    n = len(xyzt)
+    for names, col in ((("dom_x", "x"), 0), (("dom_y", "y"), 1),
+                       (("dom_z", "z"), 2)):
+        if name in names:
+            return xyzt[:, col]
+    if name in ("dom_time", "time"):
+        return np.abs(xyzt[:, 3]) * 1e3 + 1e4
+    if name == "charge":
+        return rng.gamma(2.0, 1.0, n) + 0.1
+    if name == "rde":
+        return np.full(n, 1.0)
+    if name == "pmt_area":
+        return np.full(n, 0.05)
+    if name == "string":
+        return rng.integers(1, 90, n).astype(np.float64)
+    if name == "pmt_number":
+        return rng.integers(0, 20, n).astype(np.float64)
+    if name == "dom_number":
+        return rng.integers(1, 60, n).astype(np.float64)
+    if name.startswith("pmt_dir"):
+        return rng.normal(0, 0.5, n)
+    if name == "dom_type":
+        return rng.choice([20.0, 110.0, 130.0], n)
+    if name in ("hlc", "auxiliary"):
+        return rng.integers(0, 2, n).astype(np.float64)
+    raise KeyError(f"no raw column for zoo feature {name!r}")
+
+
+def zoo_raw_pulses(rng, names, pool, lengths):
+    """Raw pulse arrays ``[n, len(names)]`` (float64), one per length:
+    ``n`` pulses of the pool drawn without replacement, the other
+    columns by :func:`zoo_column`."""
+    out = []
+    for n in lengths:
+        xyzt = pool[rng.choice(len(pool), int(n), replace=False)]
+        out.append(np.stack([zoo_column(nm, xyzt, rng) for nm in names],
+                            axis=1).reshape(int(n), len(names)))
+    return out
+
+
+def serve_zoo(torch, directory, device, rng, pool, counters, names, expect,
+              smi):
+    """Phase serve_zoo for one zoo directory: its ``graph_definition.yml``
+    and ``model.yml`` built by ``load_model`` (the model on ``device``),
+    a checkpoint in GraphNeT's layout with random weights
+    (``examples.port_pretrained.graphnet_state_dict``) ported by the
+    porter of its backbone (``weight_port.port_state_dict``; DynEdge
+    heads then scaled by :func:`calibrate_heads`), saved with
+    ``save_model`` and served through ``DeploymentModule(model.yml,
+    state_dict.pkl)`` on ``device`` and on the CPU: raw pulses
+    (:func:`zoo_raw_pulses`, ZOO_LENGTHS) through the graph definition
+    into events, the answers held by :func:`serve_config_dynedge` with
+    ``expect`` launches per forward; then ZOO_RUNS timed requests
+    (``tools/zoo_times.py`` profiles them)."""
+    from graphnet_tpu_torch.data.dataloader import collate_events
+    from graphnet_tpu_torch.deployment.deployment_module import (
+        DeploymentModule,
+    )
+    from graphnet_tpu_torch.examples.port_pretrained import (
+        graphnet_state_dict,
+    )
+    from graphnet_tpu_torch.utils.config import load_model, save_model
+    from graphnet_tpu_torch.utils.weight_port import port_state_dict
+
+    model_path = os.path.join(ZOO_DIR, directory, "model.yml")
+    graph_definition = load_model(
+        os.path.join(ZOO_DIR, directory, "graph_definition.yml"))
+    feature_names = list(graph_definition._input_feature_names)
+    events = [graph_definition(raw, feature_names) for raw in zoo_raw_pulses(
+        rng, feature_names, pool, ZOO_LENGTHS)]
+    requests = {"eight_raw": events}
+    model = load_model(model_path, device=device, seed=SEED)
+    assert next(model.parameters()).device.type == torch.device(device).type
+    checkpoint = graphnet_state_dict(model, rng)
+    model.load_state_dict(port_state_dict(model, checkpoint))
+    kind = type(model.backbone).__name__
+    if kind == "DynEdge":
+        calibrate_heads(torch, model, requests, collate_events)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    save_model(model, tmp)
+    del model
+    pkl = os.path.join(tmp, "state_dict.pkl")
+    gpu = DeploymentModule(model_path, pkl, device=device)
+    cpu = DeploymentModule(model_path, pkl, device="cpu")
+    _, launches, report = serve_config_dynedge(
+        torch, gpu, cpu, requests, counters, expect)
+    for name, n, got in zip(names, expect, launches):
+        assert got > 0 or not n, f"{name} was not launched: {launches}"
+    seconds = host_s(lambda: gpu(events), runs=ZOO_RUNS, warmup=1)
+    shutil.rmtree(tmp)
+    return {"model": directory, "backbone": kind,
+            "nested_dynedge": hasattr(gpu.model.backbone, "dyn_edge"),
+            "checkpoint_keys": len(checkpoint),
+            "pulses": list(ZOO_LENGTHS),
+            "nodes": [e.n_pulses for e in events],
+            "columns": gpu.prediction_columns, "requests": report,
+            "launches": {**dict(zip(names, launches)), "forwards": 1},
+            "ms_per_request": seconds * 1e3,
+            "events_per_s": len(events) / seconds, "card": smi}
 
 
 def serving_queue_phase(torch, module, events, counters, expect):
@@ -3756,6 +3924,18 @@ def main() -> int:
             torch, os.path.join(MODELS, rel), "cuda", crng, counters, names,
             launch_expect, fused_fwd, layers, tito_flips)
         emit({"phase": "serve_config", "config": label, **report,
+              "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 7g'. the pretrained zoo from its files: GraphNeT-layout checkpoints
+    # ported, raw pulses through each graph definition, served on the
+    # card against the CPU
+    zrng = np.random.default_rng(SEED + 16)
+    pool = sqlite_pulse_pool()
+    for directory, expect in ZOO_LAUNCHES.items():
+        t0 = time.perf_counter()
+        report = serve_zoo(torch, directory, "cuda", zrng, pool, counters,
+                           names, expect, smi)
+        emit({"phase": "serve_zoo", **report,
               "seconds": round(time.perf_counter() - t0, 2)})
 
     # 7h. the micro-batching queue over the energy model from its file

@@ -9,7 +9,10 @@ DATA_DIR = os.environ.get(
     "GRAPHNET_DATA_DIR", os.path.join(GRAPHNET_ROOT_DIR, "data")
 )
 GEOMETRY_TABLE_DIR = os.path.join(DATA_DIR, "geometry_tables")
+ICECUBE_GEOMETRY_TABLE_DIR = os.path.join(GEOMETRY_TABLE_DIR, "icecube")
 PROMETHEUS_GEOMETRY_TABLE_DIR = os.path.join(GEOMETRY_TABLE_DIR, "prometheus")
+LIQUIDO_GEOMETRY_TABLE_DIR = os.path.join(GEOMETRY_TABLE_DIR, "liquid-o")
+ICE_PROPERTIES_DIR = os.path.join(DATA_DIR, "ice_properties")
 EXAMPLE_DATA_DIR = os.path.join(DATA_DIR, "examples")
 EXAMPLE_SQLITE_DATA = os.path.join(
     EXAMPLE_DATA_DIR, "sqlite", "prometheus", "prometheus-events.db"

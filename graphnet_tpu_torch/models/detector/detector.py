@@ -25,6 +25,46 @@ def affine(scale: float, offset: float = 0.0) -> Callable:
     return fn
 
 
+def log10_scale(scale: float = 1.0) -> Callable:
+    """x -> log10(x) / scale."""
+
+    def fn(x: np.ndarray) -> np.ndarray:
+        return np.log10(x) / scale
+
+    fn.kind = ("log10", scale)  # type: ignore[attr-defined]
+    return fn
+
+
+def identity() -> Callable:
+    """x -> x."""
+
+    def fn(x: np.ndarray) -> np.ndarray:
+        return x
+
+    fn.kind = ("identity",)  # type: ignore[attr-defined]
+    return fn
+
+
+def mul_offset(scale: float, offset: float) -> Callable:
+    """x -> x / scale + offset."""
+
+    def fn(x: np.ndarray) -> np.ndarray:
+        return x / scale + offset
+
+    fn.kind = ("mul_offset", scale, offset)  # type: ignore[attr-defined]
+    return fn
+
+
+def scaled_shift(scale: float, offset: float, post: float) -> Callable:
+    """x -> (x / scale + offset) * post."""
+
+    def fn(x: np.ndarray) -> np.ndarray:
+        return (x / scale + offset) * post
+
+    fn.kind = ("scaled_shift", scale, offset, post)  # type: ignore
+    return fn
+
+
 class Detector:
     """Base detector: a ``feature_map`` of per-column scalings and the
     geometry's metadata (``xyz``, string and sensor id columns, the path

@@ -4,7 +4,9 @@
 FourierEncoder per pulse, the SpacetimeEncoder's relative features in
 the first ``n_rel`` of ``depth_rel`` BlockRel layers, a learned cls
 token, then ``depth`` Blocks with layer scale; the cls token's final
-state is the event's latent.  The relative-bias block runs through the
+state is the event's latent.  With ``include_dynedge`` the Fourier
+features take half the width and a nested DynEdge's node latents
+(``dyn_edge``, gelu, norm layers, no readout) the other half.  The relative-bias block runs through the
 rel kernels wherever their gate holds (``rel_flash`` "auto", or its
 alias "always"), on both devices; with "never", or where the gate fails, the
 pair tensor ``[B, L, L, head_size]`` is materialised once and the dense
@@ -24,6 +26,7 @@ from graphnet_tpu_torch.models.components.embedding import (
     SpacetimeEncoder,
 )
 from graphnet_tpu_torch.models.components.layers import Block, BlockRel
+from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
 from graphnet_tpu_torch.models.gnn.gnn import GNN, resolve_compute_dtype
 from graphnet_tpu_torch.utils.config import save_config
 
@@ -34,15 +37,20 @@ class DeepIce(GNN):
     MLP's matrix products and of the residual stream; the layer norm
     statistics, the softmax and the pair features stay fp32.
 
-    Not ported yet (they raise ``NotImplementedError``):
-    ``include_dynedge`` (DynEdge node latents beside the Fourier
-    features), ``remat`` (recompute of the blocks in the backward), and
-    ``rel_bias_chunks > 1`` where the rel kernels do not run (the chunked
-    and cached bias paths).  Where they run, ``rel_bias_chunks`` and
-    ``rel_bias_cache`` are ignored, as in the JAX package; so is
-    ``rel_bias_cache`` with ``rel_bias_chunks == 1`` (the dense path
-    materialises the pair tensor once).  ``dynedge_args`` is read only
-    with ``include_dynedge``.
+    ``include_dynedge`` builds ``dyn_edge``, a :class:`DynEdge` from
+    ``dynedge_args`` (default: the JAX package's, with ``nb_inputs =
+    n_features``), with ``compute_dtype`` passed down unless the
+    arguments name one.  Its convs are built eagerly, so ``nb_inputs``
+    must be the events' feature count (the JAX package infers it).
+
+    Not ported yet (they raise ``NotImplementedError``): ``remat``
+    (recompute of the blocks in the backward), and ``rel_bias_chunks >
+    1`` where the rel kernels do not run (the chunked and cached bias
+    paths).  Where they run, ``rel_bias_chunks`` and ``rel_bias_cache``
+    are ignored, as in the JAX package; so is ``rel_bias_cache`` with
+    ``rel_bias_chunks == 1`` (the dense path materialises the pair
+    tensor once).  ``dynedge_args`` is read only with
+    ``include_dynedge``.
     """
 
     @save_config
@@ -66,11 +74,6 @@ class DeepIce(GNN):
         remat: bool = False,
     ):
         super().__init__()
-        if include_dynedge:
-            raise NotImplementedError(
-                "DeepIce(include_dynedge=True) is not ported yet (it needs "
-                "DynEdge's gelu, add_norm_layer and skip_readout options)"
-            )
         if remat:
             raise NotImplementedError(
                 "DeepIce(remat=True) is not ported yet"
@@ -79,15 +82,35 @@ class DeepIce(GNN):
         self.depth = depth
         self.depth_rel = depth_rel
         self.n_rel = n_rel
+        self.include_dynedge = include_dynedge
         self.rel_bias_cache = rel_bias_cache
         self.compute_dtype = compute_dtype
         dtype = resolve_compute_dtype(compute_dtype)
         num_heads = hidden_dim // head_size
         self.fourier_ext = FourierEncoder(
-            seq_length=seq_length, output_dim=hidden_dim, scaled=scaled_emb,
-            n_features=n_features, dtype=dtype,
+            seq_length=seq_length,
+            output_dim=hidden_dim // 2 if include_dynedge else hidden_dim,
+            scaled=scaled_emb, n_features=n_features, dtype=dtype,
         )
         self.rel_pos = SpacetimeEncoder(head_size, dtype=dtype)
+        if include_dynedge:
+            args = dict(dynedge_args or dict(
+                nb_inputs=n_features,
+                nb_neighbours=9,
+                post_processing_layer_sizes=(336, hidden_dim // 2),
+                dynedge_layer_sizes=(
+                    (128, 256),
+                    (336, 256),
+                    (336, 256),
+                    (336, 256),
+                ),
+                global_pooling_schemes=None,
+                activation_layer="gelu",
+                add_norm_layer=True,
+                skip_readout=True,
+            ))
+            args.setdefault("compute_dtype", compute_dtype)
+            self.dyn_edge = DynEdge(**args)
         for i in range(depth_rel):
             setattr(self, f"sandwich_{i}", BlockRel(
                 hidden_dim, num_heads, rel_chunks=rel_bias_chunks,
@@ -122,6 +145,9 @@ class DeepIce(GNN):
         x0, mask = batch.x, batch.mask
         B = x0.shape[0]
         x = self.fourier_ext(x0, batch.n_pulses)
+        if self.include_dynedge:
+            node_latents = self.dyn_edge(batch)
+            x = torch.cat([x, node_latents.to(x.dtype)], dim=2)
         rel_pos_bias = rel_source = None
         if self.n_rel > 0 and self.depth_rel > 0:
             if self.sandwich_0.attn.uses_rel_kernel(self.rel_pos.seq_length):

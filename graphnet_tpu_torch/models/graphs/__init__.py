@@ -7,4 +7,8 @@ from graphnet_tpu_torch.models.graphs.graph_definition import (
     GraphDefinition,
 )
 from graphnet_tpu_torch.models.graphs.graphs import EdgelessGraph, KNNGraph
-from graphnet_tpu_torch.models.graphs.nodes import NodeDefinition, NodesAsPulses
+from graphnet_tpu_torch.models.graphs.nodes import (
+    IceMixNodes,
+    NodeDefinition,
+    NodesAsPulses,
+)

@@ -1,14 +1,15 @@
 """Node definitions (counterpart of ``graphnet_tpu/models/graphs/nodes.py``;
-:class:`NodesAsPulses` so far): host-side numpy transforms from one
-event's standardised ``[n, d]`` pulse array to its ``[m, d']`` node
-array.  Padding and bucketing happen at collate time."""
+:class:`NodesAsPulses` and :class:`IceMixNodes` so far): host-side numpy
+transforms from one event's standardised ``[n, d]`` pulse array to its
+``[m, d']`` node array.  Padding and bucketing happen at collate time."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from graphnet_tpu_torch.models.graphs.utils import ice_transparency
 from graphnet_tpu_torch.utils.config import save_config
 
 
@@ -68,3 +69,102 @@ class NodesAsPulses(NodeDefinition):
 
     def _construct_nodes(self, x: np.ndarray) -> np.ndarray:
         return np.asarray(x, dtype=np.float32)
+
+
+class IceMixNodes(NodeDefinition):
+    """The Kaggle IceMix nodes: the HLC flag flipped (the Kaggle data's
+    ``auxiliary`` is 1 for a pulse that is not HLC), events longer than
+    ``max_pulses`` subsampled with HLC pulses first, and the interpolated
+    ice scattering and absorption lengths at each pulse's depth appended
+    as two columns (``add_ice_properties``).
+
+    The subsample is drawn from ``np.random.default_rng(seed)``, one
+    generator for the object's life, exactly as the JAX package draws
+    it: the same seed and the same events in the same order pick the
+    same pulses in both packages.
+    """
+
+    @save_config
+    def __init__(
+        self,
+        input_feature_names: Optional[List[str]] = None,
+        max_pulses: int = 768,
+        z_name: str = "dom_z",
+        hlc_name: Optional[str] = "hlc",
+        add_ice_properties: bool = True,
+        ice_args: Optional[Dict[str, Optional[float]]] = None,
+        seed: Optional[int] = None,
+    ) -> None:
+        if input_feature_names is None:
+            input_feature_names = [
+                "dom_x",
+                "dom_y",
+                "dom_z",
+                "dom_time",
+                "charge",
+                "hlc",
+                "rde",
+            ]
+        ice_args = ice_args or {"z_offset": None, "z_scaling": None}
+        if add_ice_properties:
+            if z_name not in input_feature_names:
+                raise ValueError(
+                    f"z name {z_name!r} not in {input_feature_names}"
+                )
+            self.all_features = list(input_feature_names) + [
+                "scatt_lenght",
+                "abs_lenght",
+            ]
+            self.f_scattering, self.f_absorption = ice_transparency(
+                **ice_args
+            )
+        else:
+            self.all_features = list(input_feature_names)
+        if hlc_name is not None and hlc_name not in input_feature_names:
+            hlc_name = None
+        self.feature_indexes = {
+            f: self.all_features.index(f) for f in input_feature_names
+        }
+        self.max_length = max_pulses
+        self.z_name = z_name
+        self.hlc_name = hlc_name
+        self.add_ice_properties = add_ice_properties
+        self._rng = np.random.default_rng(seed)
+        super().__init__(input_feature_names=input_feature_names)
+
+    def _define_output_feature_names(
+        self, input_feature_names: List[str]
+    ) -> List[str]:
+        return self.all_features
+
+    def _pulse_sampler(self, x: np.ndarray, n: int) -> np.ndarray:
+        if n < self.max_length:
+            return np.arange(n)
+        ids = self._rng.permutation(n)
+        if self.hlc_name is not None:
+            hlc = x[:, self.feature_indexes[self.hlc_name]]
+            # after the flip, hlc == 0 marks the HLC pulses, kept first
+            ids_n = ids[hlc[ids] == 0][: self.max_length]
+            ids_p = ids[hlc[ids] == 1][: self.max_length - len(ids_n)]
+            return np.sort(np.concatenate([ids_n, ids_p]))
+        return ids[: self.max_length]
+
+    def _construct_nodes(self, x: np.ndarray) -> np.ndarray:
+        x = np.array(x, np.float64, copy=True)
+        n = x.shape[0]
+        if self.hlc_name is not None:
+            c = self.feature_indexes[self.hlc_name]
+            x[:, c] = np.logical_not(x[:, c])
+        ids = self._pulse_sampler(x, n)
+        m = min(self.max_length, n)
+        out = np.zeros((m, len(self.all_features)), np.float32)
+        if self.add_ice_properties:
+            z = x[ids, self.feature_indexes[self.z_name]]
+            out[: len(ids), -2] = self.f_scattering(z)
+            out[: len(ids), -1] = self.f_absorption(z)
+            non_ice = self.all_features[:-2]
+        else:
+            non_ice = self.all_features
+        for i, feature in enumerate(non_ice):
+            out[:m, i] = x[ids, self.feature_indexes[feature]]
+        return out

@@ -69,6 +69,8 @@ def _register_framework_classes() -> None:
     """Fill the class registry with every class of the port's modules
     that a config may name."""
     import graphnet_tpu_torch.data.dataset as dataset_mod
+    import graphnet_tpu_torch.models.detector.icecube  # noqa: F401
+    import graphnet_tpu_torch.models.detector.liquido  # noqa: F401
     import graphnet_tpu_torch.data.sqlite_dataset as sqlite_dataset
     import graphnet_tpu_torch.models.graphs.edges as edges
     import graphnet_tpu_torch.models.graphs.graph_definition as graph_definition

@@ -3,7 +3,9 @@ against the JAX package's on the CPU: every model file of ``configs/``
 whose classes the port has builds a port model that matches the JAX
 model built from the same file; the dumped configs, ``save_model`` and
 ``load_saved_model`` cross between the packages; the ten transforms, the
-new heads and losses match; the files the port cannot build say why."""
+new heads and losses match; a file naming a class the port lacks says
+which.  ``tests/test_torch_zoo.py`` holds the rest of ``configs/models``:
+the ``+DynEdge`` zoo files' predictions and the graph definitions."""
 
 import copy
 from pathlib import Path
@@ -37,7 +39,8 @@ MODELS = ROOT / "configs" / "models"
 QUESO = ["SplitInIcePulses_cleaner", "neutrino_direction",
          "neutrino_vs_muon_classifier", "neutrino_zenith",
          "total_neutrino_energy", "track_vs_cascade_classifier"]
-# the 14 model files whose classes the port has
+# the model files held here for predictions (the two +DynEdge zoo files'
+# are in tests/test_torch_zoo.py)
 BUILDABLE = (
     ["dynedge_energy_prometheus.yml", "dynedge_pid_classification.yml",
      "dynedge_track_classification_icecube86.yml",
@@ -195,15 +198,32 @@ def test_dumped_config_reproduces_the_file(name, tmp_path):
 
 @pytest.mark.parametrize("name", ["zoo/kaggle_icemix/S+DynEdge_d32/model.yml",
                                   "zoo/kaggle_icemix/B+DynEdge_d64/model.yml"])
-def test_dynedge_zoo_files_name_include_dynedge(name):
-    with pytest.raises(NotImplementedError, match="include_dynedge"):
-        config.load_model(str(MODELS / name), device="cpu")
+def test_dynedge_zoo_files_name_include_dynedge(name, tmp_path):
+    """(Named when these files raised.)  Each ``+DynEdge`` zoo file builds
+    its DeepIce with the nested DynEdge, and dumps the JAX package's
+    dict of its own build of the file, word for word."""
+    path = str(MODELS / name)
+    built = config.load_model(path, device="cpu")
+    assert built.backbone.include_dynedge and hasattr(built.backbone, "dyn_edge")
+    port_yml, jax_yml = tmp_path / "port.yml", tmp_path / "jax.yml"
+    config.save_model_config(built, str(port_yml))
+    jconfig.save_model_config(jconfig.load_model(path), str(jax_yml))
+    assert port_yml.read_text() == jax_yml.read_text()
+    assert _subset(_file_dict(name), yaml.safe_load(port_yml.read_text()))
 
 
-def test_unported_class_is_named():
-    with pytest.raises(KeyError, match="IceCube86"):
-        config.load_model(str(MODELS / "knn_graph_icecube86.yml"),
-                          device="cpu")
+def test_unported_class_is_named(tmp_path):
+    """A file naming a class the port does not have yet raises a KeyError
+    that names it."""
+    d = _file_dict("knn_graph_icecube86.yml")
+    d["arguments"]["node_definition"] = {"__model__": {
+        "class_name": "PercentileClusters",
+        "arguments": {"cluster_on": ["dom_x", "dom_y", "dom_z"],
+                      "percentiles": [10, 50, 90]}}}
+    path = tmp_path / "percentile_clusters.yml"
+    path.write_text(yaml.safe_dump(d, sort_keys=False))
+    with pytest.raises(KeyError, match="PercentileClusters"):
+        config.load_model(str(path), device="cpu")
 
 
 def test_load_model_defaults_to_the_gpu():

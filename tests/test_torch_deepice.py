@@ -1,8 +1,9 @@
 """The port's DeepIce against the JAX package on the CPU: the embeddings,
 a narrow model's latents, predictions and gradients on both relative-bias
-paths (the JAX kernels in Pallas interpret mode), ``Trainer.fit``,
-``DeploymentModule``, the parameter carry-over at full width and the
-options that are not ported."""
+paths (the JAX kernels in Pallas interpret mode), also with the nested
+DynEdge (``include_dynedge``), ``Trainer.fit``, ``DeploymentModule``, the
+parameter carry-over at full width and the options that are not
+ported."""
 
 import copy
 import functools
@@ -36,6 +37,7 @@ from graphnet_tpu_torch.batch import make_batch
 from graphnet_tpu_torch.deployment.deployment_module import DeploymentModule
 from graphnet_tpu_torch.models.components import embedding as temb
 from graphnet_tpu_torch.models.components.layers import Block, BlockRel
+from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
 from graphnet_tpu_torch.models.gnn.icemix import DeepIce
 from graphnet_tpu_torch.models.graphs.graph_definition import Event
 from graphnet_tpu_torch.models.standard_model import StandardModel
@@ -173,6 +175,49 @@ def test_narrow_deepice_matches_jax(rel_flash, n_features, lengths):
             err_msg=name)
 
 
+@pytest.mark.parametrize("rel_flash", ["never", "always"])
+def test_narrow_deepice_with_dynedge_matches_jax(rel_flash):
+    """``include_dynedge``: the nested DynEdge's node latents (gelu, norm
+    layers, k = 5 over x, y, z) beside the Fourier features at half the
+    width.  Latents, predictions, the loss and every gradient against
+    the JAX package (rtol 2e-4, the floor 2e-5 of each gradient's max) on
+    both rel paths; events of 50, 9 and 1 pulses, spread so that no kNN
+    distance is near a tie."""
+    dyn = dict(nb_inputs=6, nb_neighbours=5,
+               dynedge_layer_sizes=((16, 24), (24, 24)),
+               post_processing_layer_sizes=(24, 16),
+               global_pooling_schemes=None, activation_layer="gelu",
+               add_norm_layer=True, skip_readout=True)
+    kw = dict(include_dynedge=True, dynedge_args=dyn, rel_flash=rel_flash)
+    jbs, tbs = _batches(21, [[50, 9, 1]])
+    jb, tb = jbs[0], tbs[0]
+    jmodel = _jax_model(**kw)
+    params = _random_tree(
+        jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jb), 22)
+
+    def loss_fn(p):
+        outs = jmodel.apply(p, jb)
+        return jmodel.loss_from_batch(outs, jb), outs[0][0]
+
+    (j_loss, j_pred), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    model = _port_model(params, **kw)
+    assert isinstance(model.backbone.dyn_edge, DynEdge)
+    outs = model(tb)
+    loss = model.loss_from_batch(outs, tb)
+    loss.backward()
+    np.testing.assert_allclose(outs[0][0].detach().numpy(), np.asarray(j_pred),
+                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=2e-4)
+    exp = params_from_jax(jax.device_get(j_grads), model.state_dict())
+    assert any(name.startswith("backbone.dyn_edge.") for name in exp)
+    for name, p in model.named_parameters():
+        e = exp[name].numpy()
+        assert p.grad is not None and np.abs(e).max() > 0, name
+        np.testing.assert_allclose(
+            p.grad.numpy(), e, rtol=2e-4, atol=2e-5 * np.abs(e).max(),
+            err_msg=name)
+
+
 @pytest.mark.parametrize("scaled", [False, True])
 def test_embeddings_match_jax(scaled):
     """SinusoidalPosEmb, FourierEncoder (4, 5 and 6 features) and
@@ -232,8 +277,10 @@ def test_deepice_bf16_runs_near_fp32():
 
 
 def test_deepice_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="include_dynedge"):
-        DeepIce(include_dynedge=True, **NARROW)
+    # include_dynedge is ported: the Fourier half width, the nested DynEdge
+    model = DeepIce(include_dynedge=True, **NARROW)
+    assert model.fourier_ext.mlp_1.out_features == NARROW["hidden_dim"] // 2
+    assert model.dyn_edge.nb_outputs == NARROW["hidden_dim"] // 2
     with pytest.raises(NotImplementedError, match="remat"):
         DeepIce(remat=True, **NARROW)
     with pytest.raises(NotImplementedError, match="DropPath"):
@@ -329,9 +376,29 @@ def test_zoo_config_builds_and_matches_jax(name):
 
 @pytest.mark.parametrize("name", ["S+DynEdge_d32", "B+DynEdge_d64"])
 def test_zoo_config_with_dynedge_is_not_ported(name):
-    """``dynedge_args`` is accepted; ``include_dynedge`` is what raises."""
-    with pytest.raises(NotImplementedError, match="include_dynedge"):
-        DeepIce(**_zoo_arguments(name))
+    """(Named when ``include_dynedge`` raised.)  The file's
+    ``dynedge_args`` reach ``dyn_edge``: its widths, k, activation, norm
+    layers and node-level latents are the file's, the compute dtype
+    DeepIce's, and the Fourier features take the other half of the
+    width."""
+    args = _zoo_arguments(name)
+    model = DeepIce(**args)
+    dyn, spec = model.dyn_edge, args["dynedge_args"]
+    assert dyn.nb_inputs == spec["nb_inputs"] == 8
+    assert dyn.nb_neighbours == spec["nb_neighbours"] == 9
+    assert dyn.skip_readout and dyn.global_pooling_schemes is None
+    assert [getattr(dyn, f"conv_{i}").conv.nn_sizes for i in range(4)] == [
+        tuple(s) for s in spec["dynedge_layer_sizes"]]
+    assert all(getattr(dyn, f"conv_{i}").conv.activation == "gelu"
+               and getattr(dyn, f"conv_{i}").conv.add_norm_layer
+               for i in range(4))
+    assert dyn.post_processing.sizes == tuple(
+        spec["post_processing_layer_sizes"])
+    assert dyn.nb_outputs == args["hidden_dim"] // 2
+    assert model.fourier_ext.mlp_1.out_features == args["hidden_dim"] // 2
+    assert dyn.compute_dtype is None
+    bf16 = DeepIce(**{**args, "compute_dtype": "bfloat16"})
+    assert bf16.dyn_edge.compute_dtype == "bfloat16"
 
 
 def test_deepice_accepts_rel_bias_cache():

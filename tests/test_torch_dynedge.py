@@ -187,3 +187,56 @@ def test_params_from_jax_rejects_missing_and_extra_leaves(full_width_tree):
     odd["params"]["tasks_0"]["affine"]["gamma"] = np.zeros(1)
     with pytest.raises(ValueError, match="unknown kind"):
         params_from_jax(odd, expected)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_nested_deepice_dynedge_matches_jax(compute_dtype):
+    """DeepIce's nested configuration: gelu, norm layers, no pooling and
+    no readout, so the latents are per node.  Random parameters (norm
+    scales and biases too); the valid nodes' latents and every gradient
+    of a weighted sum of them against the JAX package (fp32: rtol 2e-4;
+    bf16, the compute dtype DeepIce passes down, the latents within 2e-2
+    of their max).  Its convs take the plain path, as in the JAX
+    package."""
+    kw = dict(nb_inputs=6, nb_neighbours=5, dynedge_layer_sizes=((16, 24),
+              (24, 24)), post_processing_layer_sizes=(24, 12),
+              global_pooling_schemes=None, activation_layer="gelu",
+              add_norm_layer=True, skip_readout=True,
+              compute_dtype=compute_dtype)
+    rng = np.random.default_rng(41)
+    events = [(rng.standard_normal((n, 6)) * [2, 2, 2, 1, 1, 1]).astype(
+        np.float32) for n in (20, 7, 1, 13)]
+    jb, tb = jax_make_batch(events, length=24), make_batch(events, length=24)
+    jmodel = JaxDynEdge(**kw)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jb)
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * (
+            1 / np.sqrt(s.shape[0]) if len(s.shape) == 2 else 0.5)).astype(
+                np.float32), shapes)
+    weight = rng.standard_normal((4, 24, 12)).astype(np.float32)
+    mask = np.asarray(jb.mask)
+
+    def jloss(p):
+        lat = jmodel.apply(p, jb)
+        return (lat * weight * mask[..., None]).sum(), lat
+
+    (_, j_lat), j_grads = jax.value_and_grad(jloss, has_aux=True)(params)
+    model = DynEdge(**kw)
+    assert not any(getattr(model, f"conv_{i}").conv.uses_kernel
+                   for i in range(2))
+    model.load_state_dict(params_from_jax(params, model.state_dict()))
+    lat = model(tb)
+    assert lat.shape == (4, 24, 12) and lat.dtype == torch.float32
+    (lat * torch.from_numpy(weight) * tb.mask[..., None]).sum().backward()
+    got, exp = lat.detach().numpy()[mask], np.asarray(j_lat)[mask]
+    if compute_dtype is None:
+        np.testing.assert_allclose(got, exp, rtol=2e-4, atol=2e-5)
+        exp_g = params_from_jax(jax.device_get(j_grads), model.state_dict())
+        for name, p in model.named_parameters():
+            e = exp_g[name].numpy()
+            np.testing.assert_allclose(
+                p.grad.numpy(), e, rtol=2e-4, atol=2e-5 * np.abs(e).max(),
+                err_msg=name)
+    else:
+        assert np.abs(got - exp).max() < 2e-2 * np.abs(exp).max()
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
