@@ -47,8 +47,9 @@ Phases, each printing one JSON line:
    exact ties, nothing zeroed (fp32 and bf16, both layer shapes and
    H1=100, H2=72);
 6. flash, flash_bwd: the flash-attention forward, dq and dkv kernels
-   against their plain versions (head dims 32 and 64, L = 1, 63, 64,
-   65, 129, 128, 1000 and 1024, and the DeepIce path's shapes, 12 heads
+   against their plain versions (head dims 16, 32 and 64, L = 1, 63,
+   64, 65, 129, 128, 1000 and 1024, RNN_TITO's 16 heads of 16 at L =
+   1024, and the DeepIce path's shapes, 12 heads
    of 32 at L = 768 and 1024 with scale 1 and at L = 769 and 1025 with
    the cls key, and B_d64's, 12 heads of 64 at L = 768 and 769; fp32 and
    bf16, an event with no valid key and one with a single key), and
@@ -166,6 +167,17 @@ Phases, each printing one JSON line:
    subclass (``SmokeDeployer``) over 8 ``.npz`` files of events, in one
    process and in 2 spawned workers that each build the module from its
    files: the same answers, bit for bit;
+   serve_backbones: GraphNeT's other five backbones at its default
+   widths (``backbone_model``: DynEdgeJINST, ConvNet, ParticleNeT,
+   ISeeCube, RNN_TITO), each from a GraphNeT-layout checkpoint ported
+   by its porter, saved and served through ``DeploymentModule(
+   model.yml, state_dict.pkl)`` on the card and on the CPU: 8 raw events
+   of 0-700 pulses (ISeeCube 0-128, within its seq_length) through the
+   backbone's graph definition (RNN_TITO's with ``NodeAsDOMTimeSeries``),
+   the answers within rtol 1e-3 (latent kNN flips of JINST and
+   ParticleNeT explained), the launches of each forward
+   (``BACKBONE_LAUNCHES``: RNN_TITO's 4 flash forwards at head dim 16),
+   the request's ms and events/s beside the card;
 12. times: each kernel, its plain version and its bound (the kNN at
    B=128, L=128, at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
    its profiled device time, the device work and host time of a call,
@@ -186,13 +198,16 @@ Phases, each printing one JSON line:
    step ms and peak memory of a step on the kernels and on the dense
    path (fp32, B=16, L=768), and on the kernels at B=8, L=3072 (bf16);
    the flash kernels at B_d64's Block shape (B=16, 12 heads of 64,
-   L=769);
+   L=769) and at RNN_TITO's (B=8, 16 heads of 16, L=1024), each forward
+   also beside SDPA with its efficient and its cuDNN backend forced;
    the EdgeConv backward's device time by launch over one call at
    H1=336; serving events/s and single-event latency; training step ms and
    events/s; device time by kernel for serving and for training; peak
    memory of a training step;
 13. a ``kernels`` line with every ported kernel and its row of the
-   kernel table in PERF.md.
+   kernel table in PERF.md (rows 5a-c also at head dim 16: the fp32
+   forward's launches from RNN_TITO's serving, the others with
+   ``main_path`` false and no launches, as no path runs them yet).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no such line; it also
@@ -232,6 +247,9 @@ FULL_WIDTH = dict(
 # the JAX bench's TITO shape (bench.py:250-291): events, length, heads,
 # head dim
 TITO_B, TITO_L, TITO_HEADS, TITO_DH = 8, 1024, 8, 32
+# RNN_TITO's DynTrans attention at GraphNeT's widths: 256 wide, 16 heads
+# of 16 (serve_backbones serves it at TITO_B events, L = TITO_L)
+RNN_TITO_HEADS, RNN_TITO_DH = 16, 16
 # H100 data sheet, dense rates: bytes/s of HBM, flop/s of the CUDA cores
 # in fp32 and of the tensor cores in bf16 (for the bound column)
 PEAKS = {
@@ -268,6 +286,8 @@ ICE_B, ICE_L, ICE_HEADS, ICE_HD = 16, 768, 12, 32
 ICE_SERVE_L = 1024
 ICE_FEATURES = ["sensor_pos_x", "sensor_pos_y", "sensor_pos_z", "t", "charge",
                 "auxiliary"]
+# IceCube Kaggle's raw columns (ISeeCube's six features)
+ICE_KAGGLE = ["x", "y", "z", "time", "charge", "auxiliary"]
 # the rel kernels against their plain versions: each output's error over
 # its max within one event, forward and backward.  fp32: both evaluate
 # the pair embedding with correctly rounded arguments and 1-2 ulp sines;
@@ -347,6 +367,22 @@ ZOO_LAUNCHES = {
 # last three are subsampled), and the timed repeats of the request
 ZOO_LENGTHS = (0, 1, 26, 99, 150, 250, 400, 700)
 ZOO_RUNS = 5
+# the serve_backbones phase: GraphNeT's other five backbones at its
+# default widths (``backbone_model``), each with its launches a forward
+# (as ZOO_LAUNCHES): DynEdgeJINST 5 kNN and 4 EdgeConv; ConvNet one kNN;
+# ParticleNeT 1 + 3 kNN (k = 16); ISeeCube none (its biased attention is
+# dense, as in the JAX package); RNN_TITO one kNN (x, y, z, t of the
+# sensor nodes), 4 EdgeConv (max) and 4 flash forwards at head dim 16
+BACKBONE_LAUNCHES = {
+    "DynEdgeJINST": [5, 4, 0, 0, 0, 0, 0, 0, 0, 0],
+    "ConvNet": [1, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "ParticleNeT": [4, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "ISeeCube": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "RNNTITO": [1, 4, 0, 4, 0, 0, 0, 0, 0, 0],
+}
+# ISeeCube's request: events that fit its seq_length of 196, so at most
+# 128 pulses (the largest length bucket below it); longer ones raise
+ISEECUBE_LENGTHS = (0, 1, 9, 26, 50, 80, 99, 128)
 # the serving_queue phase: events of 1-512 pulses, threads, batch cap
 QUEUE_EVENTS, QUEUE_THREADS, QUEUE_MAX_BATCH = 256, 8, 32
 # the deployer phase: .npz files of events, events a file, workers
@@ -862,19 +898,32 @@ def make_requests(rng, Event):
 
 
 def _convs(module):
-    """The DynEdgeConvs of a module's DynEdge: its backbone, or DeepIce's
-    nested ``dyn_edge`` (none for a DeepIce without one)."""
+    """The convs of a module's backbone whose outputs rebuild the kNN
+    graph: a DynEdge's DynEdgeConvs (its backbone, or DeepIce's nested
+    ``dyn_edge``), DynEdgeJINST's ``conv_add1`` .. 4, ParticleNeT's
+    convs; none for the other backbones (their graphs come from the
+    input alone, which both devices share, or there is none)."""
     bb = module.model.backbone
     bb = getattr(bb, "dyn_edge", bb)
-    return [getattr(bb, f"conv_{i}") for i in range(getattr(bb, "n_convs", 0))]
+    kind = type(bb).__name__
+    if kind == "DynEdgeJINST":
+        return [getattr(bb, f"conv_add{i}") for i in range(1, 5)]
+    if kind in ("DynEdge", "ParticleNeT"):
+        return [getattr(bb, f"conv_{i}") for i in range(bb.n_convs)]
+    return []
 
 
 def _record(module, store):
-    """Hooks keeping each DynEdgeConv's input adjacency, output latents
-    and rebuilt adjacency."""
+    """Hooks keeping each conv's input adjacency, output latents and
+    rebuilt adjacency: a DynEdgeConv returns the rebuilt graph; a
+    ParticleNeT conv returns latents only, and its input graph stands
+    for both (the next conv's input is the graph rebuilt from them)."""
 
     def hook(mod, args, out):
-        store.append((args[2], args[3], out[0], out[1], out[2]))
+        if isinstance(out, tuple):
+            store.append((args[2], args[3], out[0], out[1], out[2]))
+        else:
+            store.append((args[1], args[2], out, args[1], args[2]))
 
     return [c.register_forward_hook(hook) for c in _convs(module)]
 
@@ -1950,8 +1999,9 @@ def _key_mask(torch, rng, B, L, dev):
 def flash_cases(torch, rng, dev):
     """``(label, make, mask)`` for the flash phases, ``make(dtype)`` the
     kernels' arguments ``(q, k, v, mask, scale)`` in ``dtype``: head dims
-    32 and 64 at L = 128, 1000 (ragged) and 1024 with ``_key_mask``'s
-    events (Dh=32, L=1024 is TITO's shape, B=8, H=8), and at the lengths
+    16, 32 and 64 at L = 128, 1000 (ragged) and 1024 with ``_key_mask``'s
+    events (Dh=32, L=1024 is TITO's shape, B=8, H=8; Dh=16, L=1024
+    RNN_TITO's, B=8, H=16), and at the lengths
     that fall at the kernels' 64-row tile edges, 1, 63, 64, 65 and 129
     (at L = 1 no event has more than one key); then the shapes
     of the DeepIce path (B=16, H=12, Dh=32): its unbiased
@@ -1968,9 +2018,11 @@ def flash_cases(torch, rng, dev):
             return (*(t.to(dtype) for t in (q, k, v)), mask, scale)
         cases.append((label, make, mask))
 
-    for dh in (32, 64):
+    at_1024 = {TITO_DH: TITO_HEADS, RNN_TITO_DH: RNN_TITO_HEADS}
+    for dh in (16, 32, 64):
         for L in (1, 63, 64, 65, 129, 128, 1000, 1024):
-            B, H = (TITO_B, TITO_HEADS) if (dh, L) == (32, 1024) else (4, 4)
+            B, H = ((TITO_B, at_1024[dh]) if L == TITO_L and dh in at_1024
+                    else (4, 4))
             gen = torch.Generator(device=dev).manual_seed(dh * 10000 + L)
             q, k, v = (torch.randn(B, H, L, dh, device=dev, generator=gen)
                        for _ in range(3))
@@ -2470,6 +2522,26 @@ def flash_shapes():
                 TITO_L, 64, False)])
 
 
+def sdpa_backend_ms(torch, q, k, v, amask):
+    """``F.scaled_dot_product_attention``'s forward ms on the same call
+    with its efficient and its cuDNN backend forced (None, and the first
+    line of the refusal, where a backend does not take the call)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            with sdpa_kernel(backend):
+                out[name] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=amask))
+        except RuntimeError as err:
+            out[name] = None
+            out[f"{name}_refused"] = str(err).strip().splitlines()[0][:200]
+    return out
+
+
 def flash_times(torch, fa, dense_attention, dev, peaks, shapes=None):
     """Phase 8e: the flash kernels, their plain versions, the port's dense
     path and ``F.scaled_dot_product_attention`` (never on the path; an
@@ -2520,6 +2592,7 @@ def flash_times(torch, fa, dense_attention, dev, peaks, shapes=None):
                     dense_path_ms=cuda_ms(torch, lambda: dense_attention(q, k, v, mask)),
                     library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=amask)),
+                    library_backends_ms=sdpa_backend_ms(torch, q, k, v, amask),
                     **bound(4.0 * n, 4 * row + small)),
                 "bwd_dq": dict(
                     ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(
@@ -3058,6 +3131,141 @@ def serve_zoo(torch, directory, device, rng, pool, counters, names, expect,
             "events_per_s": len(events) / seconds, "card": smi}
 
 
+def backbone_graph(kind):
+    """The graph definition serve_backbones feeds ``kind``: Prometheus
+    pulses (x, y, z, t) for the graph networks, RNN_TITO's through
+    ``NodeAsDOMTimeSeries`` with a unit charge (the JAX example 05's
+    graph); IceCube Kaggle's six columns for ISeeCube."""
+    from graphnet_tpu_torch.utils.config import ModelConfig
+    from graphnet_tpu_torch.utils.config import build as build_config
+
+    def graph(detector, node_definition=None, names=None):
+        nodes = ({"__model__": node_definition} if node_definition
+                 else None)
+        return build_config(ModelConfig("KNNGraph", {
+            "detector": {"__model__": {"class_name": detector,
+                                       "arguments": {}}},
+            "node_definition": nodes, "input_feature_names": names}))
+
+    if kind == "ISeeCube":
+        return graph("IceCubeKaggle", names=ICE_KAGGLE)
+    if kind == "RNNTITO":
+        return graph("Prometheus", {
+            "class_name": "NodeAsDOMTimeSeries", "arguments": dict(
+                keys=FEATURES, id_columns=FEATURES[:3], time_column="t",
+                charge_column="t_not_a_charge")}, FEATURES)
+    return graph("Prometheus", names=FEATURES)
+
+
+def backbone_model(kind, device):
+    """``(StandardModel, graph definition)`` of GraphNeT's ``kind``
+    backbone at its default widths, with an ``EnergyReconstruction``
+    head, and :func:`backbone_graph`: DynEdgeJINST at
+    ``layer_size_scale=4``; ConvNet with 128 intermediate; ParticleNeT
+    (64, 64, 64), (128, 128, 128), (256, 256, 256) at k = 16; ISeeCube
+    384 wide, 16 blocks of 12 heads, MLP 1536, ``seq_length`` 196;
+    RNN_TITO a GRU of 2 x 64, DynTrans 4 x (256, 256) of 16 heads, post
+    (336, 256), readout (256, 128).  The batch norms are frozen, as a
+    ported checkpoint is served."""
+    from graphnet_tpu_torch.models.gnn.convnet import ConvNet
+    from graphnet_tpu_torch.models.gnn.dynedge_jinst import DynEdgeJINST
+    from graphnet_tpu_torch.models.gnn.particlenet import ParticleNeT
+    from graphnet_tpu_torch.models.gnn.rnn_tito import RNNTITO
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.models.task.reconstruction import (
+        EnergyReconstruction,
+    )
+    from graphnet_tpu_torch.models.transformer.iseecube import ISeeCube
+    from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
+
+    if kind == "DynEdgeJINST":
+        backbone = DynEdgeJINST(nb_inputs=NB_INPUTS, layer_size_scale=4)
+    elif kind == "ConvNet":
+        backbone = ConvNet(nb_inputs=NB_INPUTS, nb_intermediate=128,
+                           frozen_batchnorm=True)
+    elif kind == "ParticleNeT":
+        backbone = ParticleNeT(
+            nb_inputs=NB_INPUTS, nb_neighbours=16,
+            dynedge_layer_sizes=((64, 64, 64), (128, 128, 128),
+                                 (256, 256, 256)),
+            frozen_batchnorm=True)
+    elif kind == "ISeeCube":
+        backbone = ISeeCube(hidden_dim=384, seq_length=196, num_layers=16,
+                            num_heads=12, mlp_dim=1536)
+    elif kind == "RNNTITO":
+        backbone = RNNTITO(
+            nb_inputs=6, time_series_columns=(4, 3), rnn_layers=2,
+            rnn_hidden_size=64, n_head=RNN_TITO_HEADS,
+            dyntrans_layer_sizes=((256, 256),) * 4,
+            post_processing_layer_sizes=(336, 256),
+            readout_layer_sizes=(256, 128))
+    else:
+        raise ValueError(f"no such backbone here: {kind}")
+    model = StandardModel(
+        backbone=backbone,
+        tasks=[EnergyReconstruction(
+            hidden_size=backbone.nb_outputs, loss_function=LogCoshLoss(),
+            target_labels=("total_energy",))],
+        seed=SEED, device=device)
+    return model, backbone_graph(kind)
+
+
+def serve_backbone(torch, kind, device, rng, pool, counters, names, expect,
+                   smi):
+    """Phase serve_backbones for one backbone (:func:`backbone_model` on
+    ``device``): a checkpoint in GraphNeT's layout with random weights
+    (``examples.port_pretrained.graphnet_state_dict``) ported by its
+    porter (``weight_port.port_state_dict``), saved with ``save_model``
+    and served through ``DeploymentModule(model.yml, state_dict.pkl)``
+    on ``device`` and on the CPU: 8 raw events (ZOO_LENGTHS pulses of the
+    pool; ISeeCube's ISEECUBE_LENGTHS, its other columns by
+    :func:`zoo_column`) through the graph definition, the answers held by
+    :func:`serve_config_dynedge` (rtol 1e-3, latent kNN flips of JINST
+    and ParticleNeT explained) with ``expect`` launches per forward; then
+    ZOO_RUNS timed requests."""
+    from graphnet_tpu_torch.deployment.deployment_module import (
+        DeploymentModule,
+    )
+    from graphnet_tpu_torch.examples.port_pretrained import (
+        graphnet_state_dict,
+    )
+    from graphnet_tpu_torch.utils.config import save_model
+    from graphnet_tpu_torch.utils.weight_port import port_state_dict
+
+    model, gd = backbone_model(kind, device)
+    assert next(model.parameters()).device.type == torch.device(device).type
+    feature_names = list(gd._input_feature_names)
+    if kind == "ISeeCube":
+        raws = zoo_raw_pulses(rng, feature_names, pool, ISEECUBE_LENGTHS)
+    else:  # Prometheus: the pool's own x, y, z, t
+        raws = [pool[rng.choice(len(pool), n, replace=False)]
+                for n in ZOO_LENGTHS]
+    events = [gd(raw, feature_names) for raw in raws]
+    checkpoint = graphnet_state_dict(model, rng)
+    model.load_state_dict(port_state_dict(model, checkpoint))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    save_model(model, tmp)
+    del model
+    path = os.path.join(tmp, "config.yml")
+    pkl = os.path.join(tmp, "state_dict.pkl")
+    gpu = DeploymentModule(path, pkl, device=device)
+    cpu = DeploymentModule(path, pkl, device="cpu")
+    _, launches, report = serve_config_dynedge(
+        torch, gpu, cpu, {"eight_raw": events}, counters, expect)
+    for name, n, got in zip(names, expect, launches):
+        assert got > 0 or not n, f"{name} was not launched: {launches}"
+    seconds = host_s(lambda: gpu(events), runs=ZOO_RUNS, warmup=1)
+    shutil.rmtree(tmp)
+    return {"backbone": kind, "checkpoint_keys": len(checkpoint),
+            "pulses": [len(r) for r in raws],
+            "nodes": [e.n_pulses for e in events],
+            "parameters": sum(p.numel() for p in gpu.model.parameters()),
+            "requests": report,
+            "launches": {**dict(zip(names, launches)), "forwards": 1},
+            "ms_per_request": seconds * 1e3,
+            "events_per_s": len(events) / seconds, "card": smi}
+
+
 def serving_queue_phase(torch, module, events, counters, expect):
     """``serve_events_parallel`` (QUEUE_THREADS threads, batches of at
     most QUEUE_MAX_BATCH) against one direct call of ``module`` (a
@@ -3524,17 +3732,23 @@ def main() -> int:
     # 5b. flash-attention kernels vs plain
     t0 = time.perf_counter()
     cases = flash_cases(torch, np.random.default_rng(SEED + 2), dev)
-    flash_err, report = check_fwd(torch, cases, fa.flash_attention_fwd,
-                                  fa.flash_attention_plain, ("o", "lse"),
-                                  FLASH_TOL)
-    emit({"phase": "flash", "cases": report,
+    # the worst errors of head dims 32 and 64, and of 16, for the kernels
+    # line
+    by_hd = ([c for c in cases if not c[0].startswith("Dh16_")],
+             [c for c in cases if c[0].startswith("Dh16_")])
+    (flash_err, report), (flash_err16, report16) = (
+        check_fwd(torch, part, fa.flash_attention_fwd,
+                  fa.flash_attention_plain, ("o", "lse"), FLASH_TOL)
+        for part in by_hd)
+    emit({"phase": "flash", "cases": report + report16,
           "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
-    flash_bwd_err, report = check_bwd(torch, cases, flash_bwd_io(torch, fa),
-                                      ("dq", "dk", "dv"), FLASH_TOL)
-    emit({"phase": "flash_bwd", "cases": report,
+    (flash_bwd_err, report), (flash_bwd_err16, report16) = (
+        check_bwd(torch, part, flash_bwd_io(torch, fa), ("dq", "dk", "dv"),
+                  FLASH_TOL) for part in by_hd)
+    emit({"phase": "flash_bwd", "cases": report + report16,
           "seconds": round(time.perf_counter() - t0, 2)})
-    del cases
+    del cases, by_hd
 
     # 5c. relative-bias attention kernels vs plain
     t0 = time.perf_counter()
@@ -3938,6 +4152,18 @@ def main() -> int:
         emit({"phase": "serve_zoo", **report,
               "seconds": round(time.perf_counter() - t0, 2)})
 
+    # 7g''. GraphNeT's other five backbones at its default widths from
+    # GraphNeT-layout checkpoints, served on the card against the CPU
+    brng = np.random.default_rng(SEED + 17)
+    backbone_launches = {}
+    for kind, expect in BACKBONE_LAUNCHES.items():
+        t0 = time.perf_counter()
+        report = serve_backbone(torch, kind, "cuda", brng, pool, counters,
+                                names, expect, smi)
+        backbone_launches[kind] = [report["launches"][n] for n in names]
+        emit({"phase": "serve_backbones", **report,
+              "seconds": round(time.perf_counter() - t0, 2)})
+
     # 7h. the micro-batching queue over the energy model from its file
     t0 = time.perf_counter()
     qrng = np.random.default_rng(SEED + 13)
@@ -3986,6 +4212,10 @@ def main() -> int:
     tito_trainer16 = Trainer(make_tito_trainable(dev, "bfloat16"))
     tito_serving = tito_requests["b8_L1024"]
     flash = flash_times(torch, fa, dense_attention, dev, peaks)
+    flash_rnn = flash_times(
+        torch, fa, dense_attention, dev, peaks,
+        shapes=[(f"B{TITO_B}_H{RNN_TITO_HEADS}_L{TITO_L}_Dh{RNN_TITO_DH}",
+                 TITO_B, RNN_TITO_HEADS, TITO_L, RNN_TITO_DH, False)])
     rel = rel_times(torch, rc, rp, rc.rel_flash_attention,
                     SpacetimeEncoder(ICE_HD).to(dev), _dense_rel_attention, dev,
                     peaks)
@@ -4067,6 +4297,8 @@ def main() -> int:
             torch, lambda: ice_trainer16.train_step(ice_on_card), calls=3),
         "rel_H12_Dh64": rel64,
         "deepice_d64": d64_times,
+        # rows 5a-c at RNN_TITO's attention shape: 16 heads of 16
+        "flash_rnn_tito": flash_rnn,
         # rows 5a-c at B_d64's Block shape: 12 heads of 64, the cls key
         "flash_B_d64": flash_times(
             torch, fa, dense_attention, dev, peaks,
@@ -4161,8 +4393,48 @@ def main() -> int:
                  library_note="SDPA backward: dq, dk and dv in one call",
                  **t["bwd_dkv"]),
         ]
+    # rows 5a-c at head dim 16: the fp32 forward on RNN_TITO's serving
+    # path; the bf16 forward and the backward have no main path yet (the
+    # port's RNN_TITO has no bf16 mode and is not trained), and are held
+    # by the flash and flash_bwd phases only
+    rnn32 = flash_rnn[f"B{TITO_B}_H{RNN_TITO_HEADS}_L{TITO_L}_Dh{RNN_TITO_DH}"
+                      "_float32"]
+    rnn16 = flash_rnn[f"B{TITO_B}_H{RNN_TITO_HEADS}_L{TITO_L}_Dh{RNN_TITO_DH}"
+                      "_bfloat16"]
+    no_path = "none: no main path yet (RNN_TITO is served in fp32, not trained)"
+    for key, t, err, bwd_e, on_path in (
+        ("_hd16", rnn32, flash_err16["float32"], flash_bwd_err16["float32"],
+         True),
+        ("_hd16_bf16", rnn16, flash_err16["bfloat16"],
+         flash_bwd_err16["bfloat16"], False),
+    ):
+        lib_bwd = t["bwd_total"]["library_ms"]
+        kernels += [
+            dict(name="flash_fwd" + key, route="cuda", row="5a",
+                 source="graphnet_tpu_torch/csrc/flash_attention.cu",
+                 replaces="graphnet_tpu/ops/flash_attention.py:71",
+                 launches=backbone_launches["RNNTITO"][3] if on_path else 0,
+                 launches_per=("RNN_TITO forward: 4 (16 heads of 16)"
+                               if on_path else no_path),
+                 main_path=on_path, max_abs_err=err, **t["fwd"]),
+            dict(name="flash_bwd_dq" + key, route="cuda", row="5b",
+                 source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                 replaces="graphnet_tpu/ops/flash_attention.py:128",
+                 launches=0, launches_per=no_path, main_path=False,
+                 max_abs_err=bwd_e, library_ms=lib_bwd,
+                 library_note="SDPA backward: dq, dk and dv in one call",
+                 **t["bwd_dq"]),
+            dict(name="flash_bwd_dkv" + key, route="cuda", row="5c",
+                 source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                 replaces="graphnet_tpu/ops/flash_attention.py:155",
+                 launches=0, launches_per=no_path, main_path=False,
+                 max_abs_err=bwd_e, library_ms=lib_bwd,
+                 library_note="SDPA backward: dq, dk and dv in one call",
+                 **t["bwd_dkv"]),
+        ]
     for kern in kernels:
-        assert kern["launches"] > 0, f"{kern['name']} was never launched"
+        assert kern["launches"] > 0 or not kern.get("main_path", True), (
+            f"{kern['name']} was never launched")
     ice32, ice16 = rel[f"L{ICE_L}_B{ICE_B}_float32"], rel[f"L{ICE_L}_B{ICE_B}_bfloat16"]
     for key, fwd, step, t, err, bwd_e in (
         ("", launches_i, launches_it, ice32, rel_err["float32"],
@@ -4218,7 +4490,8 @@ def main() -> int:
                  max_abs_err=bwd_e, library_ms=None, **t["bwd_dkv"]),
         ]
     for kern in kernels:
-        assert kern["launches"] > 0, f"{kern['name']} was never launched"
+        assert kern["launches"] > 0 or not kern.get("main_path", True), (
+            f"{kern['name']} was never launched")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

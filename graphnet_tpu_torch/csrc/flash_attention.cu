@@ -28,10 +28,11 @@
 // the softmax, not the products.  Four warps of 16 query rows each hold
 // their scaled q tile as mma A fragments; S = Q.K^T is Dh/16 k-steps of
 // mma.sync.m16n8k16 (bf16 in, fp32 out) per 8 keys, with K read by
-// ldmatrix; the row max and sum are taken across the four lanes of a
-// row by shuffles; P, rounded to bf16, is repacked in registers into
-// the A fragments of O += P.V, with V read by ldmatrix.trans.  mma.sync
-// and not wgmma: at Dh = 32 the products are two k-steps deep.
+// ldmatrix (at Dh = 16 one k-step, one ldmatrix for two n-tiles); the
+// row max and sum are taken across the four lanes of a row by
+// shuffles; P, rounded to bf16, is repacked in registers into the A
+// fragments of O += P.V, with V read by ldmatrix.trans.  mma.sync and
+// not wgmma: at Dh = 32 the products are two k-steps deep.
 //
 // fp32: the CUDA cores in full fp32 (no TF32, the port's fp32
 // contract).  Bound by the 4*B*H*L^2*Dh flops, 0.13 ms at TITO's shape
@@ -40,7 +41,14 @@
 // sixteen independent accumulators, float4 reads along Dh), the
 // softmax statistics are taken across the 16 lanes that share a row by
 // shuffles, P goes through shared memory, and the same thread then
-// accumulates a 4 x Dh/16 micro-tile of O for its four rows.
+// accumulates a 4 x Dh/16 micro-tile of O for its four rows (at Dh =
+// 16 one column each).
+//
+// Head dims 16, 32 and 64 (RNN_TITO's DynTrans attention has 16 heads
+// of 16).  At Dh = 16 a block does a quarter of Dh 64's work a key, the
+// grid has the same (L/64) x B*H blocks, and the exponentials weigh
+// more against the products: at RNN_TITO's B*H = 128, L = 1024 they are
+// 134 M against 8.6 GFLOP of products.
 
 #include "flash_attention.cuh"
 #include "flash_mma.cuh"
@@ -133,15 +141,30 @@ __global__ void __launch_bounds__(128)
     // S = Q.K^T for the warp's 16 rows and the tile's 64 keys
     float s[kBlockK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+    for (int n = 0; n < kBlockK / 8; ++n)
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (KS == 1) {
+      // DH = 16, one k-step: an ldmatrix_x4 gives the B fragments of two
+      // n-tiles (keys n*8 .. n*8 + 15, both halves of the 16 dims)
 #pragma unroll
-      for (int kk = 0; kk < KS; kk += 2) {
+      for (int n = 0; n < kBlockK / 8; n += 2) {
         uint32_t b[4];
-        ldmatrix_x4(b, kt + (n * 8 + (lane & 7)) * LD + kk * 16 +
-                           (lane >> 3) * 8);
-        mma_bf16(s[n], qa[kk], b[0], b[1]);
-        mma_bf16(s[n], qa[kk + 1], b[2], b[3]);
+        ldmatrix_x4(b, kt + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LD +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16(s[n], qa[0], b[0], b[1]);
+        mma_bf16(s[n + 1], qa[0], b[2], b[3]);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kBlockK / 8; ++n) {
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + (n * 8 + (lane & 7)) * LD + kk * 16 +
+                             (lane >> 3) * 8);
+          mma_bf16(s[n], qa[kk], b[0], b[1]);
+          mma_bf16(s[n], qa[kk + 1], b[2], b[3]);
+        }
       }
     }
 
@@ -347,15 +370,8 @@ __global__ void __launch_bounds__(256)
         p[i] = ld4(ps + (ty + 16 * i) * kPld + kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vr = vt + (kk + u) * LD + DN * tx;
         float w[DN];
-        if constexpr (DN == 4) {
-          const float4 x = ld4(vr);
-          w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(vr);
-          w[0] = x.x, w[1] = x.y;
-        }
+        ld_cols<DN>(w, vt + (kk + u) * LD + DN * tx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float pu = at4(p[i], u);
@@ -375,14 +391,10 @@ __global__ void __launch_bounds__(256)
     const float ls = fmaxf(l, 1e-30f);
     const int row = q0 + ty + 16 * i;
     if (row < L) {
-      float* orow = o + base + (size_t)row * DH + DN * tx;
-      if constexpr (DN == 4) {
-        *reinterpret_cast<float4*>(orow) = make_float4(
-            acc[i][0] / ls, acc[i][1] / ls, acc[i][2] / ls, acc[i][3] / ls);
-      } else {
-        *reinterpret_cast<float2*>(orow) =
-            make_float2(acc[i][0] / ls, acc[i][1] / ls);
-      }
+      float out[DN];
+#pragma unroll
+      for (int e = 0; e < DN; ++e) out[e] = acc[i][e] / ls;
+      st_cols<DN>(o + base + (size_t)row * DH + DN * tx, out);
       if (tx == 0) lse[(size_t)bh * L + row] = mrow[i] + logf(ls);
     }
   }
@@ -422,10 +434,14 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (!aligned16(q, k, v)) return (int)cudaErrorMisalignedAddress;
 #define FWD(KERN, BYTES, THREADS) \
   launch(KERN, BYTES, THREADS, q, k, v, mask, BH, H, L, scale, o, lse, s)
+  if (DH == 16 && !bf16)
+    return (int)FWD(flash_fwd_f32_kernel<16>, f32_smem_bytes<16>(), 256);
   if (DH == 32 && !bf16)
     return (int)FWD(flash_fwd_f32_kernel<32>, f32_smem_bytes<32>(), 256);
   if (DH == 64 && !bf16)
     return (int)FWD(flash_fwd_f32_kernel<64>, f32_smem_bytes<64>(), 256);
+  if (DH == 16 && bf16)
+    return (int)FWD(flash_fwd_mma_kernel<16>, mma_smem_bytes<16>(), 128);
   if (DH == 32 && bf16)
     return (int)FWD(flash_fwd_mma_kernel<32>, mma_smem_bytes<32>(), 128);
   if (DH == 64 && bf16)
@@ -438,6 +454,8 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
 // head dim the kernels do not take)
 extern "C" int flash_fwd_smem_bytes(int DH, int bf16) {
   using namespace flash;
+  if (DH == 16)
+    return (int)(bf16 ? mma_smem_bytes<16>() : f32_smem_bytes<16>());
   if (DH == 32)
     return (int)(bf16 ? mma_smem_bytes<32>() : f32_smem_bytes<32>());
   if (DH == 64)

@@ -36,6 +36,12 @@
 // (mma.sync.m16n8k16; P^T and dS^T never leave the registers), fp32 on
 // the CUDA cores in full fp32 with register micro-tiles; see the notes
 // at the two kernels.
+//
+// Head dims 16, 32 and 64.  At 16 the bf16 kernels take their one k-step
+// of K.Q^T and one n-tile pair of the dV, dK (dQ) products as they are;
+// the fp32 dq keeps one dQ column a thread; the fp32 dkv splits the
+// queries of a tile among eight groups, whose partial sums need a little
+// more shared memory than the tiles (dkv_f32_smem_bytes).
 
 #include "flash_attention.cuh"
 #include "flash_mma.cuh"
@@ -221,14 +227,27 @@ __global__ void __launch_bounds__(128)
 // the end, added in group order.
 constexpr int kPld = kBlockQ + 4;  // row stride of the staged P^T, dS^T
 
+// groups of the dK, dV step: a group is 8 key rows x DH / 4 threads
+template <int DH>
+__host__ __device__ constexpr int dkv_f32_groups() {
+  return 256 / (DH / 4 * 8);
+}
+
+// the tiles, or at DH = 16 (eight groups) the K and V tiles and the
+// partial sums of groups 1 .. 7, which then need more than the tiles
 template <int DH>
 constexpr size_t dkv_f32_smem_bytes() {
-  return sizeof(float) * ((2 * kBlockK + 4 * kBlockQ) * pad_ld<float, DH>() +
-                          2 * kBlockK * kPld + 4 * kBlockQ);
+  constexpr size_t tiles =
+      (2 * kBlockK + 4 * kBlockQ) * pad_ld<float, DH>() + 2 * kBlockK * kPld +
+      4 * kBlockQ;
+  constexpr size_t partials = 2 * kBlockK * pad_ld<float, DH>() +
+                              (size_t)(dkv_f32_groups<DH>() - 1) * 2 *
+                                  kBlockK * DH;
+  return sizeof(float) * (tiles > partials ? tiles : partials);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
+__global__ void __launch_bounds__(256, DH <= 32 ? 2 : 1)
     flash_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -241,7 +260,7 @@ __global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
   constexpr int LD = pad_ld<float, DH>();
   constexpr int TXN = DH / 4;          // threads across the dims of a group
   constexpr int GT = TXN * 8;          // threads of a group: 8 key rows
-  constexpr int NG = 256 / GT;         // groups
+  constexpr int NG = dkv_f32_groups<DH>();  // groups
   constexpr int QG = kBlockQ / NG;     // queries of a tile per group
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);  // [kBlockK][LD]
@@ -385,6 +404,7 @@ __global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
 
   // the groups' partial sums, added in group order by group 0; the
   // tiles' buffers (from qs on) hold the partials of groups 1 .. NG - 1
+  // (dkv_f32_smem_bytes makes room for them)
   __syncthreads();
   float* red = qs;  // [NG - 1][2][kBlockK][DH]
   if (gz > 0) {
@@ -592,7 +612,7 @@ constexpr size_t dq_f32_smem_bytes() {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
+__global__ void __launch_bounds__(256, DH <= 32 ? 2 : 1)
     flash_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -713,15 +733,8 @@ __global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
       for (int i = 0; i < 4; ++i) s[i] = ld4(dss + (ty + 16 * i) * kDsLd + kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* kr = kt + (kk + u) * LD + DN * tx;
         float w[DN];
-        if constexpr (DN == 4) {
-          const float4 x = ld4(kr);
-          w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(kr);
-          w[0] = x.x, w[1] = x.y;
-        }
+        ld_cols<DN>(w, kt + (kk + u) * LD + DN * tx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float su = at4(s[i], u);
@@ -736,15 +749,10 @@ __global__ void __launch_bounds__(256, DH == 32 ? 2 : 1)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row < L) {
-      float* out = dq + base + (size_t)row * DH + DN * tx;
-      if constexpr (DN == 4) {
-        *reinterpret_cast<float4*>(out) =
-            make_float4(acc[i][0] * scale, acc[i][1] * scale,
-                        acc[i][2] * scale, acc[i][3] * scale);
-      } else {
-        *reinterpret_cast<float2*>(out) =
-            make_float2(acc[i][0] * scale, acc[i][1] * scale);
-      }
+      float out[DN];
+#pragma unroll
+      for (int e = 0; e < DN; ++e) out[e] = acc[i][e] * scale;
+      st_cols<DN>(dq + base + (size_t)row * DH + DN * tx, out);
     }
   }
 }
@@ -811,10 +819,14 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
 #define DQ(KERN, BYTES, THREADS)                                         \
   launch_dq(KERN, BYTES, THREADS, q, k, v, mask, lse, g, delta, BH, H, L, \
             scale, dq, s)
+  if (DH == 16 && !bf16)
+    return (int)DQ(flash_dq_f32_kernel<16>, dq_f32_smem_bytes<16>(), 256);
   if (DH == 32 && !bf16)
     return (int)DQ(flash_dq_f32_kernel<32>, dq_f32_smem_bytes<32>(), 256);
   if (DH == 64 && !bf16)
     return (int)DQ(flash_dq_f32_kernel<64>, dq_f32_smem_bytes<64>(), 256);
+  if (DH == 16 && bf16)
+    return (int)DQ(flash_dq_mma_kernel<16>, dq_mma_smem_bytes<16>(), 128);
   if (DH == 32 && bf16)
     return (int)DQ(flash_dq_mma_kernel<32>, dq_mma_smem_bytes<32>(), 128);
   if (DH == 64 && bf16)
@@ -837,10 +849,14 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
 #define DKV(KERN, BYTES, THREADS)                                         \
   launch_dkv(KERN, BYTES, THREADS, q, k, v, mask, lse, g, delta, BH, H, L, \
              scale, dk, dv, s)
+  if (DH == 16 && !bf16)
+    return (int)DKV(flash_dkv_f32_kernel<16>, dkv_f32_smem_bytes<16>(), 256);
   if (DH == 32 && !bf16)
     return (int)DKV(flash_dkv_f32_kernel<32>, dkv_f32_smem_bytes<32>(), 256);
   if (DH == 64 && !bf16)
     return (int)DKV(flash_dkv_f32_kernel<64>, dkv_f32_smem_bytes<64>(), 256);
+  if (DH == 16 && bf16)
+    return (int)DKV(flash_dkv_mma_kernel<16>, dkv_mma_smem_bytes<16>(), 128);
   if (DH == 32 && bf16)
     return (int)DKV(flash_dkv_mma_kernel<32>, dkv_mma_smem_bytes<32>(), 128);
   if (DH == 64 && bf16)
@@ -853,6 +869,8 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
 // dim the kernels do not take)
 extern "C" int flash_bwd_dkv_smem_bytes(int DH, int bf16) {
   using namespace flash;
+  if (DH == 16)
+    return (int)(bf16 ? dkv_mma_smem_bytes<16>() : dkv_f32_smem_bytes<16>());
   if (DH == 32)
     return (int)(bf16 ? dkv_mma_smem_bytes<32>() : dkv_f32_smem_bytes<32>());
   if (DH == 64)
@@ -864,6 +882,8 @@ extern "C" int flash_bwd_dkv_smem_bytes(int DH, int bf16) {
 // the kernels do not take)
 extern "C" int flash_bwd_dq_smem_bytes(int DH, int bf16) {
   using namespace flash;
+  if (DH == 16)
+    return (int)(bf16 ? dq_mma_smem_bytes<16>() : dq_f32_smem_bytes<16>());
   if (DH == 32)
     return (int)(bf16 ? dq_mma_smem_bytes<32>() : dq_f32_smem_bytes<32>());
   if (DH == 64)

@@ -6,10 +6,10 @@
 // mma_bf16.cuh.
 //
 // Row tiles live in shared memory with a row stride of the row plus
-// 16 bytes (pad_ld<T, DH>): at 80 or 144 bytes (bf16, DH = 32 or 64) the
-// eight 16-byte rows one ldmatrix phase reads fall in distinct banks,
-// and at DH + 4 floats (fp32) a float4 read of 16 rows strided by the
-// pad is conflict-free.
+// 16 bytes (pad_ld<T, DH>): at 48, 80 or 144 bytes (bf16, DH = 16, 32 or
+// 64) the eight 16-byte rows one ldmatrix phase reads fall in distinct
+// banks, and at DH + 4 floats (fp32) a float4 read of 16 rows strided by
+// the pad is conflict-free.
 
 #pragma once
 
@@ -47,6 +47,35 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 __device__ __forceinline__ float at4(const float4& x, int u) {
   return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// the DN (1, 2 or 4) consecutive floats at p, 4 * DN-byte aligned: a
+// thread's columns of an fp32 micro-tile (DH / 16 of a row)
+template <int DN>
+__device__ __forceinline__ void ld_cols(float (&w)[DN], const float* p) {
+  if constexpr (DN == 4) {
+    const float4 x = ld4(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (DN == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  } else {
+    static_assert(DN == 1, "DN is 1, 2 or 4");
+    w[0] = *p;
+  }
+}
+
+// w stored at p, as ld_cols reads it
+template <int DN>
+__device__ __forceinline__ void st_cols(float* p, const float (&w)[DN]) {
+  if constexpr (DN == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (DN == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(w[0], w[1]);
+  } else {
+    static_assert(DN == 1, "DN is 1, 2 or 4");
+    *p = w[0];
+  }
 }
 
 // Start the copy of rows [row0, row0 + ROWS) of src ([L, DH] of T,

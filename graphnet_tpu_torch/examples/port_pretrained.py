@@ -42,17 +42,23 @@ _SKIPPED_READOUT = 128
 
 
 def _draw(rng: np.random.Generator, key: str, shape, init: torch.Tensor):
-    """A random value for a GraphNeT parameter: a linear weight
+    """A random value for a GraphNeT parameter: a linear (or GRU) weight
     uniform in +-1/sqrt(fan_in) (torch's own initialisation), a bias
-    N(0, 0.05^2), a layer norm's weight and a layer scale
+    N(0, 0.05^2), a layer norm's, batch norm's weight and a layer scale
     1 + N(0, 0.1^2), a sinusoid scale its initial value times
-    1 + N(0, 0.1^2), anything else (the cls token, the aux table)
-    N(0, 1)."""
+    1 + N(0, 0.1^2), a batch norm's running variance uniform in
+    [0.5, 2] and its batch count 0, anything else (the cls token, the
+    aux table, the position embedding, a running mean) N(0, 1)."""
     name = key.rsplit(".", 1)[-1]
     z = rng.standard_normal(shape)
-    if name.endswith("bias"):
+    if name == "num_batches_tracked":
+        z = np.zeros(shape)
+    elif name == "running_var":
+        z = rng.uniform(0.5, 2.0, shape)
+    elif name.endswith("bias") or name.startswith("bias_"):
         z = z * 0.05
-    elif name in ("weight", "in_proj_weight") and len(shape) == 2 and (
+    elif (name in ("weight", "in_proj_weight") or name.startswith("weight_")
+          ) and len(shape) == 2 and (
             "aux_emb" not in key and "cls_token" not in key):
         z = rng.uniform(-1.0, 1.0, shape) / np.sqrt(shape[1])
     elif (name == "weight" and len(shape) == 1) or name.startswith("gamma"):
@@ -129,18 +135,185 @@ def _deepice_layout(backbone) -> Dict[str, tuple]:
     return shapes
 
 
+def _linear(shapes, key: str, layer) -> None:
+    shapes[f"{key}.weight"] = tuple(layer.weight.shape)
+    shapes[f"{key}.bias"] = tuple(layer.bias.shape)
+
+
+def _batch_norm(shapes, key: str, features: int) -> None:
+    """A torch ``BatchNorm1d``'s parameters and buffers."""
+    for name in ("weight", "bias", "running_mean", "running_var"):
+        shapes[f"{key}.{name}"] = (features,)
+    shapes[f"{key}.num_batches_tracked"] = ()
+
+
+def _jinst_layout(backbone) -> Dict[str, tuple]:
+    """GraphNeT's keys and shapes of a port DynEdgeJINST: each
+    ``conv_add{i}.nn`` Sequential ``[Linear, LeakyReLU] * 2`` (the first
+    linear over ``cat[x_i, x_j - x_i]``), ``nn1``, ``nn2``, ``nn3``."""
+    shapes = {}
+    for i in range(1, 5):
+        conv = getattr(backbone, f"conv_add{i}").conv
+        h0, h1 = conv.nn_sizes
+        key = f"backbone.conv_add{i}.nn"
+        shapes[f"{key}.0.weight"] = (h0, 2 * conv.self_dense.in_features)
+        shapes[f"{key}.0.bias"] = (h0,)
+        shapes[f"{key}.2.weight"] = (h1, h0)
+        shapes[f"{key}.2.bias"] = (h1,)
+    for name in ("nn1", "nn2", "nn3"):
+        _linear(shapes, f"backbone.{name}", getattr(backbone, name))
+    return shapes
+
+
+def _convnet_layout(backbone) -> Dict[str, tuple]:
+    """GraphNeT's keys and shapes of a port ConvNet: three PyG
+    ``TAGConv`` s in PyG's current layout (``lins.{h}`` without biases,
+    one module ``bias``), ``batchnorm1``, ``linear1`` .. ``linear5``,
+    ``out``."""
+    shapes = {}
+    for i in range(1, 4):
+        conv = getattr(backbone, f"conv{i}")
+        for h in range(conv.K + 1):
+            shapes[f"backbone.conv{i}.lins.{h}.weight"] = tuple(
+                getattr(conv, f"lin_{h}").weight.shape)
+        shapes[f"backbone.conv{i}.bias"] = (conv.lin_0.out_features,)
+    _batch_norm(shapes, "backbone.batchnorm1", backbone.bn_scale.shape[0])
+    for name in ("linear1", "linear2", "linear3", "linear4", "linear5",
+                 "out"):
+        _linear(shapes, f"backbone.{name}", getattr(backbone, name))
+    return shapes
+
+
+def _particlenet_layout(backbone) -> Dict[str, tuple]:
+    """GraphNeT's keys and shapes of a port ParticleNeT: each
+    ``_conv_layers.{i}.nn`` Sequential ``[Linear, (BatchNorm1d), act] *
+    n`` (the first linear over ``cat[x_i, x_j - x_i]``) and the
+    ``_readout`` ``[Linear, act, Dropout] * m``."""
+    shapes = {}
+    for i in range(backbone.n_convs):
+        conv = getattr(backbone, f"conv_{i}")
+        step = 3 if conv.add_batchnorm else 2
+        key = f"backbone._conv_layers.{i}.nn"
+        d = 2 * conv.self_dense.in_features
+        for j, size in enumerate(conv.nn_sizes):
+            shapes[f"{key}.{j * step}.weight"] = (size, d)
+            shapes[f"{key}.{j * step}.bias"] = (size,)
+            if conv.add_batchnorm:
+                _batch_norm(shapes, f"{key}.{j * step + 1}", size)
+            d = size
+    for j in range(len(backbone.readout_layer_sizes)):
+        _linear(shapes, f"backbone._readout.{3 * j}",
+                getattr(backbone, f"readout_{j}"))
+    return shapes
+
+
+# port ISeeCube parameter names -> GraphNeT's (torchscale's encoder;
+# applied in order)
+_ISEECUBE_NAMES = (
+    (r"^fourier_ext\.aux_emb\.embedding$", "fourier_ext.aux_emb.weight"),
+    (r"^fourier_ext\.mlp_0\.", "fourier_ext.mlp.0."),
+    (r"^fourier_ext\.mlp_norm\.", "fourier_ext.mlp.1."),
+    (r"^fourier_ext\.mlp_1\.", "fourier_ext.mlp.3."),
+    (r"^rel_pos_bias\.rel_embedding$",
+     "encoder.relative_position.relative_attention_bias.weight"),
+    (r"^attn_(\d+)\.proj_([qkv])\.", r"encoder.layers.\1.self_attn.\2_proj."),
+    (r"^attn_(\d+)\.inner_attn_ln\.",
+     r"encoder.layers.\1.self_attn.inner_attn_ln."),
+    (r"^attn_(\d+)\.out\.", r"encoder.layers.\1.self_attn.out_proj."),
+    (r"^norm1_(\d+)\.", r"encoder.layers.\1.self_attn_layer_norm."),
+    (r"^norm2_(\d+)\.", r"encoder.layers.\1.final_layer_norm."),
+    (r"^fc([12])_(\d+)\.", r"encoder.layers.\2.ffn.fc\1."),
+    (r"^ffn_ln_(\d+)\.", r"encoder.layers.\1.ffn.ffn_layernorm."),
+    (r"^encoder_layer_norm\.", "encoder.layer_norm."),
+)
+
+
+def _iseecube_layout(backbone) -> Dict[str, tuple]:
+    """GraphNeT's keys and shapes of a port ISeeCube (torchscale's
+    Magneto encoder under ``encoder``)."""
+    shapes = {}
+    for key, value in backbone.state_dict().items():
+        for pattern, repl in _ISEECUBE_NAMES:
+            key = re.sub(pattern, repl, key)
+        shapes[f"backbone.{key}"] = tuple(value.shape)
+    return shapes
+
+
+def _tito_layout(backbone, prefix: str) -> Dict[str, tuple]:
+    """GraphNeT's keys and shapes of a port DynEdgeTITO: each DynTrans
+    block's ``nn`` Sequential ``[Linear, LeakyReLU] * 2`` (the first
+    linear over ``cat[x_i, x_j - x_i, x_j]``), ``norm1`` and its torch
+    ``TransformerEncoderLayer``; ``_post_processing`` and ``_readout``
+    ``[Linear, LeakyReLU] * n``."""
+    shapes = {}
+    for i in range(backbone.n_convs):
+        blk = getattr(backbone, f"conv_{i}")
+        h0, h1 = blk.conv.nn_sizes
+        key = f"{prefix}._conv_layers.{i}"
+        shapes[f"{key}.nn.0.weight"] = (h0, 3 * blk.conv.self_dense.in_features)
+        shapes[f"{key}.nn.0.bias"] = (h0,)
+        shapes[f"{key}.nn.2.weight"] = (h1, h0)
+        shapes[f"{key}.nn.2.bias"] = (h1,)
+        _linear(shapes, f"{key}.norm1", blk.norm1)
+        t, tr = f"{key}._transformer_encoder.layers.0", blk.transformer
+        shapes[f"{t}.self_attn.in_proj_weight"] = tuple(tr.mha.qkv.weight.shape)
+        shapes[f"{t}.self_attn.in_proj_bias"] = tuple(tr.mha.qkv.bias.shape)
+        _linear(shapes, f"{t}.self_attn.out_proj", tr.mha.out)
+        for name in ("linear1", "linear2", "norm1", "norm2"):
+            _linear(shapes, f"{t}.{name}", getattr(tr, name))
+    for torch_name, name in (("_post_processing", "post_processing"),
+                             ("_readout", "readout")):
+        if hasattr(backbone, name):
+            mlp = getattr(backbone, name)
+            for j in range(len(mlp.sizes)):
+                _linear(shapes, f"{prefix}.{torch_name}.{2 * j}",
+                        getattr(mlp, f"dense_{j}"))
+    return shapes
+
+
+def _rnn_tito_layout(backbone) -> Dict[str, tuple]:
+    """GraphNeT's keys and shapes of a port RNN_TITO: the Node_RNN's torch
+    ``nn.GRU`` (``_rnn._rnn``; gate rows r, z, n) and the DynEdgeTITO
+    under ``_dynedge_tito``."""
+    shapes = {}
+    rnn = backbone.rnn
+    for layer in range(rnn.num_layers):
+        cell = getattr(rnn, f"gru_{layer}").cell.gru
+        H, d_in = cell.ir.out_features, cell.ir.in_features
+        key = "backbone._rnn._rnn"
+        shapes[f"{key}.weight_ih_l{layer}"] = (3 * H, d_in)
+        shapes[f"{key}.weight_hh_l{layer}"] = (3 * H, H)
+        shapes[f"{key}.bias_ih_l{layer}"] = (3 * H,)
+        shapes[f"{key}.bias_hh_l{layer}"] = (3 * H,)
+    shapes.update(_tito_layout(backbone.dynedge_tito,
+                               "backbone._dynedge_tito"))
+    return shapes
+
+
+_LAYOUTS = {
+    "DeepIce": _deepice_layout,
+    "DynEdgeJINST": _jinst_layout,
+    "ConvNet": _convnet_layout,
+    "ParticleNeT": _particlenet_layout,
+    "ISeeCube": _iseecube_layout,
+    "RNNTITO": _rnn_tito_layout,
+}
+
+
 def graphnet_state_dict(model, rng: np.random.Generator
                         ) -> Dict[str, np.ndarray]:
     """A checkpoint in GraphNeT's key layout for a port ``StandardModel``
-    with a DynEdge or DeepIce backbone (what GraphNeT's own model of the
-    same configuration holds), with random weights from ``rng``: the
-    stand-in for a trained ``*_state_dict.pth``."""
+    (what GraphNeT's own model of the same configuration holds), with
+    random weights from ``rng``: the stand-in for a trained
+    ``*_state_dict.pth``."""
     backbone = model.backbone
     kind = type(backbone).__name__
     if kind == "DynEdge":
         shapes = _dynedge_layout(backbone, "backbone")
-    elif kind == "DeepIce":
-        shapes = _deepice_layout(backbone)
+    elif kind == "DynEdgeTITO":
+        shapes = _tito_layout(backbone, "backbone")
+    elif kind in _LAYOUTS:
+        shapes = _LAYOUTS[kind](backbone)
     else:
         raise NotImplementedError(
             f"no GraphNeT layout for a {kind} backbone here")

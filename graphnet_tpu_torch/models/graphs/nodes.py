@@ -1,7 +1,7 @@
-"""Node definitions (counterpart of ``graphnet_tpu/models/graphs/nodes.py``;
-:class:`NodesAsPulses` and :class:`IceMixNodes` so far): host-side numpy
-transforms from one event's standardised ``[n, d]`` pulse array to its
-``[m, d']`` node array.  Padding and bucketing happen at collate time."""
+"""Node definitions (counterpart of ``graphnet_tpu/models/graphs/nodes.py``):
+host-side numpy transforms from one event's standardised ``[n, d]``
+pulse array to its ``[m, d']`` node array.  Padding and bucketing happen
+at collate time."""
 
 from __future__ import annotations
 
@@ -9,7 +9,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from graphnet_tpu_torch.models.graphs.utils import ice_transparency
+from graphnet_tpu_torch.models.graphs.utils import (
+    cluster_summarize_with_percentiles,
+    ice_transparency,
+    identify_indices,
+    lex_sort,
+)
 from graphnet_tpu_torch.utils.config import save_config
 
 
@@ -69,6 +74,119 @@ class NodesAsPulses(NodeDefinition):
 
     def _construct_nodes(self, x: np.ndarray) -> np.ndarray:
         return np.asarray(x, dtype=np.float32)
+
+
+class PercentileClusters(NodeDefinition):
+    """One node per cluster of pulses that share the ``cluster_on``
+    columns (a sensor): its key, the ``percentiles`` of each other
+    column over the cluster's pulses and, with ``add_counts``, log10 of
+    its pulse count."""
+
+    @save_config
+    def __init__(
+        self,
+        cluster_on: List[str],
+        percentiles: List[int],
+        add_counts: bool = True,
+        input_feature_names: Optional[List[str]] = None,
+    ) -> None:
+        self._cluster_on = cluster_on
+        self._percentiles = percentiles
+        self._add_counts = add_counts
+        super().__init__(input_feature_names=input_feature_names)
+
+    def _define_output_feature_names(
+        self, input_feature_names: List[str]
+    ) -> List[str]:
+        cluster_idx, summ_idx, summ_names = identify_indices(
+            input_feature_names, self._cluster_on
+        )
+        self._cluster_indices = cluster_idx
+        self._summarization_indices = summ_idx
+        names = list(self._cluster_on)
+        for feature in summ_names:
+            for pct in self._percentiles:
+                names.append(f"{feature}_pct{pct}")
+        if self._add_counts:
+            names.append("counts")
+        return names
+
+    def _construct_nodes(self, x: np.ndarray) -> np.ndarray:
+        return cluster_summarize_with_percentiles(
+            x=np.asarray(x, np.float64),
+            summarization_indices=self._summarization_indices,
+            cluster_indices=self._cluster_indices,
+            percentiles=self._percentiles,
+            add_counts=self._add_counts,
+        ).astype(np.float32)
+
+
+class NodeAsDOMTimeSeries(NodeDefinition):
+    """Per-sensor time series for :class:`~graphnet_tpu_torch.models.
+    rnn.node_rnn.NodeRNN`: the pulses sorted by time, the charge column
+    turned back from log10 to linear charge (a unit charge column
+    inserted where the detector has none), the times made relative to
+    the event's first, then the pulses grouped by sensor (``id_columns``,
+    stable, so each sensor's series stays in time order), and a last
+    column ``new_node_col`` that is 1 at the first pulse of each
+    sensor."""
+
+    @save_config
+    def __init__(
+        self,
+        keys: List[str] = (
+            "dom_x",
+            "dom_y",
+            "dom_z",
+            "dom_time",
+            "charge",
+        ),
+        id_columns: List[str] = ("dom_x", "dom_y", "dom_z"),
+        time_column: str = "dom_time",
+        charge_column: str = "charge",
+        max_activations: Optional[int] = None,
+    ) -> None:
+        self._keys = list(keys)
+        # before super().__init__: the output names it defines depend on
+        # whether a charge column is inserted
+        self._charge_index = (
+            self._keys.index(charge_column)
+            if charge_column in self._keys
+            else None
+        )
+        super().__init__(input_feature_names=self._keys)
+        self._id_columns = [self._keys.index(k) for k in id_columns]
+        self._time_index = self._keys.index(time_column)
+        self._max_activations = max_activations
+
+    def _define_output_feature_names(
+        self, input_feature_names: List[str]
+    ) -> List[str]:
+        names = list(input_feature_names)
+        if self._charge_index is None:
+            names.append("charge")
+        return names + ["new_node_col"]
+
+    def _construct_nodes(self, x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x, np.float64)
+        if x.shape[0] == 0:
+            extra = 2 if self._charge_index is None else 1
+            return np.zeros((0, x.shape[1] + extra), np.float32)
+        if self._charge_index is None:
+            charge_index = x.shape[1]
+            x = np.insert(x, charge_index, 0.0, axis=1)
+        else:
+            charge_index = self._charge_index
+        x = x[x[:, self._time_index].argsort()]
+        x[:, charge_index] = np.power(10.0, x[:, charge_index])
+        x[:, self._time_index] -= x[:, self._time_index].min()
+        x = lex_sort(x, self._id_columns)
+        keys = x[:, self._id_columns]
+        change = np.any(keys[1:] != keys[:-1], axis=1)
+        new_node_col = np.zeros(x.shape[0])
+        new_node_col[0] = 1
+        new_node_col[1:][change] = 1
+        return np.column_stack([x, new_node_col]).astype(np.float32)
 
 
 class IceMixNodes(NodeDefinition):

@@ -1,0 +1,1 @@
+"""transformer of the PyTorch/CUDA port (see graphnet_tpu_torch/__init__.py)."""

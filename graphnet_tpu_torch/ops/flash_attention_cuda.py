@@ -50,7 +50,7 @@ from torch.autograd.function import once_differentiable
 from graphnet_tpu_torch.ops import library
 
 NEG = -1e5
-HEAD_DIMS = (32, 64)  # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64)  # head dims the kernels are built for
 _NAME = "flash_attention"
 _BWD_NAME = "flash_attention_bwd"
 
@@ -380,7 +380,7 @@ def flash_attention(
     """Masked softmax attention, differentiable in q, k and v.
 
     Args:
-        q, k, v: ``[B, H, L, Dh]``, float32 or bfloat16 (Dh 32 or 64 on
+        q, k, v: ``[B, H, L, Dh]``, float32 or bfloat16 (Dh 16, 32 or 64 on
             CUDA).
         key_padding_mask: ``[B, L]`` bool, True = valid key.
         scale: logits scale; default ``1/sqrt(Dh)``.

@@ -76,20 +76,27 @@ def _register_framework_classes() -> None:
     import graphnet_tpu_torch.models.graphs.graph_definition as graph_definition
     import graphnet_tpu_torch.models.graphs.graphs as graphs
     import graphnet_tpu_torch.models.graphs.nodes as nodes
+    import graphnet_tpu_torch.models.gnn.convnet as convnet
     import graphnet_tpu_torch.models.gnn.dynedge as dynedge
+    import graphnet_tpu_torch.models.gnn.dynedge_jinst as jinst
     import graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito as tito
     import graphnet_tpu_torch.models.gnn.icemix as icemix
+    import graphnet_tpu_torch.models.gnn.particlenet as particlenet
+    import graphnet_tpu_torch.models.gnn.rnn_tito as rnn_tito
+    import graphnet_tpu_torch.models.rnn.node_rnn as node_rnn
     import graphnet_tpu_torch.models.standard_model as sm
     import graphnet_tpu_torch.models.task.classification as cls_tasks
     import graphnet_tpu_torch.models.task.reconstruction as rec_tasks
     import graphnet_tpu_torch.models.task.task as task_base
+    import graphnet_tpu_torch.models.transformer.iseecube as iseecube
     import graphnet_tpu_torch.training.loss_functions as losses
     from graphnet_tpu_torch.models.detector.detector import _DETECTOR_REGISTRY
     from graphnet_tpu_torch.models.detector.prometheus import Prometheus
 
-    for mod in (graphs, graph_definition, nodes, edges, dynedge, tito, icemix,
-                sm, cls_tasks, rec_tasks, task_base, losses, dataset_mod,
-                sqlite_dataset):
+    for mod in (graphs, graph_definition, nodes, edges, convnet, dynedge,
+                jinst, tito, icemix, particlenet, rnn_tito, node_rnn,
+                iseecube, sm, cls_tasks, rec_tasks, task_base, losses,
+                dataset_mod, sqlite_dataset):
         for name, obj in vars(mod).items():
             if inspect.isclass(obj) and obj.__module__ == mod.__name__:
                 register_class(obj, name)
@@ -97,6 +104,8 @@ def _register_framework_classes() -> None:
         register_class(cls, name)
     # the alias of ORCA150SuperDense that the reference's examples use
     register_class(Prometheus, "Prometheus")
+    # GraphNeT's class name of RNNTITO, as its configs write it
+    register_class(rnn_tito.RNNTITO, "RNN_TITO")
 
 
 def _lookup(class_name: str) -> type:

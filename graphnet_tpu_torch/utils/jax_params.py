@@ -14,10 +14,14 @@ module names, so the map is mechanical:
 * DeepIce's ``cls_token [1, D]``, layer scales ``gamma_1``/``gamma_2``
   ``[D]`` and the ``embedding [n, d]`` of a flax ``Embed`` keep their
   names and layout too (the port has parameters of those names, so no
-  table is transposed);
+  table is transposed), and so do ISeeCube's ``pos_embedding``,
+  ``class_token``, ``register_tokens`` and ``rel_embedding``, ConvNet's
+  batch norm (``bn_scale``, ``bn_bias``, ``bn_mean``, ``bn_var``) and
+  the frozen statistics ``mean``/``var`` of ParticleNeT's
+  ``MaskedBatchNorm``;
 * a ``scale`` for which the port model has a parameter ``<path>.scale``
-  (a ``SinusoidalPosEmb``'s learned scale) keeps its name; every other
-  ``scale`` is a layer norm's.  The port's layer norms name theirs
+  (a ``SinusoidalPosEmb``'s learned scale, a ``MaskedBatchNorm``'s)
+  keeps its name; every other ``scale`` is a layer norm's.  The port's layer norms name theirs
   ``weight``, so a port parameter named ``scale`` is never a norm's.
 
 Unpickling needs no JAX: the pickle holds numpy arrays only.
@@ -42,6 +46,16 @@ _LEAF_NAMES = {
     "gamma_1": ("gamma_1", False),
     "gamma_2": ("gamma_2", False),
     "embedding": ("embedding", False),
+    "pos_embedding": ("pos_embedding", False),
+    "class_token": ("class_token", False),
+    "register_tokens": ("register_tokens", False),
+    "rel_embedding": ("rel_embedding", False),
+    "bn_scale": ("bn_scale", False),
+    "bn_bias": ("bn_bias", False),
+    "bn_mean": ("bn_mean", False),
+    "bn_var": ("bn_var", False),
+    "mean": ("mean", False),
+    "var": ("var", False),
 }
 # port parameter names that are JAX leaf names as they are (``scale``:
 # a SinusoidalPosEmb's, as the port's layer norms name theirs ``weight``)
@@ -127,7 +141,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     :func:`params_from_jax`.  A 2-D ``weight`` is an ``nn.Linear``'s
     (``kernel``, transposed back), a 1-D one a layer norm's (``scale``);
     the kept names (``out_kernel``, ``cls_token``, ``gamma_*``,
-    ``embedding``, a ``SinusoidalPosEmb``'s ``scale``) stay as they are.
+    ``embedding``, a ``SinusoidalPosEmb``'s or ``MaskedBatchNorm``'s
+    ``scale`` and the other names above) stay as they are.
     """
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():

@@ -3,9 +3,13 @@
 
 * The porters map a GraphNeT (torch) ``StandardModel`` state_dict onto a
   port model: :func:`port_dynedge_state_dict`,
-  :func:`port_tito_state_dict` and :func:`port_deepice_state_dict`
-  (plain and with the nested DynEdge).  The first linear layer of each
-  EdgeConv is linearised, as the port's layers compute it:
+  :func:`port_tito_state_dict`, :func:`port_deepice_state_dict`
+  (plain and with the nested DynEdge), :func:`port_jinst_state_dict`,
+  :func:`port_convnet_state_dict`, :func:`port_particlenet_state_dict`,
+  :func:`port_iseecube_state_dict` and :func:`port_rnn_tito_state_dict`;
+  :func:`port_state_dict` picks the porter of a model's backbone.  The
+  first linear layer of each EdgeConv is linearised, as the port's
+  layers compute it:
   ``cat[x_i, x_j - x_i] @ [W1; W2]^T = x_i @ (W1 - W2)^T + x_j @ W2^T``
   gives ``self_dense`` ``(W1 - W2)`` and ``nbr_dense`` ``W2``.
 * :func:`from_reference_config` and :func:`from_reference_dataset_config`
@@ -13,7 +17,9 @@
   DatasetConfig YAML without evaluating code: ``!lambda`` strings are
   looked up in a table of known transforms, ``!class`` references
   (optimisers) are dropped.
-* :func:`port_reference_model` does both in one call.
+* :func:`port_reference_model` does both in one call, and serves the
+  batch-norm backbones (ConvNet, ParticleNeT) with the checkpoint's
+  running statistics (``frozen_batchnorm``), torch's eval mode.
 
 The port's modules keep the JAX package's flax names, so one name map
 serves both packages: a porter fills the JAX-layout tree of the port
@@ -41,26 +47,6 @@ import numpy as np
 import torch
 
 from graphnet_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
-
-# backbones whose porters wait for the backbone itself (ROADMAP.md queue
-# 1, item 9), by class name, with the JAX package's porter
-_UNPORTED_BACKBONES = {
-    "DynEdgeJINST": "port_jinst_state_dict",
-    "ConvNet": "port_convnet_state_dict",
-    "ParticleNeT": "port_particlenet_state_dict",
-    "ISeeCube": "port_iseecube_state_dict",
-    "RNNTITO": "port_rnn_tito_state_dict",
-    "RNN_TITO": "port_rnn_tito_state_dict",
-}
-
-
-def _unported_backbone(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {name} backbone is not ported yet, nor its GraphNeT porter "
-        f"(the JAX package's {_UNPORTED_BACKBONES[name]}): ROADMAP.md "
-        "queue 1, item 9"
-    )
-
 
 # ------------------------------------------------------ state_dict porting
 def _normalise_keys(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -124,6 +110,18 @@ def _fill(node: Dict[str, Any], key: str, value: np.ndarray) -> None:
             f"shape mismatch for {key}: torch {value.shape} vs model {expect}"
         )
     node[key] = np.asarray(value, np.float32)
+
+
+def _norm(take: "_Reader", dst, p: str) -> None:
+    """A torch layer norm's (or batch norm's) weight and bias at ``p``."""
+    _fill(dst, "scale", take(f"{p}.weight"))
+    _fill(dst, "bias", take(f"{p}.bias"))
+
+
+def _linear(take: "_Reader", dst, p: str) -> None:
+    """A torch ``Linear`` at ``p``: its weight transposed, its bias."""
+    _fill(dst, "kernel", take(f"{p}.weight").T)
+    _fill(dst, "bias", take(f"{p}.bias"))
 
 
 def _indices(sd, pattern: str) -> List[int]:
@@ -260,42 +258,63 @@ def port_tito_state_dict(
     transposed), then the post-processing and readout linears."""
 
     def fill(take, root):
-        sd = take.sd
-        conv_ids = _indices(sd, r"backbone\._conv_layers\.(\d+)\.")
-        if not conv_ids:
-            raise ValueError("no `backbone._conv_layers.*` keys found")
-        for i in conv_ids:
-            p = f"backbone._conv_layers.{i}"
-            conv = root["backbone"][f"conv_{i}"]
-            _port_first_linear(take, f"{p}.nn.0", conv["conv"], ways=3)
-            _fill(conv["conv"], "out_kernel", take(f"{p}.nn.2.weight").T)
-            _fill(conv["conv"], "out_bias", take(f"{p}.nn.2.bias"))
-            _fill(conv["norm1"], "scale", take(f"{p}.norm1.weight"))
-            _fill(conv["norm1"], "bias", take(f"{p}.norm1.bias"))
-            t = f"{p}._transformer_encoder.layers.0"
-            tr = conv["transformer"]
-            for dst, src in ((tr["mha"]["qkv"], "self_attn.in_proj_"),
-                             (tr["mha"]["out"], "self_attn.out_proj."),
-                             (tr["linear1"], "linear1."),
-                             (tr["linear2"], "linear2.")):
-                _fill(dst, "kernel", take(f"{t}.{src}weight").T)
-                _fill(dst, "bias", take(f"{t}.{src}bias"))
-            for norm in ("norm1", "norm2"):
-                _fill(tr[norm], "scale", take(f"{t}.{norm}.weight"))
-                _fill(tr[norm], "bias", take(f"{t}.{norm}.bias"))
-
-        for torch_name, name in (("_post_processing", "post_processing"),
-                                 ("_readout", "readout")):
-            prefix = f"backbone.{torch_name}"
-            lin_ids, _ = _sequential_positions(sd, prefix)
-            node = root["backbone"][name]
-            for j, lid in enumerate(lin_ids):
-                _fill(node[f"dense_{j}"], "kernel",
-                      take(f"{prefix}.{lid}.weight").T)
-                _fill(node[f"dense_{j}"], "bias", take(f"{prefix}.{lid}.bias"))
+        _fill_tito(take, "backbone", root["backbone"])
         _port_tasks(take, root)
 
     return _port(state_dict, expected, fill)
+
+
+def _fill_tito(take: _Reader, bb_prefix: str, bb_node) -> None:
+    """A GraphNeT DynEdgeTITO rooted at ``bb_prefix`` onto the port's
+    DynEdgeTITO subtree ``bb_node`` (:func:`port_tito_state_dict`)."""
+    sd = take.sd
+    conv_ids = _indices(sd, rf"{re.escape(bb_prefix)}\._conv_layers\.(\d+)\.")
+    if not conv_ids:
+        raise ValueError(f"no `{bb_prefix}._conv_layers.*` keys found")
+    for i in conv_ids:
+        p = f"{bb_prefix}._conv_layers.{i}"
+        conv = bb_node[f"conv_{i}"]
+        _port_first_linear(take, f"{p}.nn.0", conv["conv"], ways=3)
+        _fill(conv["conv"], "out_kernel", take(f"{p}.nn.2.weight").T)
+        _fill(conv["conv"], "out_bias", take(f"{p}.nn.2.bias"))
+        _fill(conv["norm1"], "scale", take(f"{p}.norm1.weight"))
+        _fill(conv["norm1"], "bias", take(f"{p}.norm1.bias"))
+        t = f"{p}._transformer_encoder.layers.0"
+        tr = conv["transformer"]
+        for dst, src in ((tr["mha"]["qkv"], "self_attn.in_proj_"),
+                         (tr["mha"]["out"], "self_attn.out_proj."),
+                         (tr["linear1"], "linear1."),
+                         (tr["linear2"], "linear2.")):
+            _fill(dst, "kernel", take(f"{t}.{src}weight").T)
+            _fill(dst, "bias", take(f"{t}.{src}bias"))
+        for norm in ("norm1", "norm2"):
+            _fill(tr[norm], "scale", take(f"{t}.{norm}.weight"))
+            _fill(tr[norm], "bias", take(f"{t}.{norm}.bias"))
+
+    for torch_name, name in (("_post_processing", "post_processing"),
+                             ("_readout", "readout")):
+        prefix = f"{bb_prefix}.{torch_name}"
+        lin_ids, _ = _sequential_positions(sd, prefix)
+        node = bb_node[name]
+        for j, lid in enumerate(lin_ids):
+            _fill(node[f"dense_{j}"], "kernel",
+                  take(f"{prefix}.{lid}.weight").T)
+            _fill(node[f"dense_{j}"], "bias", take(f"{prefix}.{lid}.bias"))
+
+
+def _port_fourier_encoder(take: _Reader, fe, fp: str) -> None:
+    """GraphNeT's FourierEncoder at ``fp`` (DeepIce's and ISeeCube's):
+    the sinusoid scales where scaled, the aux table, the ``mlp``
+    Sequential ``[Linear, LayerNorm, GELU, Linear]``."""
+    sd = take.sd
+    if f"{fp}.sin_emb.scale" in sd:  # scaled_emb checkpoints
+        _fill(fe["sin_emb"], "scale", take(f"{fp}.sin_emb.scale"))
+        _fill(fe["sin_emb2"], "scale", take(f"{fp}.sin_emb2.scale"))
+    if f"{fp}.aux_emb.weight" in sd:  # n_features >= 6
+        _fill(fe["aux_emb"], "embedding", take(f"{fp}.aux_emb.weight"))
+    _linear(take, fe["mlp_0"], f"{fp}.mlp.0")
+    _norm(take, fe["mlp_norm"], f"{fp}.mlp.1")
+    _linear(take, fe["mlp_1"], f"{fp}.mlp.3")
 
 
 def port_deepice_state_dict(
@@ -316,29 +335,14 @@ def port_deepice_state_dict(
         sd = take.sd
         bb = root["backbone"]
 
-        def norm(dst, p):
-            _fill(dst, "scale", take(f"{p}.weight"))
-            _fill(dst, "bias", take(f"{p}.bias"))
-
-        def linear(dst, p):
-            _fill(dst, "kernel", take(f"{p}.weight").T)
-            _fill(dst, "bias", take(f"{p}.bias"))
-
         def mlp(dst, p):
-            linear(dst["fc1"], f"{p}.input_projection")
-            linear(dst["fc2"], f"{p}.output_projection")
+            _linear(take, dst["fc1"], f"{p}.input_projection")
+            _linear(take, dst["fc2"], f"{p}.output_projection")
 
-        fe, fp = bb["fourier_ext"], "backbone.fourier_ext"
-        if f"{fp}.sin_emb.scale" in sd:  # scaled_emb checkpoints
-            _fill(fe["sin_emb"], "scale", take(f"{fp}.sin_emb.scale"))
-            _fill(fe["sin_emb2"], "scale", take(f"{fp}.sin_emb2.scale"))
-        if f"{fp}.aux_emb.weight" in sd:  # n_features >= 6
-            _fill(fe["aux_emb"], "embedding", take(f"{fp}.aux_emb.weight"))
-        linear(fe["mlp_0"], f"{fp}.mlp.0")
-        norm(fe["mlp_norm"], f"{fp}.mlp.1")
-        linear(fe["mlp_1"], f"{fp}.mlp.3")
+        _port_fourier_encoder(take, bb["fourier_ext"], "backbone.fourier_ext")
 
-        linear(bb["rel_pos"]["projection"], "backbone.rel_pos.projection")
+        _linear(take, bb["rel_pos"]["projection"],
+                "backbone.rel_pos.projection")
         _fill(bb, "cls_token", take("backbone.cls_token.weight"))
 
         sandwich_ids = _indices(sd, r"backbone\.sandwich\.(\d+)\.")
@@ -348,8 +352,8 @@ def port_deepice_state_dict(
         for i in sandwich_ids:
             p = f"backbone.sandwich.{i}"
             blk = bb[f"sandwich_{i}"]
-            norm(blk["norm1"], f"{p}.norm1")
-            norm(blk["norm2"], f"{p}.norm2")
+            _norm(take, blk["norm1"], f"{p}.norm1")
+            _norm(take, blk["norm2"], f"{p}.norm2")
             attn = blk["attn"]
             D = sd[f"{p}.attn.proj_q.weight"].shape[0]
             for proj in ("proj_q", "proj_k", "proj_v"):
@@ -358,19 +362,19 @@ def port_deepice_state_dict(
                 bias = (take(f"{p}.attn.{key}") if f"{p}.attn.{key}" in sd
                         else np.zeros(D, np.float32))
                 _fill(attn[proj], "bias", bias)
-            linear(attn["proj"], f"{p}.attn.proj")
+            _linear(take, attn["proj"], f"{p}.attn.proj")
             mlp(blk["mlp"], f"{p}.mlp")
 
         for i in _indices(sd, r"backbone\.blocks\.(\d+)\."):
             p = f"backbone.blocks.{i}"
             blk = bb[f"blocks_{i}"]
-            norm(blk["norm1"], f"{p}.norm1")
-            norm(blk["norm2"], f"{p}.norm2")
+            _norm(take, blk["norm1"], f"{p}.norm1")
+            _norm(take, blk["norm2"], f"{p}.norm2")
             # torch's packed in_proj rows [q; k; v]: the qkv dense
             _fill(blk["attn"]["qkv"], "kernel",
                   take(f"{p}.attn.in_proj_weight").T)
             _fill(blk["attn"]["qkv"], "bias", take(f"{p}.attn.in_proj_bias"))
-            linear(blk["attn"]["out"], f"{p}.attn.out_proj")
+            _linear(take, blk["attn"]["out"], f"{p}.attn.out_proj")
             mlp(blk["mlp"], f"{p}.mlp")
             _fill(blk, "gamma_1", take(f"{p}.gamma_1"))
             _fill(blk, "gamma_2", take(f"{p}.gamma_2"))
@@ -382,17 +386,246 @@ def port_deepice_state_dict(
     return _port(state_dict, expected, fill)
 
 
+def port_jinst_state_dict(
+    state_dict: Mapping[str, Any],
+    expected: Mapping[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """A GraphNeT DynEdgeJINST ``StandardModel`` state_dict onto the port
+    model of ``expected``: each ``conv_add{i}.nn`` two-linear MLP (the
+    first linearised, the second the conv's ``out_kernel``), then the
+    ``nn1``, ``nn2``, ``nn3`` linears."""
+
+    def fill(take, root):
+        bb = root["backbone"]
+        for i in (1, 2, 3, 4):
+            prefix = f"backbone.conv_add{i}.nn"
+            lin_ids, _ = _sequential_positions(take.sd, prefix)
+            if len(lin_ids) != 2:
+                raise ValueError(f"expected 2 linears under {prefix}, got "
+                                 f"{len(lin_ids)}")
+            conv = bb[f"conv_add{i}"]["conv"]
+            _port_first_linear(take, f"{prefix}.{lin_ids[0]}", conv)
+            _fill(conv, "out_kernel", take(f"{prefix}.{lin_ids[1]}.weight").T)
+            _fill(conv, "out_bias", take(f"{prefix}.{lin_ids[1]}.bias"))
+        for name in ("nn1", "nn2", "nn3"):
+            _linear(take, bb[name], f"backbone.{name}")
+        _port_tasks(take, root)
+
+    return _port(state_dict, expected, fill)
+
+
+def _running_stats_unused(kind: str) -> None:
+    warnings.warn(
+        "state_dict carries BatchNorm running statistics but the model has "
+        "no frozen statistics: its predictions will NOT reproduce torch's "
+        f"eval mode.  Build the model with {kind}(frozen_batchnorm=True).",
+        stacklevel=3,
+    )
+
+
+def port_convnet_state_dict(
+    state_dict: Mapping[str, Any],
+    expected: Mapping[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """A GraphNeT ConvNet ``StandardModel`` state_dict onto the port model
+    of ``expected``: three PyG ``TAGConv`` s (``lins.{h}`` per hop; every
+    bias, per hop or the module's one, summed into ``lin_0``'s, as
+    ``sum_h (W_h x_h + b_h) = sum_h W_h x_h + sum_h b_h``),
+    ``batchnorm1`` (its running statistics into ``bn_mean`` / ``bn_var``
+    where the model has them: ``frozen_batchnorm``), ``linear1`` ..
+    ``linear5`` and ``out``."""
+
+    def fill(take, root):
+        sd, bb = take.sd, root["backbone"]
+        for i in (1, 2, 3):
+            prefix = f"backbone.conv{i}"
+            hops = _indices(sd, rf"{re.escape(prefix)}\.lins\.(\d+)\.weight$")
+            if not hops:
+                raise ValueError(f"no TAGConv `lins` under {prefix}")
+            conv = bb[f"conv{i}"]
+            total_bias = np.zeros(np.shape(conv["lin_0"]["bias"]), np.float32)
+            for h in hops:
+                _fill(conv[f"lin_{h}"], "kernel",
+                      take(f"{prefix}.lins.{h}.weight").T)
+                if f"{prefix}.lins.{h}.bias" in sd:
+                    total_bias = total_bias + take(f"{prefix}.lins.{h}.bias")
+            if f"{prefix}.bias" in sd:  # PyG's single-bias layout
+                total_bias = total_bias + take(f"{prefix}.bias")
+            _fill(conv["lin_0"], "bias", total_bias)
+        _fill(bb, "bn_scale", take("backbone.batchnorm1.weight"))
+        _fill(bb, "bn_bias", take("backbone.batchnorm1.bias"))
+        if "bn_mean" in bb:
+            _fill(bb, "bn_mean", take("backbone.batchnorm1.running_mean"))
+            _fill(bb, "bn_var", take("backbone.batchnorm1.running_var"))
+        elif "backbone.batchnorm1.running_mean" in sd:
+            _running_stats_unused("ConvNet")
+        for name in ("linear1", "linear2", "linear3", "linear4", "linear5",
+                     "out"):
+            _linear(take, bb[name], f"backbone.{name}")
+        _port_tasks(take, root)
+
+    return _port(state_dict, expected, fill)
+
+
+def port_particlenet_state_dict(
+    state_dict: Mapping[str, Any],
+    expected: Mapping[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """A GraphNeT ParticleNeT ``StandardModel`` state_dict onto the port
+    model of ``expected``: each ``_conv_layers.{i}.nn`` Sequential
+    ``[Linear, BatchNorm1d, act] * n`` (the first linear linearised; the
+    running statistics into the frozen ``mean`` / ``var`` where the
+    model has them), then the ``_readout`` linears."""
+
+    def fill(take, root):
+        sd, bb = take.sd, root["backbone"]
+        conv_ids = _indices(sd, r"backbone\._conv_layers\.(\d+)\.")
+        if not conv_ids:
+            raise ValueError("no `backbone._conv_layers.*` keys found")
+        warned = False
+        for i in conv_ids:
+            prefix = f"backbone._conv_layers.{i}.nn"
+            lin_ids, bn_ids = _sequential_positions(sd, prefix)
+            if not lin_ids:
+                raise ValueError(f"no linear layers under {prefix}")
+            conv = bb[f"conv_{i}"]
+            _port_first_linear(take, f"{prefix}.{lin_ids[0]}", conv)
+            for j, lid in enumerate(lin_ids[1:], start=1):
+                _linear(take, conv[f"dense_{j}"], f"{prefix}.{lid}")
+            for j, nid in enumerate(bn_ids):
+                bn = conv[f"bn_{j}"]
+                _norm(take, bn, f"{prefix}.{nid}")
+                if "mean" in bn:
+                    _fill(bn, "mean", take(f"{prefix}.{nid}.running_mean"))
+                    _fill(bn, "var", take(f"{prefix}.{nid}.running_var"))
+                elif f"{prefix}.{nid}.running_mean" in sd and not warned:
+                    _running_stats_unused("ParticleNeT")
+                    warned = True
+        readout_ids, _ = _sequential_positions(sd, "backbone._readout")
+        for j, lid in enumerate(readout_ids):
+            _linear(take, bb[f"readout_{j}"], f"backbone._readout.{lid}")
+        _port_tasks(take, root)
+
+    return _port(state_dict, expected, fill)
+
+
+def port_iseecube_state_dict(
+    state_dict: Mapping[str, Any],
+    expected: Mapping[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """A GraphNeT ISeeCube ``StandardModel`` state_dict (torchscale's
+    Magneto encoder) onto the port model of ``expected``:
+    ``fourier_ext`` as DeepIce's, the ``pos_embedding``, ``class_token``
+    and ``register_tokens``, the shared bucket table
+    ``encoder.relative_position.relative_attention_bias``, each
+    ``encoder.layers.{i}`` (separate q, k, v projections, the sub-norms
+    ``inner_attn_ln`` and ``ffn.ffn_layernorm``), torchscale's final
+    ``encoder.layer_norm`` and ISeeCube's ``layer_norm``."""
+
+    def fill(take, root):
+        sd, bb = take.sd, root["backbone"]
+
+        _port_fourier_encoder(take, bb["fourier_ext"], "backbone.fourier_ext")
+        for name in ("pos_embedding", "class_token", "register_tokens"):
+            _fill(bb, name, take(f"backbone.{name}"))
+        _fill(bb["rel_pos_bias"], "rel_embedding", take(
+            "backbone.encoder.relative_position.relative_attention_bias."
+            "weight"))
+        layer_ids = _indices(sd, r"backbone\.encoder\.layers\.(\d+)\.")
+        if not layer_ids:
+            raise ValueError(
+                "no `backbone.encoder.layers.*` keys: not an ISeeCube "
+                "state_dict?")
+        for i in layer_ids:
+            p = f"backbone.encoder.layers.{i}"
+            attn = bb[f"attn_{i}"]
+            for proj in ("q", "k", "v"):
+                _linear(take, attn[f"proj_{proj}"],
+                        f"{p}.self_attn.{proj}_proj")
+            _norm(take, attn["inner_attn_ln"],
+                  f"{p}.self_attn.inner_attn_ln")
+            _linear(take, attn["out"], f"{p}.self_attn.out_proj")
+            _norm(take, bb[f"norm1_{i}"], f"{p}.self_attn_layer_norm")
+            _norm(take, bb[f"norm2_{i}"], f"{p}.final_layer_norm")
+            _linear(take, bb[f"fc1_{i}"], f"{p}.ffn.fc1")
+            _norm(take, bb[f"ffn_ln_{i}"], f"{p}.ffn.ffn_layernorm")
+            _linear(take, bb[f"fc2_{i}"], f"{p}.ffn.fc2")
+        _norm(take, bb["encoder_layer_norm"], "backbone.encoder.layer_norm")
+        _norm(take, bb["layer_norm"], "backbone.layer_norm")
+        _port_tasks(take, root)
+
+    return _port(state_dict, expected, fill)
+
+
+def _port_torch_gru(take: _Reader, prefix: str, rnn_node,
+                    num_layers: int) -> None:
+    """A torch ``nn.GRU`` (``weight_ih_l{l} [3H, in]``, gate rows r, z,
+    n) onto the port's flax-layout GRU cells
+    (``gru_{l}/cell/gru/{ir,iz,in,hr,hz,hn}``).  torch has two biases a
+    gate where flax has one on the input projection of r and z: their
+    sum goes there; the candidate keeps ``b_in`` and ``b_hn``, both
+    inside the same formula ``n = tanh(W_in x + b_in + r (W_hn h +
+    b_hn))``."""
+    for layer in range(num_layers):
+        w_ih = take(f"{prefix}.weight_ih_l{layer}")
+        w_hh = take(f"{prefix}.weight_hh_l{layer}")
+        b_ih = take(f"{prefix}.bias_ih_l{layer}")
+        b_hh = take(f"{prefix}.bias_hh_l{layer}")
+        H = w_hh.shape[1]
+        gru = rnn_node[f"gru_{layer}"]["cell"]["gru"]
+        for gi, gate in enumerate("rzn"):
+            rows = slice(gi * H, (gi + 1) * H)
+            _fill(gru[f"i{gate}"], "kernel", w_ih[rows].T)
+            _fill(gru[f"h{gate}"], "kernel", w_hh[rows].T)
+            if gate == "n":
+                _fill(gru["in"], "bias", b_ih[rows])
+                _fill(gru["hn"], "bias", b_hh[rows])
+            else:
+                _fill(gru[f"i{gate}"], "bias", b_ih[rows] + b_hh[rows])
+
+
+def port_rnn_tito_state_dict(
+    state_dict: Mapping[str, Any],
+    expected: Mapping[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """A GraphNeT RNN_TITO ``StandardModel`` state_dict onto the port
+    model of ``expected``: the Node_RNN's torch GRU
+    (``_rnn._rnn``, :func:`_port_torch_gru`), then the DynEdgeTITO under
+    ``_dynedge_tito`` by :func:`port_tito_state_dict`'s rules."""
+
+    def fill(take, root):
+        sd, bb = take.sd, root["backbone"]
+        num_layers = len(_indices(
+            sd, r"backbone\._rnn\._rnn\.weight_ih_l(\d+)$"))
+        if not num_layers:
+            raise ValueError("no `backbone._rnn._rnn.weight_ih_l*` keys found")
+        _port_torch_gru(take, "backbone._rnn._rnn", bb["rnn"], num_layers)
+        _fill_tito(take, "backbone._dynedge_tito", bb["dynedge_tito"])
+        _port_tasks(take, root)
+
+    return _port(state_dict, expected, fill)
+
+
+_PORTERS = {
+    "DynEdge": port_dynedge_state_dict,
+    "DynEdgeTITO": port_tito_state_dict,
+    "DeepIce": port_deepice_state_dict,
+    "DynEdgeJINST": port_jinst_state_dict,
+    "ConvNet": port_convnet_state_dict,
+    "ParticleNeT": port_particlenet_state_dict,
+    "ISeeCube": port_iseecube_state_dict,
+    "RNNTITO": port_rnn_tito_state_dict,
+}
+
+
 def port_state_dict(model: torch.nn.Module,
                     state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The porter of ``model``'s backbone applied to a GraphNeT
     ``state_dict``: the port's ``state_dict`` for ``model``."""
     name = type(model.backbone).__name__
-    if name in _UNPORTED_BACKBONES:
-        raise _unported_backbone(name)
-    porter = {"DynEdgeTITO": port_tito_state_dict,
-              "DeepIce": port_deepice_state_dict}.get(
-                  name, port_dynedge_state_dict)
-    return porter(state_dict, model.state_dict())
+    if name not in _PORTERS:
+        raise ValueError(f"no GraphNeT porter for a {name} backbone")
+    return _PORTERS[name](state_dict, model.state_dict())
 
 
 # ------------------------------------------- GraphNeT config translation
@@ -460,8 +693,6 @@ def _build_component(cfg: Dict[str, Any], **extra: Any) -> Any:
     from graphnet_tpu_torch.utils.config import _lookup
 
     name = cfg["class_name"]
-    if name in _UNPORTED_BACKBONES:
-        raise _unported_backbone(name)
     cls = _lookup(name)
     args = {k: _translate(v) for k, v in (cfg.get("arguments") or {}).items()
             if k not in _DROP_ARGS}
@@ -478,6 +709,11 @@ def _build_component(cfg: Dict[str, Any], **extra: Any) -> Any:
                 f"KNNGraph: non-KNN edge_definition {type(ed).__name__} "
                 "dropped in translation"
             )
+    # ConvNet's output width is its field `nb_outputs_` (as in the JAX
+    # package, where `nb_outputs` is a property)
+    if "nb_outputs" in args and "nb_outputs" not in known and (
+            "nb_outputs_" in known):
+        args["nb_outputs_"] = args.pop("nb_outputs")
     dropped = {k for k in args if k not in known}
     # None means "the default" (the defaults are GraphNeT's), except for
     # global_pooling_schemes, where GraphNeT's default is None itself
@@ -604,6 +840,21 @@ def load_reference_state_dict(path: str) -> Dict[str, Any]:
         return pickle.load(f)
 
 
+def _with_frozen_batchnorm(model, device, seed: int):
+    """``model`` built again from its config with
+    ``frozen_batchnorm=True`` on its backbone."""
+    from graphnet_tpu_torch.utils.config import (
+        ModelConfig,
+        build,
+        capture_config,
+    )
+
+    cfg = capture_config(model).as_dict()
+    cfg["arguments"]["backbone"]["__model__"]["arguments"][
+        "frozen_batchnorm"] = True
+    return build(ModelConfig.from_dict(cfg), seed=seed, device=device)
+
+
 def port_reference_model(
     config_path: str,
     state_dict_path: str,
@@ -615,8 +866,14 @@ def port_reference_model(
     caller asks for the CPU) with the ported weights loaded, its graph
     definition, and the ported ``state_dict`` (what
     :func:`~graphnet_tpu_torch.utils.config.save_model` or
-    ``DeploymentModule`` take)."""
+    ``DeploymentModule`` take).  A ConvNet or ParticleNeT with batch norm
+    is built with ``frozen_batchnorm``: a trained checkpoint carries
+    running statistics, and GraphNeT serves with them (torch's eval
+    mode), as the JAX package's ``port_reference_model`` does."""
     model, graph_definition = from_reference_config(config_path, device, seed)
+    if type(model.backbone).__name__ in ("ConvNet", "ParticleNeT") and (
+            getattr(model.backbone, "add_batchnorm_layer", True)):
+        model = _with_frozen_batchnorm(model, device, seed)
     state_dict = port_state_dict(
         model, load_reference_state_dict(state_dict_path))
     model.load_state_dict(state_dict)

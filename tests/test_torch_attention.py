@@ -78,10 +78,11 @@ def _port_flash(q, k, v, mask, g, dtype=torch.float32):
 
 # (mask, L, Dh): the three masks at L=128, Dh=32, then the lengths at
 # the CUDA kernels' 64-row tile edges and the DeepIce Block's 769, at
-# both head dims, with "padding" where it leaves every event a valid key
+# the three head dims (16: RNN_TITO's), with "padding" where it leaves
+# every event a valid key
 FP32_CASES = [pytest.param(m, 128, 32, id=m) for m in MASKS] + [
     pytest.param(m, L, D, id=f"{m}-L{L}-Dh{D}")
-    for D in (32, 64)
+    for D in (32, 64, 16)
     for L in (1, 65, 129, 769)
     for m in ("no_padding", "padding")
     if m == "no_padding" or L >= 65
@@ -127,10 +128,12 @@ def test_flash_bf16_matches_jax_loosely():
     _bf16_matches_jax_loosely(128, 32)
 
 
-@pytest.mark.parametrize("L,D", [(65, 32), (129, 32), (65, 64), (129, 64)],
-                         ids=["L65-Dh32", "L129-Dh32", "L65-Dh64", "L129-Dh64"])
+@pytest.mark.parametrize("L,D", [(65, 32), (129, 32), (65, 64), (129, 64),
+                                 (65, 16), (129, 16)],
+                         ids=["L65-Dh32", "L129-Dh32", "L65-Dh64", "L129-Dh64",
+                              "L65-Dh16", "L129-Dh16"])
 def test_flash_bf16_matches_jax_loosely_at_tile_edges(L, D):
-    """One row past the CUDA kernels' 64-row tiles, both head dims."""
+    """One row past the CUDA kernels' 64-row tiles, the three head dims."""
     _bf16_matches_jax_loosely(L, D)
 
 
@@ -195,10 +198,11 @@ def test_flash_wrappers_take_the_plain_version_on_the_cpu_and_check_inputs():
         tfa.flash_attention_bwd_dkv(q, k, v, mask, lse, g, delta[:1])
     # the kernels' own checks, met before any launch
     with pytest.raises(ValueError, match="head dims"):
-        tfa._check_kernel(torch.zeros(1, 1, 4, 16))
+        tfa._check_kernel(torch.zeros(1, 1, 4, 8))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa._check_kernel(torch.zeros(1, 1, 4, 32, dtype=torch.float16))
-    assert tfa.supported(32) and tfa.supported(64) and not tfa.supported(16)
+    assert all(tfa.supported(d) for d in (16, 32, 64))
+    assert not tfa.supported(8) and not tfa.supported(128)
 
 
 def test_aligned16_passes_an_aligned_tensor_through():

@@ -215,14 +215,16 @@ def test_dynedge_zoo_files_name_include_dynedge(name, tmp_path):
 def test_unported_class_is_named(tmp_path):
     """A file naming a class the port does not have yet raises a KeyError
     that names it."""
-    d = _file_dict("knn_graph_icecube86.yml")
-    d["arguments"]["node_definition"] = {"__model__": {
-        "class_name": "PercentileClusters",
-        "arguments": {"cluster_on": ["dom_x", "dom_y", "dom_z"],
-                      "percentiles": [10, 50, 90]}}}
-    path = tmp_path / "percentile_clusters.yml"
+    detector = _file_dict("knn_graph_icecube86.yml")["arguments"]["detector"]
+    d = {"class_name": "GraphDefinition", "arguments": {
+        "detector": detector,
+        "edge_definition": {"__model__": {
+            "class_name": "RadialEdges",
+            "arguments": {"radius": 50.0, "columns": [0, 1, 2],
+                          "max_neighbours": 32}}}}}
+    path = tmp_path / "radial_edges.yml"
     path.write_text(yaml.safe_dump(d, sort_keys=False))
-    with pytest.raises(KeyError, match="PercentileClusters"):
+    with pytest.raises(KeyError, match="RadialEdges"):
         config.load_model(str(path), device="cpu")
 
 

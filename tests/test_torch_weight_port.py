@@ -5,12 +5,15 @@ GraphNeT's key layout (``tests/test_weight_port.py``: DynEdge and TITO;
 ``tests/test_weight_port_deepice.py``: DeepIce plain and scaled with the
 nested DynEdge): each port porter gives exactly ``params_from_jax`` of
 the JAX porter's tree, and the port model with it reproduces the torch
-model's activations at the JAX tests' tolerances.  Missing, unused and
+model's activations at the JAX tests' tolerances; so do the porters of
+DynEdgeJINST, ConvNet (both PyG bias layouts) and ParticleNeT on the
+torch models of ``tests/test_weight_port_more.py``.  Missing, unused and
 mis-shaped keys raise in both; the GraphNeT config translations build the
 same configs and datasets; the stand-in checkpoints of
-``examples/port_pretrained.py`` (the chip run's) have GraphNeT's layout;
-the unported backbones say so; the example serves what the JAX
-example's porter serves."""
+``examples/port_pretrained.py`` (the chip run's) have GraphNeT's layout
+for every backbone, ISeeCube and RNN_TITO included; the five backbones
+that were unported port from GraphNeT configs; the example serves what
+the JAX example's porter serves."""
 
 import pickle
 
@@ -25,16 +28,22 @@ import graphnet_tpu.utils.config as jconfig
 import graphnet_tpu.utils.weight_port as jport
 import tests.test_weight_port as jw
 import tests.test_weight_port_deepice as jwd
+import tests.test_weight_port_more as jwm
 from graphnet_tpu.batch import make_batch as jax_make_batch
 from graphnet_tpu.data.sqlite_dataset import SQLiteDataset as JaxSQLiteDataset
 from graphnet_tpu.deployment.deployment_module import (
     DeploymentModule as JaxDeploymentModule,
 )
+from graphnet_tpu.models.gnn.convnet import ConvNet as JaxConvNet
 from graphnet_tpu.models.gnn.dynedge import DynEdge as JaxDynEdge
+from graphnet_tpu.models.gnn.dynedge_jinst import DynEdgeJINST as JaxJINST
 from graphnet_tpu.models.gnn.dynedge_kaggle_tito import (
     DynEdgeTITO as JaxDynEdgeTITO,
 )
 from graphnet_tpu.models.gnn.icemix import DeepIce as JaxDeepIce
+from graphnet_tpu.models.gnn.particlenet import ParticleNeT as JaxParticleNeT
+from graphnet_tpu.models.gnn.rnn_tito import RNNTITO as JaxRNNTITO
+from graphnet_tpu.models.transformer.iseecube import ISeeCube as JaxISeeCube
 from graphnet_tpu.models.standard_model import StandardModel as JaxStandardModel
 from graphnet_tpu.models.task.task import IdentityTask as JaxIdentityTask
 from graphnet_tpu.training.loss_functions import LogCoshLoss as JaxLogCosh
@@ -166,6 +175,82 @@ def test_deepice_porter_equals_jax_and_reproduces_torch(scaled, include_dynedge)
     model.load_state_dict(sd)
     np.testing.assert_allclose(_predict(model, xs), golden, rtol=2e-3,
                                atol=2e-3)
+
+
+# ------------------------------------- JINST, ConvNet, ParticleNeT
+def _more_case(kind):
+    """``(torch model, its state_dict, golden, inputs, JAX model, JAX
+    porter)`` of a ``tests/test_weight_port_more.py`` case; ConvNet's
+    ``single_bias`` the older PyG layout (bias-free ``lins``, one module
+    bias)."""
+    xs = jwm._inputs({"jinst": 3, "convnet": 4, "convnet_single_bias": 5,
+                      "particlenet": 6}[kind])
+    if kind == "jinst":
+        case = jwm.TestPortJINST()
+        backbone = JaxJINST(nb_inputs=jwm.D, layer_size_scale=case.C)
+        jporter = jport.port_jinst_state_dict
+    elif kind.startswith("convnet"):
+        case = jwm.TestPortConvNet()
+        backbone = JaxConvNet(nb_inputs=jwm.D, nb_outputs_=case.NO,
+                              nb_intermediate=case.NI, frozen_batchnorm=True)
+        jporter = jport.port_convnet_state_dict
+    else:
+        case = jwm.TestPortParticleNeT()
+        backbone = JaxParticleNeT(
+            nb_inputs=jwm.D, nb_neighbours=jwm.K,
+            dynedge_layer_sizes=case.SIZES,
+            readout_layer_sizes=case.READOUT,
+            global_pooling_schemes=("mean",), frozen_batchnorm=True)
+        jporter = jport.port_particlenet_state_dict
+    tmodel = case._torch_model(seed=7 if kind == "convnet_single_bias" else 0)
+    sd = dict(tmodel.state_dict())
+    if kind == "convnet_single_bias":
+        for k in [k for k in sd if ".lins." in k and k.endswith(".bias")]:
+            root = k.split(".lins.")[0]
+            sd[f"{root}.bias"] = sd.get(f"{root}.bias", 0) + sd.pop(k)
+    with torch.no_grad():
+        golden = case._torch_forward(tmodel, torch.from_numpy(xs)).numpy()
+    jmodel = JaxStandardModel(backbone=backbone,
+                              tasks=(jwm._task(0),))
+    return sd, golden, xs, jmodel, jporter
+
+
+@pytest.mark.parametrize("kind", ["jinst", "convnet", "convnet_single_bias",
+                                  "particlenet"])
+def test_more_porters_equal_jax_and_reproduce_torch(kind):
+    """The porters of DynEdgeJINST, ConvNet and ParticleNeT on the JAX
+    tests' GraphNeT-layout torch models: ``params_from_jax`` of the JAX
+    porter's tree leaf for leaf, and the torch model's activations (eval
+    mode: the batch norms' running statistics into the frozen ones) at
+    the JAX tests' tolerance."""
+    sd, golden, xs, jmodel, jporter = _more_case(kind)
+    template = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                              jax_make_batch(list(xs), length=jwm.L))
+    params = jporter(sd, template)
+    model = _port_model(jmodel)
+    got = tport.port_state_dict(model, sd)
+    _assert_same_state(got, params_from_jax(jax.device_get(params),
+                                            model.state_dict()))
+    model.load_state_dict(got)
+    np.testing.assert_allclose(_predict(model, xs), golden, rtol=5e-3,
+                               atol=5e-3)
+
+
+def test_batch_norm_statistics_without_frozen_ones_warn_in_both():
+    """A checkpoint's running statistics and a model without frozen ones
+    (batch statistics): both porters warn, and port the rest."""
+    sd, _, xs, jmodel, _ = _more_case("particlenet")
+    jmodel = jmodel.clone(backbone=jmodel.backbone.clone(
+        frozen_batchnorm=False))
+    template = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                              jax_make_batch(list(xs), length=jwm.L))
+    with pytest.warns(UserWarning, match="running statistics"):
+        params = jport.port_particlenet_state_dict(sd, template)
+    model = _port_model(jmodel)
+    with pytest.warns(UserWarning, match="running statistics"):
+        got = tport.port_state_dict(model, sd)
+    _assert_same_state(got, params_from_jax(jax.device_get(params),
+                                            model.state_dict()))
 
 
 # -------------------------------------------------------------- errors
@@ -327,21 +412,70 @@ def test_parquet_dataset_config_is_not_ported(tmp_path):
         tport.from_reference_dataset_config(str(path))
 
 
+# the five backbones as narrow GraphNeT configs would name them (RNN_TITO
+# by GraphNeT's class name; ConvNet's width as GraphNeT's `nb_outputs`)
+_REFERENCE_BACKBONES = {
+    "DynEdgeJINST": ("DynEdgeJINST", dict(nb_inputs=14, layer_size_scale=1)),
+    "ConvNet": ("ConvNet", dict(nb_inputs=14, nb_outputs=6,
+                                nb_intermediate=8, dropout_ratio=0.3)),
+    "ParticleNeT": ("ParticleNeT", dict(
+        nb_inputs=14, nb_neighbours=8, dynedge_layer_sizes=[[8, 8], [16, 16]],
+        readout_layer_sizes=[12], global_pooling_schemes=["mean"])),
+    "ISeeCube": ("ISeeCube", dict(hidden_dim=32, seq_length=40, num_layers=1,
+                                  num_heads=4, mlp_dim=48)),
+    "RNNTITO": ("RNN_TITO", dict(
+        nb_inputs=6, time_series_columns=[4, 3], rnn_hidden_size=12,
+        dyntrans_layer_sizes=[[32, 32]], post_processing_layer_sizes=[40, 32],
+        readout_layer_sizes=[32, 16], n_head=2)),
+}
+
+
 @pytest.mark.parametrize("backbone", ["DynEdgeJINST", "ConvNet", "ParticleNeT",
                                       "ISeeCube", "RNNTITO"])
 def test_unported_backbones_name_roadmap_item_9(backbone, tmp_path):
+    """The five backbones that ROADMAP.md queue 1, item 9 listed as
+    unported now port: a GraphNeT config naming each builds through
+    ``from_reference_config`` (the JAX package's config where it
+    translates the name too), a GraphNeT-layout checkpoint of it goes
+    through ``port_state_dict`` into a strict load (running statistics
+    without frozen ones warn), and ``port_reference_model`` serves the
+    batch-norm backbones with the checkpoint's running statistics."""
     with open(_queso_like(tmp_path)) as f:
         cfg = yaml.safe_load(f)
-    cfg["arguments"]["backbone"]["ModelConfig"]["class_name"] = backbone
+    name, args = _REFERENCE_BACKBONES[backbone]
+    cfg["arguments"]["backbone"] = {
+        "ModelConfig": {"class_name": name, "arguments": args}}
     path = tmp_path / "other.yml"
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tport.from_reference_config(str(path), device="cpu")
-    fake = type(backbone, (torch.nn.Module,), {})()
-    holder = torch.nn.Module()
-    holder.backbone = fake
-    with pytest.raises(NotImplementedError, match=f"{backbone}.*item 9"):
-        tport.port_state_dict(holder, {})
+    model, gd = tport.from_reference_config(str(path), device="cpu")
+    assert type(model.backbone).__name__ == backbone
+    assert type(gd).__name__ == "KNNGraph"
+    if name != "RNN_TITO":  # a name the JAX registry does not know
+        jmodel, _ = jport.from_reference_config(str(path))
+        assert (config.capture_config(model).as_dict()
+                == jconfig.capture_config(jmodel).as_dict())
+    checkpoint = graphnet_state_dict(model, np.random.default_rng(0))
+    frozen = backbone in ("ConvNet", "ParticleNeT")
+    if frozen:
+        with pytest.warns(UserWarning, match="running statistics"):
+            sd = tport.port_state_dict(model, checkpoint)
+    else:
+        sd = tport.port_state_dict(model, checkpoint)
+    model.load_state_dict(sd)
+    pkl = tmp_path / "checkpoint.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump(checkpoint, f)
+    ported, _, sd = tport.port_reference_model(str(path), str(pkl),
+                                               device="cpu")
+    assert getattr(ported.backbone, "frozen_batchnorm", False) == frozen
+    if backbone == "ConvNet":
+        np.testing.assert_array_equal(
+            sd["backbone.bn_var"].numpy(),
+            checkpoint["backbone.batchnorm1.running_var"])
+    if backbone == "ParticleNeT":
+        np.testing.assert_array_equal(
+            sd["backbone.conv_1.bn_1.mean"].numpy(),
+            checkpoint["backbone._conv_layers.1.nn.4.running_mean"])
 
 
 # --------------------------------------------- stand-in checkpoints
@@ -354,7 +488,29 @@ def _narrow_deepice(**kw):
                                target_labels=("direction",)),))
 
 
-@pytest.mark.parametrize("kind", ["dynedge", "deepice", "deepice_scaled_dynedge"])
+_STAND_IN = {
+    "jinst": (lambda: JaxJINST(nb_inputs=4, layer_size_scale=1), 4,
+              jport.port_jinst_state_dict),
+    "convnet": (lambda: JaxConvNet(nb_inputs=4, nb_intermediate=8,
+                                   frozen_batchnorm=True), 4,
+                jport.port_convnet_state_dict),
+    "particlenet": (lambda: JaxParticleNeT(
+        nb_inputs=4, nb_neighbours=8, dynedge_layer_sizes=((8, 8), (16, 16)),
+        readout_layer_sizes=(12,), frozen_batchnorm=True), 4,
+        jport.port_particlenet_state_dict),
+    "iseecube": (lambda: JaxISeeCube(
+        hidden_dim=32, seq_length=40, num_layers=2, num_heads=4, mlp_dim=48,
+        scaled_emb=True), 6, jport.port_iseecube_state_dict),
+    "rnn_tito": (lambda: JaxRNNTITO(
+        nb_inputs=6, time_series_columns=(4, 3), rnn_layers=2,
+        rnn_hidden_size=12, dyntrans_layer_sizes=((32, 32), (32, 32)),
+        post_processing_layer_sizes=(40, 32), readout_layer_sizes=(32, 16),
+        n_head=2), 6, jport.port_rnn_tito_state_dict),
+}
+
+
+@pytest.mark.parametrize("kind", ["dynedge", "deepice", "deepice_scaled_dynedge",
+                                  *_STAND_IN])
 def test_stand_in_checkpoint_has_graphnet_layout(kind):
     """``graphnet_state_dict`` (the chip run's stand-in checkpoint): the
     JAX porter reads every key of it (an unused one would raise), and the
@@ -362,6 +518,11 @@ def test_stand_in_checkpoint_has_graphnet_layout(kind):
     if kind == "dynedge":
         jmodel = jw._flax_model()
         width = jw.D
+    elif kind in _STAND_IN:
+        backbone, width, jporter = _STAND_IN[kind]
+        jmodel = JaxStandardModel(backbone=backbone(), tasks=(JaxIdentityTask(
+            nb_outputs=1, loss_function=JaxLogCosh(),
+            target_labels=("total_energy",)),))
     else:
         dyn = None
         if kind == "deepice_scaled_dynedge":
@@ -378,10 +539,13 @@ def test_stand_in_checkpoint_has_graphnet_layout(kind):
     checkpoint = graphnet_state_dict(model, np.random.default_rng(4))
     xs = np.random.default_rng(5).standard_normal((2, 16, width)).astype(
         np.float32)
-    template = jmodel.init(jax.random.PRNGKey(0),
-                           jax_make_batch(list(xs), length=16))
-    jporter = (jport.port_dynedge_state_dict if kind == "dynedge"
-               else jport.port_deepice_state_dict)
+    # the new kinds' porters fill every leaf: the tree's shapes will do
+    init = jax.eval_shape if kind in _STAND_IN else (lambda f, *a: f(*a))
+    template = init(jmodel.init, jax.random.PRNGKey(0),
+                    jax_make_batch(list(xs), length=16))
+    if kind not in _STAND_IN:
+        jporter = (jport.port_dynedge_state_dict if kind == "dynedge"
+                   else jport.port_deepice_state_dict)
     params = jporter(checkpoint, template)
     got = tport.port_state_dict(model, checkpoint)
     _assert_same_state(got, params_from_jax(jax.device_get(params),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Serving time of each model of the pretrained zoo on one NVIDIA GPU,
-with its device time by kernel.
+"""Serving time of each model of the pretrained zoo, or of GraphNeT's
+other five backbones, on one NVIDIA GPU, with its device time by kernel.
 
-    python3 tools/zoo_times.py [--runs N] [--profiled M]
+    python3 tools/zoo_times.py [--runs N] [--profiled M] [--backbones]
 
 Each of the 11 directories of ``configs/models/zoo`` as
 ``chip_smoke.py``'s serve_zoo phase serves it (its functions, so the
@@ -16,7 +16,11 @@ weights (``examples.port_pretrained.graphnet_state_dict``) ported by
 limit, then one JSON line per model: the request's host ms (median of
 ``--runs``) and events/s, and over ``--profiled`` requests
 (``torch.profiler``) the device ms a request, the device's idle share
-and the top kernels.  Needs ``nvcc`` and a card.
+and the top kernels.  With ``--backbones`` the same for the five
+backbones of ``chip_smoke.py``'s serve_backbones phase
+(``backbone_model``, its raw events and checkpoint), RNN_TITO also with
+its NodeRNN's ms on the request's batch and the GRU's steps (the
+longest sensor series).  Needs ``nvcc`` and a card.
 """
 
 from __future__ import annotations
@@ -65,10 +69,16 @@ def zoo_request_times(torch, cs, directory, rng, pool, runs, profiled):
     if type(model.backbone).__name__ == "DynEdge":
         cs.calibrate_heads(torch, model, {"request": events}, collate_events)
     module = DeploymentModule(model, model.state_dict(), device="cuda")
+    return {"model": directory,
+            **request_times(torch, cs, module, events, runs, profiled)}
+
+
+def request_times(torch, cs, module, events, runs, profiled):
+    """A request's host ms and events/s, and its device profile."""
     seconds = cs.host_s(lambda: module(events), runs=runs, warmup=2)
     profile = cs.device_profile(torch, lambda: module(events), calls=profiled)
     return {
-        "model": directory, "nodes": [e.n_pulses for e in events],
+        "nodes": [e.n_pulses for e in events],
         "ms_per_request": seconds * 1e3,
         "events_per_s": len(events) / seconds,
         "device_ms_per_request": profile["device_ms"] / profiled,
@@ -79,10 +89,55 @@ def zoo_request_times(torch, cs, directory, rng, pool, runs, profiled):
     }
 
 
+def backbone_request_times(torch, cs, kind, rng, pool, runs, profiled,
+                           device="cuda"):
+    from graphnet_tpu_torch.data.dataloader import collate_events
+    from graphnet_tpu_torch.deployment.deployment_module import (
+        DeploymentModule,
+    )
+    from graphnet_tpu_torch.examples.port_pretrained import (
+        graphnet_state_dict,
+    )
+    from graphnet_tpu_torch.utils.weight_port import port_state_dict
+
+    model, gd = cs.backbone_model(kind, device)
+    names = list(gd._input_feature_names)
+    raws = (cs.zoo_raw_pulses(rng, names, pool, cs.ISEECUBE_LENGTHS)
+            if kind == "ISeeCube" else
+            [pool[rng.choice(len(pool), n, replace=False)]
+             for n in cs.ZOO_LENGTHS])
+    events = [gd(raw, names) for raw in raws]
+    model.load_state_dict(port_state_dict(model, graphnet_state_dict(model,
+                                                                     rng)))
+    module = DeploymentModule(model, model.state_dict(), device=device)
+    row = {"backbone": kind,
+           **request_times(torch, cs, module, events, runs, profiled)}
+    if kind == "RNNTITO":
+        rnn = model.backbone.rnn
+        batch = collate_events([e for e in events if e.n_pulses],
+                               min_pulses=1).to(device)
+        row["gru_steps"] = max(
+            int(np.diff(np.flatnonzero(e.x[:, -1] > 0.5).tolist()
+                        + [e.n_pulses]).max())
+            for e in events if e.n_pulses)
+
+        def node_rnn():
+            with torch.inference_mode():
+                rnn(batch)
+            if batch.x.is_cuda:
+                torch.cuda.synchronize()
+
+        row["node_rnn_ms"] = cs.host_s(node_rnn, runs=runs, warmup=2) * 1e3
+    return row
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--runs", type=int, default=20)
     parser.add_argument("--profiled", type=int, default=5)
+    parser.add_argument("--backbones", action="store_true",
+                        help="time the five backbones of serve_backbones, "
+                        "not the zoo")
     args = parser.parse_args()
     import torch
 
@@ -96,8 +151,15 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    rng = np.random.default_rng(cs.SEED + 16)
     pool = cs.sqlite_pulse_pool()
+    if args.backbones:
+        rng = np.random.default_rng(cs.SEED + 17)
+        for kind in cs.BACKBONE_LAUNCHES:
+            row = backbone_request_times(torch, cs, kind, rng, pool,
+                                         args.runs, args.profiled)
+            print(json.dumps({**row, "card": smi}), flush=True)
+        return
+    rng = np.random.default_rng(cs.SEED + 16)
     for directory in cs.ZOO_LAUNCHES:
         row = zoo_request_times(torch, cs, directory, rng, pool, args.runs,
                                 args.profiled)
