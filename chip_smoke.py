@@ -178,6 +178,28 @@ Phases, each printing one JSON line:
    ParticleNeT explained), the launches of each forward
    (``BACKBONE_LAUNCHES``: RNN_TITO's 4 flash forwards at head dim 16),
    the request's ms and events/s beside the card;
+   train_backbones: RNN_TITO (GraphNeT's widths, ``rnn_dropout`` 0.5;
+   once more reading its second GRU layer, so the dropout between the
+   layers runs),
+   DynEdgeTITO (``configs/models/tito_direction_prometheus.yml`` with
+   ``dropout_rate`` 0.1), ConvNet and ParticleNeT (their default
+   dropouts) with ``deterministic=False`` and random weights, trained
+   by ``Trainer`` on batches of 16 events of the bundled database: the
+   launches of each step (``TRAIN_BACKBONES``: RNN_TITO's include the
+   flash dq and dkv at head dim 16; TITO's attention dropout takes the
+   dense path, so its step has no flash launch and its eval forward
+   4), every gradient finite and non-zero, the step's ms and peak
+   memory, and step 1 held against the CPU fed the card's keep masks
+   and kNN graphs (``StepTape``; loss rtol 1e-3, each gradient within
+   1e-3 of its max, a true-zero one of the largest, TITO's ambiguous
+   entries zeroed);
+   train_backbones_resume: TITO with dropout and EMA, 2 epochs unbroken
+   against a run cut in its second epoch and resumed from its ``last``
+   checkpoint by a new Trainer; train_backbones_remat: the DeepIce
+   cell (B=16, L=768, fp32) with and without ``remat``, each step's ms
+   and peak memory and the gradients of the two; train_backbones_examples:
+   the four training examples' command lines (``--device cuda``, one
+   epoch);
 12. times: each kernel, its plain version and its bound (the kNN at
    B=128, L=128, at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
    its profiled device time, the device work and host time of a call,
@@ -206,8 +228,9 @@ Phases, each printing one JSON line:
    memory of a training step;
 13. a ``kernels`` line with every ported kernel and its row of the
    kernel table in PERF.md (rows 5a-c also at head dim 16: the fp32
-   forward's launches from RNN_TITO's serving, the others with
-   ``main_path`` false and no launches, as no path runs them yet).
+   forward's launches from RNN_TITO's serving, the fp32 dq and dkv's
+   from its training step, the bf16 ones with ``main_path`` false and
+   no launches, as no path runs them yet).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no such line; it also
@@ -216,6 +239,7 @@ exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -1519,8 +1543,10 @@ def run_steps(torch, trainer, batches, counters=(), before_step=None):
                                  or not bool(torch.isfinite(p.grad).all())])
         out["zero"].append([n for n, p in named
                             if p.grad is not None and not bool(p.grad.any())])
-        if s == 0:
-            out["grads1"] = {n: p.grad.float().cpu() for n, p in named}
+        if s == 0:  # a parameter the loss does not reach: a zero gradient
+            out["grads1"] = {n: (torch.zeros_like(p) if p.grad is None
+                                 else p.grad).float().cpu()
+                             for n, p in named}
             out["update1"] = {n: (p.detach() - q).float().cpu()
                               for (n, p), q in zip(named, p0)}
     return out
@@ -3266,6 +3292,458 @@ def serve_backbone(torch, kind, device, rng, pool, counters, names, expect,
             "events_per_s": len(events) / seconds, "card": smi}
 
 
+# the train_backbones phase: GraphNeT's backbones trained with their
+# dropout on (deterministic=False) from the bundled database, at
+# GraphNeT's widths, with the launches of a training step (and of an
+# eval forward where it differs: TITO's attention dropout takes the
+# dense path in training, as in the JAX package, and the flash kernels
+# in eval).  RNN_TITO's 16 heads of 16 give rows 5b and 5c at head dim 16
+# their main path.  "RNNTITO/gru_1" is RNN_TITO reading its second GRU
+# layer's state (GraphNeT's reads the first), so NodeRNN's dropout
+# between the layers runs.  The module whose knn_graph each backbone
+# calls
+TRAIN_BACKBONES = {
+    "RNNTITO": ([1, 4, 4, 4, 4, 4, 0, 0, 0, 0], None),
+    "RNNTITO/gru_1": ([1, 4, 4, 4, 4, 4, 0, 0, 0, 0], None),
+    "DynEdgeTITO": ([1, 4, 4, 0, 0, 0, 0, 0, 0, 0],
+                    [1, 4, 0, 4, 0, 0, 0, 0, 0, 0]),
+    "ConvNet": ([1, 0, 0, 0, 0, 0, 0, 0, 0, 0], None),
+    "ParticleNeT": ([4, 0, 0, 0, 0, 0, 0, 0, 0, 0], None),
+}
+TRAIN_KNN_MODULES = {
+    "RNNTITO": "graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito",
+    "RNNTITO/gru_1": "graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito",
+    "DynEdgeTITO": "graphnet_tpu_torch.models.gnn.dynedge_kaggle_tito",
+    "ConvNet": "graphnet_tpu_torch.models.gnn.convnet",
+    "ParticleNeT": "graphnet_tpu_torch.models.gnn.particlenet",
+}
+TITO_FILE = os.path.join(MODELS, "tito_direction_prometheus.yml")
+# batch, steps of the card's run, timed steps
+TRAIN_BACKBONE_B, TRAIN_BACKBONE_STEPS, TRAIN_BACKBONE_RUNS = 16, 3, 10
+# a gradient whose true value is 0 (a bias before a batch norm, or one
+# that is exactly 0 on the CPU) is held at this share of the model's
+# largest gradient; the CPU may read at most ROUNDING of it there
+GRAD_FLOOR, ROUNDING = 1e-3, 1e-5
+
+
+class StepTape:
+    """The random draws of one training step: each keep mask of the
+    stochastic layers (through ``stochastic.keep_mask``, the port's one
+    mask function) and each kNN graph of ``knn_module``, recorded on one
+    device and replayed, in order, on another."""
+
+    def __init__(self, knn_module):
+        import importlib
+
+        from graphnet_tpu_torch.models.components import stochastic
+
+        self.stochastic = stochastic
+        self.module = importlib.import_module(knn_module)
+        self.masks, self.graphs = [], []
+
+    @contextlib.contextmanager
+    def _patched(self, keep_mask, knn_graph):
+        saved = (self.stochastic.keep_mask, self.module.knn_graph)
+        self.stochastic.keep_mask, self.module.knn_graph = keep_mask, knn_graph
+        try:
+            yield
+        finally:
+            self.stochastic.keep_mask, self.module.knn_graph = saved
+
+    def record(self):
+        real_mask, real_knn = self.stochastic.keep_mask, self.module.knn_graph
+
+        def keep_mask(shape, keep_prob, device):
+            m = real_mask(shape, keep_prob, device)
+            self.masks.append(m.cpu())
+            return m
+
+        def knn_graph(coords, mask, k, exclude_self=True):
+            idx, em = real_knn(coords, mask, k, exclude_self)
+            self.graphs.append((idx.cpu(), em.cpu()))
+            return idx, em
+
+        return self._patched(keep_mask, knn_graph)
+
+    def replay(self):
+        n_mask, n_graph = [0], [0]
+
+        def keep_mask(shape, keep_prob, device):
+            m = self.masks[n_mask[0]]
+            n_mask[0] += 1
+            assert tuple(m.shape) == tuple(shape), (m.shape, shape)
+            return m.to(device)
+
+        def knn_graph(coords, mask, k, exclude_self=True):
+            idx, em = self.graphs[n_graph[0]]
+            n_graph[0] += 1
+            assert idx.shape[:2] == mask.shape and idx.shape[2] == k
+            return idx.to(coords.device), em.to(coords.device)
+
+        return self._patched(keep_mask, knn_graph)
+
+
+def train_backbone_model(kind, device, tree=None):
+    """``(StandardModel, graph definition)`` of ``kind`` at GraphNeT's
+    widths with its dropout on (``deterministic=False``): RNN_TITO as
+    :func:`backbone_model` builds it with ``rnn_dropout=0.5``;
+    DynEdgeTITO from ``configs/models/tito_direction_prometheus.yml``
+    with ``dropout_rate=0.1``; ConvNet (``dropout_ratio`` 0.3) and
+    ParticleNeT (``dropout_readout`` 0.1) with their default dropouts
+    and the batch's batch-norm statistics.  With ``tree``, the JAX-layout
+    weights are loaded."""
+    import yaml
+
+    from graphnet_tpu_torch.models.gnn.convnet import ConvNet
+    from graphnet_tpu_torch.models.gnn.particlenet import ParticleNeT
+    from graphnet_tpu_torch.models.gnn.rnn_tito import RNNTITO
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.models.task.reconstruction import (
+        EnergyReconstruction,
+    )
+    from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
+    from graphnet_tpu_torch.utils.config import (
+        TRANSFORM_REGISTRY,
+        ModelConfig,
+    )
+    from graphnet_tpu_torch.utils.config import build as build_config
+    from graphnet_tpu_torch.utils.jax_params import params_from_jax
+
+    kind, _, variant = kind.partition("/")
+    if kind == "DynEdgeTITO":
+        with open(TITO_FILE) as f:
+            cfg = yaml.safe_load(f)
+        cfg["arguments"]["backbone"]["__model__"]["arguments"].update(
+            dropout_rate=0.1, deterministic=False)
+        model = build_config(ModelConfig.from_dict(cfg), seed=SEED,
+                             device=device)
+    else:
+        if kind == "RNNTITO":
+            backbone = RNNTITO(
+                nb_inputs=6, time_series_columns=(4, 3), rnn_layers=2,
+                rnn_hidden_size=64, rnn_dropout=0.5, n_head=RNN_TITO_HEADS,
+                dyntrans_layer_sizes=((256, 256),) * 4,
+                post_processing_layer_sizes=(336, 256),
+                readout_layer_sizes=(256, 128), deterministic=False)
+            if variant == "gru_1":
+                backbone.rnn.final_state_layer = 1
+        elif kind == "ConvNet":
+            backbone = ConvNet(nb_inputs=NB_INPUTS, nb_intermediate=128,
+                               deterministic=False)
+        else:
+            backbone = ParticleNeT(
+                nb_inputs=NB_INPUTS, nb_neighbours=16,
+                dynedge_layer_sizes=((64, 64, 64), (128, 128, 128),
+                                     (256, 256, 256)),
+                deterministic=False)
+        model = StandardModel(
+            backbone=backbone,
+            tasks=[EnergyReconstruction(
+                hidden_size=backbone.nb_outputs, loss_function=LogCoshLoss(),
+                target_labels=("total_energy",),
+                transform_prediction_and_target=TRANSFORM_REGISTRY["log10"])],
+            seed=SEED, device=device)
+    if tree is not None:
+        model.load_state_dict(params_from_jax(tree, model.state_dict()))
+    return model, backbone_graph(kind)
+
+
+def backbone_batches(kind, graph_definition, n):
+    """The first ``n`` batches of TRAIN_BACKBONE_B events of the bundled
+    database through ``graph_definition`` (on the CPU): the injection
+    direction (``training.labels.Direction``) for DynEdgeTITO, the
+    energy for the others."""
+    from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
+    from graphnet_tpu_torch.data.constants import TRUTH
+    from graphnet_tpu_torch.data.dataloader import DataLoader
+    from graphnet_tpu_torch.data.sqlite_dataset import SQLiteDataset
+    from graphnet_tpu_torch.training.labels import Direction
+
+    labels = ({"direction": Direction(azimuth_key="injection_azimuth",
+                                      zenith_key="injection_zenith")}
+              if kind == "DynEdgeTITO" else None)
+    ds = SQLiteDataset(EXAMPLE_SQLITE_DATA, graph_definition,
+                       pulsemaps="total", features=FEATURES,
+                       truth=TRUTH.PROMETHEUS, truth_table="mc_truth",
+                       labels=labels)
+    batches = []
+    for batch in DataLoader(ds, batch_size=TRAIN_BACKBONE_B):
+        batches.append(batch)
+        if len(batches) == n:
+            break
+    return batches
+
+
+def _unread_params(model):
+    """Parameters the loss never reaches: RNN_TITO's GRU layers past the
+    one whose state it reads (GraphNeT's first), which are not run."""
+    rnn = getattr(model.backbone, "rnn", None)
+    if rnn is None:
+        return set()
+    return {n for n, _ in model.named_parameters()
+            for layer in range(rnn.final_state_layer + 1, rnn.num_layers)
+            if n.startswith(f"backbone.rnn.gru_{layer}.")}
+
+
+def _biases_before_batch_norm(model):
+    """Names of the biases a batch norm in training takes straight
+    (ParticleNeT's EdgeConv denses): the norm subtracts the batch mean,
+    so their true gradient is 0 and both devices read rounding."""
+    from graphnet_tpu_torch.models.gnn.particlenet import ParticleNeTConv
+
+    names = set()
+    for prefix, m in model.named_modules():
+        if isinstance(m, ParticleNeTConv) and m.add_batchnorm:
+            for i in range(len(m.nn_sizes)):
+                if not getattr(m, f"bn_{i}").frozen:
+                    dense = "self_dense" if i == 0 else f"dense_{i}"
+                    names.add(f"{prefix}.{dense}.bias")
+    return names
+
+
+def _step1_grad_errors(a, b, rounding):
+    """Per parameter, the step-1 gradient of run ``a`` against run ``b``:
+    the error's max over the parameter's max in ``b``.  Those in
+    ``rounding`` (true gradient 0) and those exactly 0 in ``b`` are over
+    GRAD_FLOOR of ``b``'s largest gradient instead, and returned apart
+    with both runs' readings as shares of it; ``b`` must read at most
+    ROUNDING there."""
+    top = max(float(g.abs().max()) for g in b["grads1"].values())
+    errs, floored = {}, {}
+    for n, g in b["grads1"].items():
+        err = float((a["grads1"][n] - g).abs().max())
+        scale = float(g.abs().max())
+        if n in rounding or scale == 0.0:
+            assert scale <= ROUNDING * top, (n, scale / top)
+            floored[n] = {"cpu": scale / top,
+                          "card": float(a["grads1"][n].abs().max()) / top,
+                          "err": err / (GRAD_FLOOR * top)}
+        else:
+            errs[n] = err / scale
+    return errs, floored
+
+
+def train_backbone(torch, kind, device, counters, names, smi, rng):
+    """Phase train_backbones for one backbone (:func:`train_backbone_model`
+    with random JAX-layout weights from ``rng``) on ``device`` from the
+    bundled database: TRAIN_BACKBONE_STEPS ``Trainer`` steps with
+    TRAIN_BACKBONES' launches each, every gradient finite and non-zero
+    (but those of RNN_TITO's unread GRU layer, which is not run); an
+    eval forward's launches;
+    the step's ms and peak memory.  Then step 1 again on the CPU fed the
+    card's keep masks and kNN graphs (:class:`StepTape`): the loss within
+    rtol 1e-3 and each gradient within 1e-3 of its max (TITO's with the
+    output gradient zeroed where the backward is discontinuous within
+    1e-5 on both devices, ``mask_ambiguous``, the card's step run again
+    so)."""
+    import types
+
+    from graphnet_tpu_torch.training.trainer import Trainer
+    from graphnet_tpu_torch.utils.jax_params import params_to_jax
+
+    expect, eval_expect = TRAIN_BACKBONES[kind]
+    cpu_model, gd = train_backbone_model(kind, "cpu")
+    tree = ice_jax_layout_tree(rng, cpu_model, params_to_jax)
+    batches = backbone_batches(kind, gd, TRAIN_BACKBONE_STEPS)
+    on_card = [b.to(device) for b in batches]
+
+    model, _ = train_backbone_model(kind, device, tree)
+    trainer = Trainer(model, seed=SEED)
+    tape = StepTape(TRAIN_KNN_MODULES[kind])
+    for c in counters:
+        c.launches = 0
+    with tape.record():
+        gpu = run_steps(torch, trainer, on_card[:1], counters)
+    rest = run_steps(torch, trainer, on_card[1:], counters)
+    launches = [c.launches for c in counters]
+    rose = gpu["rose"] + rest["rose"]
+    assert all(r == expect for r in rose) or not counters, rose
+    nonfinite = sorted(set(sum(gpu["nonfinite"] + rest["nonfinite"], []))
+                       - _unread_params(model))
+    zero = sorted(set(sum(gpu["zero"] + rest["zero"], [])))
+    assert not nonfinite and not zero, (nonfinite, zero)
+    eval_rose = None
+    if eval_expect is not None:
+        counts = [c.launches for c in counters]
+        model.eval()
+        with torch.no_grad():
+            model(on_card[0])
+        eval_rose = [c.launches - n for c, n in zip(counters, counts)]
+        assert eval_rose == eval_expect or not counters, eval_rose
+    timing = (train_times(torch, trainer, on_card[0],
+                          runs=TRAIN_BACKBONE_RUNS)
+              if torch.device(device).type == "cuda" else {})
+
+    tito = kind.startswith("RNNTITO") or kind == "DynEdgeTITO"
+    cpu_model, _ = train_backbone_model(kind, "cpu", tree)
+    masks, handles = [], []
+    if tito:
+        inner = (cpu_model.backbone.dynedge_tito if kind != "DynEdgeTITO"
+                 else cpu_model.backbone)
+        handles = mask_ambiguous(torch, types.SimpleNamespace(backbone=inner),
+                                 masks, True)
+    with tape.replay():
+        cpu = run_steps(torch, Trainer(cpu_model, seed=SEED), batches[:1])
+    for h in handles:
+        h.remove()
+    card = gpu
+    if tito:
+        again, _ = train_backbone_model(kind, device, tree)
+        inner = (again.backbone.dynedge_tito if kind != "DynEdgeTITO"
+                 else again.backbone)
+        handles = mask_ambiguous(torch, types.SimpleNamespace(backbone=inner),
+                                 masks, False)
+        with tape.replay():
+            card = run_steps(torch, Trainer(again, seed=SEED), on_card[:1])
+        for h in handles:
+            h.remove()
+    loss_err = abs(card["loss"][0] - cpu["loss"][0]) / abs(cpu["loss"][0])
+    assert loss_err <= 1e-3, (card["loss"], cpu["loss"])
+    errs, floored = _step1_grad_errors(
+        card, cpu, _biases_before_batch_norm(cpu_model))
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-3, {n: e for n, e in errs.items() if e > 1e-3}
+    assert all(f["err"] <= 1e-3 for f in floored.values()), floored
+    return {
+        "backbone": kind, "B": TRAIN_BACKBONE_B,
+        "L": [b.max_length for b in batches],
+        "events": [b.batch_size for b in batches],
+        "parameters": sum(p.numel() for p in model.parameters()),
+        "masks_step1": len(tape.masks), "knn_graphs_step1": len(tape.graphs),
+        "kept_share_step1": (float(np.mean([m.float().mean()
+                                            for m in tape.masks]))
+                             if tape.masks else None),
+        "losses_card": gpu["loss"] + rest["loss"],
+        "loss_step1_cpu": cpu["loss"][0], "loss_rel_err_step1": loss_err,
+        "max_grad_rel_err_step1": errs[worst], "worst_grad_param": worst,
+        "true_zero_grads_step1": floored,
+        "ambiguous_entries_zeroed": int(sum(int((m == 0).sum())
+                                            for m in masks)),
+        "launches_per_step": dict(zip(names, expect)) if counters else None,
+        "launches": dict(zip(names, launches)),
+        "launches_per_eval_forward": (dict(zip(names, eval_rose))
+                                      if eval_rose and counters else None),
+        **timing, "card": smi,
+    }
+
+
+class Preempted(Exception):
+    pass
+
+
+def resume_phase(torch, device, smi, rng, tmp):
+    """Resume on ``device``: DynEdgeTITO with dropout 0.1 (from its model
+    file) and EMA, 2 epochs of 2 batches unbroken, against a run cut in
+    its second epoch (the loader raises) and resumed by a new Trainer
+    and model from ``checkpoint_dir``'s ``last``: the losses of epoch 2
+    and the parameters (the average swapped in) within 1e-5 of each
+    parameter's max, and whether they are the same bits."""
+    from graphnet_tpu_torch.training.trainer import Trainer
+    from graphnet_tpu_torch.utils.jax_params import params_to_jax
+
+    cpu_model, gd = train_backbone_model("DynEdgeTITO", "cpu")
+    tree = ice_jax_layout_tree(rng, cpu_model, params_to_jax)
+    batches = [b.to(device) for b in backbone_batches("DynEdgeTITO", gd, 2)]
+
+    def trainer(name):
+        model, _ = train_backbone_model("DynEdgeTITO", device, tree)
+        return Trainer(model, seed=SEED, averaging="ema", ema_decay=0.9,
+                       checkpoint_dir=os.path.join(tmp, name))
+
+    class CutLoader:
+        def __init__(self):
+            self.epochs = 0
+
+        def __len__(self):
+            return len(batches)
+
+        def __iter__(self):
+            self.epochs += 1
+            if self.epochs == 2:
+                raise Preempted
+            return iter(batches)
+
+    whole = trainer("whole")
+    h_whole = whole.fit(batches, max_epochs=2)
+    cut = trainer("cut")
+    try:
+        cut.fit(CutLoader(), max_epochs=2)
+        raise AssertionError("the cut run was not cut")
+    except Preempted:
+        pass
+    resumed = trainer("cut")
+    h_resumed = resumed.fit(batches, max_epochs=2, resume=True)
+    assert resumed.step == whole.step == 4
+    errs, same = {}, True
+    for (n, a), (_, b) in zip(whole.model.state_dict().items(),
+                              resumed.model.state_dict().items()):
+        errs[n] = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        same &= bool(torch.equal(a, b))
+    worst = max(errs, key=errs.get)
+    np.testing.assert_allclose(h_resumed["train_loss"],
+                               h_whole["train_loss"][1:], rtol=1e-5)
+    assert errs[worst] <= 1e-5, (worst, errs[worst])
+    return {"losses_unbroken": h_whole["train_loss"],
+            "losses_resumed": h_resumed["train_loss"],
+            "max_param_rel_err": errs[worst], "worst_param": worst,
+            "bit_equal": same, "card": smi}
+
+
+def remat_phase(torch, make, batch, smi):
+    """DeepIce with and without ``remat`` (``make(remat)``, the same
+    weights) on ``batch``: each step's ms and peak memory
+    (:func:`train_times`), and the first step's gradients of the two
+    within 1e-5 of each parameter's max (and whether the same bits)."""
+    from graphnet_tpu_torch.training.trainer import Trainer
+
+    out, grads = {}, {}
+    for remat in (False, True):
+        trainer = Trainer(make(remat))
+        trainer.train_step(batch)
+        grads[remat] = {n: p.grad.clone()
+                        for n, p in trainer.model.named_parameters()}
+        out["remat" if remat else "no_remat"] = train_times(
+            torch, trainer, batch, runs=5)
+        del trainer
+        torch.cuda.empty_cache()
+    errs = {n: float((g - grads[True][n]).abs().max())
+            / max(float(g.abs().max()), 1e-30) for n, g in grads[False].items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-5, (worst, errs[worst])
+    assert (out["remat"]["peak_memory_mb"]
+            < out["no_remat"]["peak_memory_mb"]), out
+    return {**out, "max_grad_rel_err": errs[worst], "worst_grad_param": worst,
+            "grads_bit_equal": all(torch.equal(g, grads[True][n])
+                                   for n, g in grads[False].items()),
+            "card": smi}
+
+
+def example_clis(torch, device, counters, names, smi, tmp):
+    """The four training examples' command lines (``--device``, one
+    epoch, in this process), with the launches each run made."""
+    import importlib
+
+    report = []
+    for name in ("train_tito_direction", "train_deepice",
+                 "train_from_config", "train_rnn_tito"):
+        example = importlib.import_module(f"graphnet_tpu_torch.examples.{name}")
+        argv = ["--device", str(device), "--max-epochs", "1"]
+        if name == "train_from_config":
+            argv += ["--output", os.path.join(tmp, name)]
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer = example.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = dict(zip(names, [c.launches for c in counters]))
+        assert trainer.step > 0 and next(
+            trainer.model.parameters()).device.type == torch.device(
+                device).type
+        report.append({"example": name, "seconds": seconds,
+                       "steps": trainer.step, "launches": launches})
+    return {"examples": report, "card": smi}
+
+
 def serving_queue_phase(torch, module, events, counters, expect):
     """``serve_events_parallel`` (QUEUE_THREADS threads, batches of at
     most QUEUE_MAX_BATCH) against one direct call of ``module`` (a
@@ -4164,6 +4642,45 @@ def main() -> int:
         emit({"phase": "serve_backbones", **report,
               "seconds": round(time.perf_counter() - t0, 2)})
 
+    # 7g-train. the backbones trained with their dropout on from the
+    # bundled database, step 1 held against the CPU fed the card's masks
+    # and graphs; resume; DeepIce's remat at its cell's shape; the four
+    # training examples' command lines
+    trng = np.random.default_rng(SEED + 19)
+    train_backbone_launches = {}
+    for kind in TRAIN_BACKBONES:
+        t0 = time.perf_counter()
+        report = train_backbone(torch, kind, "cuda", counters, names, smi,
+                                trng)
+        train_backbone_launches[kind] = [report["launches"][n] for n in names]
+        emit({"phase": "train_backbones", **report,
+              "seconds": round(time.perf_counter() - t0, 2)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    t0 = time.perf_counter()
+    report = resume_phase(torch, "cuda", smi, trng, tmp)
+    emit({"phase": "train_backbones_resume", **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+
+    def make_ice_remat(remat):
+        model = StandardModel(
+            DeepIce(n_features=6, remat=remat),
+            [DirectionReconstructionWithKappa(
+                hidden_size=384, loss_function=VonMisesFisher3DLoss())],
+            device=dev)
+        model.load_state_dict(params_from_jax(ice_tree, model.state_dict()))
+        return model
+
+    report = remat_phase(torch, make_ice_remat, ice_batch.to(dev), smi)
+    emit({"phase": "train_backbones_remat", "B": ICE_B, "L": ICE_L,
+          "dtype": "float32", **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    report = example_clis(torch, "cuda", counters, names, smi, tmp)
+    emit({"phase": "train_backbones_examples", **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    shutil.rmtree(tmp)
+
     # 7h. the micro-batching queue over the energy model from its file
     t0 = time.perf_counter()
     qrng = np.random.default_rng(SEED + 13)
@@ -4394,14 +4911,15 @@ def main() -> int:
                  **t["bwd_dkv"]),
         ]
     # rows 5a-c at head dim 16: the fp32 forward on RNN_TITO's serving
-    # path; the bf16 forward and the backward have no main path yet (the
-    # port's RNN_TITO has no bf16 mode and is not trained), and are held
-    # by the flash and flash_bwd phases only
+    # path, the fp32 backward on its training step (train_backbones); the
+    # bf16 kernels have no main path yet (the port's RNN_TITO has no bf16
+    # mode), and are held by the flash and flash_bwd phases only
     rnn32 = flash_rnn[f"B{TITO_B}_H{RNN_TITO_HEADS}_L{TITO_L}_Dh{RNN_TITO_DH}"
                       "_float32"]
     rnn16 = flash_rnn[f"B{TITO_B}_H{RNN_TITO_HEADS}_L{TITO_L}_Dh{RNN_TITO_DH}"
                       "_bfloat16"]
-    no_path = "none: no main path yet (RNN_TITO is served in fp32, not trained)"
+    no_path = "none: no main path yet (RNN_TITO runs in fp32 only)"
+    rnn_step = train_backbone_launches["RNNTITO"]
     for key, t, err, bwd_e, on_path in (
         ("_hd16", rnn32, flash_err16["float32"], flash_bwd_err16["float32"],
          True),
@@ -4420,15 +4938,19 @@ def main() -> int:
             dict(name="flash_bwd_dq" + key, route="cuda", row="5b",
                  source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:128",
-                 launches=0, launches_per=no_path, main_path=False,
-                 max_abs_err=bwd_e, library_ms=lib_bwd,
+                 launches=rnn_step[4] if on_path else 0,
+                 launches_per=("RNN_TITO training step: 4 (16 heads of 16)"
+                               if on_path else no_path),
+                 main_path=on_path, max_abs_err=bwd_e, library_ms=lib_bwd,
                  library_note="SDPA backward: dq, dk and dv in one call",
                  **t["bwd_dq"]),
             dict(name="flash_bwd_dkv" + key, route="cuda", row="5c",
                  source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:155",
-                 launches=0, launches_per=no_path, main_path=False,
-                 max_abs_err=bwd_e, library_ms=lib_bwd,
+                 launches=rnn_step[5] if on_path else 0,
+                 launches_per=("RNN_TITO training step: 4 (16 heads of 16)"
+                               if on_path else no_path),
+                 main_path=on_path, max_abs_err=bwd_e, library_ms=lib_bwd,
                  library_note="SDPA backward: dq, dk and dv in one call",
                  **t["bwd_dkv"]),
         ]

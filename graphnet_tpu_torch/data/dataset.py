@@ -36,8 +36,9 @@ class Dataset:
     a selection string (:class:`~graphnet_tpu_torch.data.
     string_selection_resolver.StringSelectionResolver`); named selections
     (a dict) belong in a dataset config (``utils.config.load_dataset``).
-    ``labels`` maps a key to a function of the Event (the JAX package's
-    ``Label`` objects wait for ``training/labels.py``).
+    ``labels`` maps a key to a function of the Event, such as the
+    ``Label`` objects of :mod:`graphnet_tpu_torch.training.labels`
+    (whose ``batched`` form the DataLoader's batched route calls).
     """
 
     @save_config

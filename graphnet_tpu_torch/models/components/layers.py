@@ -40,6 +40,8 @@ from graphnet_tpu_torch.ops.rel_flash_attention import (
     supported as rel_supported,
 )
 from graphnet_tpu_torch.ops.rel_flash_attention_cuda import rel_flash_attention
+from graphnet_tpu_torch.models.components import stochastic
+from graphnet_tpu_torch.models.components.stochastic import Dropout
 
 # opt-in switch for the fused EdgeConv + kNN kernel (the JAX package's
 # default, off): where it holds (EdgeConv.uses_fused_knn) each DynEdge
@@ -347,25 +349,19 @@ class DynEdgeConv(nn.Module):
         return x, new_idx, new_edge_mask
 
 
-def _no_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "dropout is not ported yet (stochastic layers need an explicit "
-            "generator); dropout_rate=0 is the reference's eval behaviour"
-        )
-
-
 def dense_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     attn_bias: Optional[torch.Tensor] = None,
+    dropout: Optional[Dropout] = None,
 ) -> torch.Tensor:
     """The JAX package's dense masked softmax attention over ``[B, H, L,
     Dh]``: fp32 logits scaled after the product, padded keys at the
-    float32 minimum, the softmax in fp32 and the value product in v's
-    dtype.  Returns ``[B, H, L, Dh]`` in v's dtype."""
+    float32 minimum, the softmax in fp32 (then ``dropout`` of the
+    probabilities, where given) and the value product in v's dtype.
+    Returns ``[B, H, L, Dh]`` in v's dtype."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     logits = logits / math.sqrt(q.shape[-1])
     if attn_bias is not None:
@@ -375,7 +371,10 @@ def dense_attention(
             key_padding_mask[:, None, None, :], logits,
             torch.finfo(logits.dtype).min,
         )
-    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+    attn = torch.softmax(logits, dim=-1)
+    if dropout is not None:
+        attn = dropout(attn)
+    return torch.matmul(attn.to(v.dtype), v)
 
 
 class MultiHeadAttention(nn.Module):
@@ -385,10 +384,14 @@ class MultiHeadAttention(nn.Module):
     each third, scaled dot-product attention with a key-padding mask,
     and the ``out`` projection.
 
-    Without a bias and with a head dim the kernels take, attention runs
-    through :func:`flash_attention` (the CUDA kernels for CUDA tensors,
-    their plain versions on the CPU) at every length; otherwise through
-    :func:`dense_attention`.
+    Without a bias, with a head dim the kernels take and with the
+    attention-probability dropout off, attention runs through
+    :func:`flash_attention` (the CUDA kernels for CUDA tensors, their
+    plain versions on the CPU) at every length; otherwise through
+    :func:`dense_attention`.  The dropout (``dropout_rate``, on with
+    ``deterministic=False`` in training mode) drops softmax
+    probabilities, which the flash kernels do not form, so it takes the
+    dense path, as in the JAX package.
     """
 
     def __init__(
@@ -396,6 +399,7 @@ class MultiHeadAttention(nn.Module):
         embed_dim: int,
         num_heads: int,
         dropout_rate: float = 0.0,
+        deterministic: bool = True,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -403,15 +407,16 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(
                 f"embed dim {embed_dim} not divisible by heads {num_heads}"
             )
-        _no_dropout(dropout_rate)
         self.num_heads = num_heads
         self.dtype = dtype
         self.qkv = nn.Linear(embed_dim, 3 * embed_dim)
         self.out = nn.Linear(embed_dim, embed_dim)
+        self.attn_dropout = Dropout(dropout_rate, deterministic)
 
     def uses_flash(self, attn_bias: Optional[torch.Tensor] = None) -> bool:
         head_dim = self.qkv.in_features // self.num_heads
-        return attn_bias is None and flash_supported(head_dim)
+        return (attn_bias is None and not self.attn_dropout.active
+                and flash_supported(head_dim))
 
     def forward(
         self,
@@ -431,16 +436,20 @@ class MultiHeadAttention(nn.Module):
         if self.uses_flash(attn_bias):
             out = flash_attention(q, k, v, key_padding_mask)
         else:
-            out = dense_attention(q, k, v, key_padding_mask, attn_bias)
+            out = dense_attention(q, k, v, key_padding_mask, attn_bias,
+                                  self.attn_dropout)
         out = out.transpose(1, 2).reshape(B, L, D)
         return linear(self.out, out, self.dtype)
 
 
 class TransformerEncoderLayer(nn.Module):
     """torch-style post-norm encoder layer, as DynTrans uses it:
-    ``x = norm1(x + MHA(x)); x = norm2(x + FFN(x))`` with a ReLU
-    feed-forward of width ``dim_feedforward``.  The layer norms run in
-    fp32; the dense layers in ``dtype``."""
+    ``x = norm1(x + drop(MHA(x))); x = norm2(x + drop(FFN(x)))`` with a
+    ReLU feed-forward of width ``dim_feedforward`` whose hidden layer is
+    dropped too.  ``dropout_rate`` (on with ``deterministic=False`` in
+    training mode) is torch's: the attention probabilities, both
+    residual branches and the feed-forward's hidden layer, drawn in that
+    order.  The layer norms run in fp32; the dense layers in ``dtype``."""
 
     def __init__(
         self,
@@ -448,24 +457,28 @@ class TransformerEncoderLayer(nn.Module):
         num_heads: int,
         dim_feedforward: int = 2048,
         dropout_rate: float = 0.0,
+        deterministic: bool = True,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        _no_dropout(dropout_rate)
         self.dtype = dtype
-        self.mha = MultiHeadAttention(embed_dim, num_heads, dtype=dtype)
+        self.mha = MultiHeadAttention(embed_dim, num_heads,
+                                      dropout_rate=dropout_rate,
+                                      deterministic=deterministic, dtype=dtype)
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.activation = nn.ReLU()
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.drop = Dropout(dropout_rate, deterministic)
 
     def forward(
         self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        x = layer_norm(self.norm1, x + self.mha(x, key_padding_mask), None)
-        h = self.activation(linear(self.linear1, x, self.dtype))
-        h = linear(self.linear2, h, self.dtype)
+        h = self.drop(self.mha(x, key_padding_mask))
+        x = layer_norm(self.norm1, x + h, None)
+        h = self.drop(self.activation(linear(self.linear1, x, self.dtype)))
+        h = self.drop(linear(self.linear2, h, self.dtype))
         return layer_norm(self.norm2, x + h, None)
 
 
@@ -473,7 +486,8 @@ class DynTrans(nn.Module):
     """TITO block: EdgeConv (TITO message, leaky relu, plus a residual
     when the widths match), LayerNorm, then one transformer encoder
     layer over the event with the node mask as key-padding mask.  The
-    kNN graph is not recomputed.  Returns fp32."""
+    kNN graph is not recomputed.  ``dropout_rate`` and ``deterministic``
+    go to the encoder layer.  Returns fp32."""
 
     def __init__(
         self,
@@ -481,10 +495,10 @@ class DynTrans(nn.Module):
         aggr: str = "max",
         n_head: int = 8,
         dropout_rate: float = 0.0,
+        deterministic: bool = True,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        _no_dropout(dropout_rate)
         in_features, *sizes = layer_sizes
         self.residual = sizes[-1] == in_features
         self.conv = EdgeConv(
@@ -493,7 +507,8 @@ class DynTrans(nn.Module):
         )
         self.norm1 = nn.LayerNorm(sizes[-1], eps=1e-5)
         self.transformer = TransformerEncoderLayer(
-            sizes[-1], n_head, dtype=dtype
+            sizes[-1], n_head, dropout_rate=dropout_rate,
+            deterministic=deterministic, dtype=dtype,
         )
 
     def forward(
@@ -511,42 +526,63 @@ class DynTrans(nn.Module):
 
 # ------------------------------------------------------- DeepIce blocks
 class DropPath(nn.Module):
-    """Stochastic depth; only its deterministic path (identity) is
-    ported: ``drop_prob > 0`` needs an explicit generator, as dropout
-    does."""
+    """Stochastic depth: on (``drop_prob > 0``, ``deterministic=False``,
+    training mode) it keeps each sample's branch with probability ``1 -
+    drop_prob``, one Bernoulli a sample, as ``where(mask, x / keep, 0)``;
+    the identity otherwise.  :meth:`draw` draws the ``[B, 1, ..., 1]``
+    mask ahead, for a caller that recomputes the branch (DeepIce's
+    ``remat``) and must see the same mask twice."""
 
-    def __init__(self, drop_prob: float = 0.0):
+    def __init__(self, drop_prob: float = 0.0, deterministic: bool = True):
         super().__init__()
-        if drop_prob > 0.0:
-            raise NotImplementedError(
-                "DropPath with drop_prob > 0 is not ported yet (stochastic "
-                "layers need an explicit generator)"
-            )
+        self.drop_prob = float(drop_prob)
+        self.deterministic = deterministic
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    @property
+    def active(self) -> bool:
+        return (self.drop_prob > 0.0 and not self.deterministic
+                and self.training)
+
+    def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The keep mask for a branch shaped like ``x``, or ``None``
+        when the layer is off."""
+        if not self.active:
+            return None
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        return stochastic.keep_mask(shape, 1.0 - self.drop_prob, x.device)
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        if mask is None:
+            mask = self.draw(x)
+        if mask is None:
+            return x
+        return stochastic.apply_keep(x, 1.0 - self.drop_prob, lambda: mask)
 
 
 class Mlp(nn.Module):
     """Two dense layers with an exact GELU between them (``fc1``,
-    ``fc2``), in ``dtype``."""
+    ``fc2``), in ``dtype``; ``dropout`` after each (on with
+    ``deterministic=False`` in training mode)."""
 
     def __init__(
         self,
         in_features: int,
         hidden_features: int,
         dropout: float = 0.0,
+        deterministic: bool = True,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        _no_dropout(dropout)
         self.dtype = dtype
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, in_features)
+        self.drop = Dropout(dropout, deterministic)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = gelu_exact(linear(self.fc1, x, self.dtype))
-        return linear(self.fc2, x, self.dtype)
+        x = self.drop(gelu_exact(linear(self.fc1, x, self.dtype)))
+        return self.drop(linear(self.fc2, x, self.dtype))
 
 
 def _dense_rel_attention(q, k, v, key_padding_mask, rel):
@@ -669,35 +705,46 @@ class AttentionRel(nn.Module):
 
 
 class _TransformerBlock(nn.Module):
-    """Pre-norm block: ``x + g1 * attn(norm1(x))``, then ``x + g2 *
-    mlp(norm2(x))``, with the layer scales ``gamma_1``, ``gamma_2``
-    when ``init_values`` is given; the norms (eps 1e-6) with fp32
-    statistics and their result in ``dtype``."""
+    """Pre-norm block: ``x + dp1(g1 * attn(norm1(x)))``, then ``x +
+    dp2(g2 * mlp(norm2(x)))``, with the layer scales ``gamma_1``,
+    ``gamma_2`` when ``init_values`` is given and stochastic depth
+    ``drop_path`` (on with ``deterministic=False`` in training mode);
+    the norms (eps 1e-6) with fp32 statistics and their result in
+    ``dtype``.  ``path_masks``, from :meth:`draw_path_masks`, are the
+    two DropPath masks drawn ahead."""
 
-    def __init__(self, dim, attn, mlp_ratio, drop_path, init_values, dtype):
+    def __init__(self, dim, attn, mlp_ratio, drop_path, init_values,
+                 deterministic, dtype):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = attn
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
-        self.dp1 = DropPath(drop_path)
-        self.dp2 = DropPath(drop_path)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), deterministic=deterministic,
+                       dtype=dtype)
+        self.dp1 = DropPath(drop_path, deterministic)
+        self.dp2 = DropPath(drop_path, deterministic)
         if init_values is not None:
             self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
             self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def _residuals(self, x, attend):
+    def draw_path_masks(self, x: torch.Tensor):
+        """The masks of ``dp1`` and ``dp2`` for the input ``x``, in the
+        order the forward draws them (``None`` each when off)."""
+        return self.dp1.draw(x), self.dp2.draw(x)
+
+    def _residuals(self, x, attend, path_masks=None):
+        m1, m2 = path_masks if path_masks is not None else (None, None)
         h = attend(layer_norm(self.norm1, x, self.dtype))
         if self.gamma_1 is not None:
             h = self.gamma_1.to(h.dtype) * h
-        x = x + self.dp1(h)
+        x = x + self.dp1(h, m1)
         h = self.mlp(layer_norm(self.norm2, x, self.dtype))
         if self.gamma_2 is not None:
             h = self.gamma_2.to(h.dtype) * h
-        return x + self.dp2(h)
+        return x + self.dp2(h, m2)
 
 
 class BlockRel(_TransformerBlock):
@@ -710,6 +757,7 @@ class BlockRel(_TransformerBlock):
         mlp_ratio: float = 4.0,
         drop_path: float = 0.0,
         init_values: Optional[float] = None,
+        deterministic: bool = True,
         rel_chunks: int = 1,
         rel_flash: str = "auto",
         dtype: Optional[torch.dtype] = None,
@@ -717,13 +765,15 @@ class BlockRel(_TransformerBlock):
         attn = AttentionRel(dim, num_heads, qkv_bias=True,
                             rel_chunks=rel_chunks, rel_flash=rel_flash,
                             dtype=dtype)
-        super().__init__(dim, attn, mlp_ratio, drop_path, init_values, dtype)
+        super().__init__(dim, attn, mlp_ratio, drop_path, init_values,
+                         deterministic, dtype)
 
     def forward(self, x, rel_pos_bias=None, key_padding_mask=None,
-                rel_source=None):
+                rel_source=None, path_masks=None):
         return self._residuals(x, lambda h: self.attn(
             h, h, h, rel_pos_bias=rel_pos_bias,
-            key_padding_mask=key_padding_mask, rel_source=rel_source))
+            key_padding_mask=key_padding_mask, rel_source=rel_source),
+            path_masks)
 
 
 class Block(_TransformerBlock):
@@ -736,10 +786,13 @@ class Block(_TransformerBlock):
         mlp_ratio: float = 4.0,
         drop_path: float = 0.0,
         init_values: Optional[float] = None,
+        deterministic: bool = True,
         dtype: Optional[torch.dtype] = None,
     ):
         attn = MultiHeadAttention(dim, num_heads, dtype=dtype)
-        super().__init__(dim, attn, mlp_ratio, drop_path, init_values, dtype)
+        super().__init__(dim, attn, mlp_ratio, drop_path, init_values,
+                         deterministic, dtype)
 
-    def forward(self, x, key_padding_mask=None):
-        return self._residuals(x, lambda h: self.attn(h, key_padding_mask))
+    def forward(self, x, key_padding_mask=None, path_masks=None):
+        return self._residuals(x, lambda h: self.attn(h, key_padding_mask),
+                               path_masks)

@@ -14,10 +14,8 @@ import torch
 from torch import nn
 
 from graphnet_tpu_torch.batch import EventBatch
-from graphnet_tpu_torch.models.components.layers import (
-    ACTIVATIONS,
-    _no_dropout,
-)
+from graphnet_tpu_torch.models.components.layers import ACTIVATIONS
+from graphnet_tpu_torch.models.components.stochastic import Dropout
 from graphnet_tpu_torch.models.gnn.gnn import GNN
 from graphnet_tpu_torch.ops.gather_reduce import masked_max, masked_sum
 from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
@@ -78,8 +76,9 @@ class ConvNet(GNN):
     events a server adds included, as in the JAX package), or with
     ``frozen_batchnorm`` the stored ``bn_mean`` / ``bn_var``: torch's
     eval-mode statistics, which the porters fill from a GraphNeT
-    checkpoint.  Dropout is not ported (it raises where it would be on:
-    ``dropout_ratio > 0`` with ``deterministic=False``)."""
+    checkpoint; in training too, as in the JAX package.  Dropout of
+    ``dropout_ratio`` follows each of the five dense layers, on with
+    ``deterministic=False`` in training mode."""
 
     @save_config
     def __init__(
@@ -92,8 +91,6 @@ class ConvNet(GNN):
         frozen_batchnorm: bool = False,
     ):
         super().__init__()
-        if not deterministic:
-            _no_dropout(dropout_ratio)
         self.nb_inputs = nb_inputs
         self.nb_outputs_ = nb_outputs_
         self.frozen_batchnorm = frozen_batchnorm
@@ -110,6 +107,7 @@ class ConvNet(GNN):
         for i in range(5):
             setattr(self, f"linear{i + 1}", nn.Linear(inter2, inter2))
         self.out = nn.Linear(inter2, nb_outputs_)
+        self.drop = Dropout(dropout_ratio, deterministic)
 
     @property
     def nb_outputs(self) -> int:
@@ -150,5 +148,5 @@ class ConvNet(GNN):
             var = z.var(dim=0, unbiased=False, keepdim=True)
         z = (z - mean) / torch.sqrt(var + 1e-5) * self.bn_scale + self.bn_bias
         for i in range(5):
-            z = _leaky_relu(getattr(self, f"linear{i + 1}")(z))
+            z = self.drop(_leaky_relu(getattr(self, f"linear{i + 1}")(z)))
         return self.out(z)

@@ -31,9 +31,11 @@ class DynEdgeTITO(GNN):
     """Arguments and defaults are the JAX package's.  ``compute_dtype``
     ("bfloat16" or None) is the dtype of the blocks' matrix products;
     the layer norms, the kNN, the post-processing and readout MLPs and
-    the pooling stay fp32.  ``dropout_rate > 0`` is not ported yet, so
-    ``deterministic`` (the JAX switch that turns dropout on in training)
-    changes nothing: with no dropout both settings compute the same."""
+    the pooling stay fp32.  ``dropout_rate`` is each encoder layer's
+    dropout (torch's: the attention probabilities, which then take the
+    dense path, both residual branches and the feed-forward), on with
+    ``deterministic=False`` in training mode; the default 0 is GraphNeT's
+    eval behaviour."""
 
     @save_config
     def __init__(
@@ -87,6 +89,7 @@ class DynEdgeTITO(GNN):
                     aggr="max",
                     n_head=n_head,
                     dropout_rate=dropout_rate,
+                    deterministic=deterministic,
                     dtype=dtype,
                 ),
             )

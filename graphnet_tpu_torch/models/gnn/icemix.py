@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from graphnet_tpu_torch.batch import EventBatch
 from graphnet_tpu_torch.models.components.embedding import (
@@ -43,10 +44,18 @@ class DeepIce(GNN):
     arguments name one.  Its convs are built eagerly, so ``nb_inputs``
     must be the events' feature count (the JAX package infers it).
 
-    Not ported yet (they raise ``NotImplementedError``): ``remat``
-    (recompute of the blocks in the backward), and ``rel_bias_chunks >
-    1`` where the rel kernels do not run (the chunked and cached bias
-    paths).  Where they run, ``rel_bias_chunks`` and ``rel_bias_cache``
+    ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    intermediates: every ``Block`` and every bias-free ``BlockRel``,
+    never a biased one, as in the JAX package.  A block's DropPath masks
+    are drawn before the checkpointed call and passed in, so the
+    recompute applies the masks of the forward (the checkpoint restores
+    only torch's default generators, not the explicit one they come
+    from).
+
+    Not ported yet (it raises ``NotImplementedError``):
+    ``rel_bias_chunks > 1`` where the rel kernels do not run (the
+    chunked and cached bias paths).  Where they run, ``rel_bias_chunks`` and ``rel_bias_cache``
     are ignored, as in the JAX package; so is ``rel_bias_cache`` with
     ``rel_bias_chunks == 1`` (the dense path materialises the pair
     tensor once).  ``dynedge_args`` is read only with
@@ -74,10 +83,7 @@ class DeepIce(GNN):
         remat: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "DeepIce(remat=True) is not ported yet"
-            )
+        self.remat = remat
         self.hidden_dim = hidden_dim
         self.depth = depth
         self.depth_rel = depth_rel
@@ -155,18 +161,27 @@ class DeepIce(GNN):
             else:  # materialised once, shared by the biased blocks
                 rel_pos_bias = self.rel_pos(x0)
         for i in range(self.depth_rel):
-            biased = i < self.n_rel
-            x = getattr(self, f"sandwich_{i}")(
-                x,
-                rel_pos_bias=rel_pos_bias if biased else None,
-                key_padding_mask=mask,
-                rel_source=rel_source if biased else None,
-            )
+            block = getattr(self, f"sandwich_{i}")
+            if i < self.n_rel:
+                x = block(x, rel_pos_bias=rel_pos_bias, key_padding_mask=mask,
+                          rel_source=rel_source)
+            else:
+                x = self._block(block, x, mask)
         cls = self.cls_token[None].expand(B, 1, self.hidden_dim).to(x.dtype)
         x = torch.cat([cls, x], dim=1)
         full_mask = torch.cat(
             [torch.ones((B, 1), dtype=torch.bool, device=mask.device), mask],
             dim=1)
         for i in range(self.depth):
-            x = getattr(self, f"blocks_{i}")(x, key_padding_mask=full_mask)
+            x = self._block(getattr(self, f"blocks_{i}"), x, full_mask)
         return x[:, 0].float()
+
+    def _block(self, block, x: torch.Tensor,
+               key_padding_mask: torch.Tensor) -> torch.Tensor:
+        """A bias-free block, recomputed in the backward with ``remat``
+        (its DropPath masks drawn first, so both passes apply them)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(x, key_padding_mask=key_padding_mask)
+        return checkpoint(block, x, key_padding_mask=key_padding_mask,
+                          path_masks=block.draw_path_masks(x),
+                          use_reentrant=False)

@@ -17,10 +17,8 @@ import torch
 from torch import nn
 
 from graphnet_tpu_torch.batch import EventBatch
-from graphnet_tpu_torch.models.components.layers import (
-    _no_dropout,
-    resolve_activation,
-)
+from graphnet_tpu_torch.models.components.layers import resolve_activation
+from graphnet_tpu_torch.models.components.stochastic import Dropout
 from graphnet_tpu_torch.models.gnn.gnn import GNN
 from graphnet_tpu_torch.ops.gather_reduce import (
     edge_reduce,
@@ -113,8 +111,10 @@ class ParticleNeTConv(nn.Module):
 class ParticleNeT(GNN):
     """Arguments and defaults are the JAX package's.  Empty
     ``global_pooling_schemes`` gives node-level outputs (the readout per
-    node).  Dropout is not ported (it raises where it would be on:
-    ``dropout_readout > 0`` with ``deterministic=False``)."""
+    node).  Dropout of ``dropout_readout`` follows each readout layer, on
+    with ``deterministic=False`` in training mode; the batch norms take
+    the batch's statistics unless frozen, in training too, as in the JAX
+    package."""
 
     @save_config
     def __init__(
@@ -138,8 +138,6 @@ class ParticleNeT(GNN):
         frozen_batchnorm: bool = False,
     ):
         super().__init__()
-        if not deterministic:
-            _no_dropout(dropout_readout)
         if isinstance(global_pooling_schemes, str):
             global_pooling_schemes = (global_pooling_schemes,)
         self.nb_inputs = nb_inputs
@@ -166,6 +164,7 @@ class ParticleNeT(GNN):
         for i, size in enumerate(self.readout_layer_sizes):
             setattr(self, f"readout_{i}", nn.Linear(d, size))
             d = size
+        self.drop = Dropout(dropout_readout, deterministic)
 
     @property
     def nb_outputs(self) -> int:
@@ -192,5 +191,5 @@ class ParticleNeT(GNN):
         h = (global_pool(x, mask, self.global_pooling_schemes)
              if self.global_pooling_schemes else x)
         for i in range(len(self.readout_layer_sizes)):
-            h = self.act(getattr(self, f"readout_{i}")(h))
+            h = self.drop(self.act(getattr(self, f"readout_{i}")(h)))
         return h

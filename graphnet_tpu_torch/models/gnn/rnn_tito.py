@@ -26,7 +26,9 @@ from graphnet_tpu_torch.utils.config import save_config
 class RNNTITO(GNN):
     """Arguments and defaults are the JAX package's (GraphNeT's
     ``RNN_TITO``, a name the class registry also knows).  ``nb_inputs``
-    is recorded and not read: the GRU reads ``time_series_columns``."""
+    is recorded and not read: the GRU reads ``time_series_columns``.
+    ``rnn_dropout`` and ``deterministic`` reach the GRU only; the
+    DynTrans blocks have no dropout, as in the JAX package."""
 
     @save_config
     def __init__(

@@ -38,7 +38,8 @@ from torch import nn
 
 from graphnet_tpu_torch.batch import EventBatch
 from graphnet_tpu_torch.models.components.embedding import SinusoidalPosEmb
-from graphnet_tpu_torch.models.components.layers import _no_dropout
+from graphnet_tpu_torch.models.components import stochastic
+from graphnet_tpu_torch.models.components.stochastic import Dropout
 from graphnet_tpu_torch.models.gnn.gnn import GNN
 from graphnet_tpu_torch.utils.config import save_config
 
@@ -98,9 +99,12 @@ def _runs(mask: torch.Tensor, new_node: torch.Tensor):
 class NodeRNN(GNN):
     """Arguments and defaults are the JAX package's.  Returns the batch
     of sensor nodes (``x [B, L, D - 1 + hidden_size]``, ``mask`` the
-    valid sensors, no edges).  Dropout between the GRU layers is not
-    ported (it raises where it would be on: ``dropout > 0`` with
-    ``deterministic=False`` and more than one layer)."""
+    valid sensors, no edges).  Dropout of ``dropout`` between the GRU
+    layers is on with ``deterministic=False`` in training mode; its mask
+    is drawn over the padded pulses ``[B, L, hidden_size]``, the JAX
+    package's layout, and applied to the runs.  Only a layer that feeds
+    ``final_state_layer`` is run, so with GraphNeT's default (the first
+    layer's state) the dropout changes no output and draws nothing."""
 
     @save_config
     def __init__(
@@ -117,8 +121,6 @@ class NodeRNN(GNN):
         final_state_layer: int = 0,
     ):
         super().__init__()
-        if not deterministic and num_layers > 1:
-            _no_dropout(dropout)
         if not 0 <= final_state_layer < num_layers:
             raise ValueError(
                 f"final_state_layer={final_state_layer} out of range for "
@@ -129,6 +131,7 @@ class NodeRNN(GNN):
         self.time_series_columns = list(time_series_columns)
         self.embedding_dim = embedding_dim
         self.final_state_layer = final_state_layer
+        self.drop = Dropout(dropout, deterministic)
         d = len(self.time_series_columns)
         if embedding_dim:
             self.emb = SinusoidalPosEmb(embedding_dim)
@@ -158,7 +161,8 @@ class NodeRNN(GNN):
         rank[order] = torch.arange(R, device=order.device)
         going = torch.bincount(lengths.cpu() - 1).flip(0).cumsum(0).flip(0)
         xs = ts.new_zeros((R, len(going), ts.shape[-1]))
-        xs[rank[run[mask]], step[mask]] = ts[mask]
+        rows, steps = rank[run[mask]], step[mask]
+        xs[rows, steps] = ts[mask]
         for layer in range(self.final_state_layer + 1):
             weights = getattr(self, f"gru_{layer}").cell.gru.torch_weights()
             h = ts.new_zeros((R, self.hidden_size))
@@ -170,7 +174,25 @@ class NodeRNN(GNN):
                     ys.append(h)
             if ys is not None:
                 xs = torch.stack(ys, dim=1)
+                if self.drop.active:
+                    xs = self._drop_between(xs, mask, rows, steps)
         return run, h[rank]
+
+    def _drop_between(self, xs: torch.Tensor, mask: torch.Tensor,
+                      rows: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+        """The dropout between two layers on the runs ``xs [R, T, H]``,
+        its mask drawn as ``[B, L, H]`` and each valid pulse's entry
+        moved to its run and step."""
+        keep = 1.0 - self.drop.rate
+
+        def draw() -> torch.Tensor:
+            drawn = stochastic.keep_mask(mask.shape + (self.hidden_size,),
+                                         keep, xs.device)
+            kept = torch.zeros(xs.shape, dtype=torch.bool, device=xs.device)
+            kept[rows, steps] = drawn[mask]
+            return kept
+
+        return stochastic.apply_keep(xs, keep, draw)
 
     def forward(self, batch: EventBatch) -> EventBatch:
         x, mask = batch.x, batch.mask

@@ -28,6 +28,10 @@ class StandardModel(nn.Module):
     ``tasks``: ``None`` (every configuration passes it so) leaves the
     backbone to build its own graph.  An edge rule evaluated before the
     backbone is not ported yet and raises ``NotImplementedError``.
+
+    ``eval()`` is the counterpart of the JAX package's
+    ``deterministic_clone``: the stochastic layers of a backbone built
+    with ``deterministic=False`` are on in training mode only.
     """
 
     @save_config(ignore=("seed", "device"))

@@ -1,5 +1,5 @@
-"""Learning-rate schedule and early stopping (counterpart of
-``graphnet_tpu/training/callbacks.py``).
+"""Learning-rate schedule, early stopping and a JSON-lines metric logger
+(counterpart of ``graphnet_tpu/training/callbacks.py``).
 
 The schedule is a plain function of the optimiser step; the Trainer
 turns it into a ``torch.optim.lr_scheduler.LambdaLR``.
@@ -7,7 +7,10 @@ turns it into a ``torch.optim.lr_scheduler.LambdaLR``.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import json
+import os
+import time
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 
@@ -60,3 +63,36 @@ class EarlyStopping:
     @property
     def should_stop(self) -> bool:
         return self.counter >= self.patience
+
+
+class JSONLinesLogger:
+    """Metric logger for ``Trainer(metric_logger=...)``: one JSON object
+    per ``log_metrics`` call (``step``, ``time`` and the metrics) appended
+    to a ``.jsonl`` file::
+
+        logger = JSONLinesLogger("runs/exp1/metrics.jsonl")
+        Trainer(model, metric_logger=logger).fit(loader)
+        records = logger.read()
+
+    A fresh logger truncates the file; ``resume=True`` (for a run that
+    resumes with ``fit(resume=True)``) keeps its records and appends.
+    """
+
+    def __init__(self, path: str, resume: bool = False):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        open(path, "a" if resume else "w").close()
+
+    def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        rec: Dict[str, Any] = {"step": int(step), "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                rec[k] = float(v)
+            except (TypeError, ValueError):
+                rec[k] = v
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def read(self) -> List[Dict[str, Any]]:
+        with open(self.path) as f:
+            return [json.loads(line) for line in f if line.strip()]

@@ -3,24 +3,37 @@
 
 The JAX Trainer's single-device path: one optimiser step per batch,
 Adam with eps 1e-3 and the canonical piecewise-linear schedule, early
-stopping on the validation loss with the best weights restored, and the
-same ``state_dict.pkl`` (the JAX parameter tree, pickled) on both sides.
+stopping on the validation loss with the best weights restored, SWA or
+EMA weight averaging, resumable checkpoints (``checkpoint_dir``,
+``fit(resume=True)``; the port's own format, ``torch.save``), a metric
+logger, a progress bar and a profile of the first epoch; and the same
+``state_dict.pkl`` (the JAX parameter tree, pickled) on both sides.
 The model holds its parameters and its device; batches are moved to it.
-Not ported yet: meshes and sharding, ``steps_per_dispatch``, SWA/EMA,
-orbax checkpoints and ``resume``, profiling, prefetch, loggers.
+
+Stochastic layers (dropout, DropPath with ``deterministic=False``) draw
+from one ``torch.Generator`` on the model's device, seeded anew before
+each step from ``(seed + 1, step)``: the counterpart of the JAX
+Trainer's ``fold_in(PRNGKey(seed + 1), step)``, so a resumed run draws
+the masks an unbroken one draws.
+
+Not ported: meshes and sharding (``mesh``, ``data_axis``,
+``model_axis``, ``param_sharding``), ``steps_per_dispatch`` and
+``fit(prefetch=...)``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from graphnet_tpu_torch.batch import EventBatch
+from graphnet_tpu_torch.models.components import stochastic
 from graphnet_tpu_torch.models.standard_model import StandardModel
 from graphnet_tpu_torch.training.callbacks import (
     EarlyStopping,
@@ -56,6 +69,15 @@ def clip_by_global_norm(
     return norm
 
 
+def _save(payload: Dict[str, Any], path: str) -> None:
+    """``torch.save`` through a temporary file, so a run cut mid-write
+    leaves the previous checkpoint whole."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
 class Trainer:
     """Fit / validate / predict a :class:`StandardModel`."""
 
@@ -67,6 +89,11 @@ class Trainer:
         schedule: Optional[Schedule] = None,
         clip_grad_norm: Optional[float] = None,
         seed: int = 42,
+        checkpoint_dir: Optional[str] = None,
+        averaging: Optional[str] = None,
+        ema_decay: float = 0.999,
+        metric_logger: Optional[Any] = None,
+        progress_bar: bool = False,
     ) -> None:
         """Args:
         model: the port model, already on its device.
@@ -79,19 +106,41 @@ class Trainer:
             (e.g. :func:`piecewise_linear_schedule`).
         clip_grad_norm: clip the gradients' global norm to this, as
             ``optax.clip_by_global_norm`` does.
-        seed: the JAX Trainer's seed argument; the port's model draws its
-            initial weights from ``StandardModel(seed=...)``, and no
-            layer ported so far is stochastic.
+        seed: the stochastic layers' generator is seeded from ``(seed +
+            1, step)`` before each step; the model draws its initial
+            weights from ``StandardModel(seed=...)``.
+        checkpoint_dir: ``fit`` writes ``last`` (the whole training
+            state) after each epoch and ``best`` (the parameters) after
+            each improved validation loss there.
+        averaging: None, ``"swa"`` (equal-weight running average) or
+            ``"ema"`` (decay ``ema_decay``) of the parameters, updated
+            after each optimiser step and swapped in at the end of
+            ``fit``, where they supersede the best-weights restore.
+        metric_logger: any object with ``log_metrics(metrics, step)``,
+            or a wandb-style one with ``log(metrics, step=...)``.
+        progress_bar: a tqdm bar over each epoch's batches (tqdm is
+            imported only then).
         """
+        if averaging not in (None, "swa", "ema"):
+            raise ValueError(f"averaging must be None, swa or ema; got "
+                             f"{averaging!r}")
         self.model = model
         self._factory = optimizer
         self._lr = learning_rate
         self._schedule = schedule
         self.clip_grad_norm = clip_grad_norm
         self.seed = seed
+        self.checkpoint_dir = checkpoint_dir
+        self.averaging = averaging
+        self.ema_decay = ema_decay
+        self.metric_logger = metric_logger
+        self.progress_bar = progress_bar
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
         self.step = 0
+        self._generator: Optional[torch.Generator] = None
+        self._avg: Optional[Dict[str, torch.Tensor]] = None
+        self._avg_count = 0
 
     @property
     def device(self) -> torch.device:
@@ -132,6 +181,23 @@ class Trainer:
             return float("nan")
         return float(self._lr)
 
+    def _log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        if self.metric_logger is None:
+            return
+        if hasattr(self.metric_logger, "log_metrics"):
+            self.metric_logger.log_metrics(metrics, step=step)
+        elif hasattr(self.metric_logger, "log"):  # wandb-style
+            self.metric_logger.log(metrics, step=step)
+
+    def step_generator(self) -> torch.Generator:
+        """The stochastic layers' generator for the current step, on the
+        model's device, seeded from ``(seed + 1, step)``."""
+        if self._generator is None or self._generator.device != self.device:
+            self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(
+            stochastic.step_seed(self.seed + 1, self.step))
+        return self._generator
+
     # ------------------------------------------------------------------
     def init(self, example_batch: Optional[EventBatch] = None):
         """Build the optimizer and its state, from step 0.  The model
@@ -149,8 +215,11 @@ class Trainer:
         batch = batch.to(self.device)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss_from_batch(self.model(batch), batch)
-        loss.backward()
+        # seeded at the step's first draw: a model with no stochastic
+        # layer on never seeds it
+        with stochastic.use_generator(self.step_generator):
+            loss = self.model.loss_from_batch(self.model(batch), batch)
+            loss.backward()
         if self.clip_grad_norm is not None:
             clip_by_global_norm(
                 list(self.model.parameters()), self.clip_grad_norm
@@ -159,6 +228,7 @@ class Trainer:
         if self.scheduler is not None:
             self.scheduler.step()
         self.step += 1
+        self._update_averages()
         return loss.detach()
 
     def eval_step(self, batch: EventBatch) -> torch.Tensor:
@@ -167,6 +237,32 @@ class Trainer:
         with torch.no_grad():
             batch = batch.to(self.device)
             return self.model.loss_from_batch(self.model(batch), batch)
+
+    def _update_averages(self) -> None:
+        """One SWA / EMA update with the parameters after a step; the
+        first step's parameters seed the average."""
+        if self.averaging is None:
+            return
+        with torch.no_grad():
+            params = dict(self.model.named_parameters())
+            if self._avg is None:
+                self._avg = {n: p.detach().clone() for n, p in params.items()}
+                self._avg_count = 1
+                return
+            if self.averaging == "swa":
+                n = self._avg_count
+                for name, a in self._avg.items():
+                    a.copy_(a + (params[name] - a) / (n + 1))
+                self._avg_count += 1
+            else:
+                d = self.ema_decay
+                for name, a in self._avg.items():
+                    a.copy_(d * a + (1.0 - d) * params[name])
+
+    def _swap_in_average(self) -> None:
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.copy_(self._avg[name])
 
     # ------------------------------------------------------------------
     def fit(
@@ -178,6 +274,9 @@ class Trainer:
         early_stopping_patience: int = 5,
         use_default_schedule: bool = True,
         log_every_n_steps: int = 25,
+        ckpt_best: bool = True,
+        resume: bool = False,
+        profile_dir: Optional[str] = None,
     ) -> Dict[str, List[float]]:
         """Train for up to ``max_epochs`` over ``train_loader`` (an
         iterable of :class:`EventBatch` with ``len()``); returns the
@@ -187,13 +286,20 @@ class Trainer:
         ``val_loss`` the event-count-weighted mean over ``val_loader``.
         With a validation loader, training stops after
         ``early_stopping_patience`` epochs without a new best, and the
-        best epoch's weights are restored at the end.
+        best epoch's weights are restored at the end (unless SWA / EMA
+        weights are swapped in).
 
         ``use_default_schedule`` (when no schedule was given): the
         canonical DynEdge schedule, factors ``[1e-2, 1, 1e-2]`` at steps
         ``[0, steps_per_epoch // 2, steps_per_epoch * max_epochs]``,
         with the default Adam, as the JAX Trainer does (it replaces a
         custom optimizer too).
+
+        ``resume=True`` restores ``<checkpoint_dir>/last`` where it
+        exists (parameters, optimiser state, step, epoch and the
+        average) and goes on from the epoch after it.  ``profile_dir``:
+        a ``torch.profiler`` trace of the first epoch's steps, written
+        there as ``trace.json``.
         """
         if use_default_schedule and self._schedule is None:
             steps_per_epoch = max(len(train_loader), 1)
@@ -213,48 +319,110 @@ class Trainer:
         history: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
         stopper = EarlyStopping(patience=early_stopping_patience)
         best_state = None
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            losses, n_events = [], 0
-            for i, batch in enumerate(train_loader):
-                n_events += batch.batch_size
-                loss = self.train_step(batch)
-                losses.append(loss)
-                if (i + 1) % log_every_n_steps == 0:
-                    logger.info(
-                        "epoch %d step %d: train_loss=%.4f lr=%.3e",
-                        epoch, i + 1, float(loss), self._current_lr(),
-                    )
-            # one host sync per epoch
-            train_loss = float(torch.stack(losses).mean())
-            history["train_loss"].append(train_loss)
-            seconds = time.perf_counter() - t0
-            msg = (
-                f"epoch {epoch}: train_loss={train_loss:.4f} ({seconds:.1f}s, "
-                f"{n_events / max(seconds, 1e-9):.0f} events/s)"
-            )
-            if val_loader is not None:
-                vals, counts = [], []
-                for batch in val_loader:
-                    counts.append(batch.batch_size)
-                    vals.append(self.eval_step(batch))
-                w = torch.tensor(counts, dtype=torch.float32, device=self.device)
-                val_loss = float((torch.stack(vals) * w).sum() / w.sum())
-                history["val_loss"].append(val_loss)
-                msg += f" val_loss={val_loss:.4f}"
-                if stopper.update(val_loss, epoch):
-                    best_state = {
-                        k: v.detach().clone()
-                        for k, v in self.model.state_dict().items()
-                    }
-                if stopper.should_stop:
-                    logger.info(
-                        "early stopping at epoch %d (best epoch %d)",
-                        epoch, stopper.best_epoch,
-                    )
-                    logger.info(msg)
-                    break
-            logger.info(msg)
+        last_ckpt = (os.path.join(self.checkpoint_dir, "last")
+                     if self.checkpoint_dir else None)
+        start_epoch = 0
+        if resume and last_ckpt and os.path.exists(last_ckpt):
+            start_epoch = self.load_train_state(last_ckpt) + 1
+            logger.info("resumed from %s at epoch %d", last_ckpt, start_epoch)
+
+        profiler = None
+        if profile_dir is not None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                t0 = time.perf_counter()
+                losses, n_events = [], 0
+                iterator = train_loader
+                if self.progress_bar:
+                    from tqdm.auto import tqdm
+
+                    iterator = tqdm(train_loader, total=len(train_loader),
+                                    desc=f"epoch {epoch}", unit="batch",
+                                    leave=False)
+                for i, batch in enumerate(iterator):
+                    n_events += batch.batch_size
+                    loss = self.train_step(batch)
+                    losses.append(loss)
+                    if (i + 1) % log_every_n_steps == 0:
+                        last, lr = float(loss), self._current_lr()
+                        if self.progress_bar:
+                            iterator.set_postfix(train_loss=f"{last:.4f}",
+                                                 refresh=False)
+                        else:
+                            logger.info("epoch %d step %d: train_loss=%.4f "
+                                        "lr=%.3e", epoch, i + 1, last, lr)
+                        metrics = {"train_loss": last}
+                        if np.isfinite(lr):
+                            metrics["lr"] = lr
+                        self._log_metrics(metrics, step=self.step)
+                # one host sync per epoch
+                train_loss = float(torch.stack(losses).mean())
+                seconds = time.perf_counter() - t0
+                events_per_s = n_events / max(seconds, 1e-9)
+                history["train_loss"].append(train_loss)
+                if profiler is not None:
+                    profiler.stop()
+                    os.makedirs(profile_dir, exist_ok=True)
+                    profiler.export_chrome_trace(
+                        os.path.join(profile_dir, "trace.json"))
+                    logger.info("profiler trace written to %s", profile_dir)
+                    profiler = None
+                if last_ckpt is not None:
+                    self.save_train_state(last_ckpt, epoch)
+                lr = self._current_lr()
+                msg = (f"epoch {epoch}: train_loss={train_loss:.4f} "
+                       f"({seconds:.1f}s, {events_per_s:.0f} events/s"
+                       + (f", lr={lr:.3e})" if np.isfinite(lr) else ")"))
+                epoch_metrics = {"train_loss": train_loss,
+                                 "events_per_s": events_per_s}
+                if np.isfinite(lr):
+                    epoch_metrics["lr"] = lr
+                pad_eff = getattr(train_loader, "padding_efficiency", None)
+                if pad_eff is not None and np.isfinite(pad_eff):
+                    msg += f" pad_eff={pad_eff:.2f}"
+                    epoch_metrics["padding_efficiency"] = pad_eff
+                if val_loader is not None:
+                    vals, counts = [], []
+                    for batch in val_loader:
+                        counts.append(batch.batch_size)
+                        vals.append(self.eval_step(batch))
+                    w = torch.tensor(counts, dtype=torch.float32,
+                                     device=self.device)
+                    val_loss = float((torch.stack(vals) * w).sum() / w.sum())
+                    history["val_loss"].append(val_loss)
+                    epoch_metrics["val_loss"] = val_loss
+                    msg += f" val_loss={val_loss:.4f}"
+                    if stopper.update(val_loss, epoch):
+                        best_state = {
+                            k: v.detach().clone()
+                            for k, v in self.model.state_dict().items()
+                        }
+                        if ckpt_best and self.checkpoint_dir:
+                            self.save_checkpoint(
+                                os.path.join(self.checkpoint_dir, "best"))
+                    if stopper.should_stop:
+                        logger.info(
+                            "early stopping at epoch %d (best epoch %d)",
+                            epoch, stopper.best_epoch,
+                        )
+                        logger.info(msg)
+                        self._log_metrics(epoch_metrics, step=self.step)
+                        break
+                logger.info(msg)
+                self._log_metrics(epoch_metrics, step=self.step)
+        finally:
+            if profiler is not None:
+                profiler.stop()
+        if self.averaging is not None and self._avg is not None:
+            self._swap_in_average()
+            best_state = None  # the average supersedes the best epoch
         if best_state is not None:
             self.model.load_state_dict(best_state)
         return history
@@ -343,3 +511,68 @@ class Trainer:
             load_jax_state_dict(path, expected=self.model.state_dict())
         )
         self._build_optimizer()
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """The parameters (the model's ``state_dict``) to the file
+        ``path``: the serving / best-weights snapshot."""
+        _save({"params": self.model.state_dict()}, path)
+
+    def load_checkpoint(
+        self, path: str, example_batch: Optional[EventBatch] = None
+    ) -> None:
+        """Load :meth:`save_checkpoint`'s file; the optimizer starts with
+        fresh state.  ``example_batch`` (the JAX Trainer's argument) is
+        not read."""
+        payload = torch.load(path, map_location=self.device)
+        self.model.load_state_dict(payload["params"])
+        self._build_optimizer()
+
+    def save_train_state(self, path: str, epoch: int) -> None:
+        """The whole resumable state to the file ``path``: parameters,
+        optimiser state, step, ``epoch``, and with averaging the average
+        and its count (0 while unseeded)."""
+        payload = {
+            "params": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "meta": {"step": self.step, "epoch": epoch,
+                     "optimizer": self._optimizer_signature()},
+        }
+        if self.averaging is not None:
+            payload["avg"] = {"params": self._avg or {},
+                              "count": float(self._avg_count)
+                              if self._avg is not None else 0.0}
+        _save(payload, path)
+
+    def _optimizer_signature(self) -> str:
+        """What a resume must match: the optimizer's class and the
+        clipping (a schedule changes no optimizer state)."""
+        return f"{type(self.optimizer).__name__} clip={self.clip_grad_norm}"
+
+    def load_train_state(
+        self, path: str, example_batch: Optional[EventBatch] = None
+    ) -> int:
+        """Restore :meth:`save_train_state`'s file; returns its epoch.
+        The optimizer must be configured as the run that saved it."""
+        payload = torch.load(path, map_location=self.device)
+        if self.optimizer is None:
+            self._build_optimizer()
+        self.model.load_state_dict(payload["params"])
+        try:
+            if payload["meta"]["optimizer"] != self._optimizer_signature():
+                raise ValueError(payload["meta"]["optimizer"])
+            self.optimizer.load_state_dict(payload["opt_state"])
+        except (ValueError, KeyError) as e:
+            raise RuntimeError(
+                "Training-state checkpoint does not match this Trainer's "
+                "optimizer configuration: resume requires the same "
+                "optimizer/schedule/clip_grad_norm settings as the run "
+                f"that saved {path!r}."
+            ) from e
+        self.step = int(payload["meta"]["step"])
+        self._attach_schedule()
+        avg = payload.get("avg")
+        if self.averaging is not None and avg and avg["count"] > 0:
+            self._avg = {n: a.clone() for n, a in avg["params"].items()}
+            self._avg_count = int(avg["count"])
+        return int(payload["meta"]["epoch"])

@@ -89,6 +89,7 @@ def _register_framework_classes() -> None:
     import graphnet_tpu_torch.models.task.reconstruction as rec_tasks
     import graphnet_tpu_torch.models.task.task as task_base
     import graphnet_tpu_torch.models.transformer.iseecube as iseecube
+    import graphnet_tpu_torch.training.labels as labels
     import graphnet_tpu_torch.training.loss_functions as losses
     from graphnet_tpu_torch.models.detector.detector import _DETECTOR_REGISTRY
     from graphnet_tpu_torch.models.detector.prometheus import Prometheus
@@ -96,7 +97,7 @@ def _register_framework_classes() -> None:
     for mod in (graphs, graph_definition, nodes, edges, convnet, dynedge,
                 jinst, tito, icemix, particlenet, rnn_tito, node_rnn,
                 iseecube, sm, cls_tasks, rec_tasks, task_base, losses,
-                dataset_mod, sqlite_dataset):
+                dataset_mod, sqlite_dataset, labels):
         for name, obj in vars(mod).items():
             if inspect.isclass(obj) and obj.__module__ == mod.__name__:
                 register_class(obj, name)

@@ -299,8 +299,10 @@ def test_multi_head_attention_bias_takes_the_dense_path():
     exp = np.asarray(jmod.apply(params, x, mask, bias))
     got = tmod(torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(bias))
     np.testing.assert_allclose(got.detach().numpy(), exp, rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        MultiHeadAttention(64, 2, dropout_rate=0.1)
+    # attention dropout that is off (deterministic) leaves the route alone
+    assert not MultiHeadAttention(64, 2, dropout_rate=0.1).uses_flash(
+        torch.from_numpy(bias))
+    assert MultiHeadAttention(64, 2, dropout_rate=0.1).uses_flash()
 
 
 @pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])

@@ -41,6 +41,22 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_top_level_name_defined_twice(path):
+    """A second ``def`` of a module-level name silently replaces the
+    first for every caller, those written against the first too."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    seen, twice = set(), []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            if node.name in seen:
+                twice.append(node.name)
+            seen.add(node.name)
+    assert not twice, f"{path.relative_to(ROOT)} defines {twice} twice"
+
+
 def test_port_imports_and_runs_without_jax():
     script = textwrap.dedent(
         """
