@@ -97,6 +97,28 @@ Phases, each printing one JSON line:
    CPU's adjacency fed to the card; then ``fit`` with validation,
    ``predict`` and the ``state_dict.pkl`` round trip.  Then the
    bfloat16 mode;
+8b. train_pipeline, train_pipeline_bf16: the input pipeline of
+   ``examples/03_training/08_high_throughput_pipeline.py`` (the
+   synthetic database of 512 events made from seed 0 in a temporary
+   directory, ``SQLiteDataset`` through the native fetch, the loader's
+   two threads and native padding, batches of 32) training the
+   full-width DynEdge energy model (the train phase's weights) two
+   epochs a route, with ``steps_per_dispatch=4``: P plain; S with
+   ``DataLoader(stack_k=4)`` and ``fit(prefetch=4)``, whose losses and
+   parameters must equal P's within 1e-5 of each parameter's max; M from
+   the store ``materialize`` packs from the loader (its replay without
+   shuffling the loader's batches bit for bit) through ``MaterializedLoader(
+   stack_k=4)`` and ``prefetch=4``; C through ``CachingLoader(store=
+   "device")``, every batch on the card from epoch 1.  5 kNN, 4 EdgeConv
+   and 4 EdgeConv-backward launches every step of every route, every
+   loss finite, the native padding and SQLite counters risen; in fp32
+   step 1 of S held against the CPU fed the card's adjacency.  Printed:
+   the ``g++`` version, each route's events/s per epoch, the step ms on
+   one batch, the idle share of 5 steps of S with its pipeline running,
+   and the loader's host ms for one batch (whole, and its fetch and
+   padding through the native and the plain routes); then
+   train_pipeline_examples: the two pipeline examples' command lines
+   (``materialize_and_replay``; ``high_throughput_pipeline`` one epoch);
 9. serve_tito, train_tito: the same two paths for the full-width
    DynEdgeTITO direction model (``VonMisesFisher3DLoss``) at the JAX
    bench's TITO shape, B=8, L=1024: 1 kNN, 4 EdgeConv and 4 flash
@@ -1978,7 +2000,10 @@ def profiled_rows(torch, fn, calls, attempts=3):
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = []
         for ev in prof.key_averages():
-            if "CUDA" not in str(getattr(ev, "device_type", "")):
+            # a user annotation (the optimizer's "Optimizer.step#...")
+            # spans kernels that are rows of their own
+            if ("CUDA" not in str(getattr(ev, "device_type", ""))
+                    or getattr(ev, "is_user_annotation", False)):
                 continue
             us = getattr(ev, "device_time_total", None)
             if us is None:
@@ -3744,6 +3769,413 @@ def example_clis(torch, device, counters, names, smi, tmp):
     return {"examples": report, "card": smi}
 
 
+# ------------------------------------------------------- the input pipeline
+
+PIPELINE_EVENTS = 512
+PIPELINE_B = 32
+PIPELINE_K = 4
+PIPELINE_EPOCHS = 2
+
+
+def pipeline_loader(db, stack_k=0):
+    """The high-throughput example's loader over the database ``db``:
+    ``SQLiteDataset`` with ``KNNGraph(Prometheus())``, batches of 32 from
+    the default ``auto:2`` buckets, shuffled from seed 0, two loader
+    threads, ``drop_last``, and ``stack_k``."""
+    from graphnet_tpu_torch.data.constants import FEATURES as DATA_FEATURES
+    from graphnet_tpu_torch.data.constants import TRUTH
+    from graphnet_tpu_torch.data.dataloader import DataLoader
+    from graphnet_tpu_torch.data.sqlite_dataset import SQLiteDataset
+    from graphnet_tpu_torch.models.detector.prometheus import Prometheus
+    from graphnet_tpu_torch.models.graphs import KNNGraph
+
+    dataset = SQLiteDataset(
+        path=db, graph_definition=KNNGraph(detector=Prometheus()),
+        pulsemaps="total", features=DATA_FEATURES.PROMETHEUS,
+        truth=TRUTH.PROMETHEUS, truth_table="mc_truth")
+    return DataLoader(dataset, batch_size=PIPELINE_B, shuffle=True, seed=0,
+                      num_workers=2, drop_last=True, stack_k=stack_k)
+
+
+class EpochRates:
+    """A metric logger that keeps each epoch's events/s."""
+
+    def __init__(self):
+        self.events_per_s = []
+
+    def log_metrics(self, metrics, step):
+        if "events_per_s" in metrics:
+            self.events_per_s.append(metrics["events_per_s"])
+
+
+class OnCard:
+    """A loader wrapper that records, for each epoch, whether every
+    tensor of each batch it passed on was on ``device`` already."""
+
+    def __init__(self, loader, device):
+        self.loader, self.device, self.epochs = loader, device, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        seen = []
+        for batch in self.loader:
+            seen.append(all(t.device.type == self.device.type
+                            for t in batch.tensors().values()))
+            yield batch
+        self.epochs.append(seen)
+
+
+def record_steps(trainer, counters, first=None):
+    """Wrap ``trainer.train_step``: per step the launch counts risen and
+    the loss (a device tensor, read after the run, so the steps stay
+    free of host syncs); with a dict ``first``, step 1's batch, loss,
+    gradients and per-layer adjacency go into it."""
+    model = trainer.model
+    steps, store = [], []
+    n_conv = len(model_convs(model))
+    handles = record_adjacency(model, store) if first is not None else []
+    inner = trainer.train_step
+
+    def recording(batch):
+        before = [c.launches for c in counters]
+        loss = inner(batch)
+        steps.append(([c.launches - b for c, b in zip(counters, before)],
+                      loss))
+        if handles and len(steps) == 1:
+            for h in handles:
+                h.remove()
+            first.update(
+                batch=batch.to("cpu"), loss=float(loss),
+                grads={n: p.grad.float().cpu()
+                       for n, p in model.named_parameters()},
+                graphs=[(i.cpu(), m.cpu()) for i, m in store[:n_conv]])
+        return loss
+
+    trainer.train_step = recording
+    return steps
+
+
+def pipeline_route(torch, make, Trainer, loader, counters, dev, dtype,
+                   prefetch=0, first=None):
+    """``Trainer(steps_per_dispatch=4).fit`` of a new model from
+    ``make(dev, dtype)`` over ``loader`` for two epochs, the counts set
+    to 0 just before: per step its launches and loss, each epoch's
+    events/s, the launches of the run and the final parameters."""
+    rates = EpochRates()
+    trainer = Trainer(make(dev, dtype), steps_per_dispatch=PIPELINE_K,
+                      metric_logger=rates)
+    steps = record_steps(trainer, counters, first)
+    for c in counters:
+        c.launches = 0
+    history = trainer.fit(loader, max_epochs=PIPELINE_EPOCHS,
+                          prefetch=prefetch)
+    launches = [c.launches for c in counters]
+    return {
+        "losses": [float(loss) for _, loss in steps],
+        "rose": [r for r, _ in steps],
+        "events_per_s": rates.events_per_s,
+        "train_loss": history["train_loss"],
+        "launches": launches,
+        "params": {n: p.detach().float().cpu()
+                   for n, p in trainer.model.named_parameters()},
+    }
+
+
+def group_major(batches):
+    """``batches`` in a store's replay order without shuffling: grouped
+    by signature, the groups in order of first appearance."""
+    groups = {}
+    for b in batches:
+        groups.setdefault(b.signature(), []).append(b)
+    return [b for g in groups.values() for b in g]
+
+
+def same_bits(torch, a, b):
+    """Whether two batches hold the same tensors, bit for bit."""
+    ta, tb = a.tensors(), b.tensors()
+    return list(ta) == list(tb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(ta.values(), tb.values()))
+
+
+def unstacked(item):
+    """The batches of a loader's item (a StackedBatches or one batch)."""
+    return item.unstack() if hasattr(item, "unstack") else [item]
+
+
+def loader_host_ms(loader):
+    """The loader's host work for one batch of 32, in this thread: the
+    whole batch as the loader runs it (``_one_batch``: fetch, graph
+    build, collate; the native routes), and its two parts with a native
+    and a plain route, each function called directly: the batched SQL
+    queries through the native fetch and through ``sqlite3``, and the
+    padding through the native library and through numpy."""
+    from graphnet_tpu_torch.batch import bucket_for_length, pad_events
+    from graphnet_tpu_torch.native import native_pad_events
+
+    ds = loader.dataset
+    idxs = next(iter(loader._batches()))
+    event_nos = [ds._get_event_index(i) for i in idxs]
+    queries = [(ds.batch_sql(pm, ds._features, event_nos, ds._selection),
+                len(ds._features) + 1) for pm in ds._pulsemaps]
+    queries.append((ds.batch_sql(ds._truth_table, ds._truth[1:], event_nos),
+                    len(ds._truth)))
+    ds._establish_connection(idxs[0])
+    for sql, n in queries:
+        assert np.array_equal(ds.rows_native(sql, n, len(idxs)),
+                              ds.rows_sqlite3(sql, n))
+    features, _ = ds.get_batch_arrays(idxs)
+    xs = ds._graph_definition.build_x_batched(features)
+    L = bucket_for_length(max(len(x) for x in xs), loader.buckets)
+    for a, b in zip(native_pad_events(xs, L), pad_events(xs, length=L)):
+        assert np.array_equal(a, b)
+    ms = {
+        "batch_native": host_s(lambda: loader._one_batch(idxs), runs=15) * 1e3,
+        "fetch_native": host_s(lambda: [ds.rows_native(sql, n, len(idxs))
+                                        for sql, n in queries]) * 1e3,
+        "fetch_sqlite3": host_s(lambda: [ds.rows_sqlite3(sql, n)
+                                         for sql, n in queries]) * 1e3,
+        "pad_native": host_s(lambda: native_pad_events(xs, L)) * 1e3,
+        "pad_numpy": host_s(lambda: pad_events(xs, length=L)) * 1e3,
+    }
+    ds._close_connection()
+    # the same batch with the plain parts in place of the native ones
+    ms["batch_plain_derived"] = (ms["batch_native"] - ms["fetch_native"]
+                                 - ms["pad_native"] + ms["fetch_sqlite3"]
+                                 + ms["pad_numpy"])
+    return {"B": len(idxs), "L": L, "ms": ms}
+
+
+def route_s_idle(torch, trainer, loader, dev, calls=5):
+    """The device's idle share over ``calls`` steps of route S with its
+    pipeline running: one stack taken first (warm-up), then the steps on
+    the views of the next stacks, each stack copied by the pipeline's
+    producer."""
+    from graphnet_tpu_torch.data.prefetch import EpochPipeline
+
+    with EpochPipeline(loader, 1, prefetch=PIPELINE_K, device=dev) as pipe:
+        items = pipe.epoch()
+        trainer.train_steps(unstacked(next(items)))
+
+        def views():
+            for item in items:
+                yield from unstacked(item)
+
+        it = views()
+        prof = device_profile(torch, lambda: trainer.train_step(next(it)),
+                              calls=calls)
+        for _ in it:  # the epoch's end marker
+            pass
+    return prof
+
+
+ROUTE_S_PROCESS = r"""
+import json, pickle, sys
+import torch
+import chip_smoke as cs
+from graphnet_tpu_torch.training.trainer import Trainer
+db, tree_pkl, dtypes = sys.argv[1:4]
+with open(tree_pkl, "rb") as f:
+    tree = pickle.load(f)
+dev = torch.device("cuda")
+profiles = {}
+for dtype in dtypes.split(","):
+    trainer = Trainer(cs.dynedge_energy_trainable(
+        tree, dev, None if dtype == "float32" else dtype))
+    loader = cs.pipeline_loader(db, stack_k=cs.PIPELINE_K)
+    profiles[dtype] = cs.route_s_idle(torch, trainer, loader, dev)
+print(json.dumps(profiles))
+"""
+
+
+def route_s_idle_process(db, tree, dtypes, tmp):
+    """:func:`route_s_idle` of the model with the JAX-layout weights
+    ``tree`` in each of ``dtypes``, in one new process, so that this
+    process runs no extra profiler session: after extra sessions a later
+    one now and then records no device activity at all (the times
+    phase's kNN checks failed so once with zoo requests profiled in
+    their phase, and once with these steps profiled here)."""
+    pkl = os.path.join(tmp, "train_tree.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(tree, f)
+    done = subprocess.run(
+        [sys.executable, "-c", ROUTE_S_PROCESS, db, pkl, ",".join(dtypes)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def train_pipeline(torch, make, Trainer, counters, expect, dev, tmp, smi,
+                   idle, dtype=None):
+    """The input pipeline of ``examples/03_training/08_high_throughput_
+    pipeline.py`` (the synthetic database of 512 events, seed 0; loader
+    threads, native fetch and padding) training the full-width DynEdge
+    energy model from ``make(device, dtype)`` two epochs each route:
+
+    * P: ``steps_per_dispatch=4``, no stacking, no prefetch;
+    * S: ``DataLoader(stack_k=4)``, ``steps_per_dispatch=4``,
+      ``prefetch=4``: the same steps in the same order, so the same
+      losses and parameters as P within 1e-5 of each parameter's max;
+    * M: ``materialize`` the loader, its replay without shuffling equal
+      to the loader's batches bit for bit, then
+      ``MaterializedLoader(stack_k=4)`` with ``prefetch=4``;
+    * C: ``CachingLoader(store="device")``: from epoch 1 on every
+      batch on the card already.
+
+    Every step of every route launches ``expect`` and has a finite loss;
+    the native padding and SQLite counters rise.  In fp32 step 1 of S is
+    held against the port on the CPU fed the card's adjacency (loss rtol
+    1e-3, each gradient within 1e-3 of its max).  ``idle(db, dtype)``
+    gives the profile of route S's steps (:func:`route_s_idle_process`
+    on the card)."""
+    from graphnet_tpu_torch import native
+    from graphnet_tpu_torch.data.materialized import (
+        MaterializedLoader,
+        materialize,
+    )
+    from graphnet_tpu_torch.data.prefetch import CachingLoader
+    from graphnet_tpu_torch.datasets.synthetic import cached_prometheus_db
+
+    db = cached_prometheus_db(PIPELINE_EVENTS, seed=0, cache_dir=tmp)
+    native_before = (native.native_pad_events.calls,
+                     native.sqlite_fetch_f64.calls)
+    first = {} if dtype is None else None
+    routes = {}
+    routes["P"] = pipeline_route(torch, make, Trainer, pipeline_loader(db),
+                                 counters, dev, dtype)
+    routes["S"] = pipeline_route(torch, make, Trainer,
+                                 pipeline_loader(db, stack_k=PIPELINE_K),
+                                 counters, dev, dtype, prefetch=PIPELINE_K,
+                                 first=first)
+    loader = pipeline_loader(db)
+    store = os.path.join(tmp, f"store_{dtype or 'float32'}")
+    meta = materialize(loader, store)
+    replay = list(MaterializedLoader(store, shuffle=False, device=dev,
+                                     to_device=False))
+    batches = group_major(list(loader))
+    assert len(replay) == len(batches) == meta["n_batches"]
+    assert all(same_bits(torch, a, b) for a, b in zip(replay, batches)), (
+        "the store's replay differs from the loader's batches")
+    routes["M"] = pipeline_route(
+        torch, make, Trainer,
+        MaterializedLoader(store, stack_k=PIPELINE_K, device=dev),
+        counters, dev, dtype, prefetch=PIPELINE_K)
+    cache = OnCard(CachingLoader(pipeline_loader(db), store="device",
+                                 device=dev), dev)
+    routes["C"] = pipeline_route(torch, make, Trainer, cache, counters, dev,
+                                 dtype)
+    assert len(cache.epochs) == PIPELINE_EPOCHS and all(
+        all(e) for e in cache.epochs[1:]), cache.epochs
+    native_calls = {
+        "native_pad_events": native.native_pad_events.calls - native_before[0],
+        "sqlite_fetch_f64": native.sqlite_fetch_f64.calls - native_before[1]}
+    assert all(n > 0 for n in native_calls.values()), native_calls
+
+    for key, r in routes.items():
+        assert r["rose"] and all(x == expect for x in r["rose"]), (key,
+                                                                    r["rose"])
+        assert np.isfinite(r["losses"]).all(), (key, r["losses"])
+    p, s = routes["P"], routes["S"]
+    assert len(p["losses"]) == len(s["losses"])
+    np.testing.assert_allclose(s["losses"], p["losses"], rtol=1e-5,
+                               err_msg="S's losses against P's")
+    param_err = {}
+    for name, a in p["params"].items():
+        e = float((s["params"][name] - a).abs().max())
+        scale = float(a.abs().max())
+        assert e <= 1e-5 * scale, f"{name}: S off P by {e} of max {scale}"
+        param_err[name] = e / scale if scale else e
+    bit_equal = (s["losses"] == p["losses"] and all(
+        torch.equal(s["params"][n], a) for n, a in p["params"].items()))
+
+    report = {
+        "dtype": dtype or "float32", "card": smi,
+        "events": PIPELINE_EVENTS, "batch_size": PIPELINE_B,
+        "stack_k": PIPELINE_K, "epochs": PIPELINE_EPOCHS,
+        "store_batches": meta["n_batches"],
+        "store_groups": len(meta["groups"]),
+        "routes": {k: {"steps": len(r["losses"]),
+                       "events_per_s_per_epoch": r["events_per_s"],
+                       "train_loss": r["train_loss"],
+                       "launches": r["launches"]}
+                   for k, r in routes.items()},
+        "launches_per_step": expect,
+        "s_equals_p_bit_for_bit": bit_equal,
+        "s_p_max_param_rel_err": max(param_err.values()),
+        "replay_equals_loader": True,
+        "cache_on_card_from_epoch_1": True,
+        "native_calls": native_calls,
+    }
+
+    # step 1 of S on the CPU, fed the card's adjacency
+    if first is not None:
+        cpu_model = make("cpu", None)
+        graphs = first["graphs"]
+        hooks = feed_adjacency(cpu_model, graphs, "cpu")
+        batch = replace(first["batch"], edges=graphs[0][0],
+                        edge_mask=graphs[0][1])
+        cpu = run_steps(torch, Trainer(cpu_model), [batch])
+        for h in hooks:
+            h.remove()
+        loss_err = abs(first["loss"] - cpu["loss"][0]) / abs(cpu["loss"][0])
+        assert loss_err <= 1e-3, (first["loss"], cpu["loss"][0])
+        grad_err = {}
+        for name, gc in cpu["grads1"].items():
+            e = float((first["grads"][name] - gc).abs().max())
+            scale = float(gc.abs().max())
+            assert e <= 1e-3 * scale, (
+                f"step-1 gradient of {name}: {e} vs max {scale}")
+            grad_err[name] = e / scale if scale else 0.0
+        report.update(step1_loss_card=first["loss"],
+                      step1_loss_cpu=cpu["loss"][0],
+                      step1_loss_rel_err=loss_err,
+                      step1_max_grad_rel_err=max(grad_err.values()),
+                      step1_batch_shape=list(first["batch"].x.shape),
+                      gxx=native.gxx_version(),
+                      loader_host=loader_host_ms(pipeline_loader(db)))
+
+    # step ms on one batch of the pipeline, and the idle share of route S
+    first_batch = next(iter(pipeline_loader(db))).to(dev)
+    report["step"] = {"B": first_batch.batch_size,
+                      "L": first_batch.max_length,
+                      **train_times(torch, Trainer(make(dev, dtype)),
+                                    first_batch)}
+    report["route_s_5_steps"] = idle(db, dtype)
+    return report
+
+
+def pipeline_examples(torch, device, counters, names, smi):
+    """The two pipeline examples' command lines on ``device``
+    (``materialize_and_replay``; ``high_throughput_pipeline`` for one
+    epoch), in this process, with their launches and seconds."""
+    from graphnet_tpu_torch.examples import (
+        high_throughput_pipeline,
+        materialize_and_replay,
+    )
+
+    report = []
+    for module, argv in (
+            (materialize_and_replay, ["--device", str(device)]),
+            (high_throughput_pipeline, ["--device", str(device),
+                                        "--max-epochs", "1"])):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer = module.main(argv)
+        seconds = time.perf_counter() - t0
+        assert trainer.step > 0
+        report.append({"example": module.__name__.rsplit(".", 1)[1],
+                       "seconds": seconds, "steps": trainer.step,
+                       "launches": dict(zip(names, [c.launches
+                                                    for c in counters]))})
+    return {"examples": report, "card": smi}
+
+
 def serving_queue_phase(torch, module, events, counters, expect):
     """``serve_events_parallel`` (QUEUE_THREADS threads, batches of at
     most QUEUE_MAX_BATCH) against one direct call of ``module`` (a
@@ -4358,6 +4790,35 @@ def main() -> int:
     emit({"phase": "train_bf16", **report,
           "launches": dict(zip(names, launches_t16)),
           "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 7a. (8b.) the input pipeline: the synthetic database through the native
+    # fetch and padding, stack_k, steps_per_dispatch, prefetch, the store
+    # and the cache, training the same model in fp32 and bf16
+    pipe_tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    t0 = time.perf_counter()
+    idle = {}
+
+    def pipeline_idle(db, dtype):  # both dtypes' profiles in one process
+        if not idle:
+            idle.update(route_s_idle_process(
+                db, train_tree, ("float32", "bfloat16"), pipe_tmp))
+        return idle[dtype or "float32"]
+
+    report = train_pipeline(torch, make_trainable, Trainer, counters,
+                            dynedge_step, dev, pipe_tmp, smi, pipeline_idle)
+    emit({"phase": "train_pipeline", **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    report = train_pipeline(torch, make_trainable, Trainer, counters,
+                            dynedge_step, dev, pipe_tmp, smi, pipeline_idle,
+                            "bfloat16")
+    emit({"phase": "train_pipeline_bf16", **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    report = pipeline_examples(torch, "cuda", counters, names, smi)
+    emit({"phase": "train_pipeline_examples", **report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    shutil.rmtree(pipe_tmp)
 
     # 7b. TITO direction serving through DeploymentModule, B=8, L=1024
     t0 = time.perf_counter()

@@ -9,7 +9,9 @@ which is what runs for tensors on the CPU.
 
 This package imports ``torch`` and ``numpy`` only (and pandas inside
 the calls that read or return tables: a detector's geometry table,
-``Trainer.predict_as_dataframe``).
+``Trainer.predict_as_dataframe``; pyarrow inside the Parquet dataset's
+calls).  Its host-side C++ (``csrc/host``: padding, the SQLite fetch) is
+built by ``g++`` at first use (``native.py``).
 """
 
 from graphnet_tpu_torch.device import resolve_device

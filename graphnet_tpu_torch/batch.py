@@ -8,7 +8,7 @@ length *buckets* so only a few shapes occur.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,23 +46,62 @@ class EventBatch:
     edge_mask: Optional[torch.Tensor] = None
     event_weight: Optional[torch.Tensor] = None
 
-    def to(self, device: DeviceLike) -> "EventBatch":
-        """Copy of the batch with every tensor on ``device``."""
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "EventBatch":
+        """Copy of the batch with ``fn`` applied to every tensor."""
 
-        def move(t):
-            return None if t is None else t.to(device, non_blocking=True)
+        def f(t):
+            return None if t is None else fn(t)
 
         return replace(
             self,
-            x=move(self.x),
-            mask=move(self.mask),
-            n_pulses=move(self.n_pulses),
-            labels={k: move(v) for k, v in self.labels.items()},
-            node_labels={k: move(v) for k, v in self.node_labels.items()},
-            edges=move(self.edges),
-            edge_mask=move(self.edge_mask),
-            event_weight=move(self.event_weight),
+            x=f(self.x),
+            mask=f(self.mask),
+            n_pulses=f(self.n_pulses),
+            labels={k: f(v) for k, v in self.labels.items()},
+            node_labels={k: f(v) for k, v in self.node_labels.items()},
+            edges=f(self.edges),
+            edge_mask=f(self.edge_mask),
+            event_weight=f(self.event_weight),
         )
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the batch by a stable name (``x``, ``mask``,
+        ``n_pulses``, ``labels/<k>``, ``node_labels/<k>`` sorted, then
+        ``edges``, ``edge_mask``, ``event_weight`` where set)."""
+        out = {"x": self.x, "mask": self.mask, "n_pulses": self.n_pulses}
+        for k in sorted(self.labels):
+            out[f"labels/{k}"] = self.labels[k]
+        for k in sorted(self.node_labels):
+            out[f"node_labels/{k}"] = self.node_labels[k]
+        for name in ("edges", "edge_mask", "event_weight"):
+            if getattr(self, name) is not None:
+                out[name] = getattr(self, name)
+        return out
+
+    @classmethod
+    def from_tensors(cls, tensors: Dict[str, torch.Tensor]) -> "EventBatch":
+        """The inverse of :meth:`tensors`."""
+
+        def prefixed(prefix):
+            return {name[len(prefix):]: t for name, t in tensors.items()
+                    if name.startswith(prefix)}
+
+        return cls(
+            x=tensors["x"], mask=tensors["mask"], n_pulses=tensors["n_pulses"],
+            labels=prefixed("labels/"), node_labels=prefixed("node_labels/"),
+            edges=tensors.get("edges"), edge_mask=tensors.get("edge_mask"),
+            event_weight=tensors.get("event_weight"),
+        )
+
+    def signature(self) -> Tuple:
+        """The name, dtype and shape of every tensor: batches with one
+        signature stack into one :class:`StackedBatches`."""
+        return tuple((name, t.dtype, tuple(t.shape))
+                     for name, t in self.tensors().items())
+
+    def to(self, device: DeviceLike) -> "EventBatch":
+        """Copy of the batch with every tensor on ``device``."""
+        return self.map(lambda t: t.to(device, non_blocking=True))
 
     @property
     def batch_size(self) -> int:
@@ -75,6 +114,42 @@ class EventBatch:
     @property
     def num_features(self) -> int:
         return self.x.shape[2]
+
+
+@dataclass
+class StackedBatches:
+    """k batches of one signature as one batch whose tensors carry a
+    leading ``k`` dimension (``batches.x`` is ``[k, B, L, D]``).
+
+    ``DataLoader(stack_k=k)`` and ``MaterializedLoader(stack_k=k)`` stack
+    them on the host, so that the Trainer copies the k batches to its
+    device at once and then runs k optimiser steps on views of them.
+    """
+
+    batches: EventBatch
+    k: int
+
+    @property
+    def batch_size(self) -> int:
+        """Events over the k batches."""
+        return self.k * int(self.batches.x.shape[1])
+
+    def unstack(self) -> List[EventBatch]:
+        """The k batches (views of the stacked tensors)."""
+        return [self.batches.map(lambda t, i=i: t[i]) for i in range(self.k)]
+
+    def to(self, device: DeviceLike) -> "StackedBatches":
+        return StackedBatches(batches=self.batches.to(device), k=self.k)
+
+
+def stack_batches(batches: Sequence[EventBatch]) -> StackedBatches:
+    """``torch.stack`` batches of one signature into a StackedBatches."""
+    parts = [b.tensors() for b in batches]
+    return StackedBatches(
+        batches=EventBatch.from_tensors(
+            {name: torch.stack([p[name] for p in parts]) for name in parts[0]}),
+        k=len(batches),
+    )
 
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)

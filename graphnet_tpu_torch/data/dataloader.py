@@ -1,13 +1,17 @@
 """Events to bucketed, padded batches (counterpart of
 ``graphnet_tpu/data/dataloader.py``).
 
-Padding is numpy on the host; batches come back as CPU tensors and the
+Padding runs in C++ on the host (``graphnet_tpu_torch/native.py``:
+``native_pad_events``), or in numpy (``batch.pad_events``) where the
+library cannot be built; batches come back as CPU tensors and the
 caller (the Trainer, ``DeploymentModule``) moves them to its device.
 Labels take the JAX package's dtypes after its packed transport: float
-labels float32, integer labels int32, booleans bool.  Not ported yet:
-``stack_k`` and the packed transport itself (both exist for the TPU
-runtime's per-dispatch costs), the native padding and SQLite bindings
-(``native/*.cpp``) and the prefetching wrapper.
+labels float32, integer labels int32, booleans bool.  ``stack_k > 1``
+stacks k batches of one signature on the host
+(:class:`~graphnet_tpu_torch.batch.StackedBatches`), for
+``Trainer(steps_per_dispatch=k)``.  Not ported: the packed-label
+transport itself (``HostPackedBatch``), which exists for the TPU
+runtime's cost per transferred array.
 """
 
 from __future__ import annotations
@@ -23,8 +27,16 @@ from graphnet_tpu_torch.batch import (
     EventBatch,
     bucket_for_length,
     pad_events,
+    stack_batches,
 )
 from graphnet_tpu_torch.models.graphs.graph_definition import Event
+from graphnet_tpu_torch.native import native_pad_events, native_pad_node_labels
+
+
+def _pad(xs: List[np.ndarray], L: int):
+    """The native padding, or numpy's where the library is unavailable."""
+    native = native_pad_events(xs, L)
+    return native if native is not None else pad_events(xs, length=L)
 
 
 def _label_tensor(v: np.ndarray) -> torch.Tensor:
@@ -50,10 +62,10 @@ def collate_events(
     events = [e for e in events if e.n_pulses >= min_pulses]
     if not events:
         return None
-    x, mask, n_pulses = pad_events(
-        [e.x for e in events], length=length, buckets=buckets
-    )
-    B, L = mask.shape
+    max_n = max(e.n_pulses for e in events)
+    L = length if length is not None else bucket_for_length(max_n, buckets)
+    x, mask, n_pulses = _pad([e.x for e in events], L)
+    B = len(events)
 
     # labels common to every event, numeric only
     keys = set(events[0].labels)
@@ -71,11 +83,13 @@ def collate_events(
     for e in events[1:]:
         nl_keys &= set(e.node_labels)
     for k in sorted(nl_keys):
-        arr = np.zeros((B, L), dtype=np.float32)
-        for i, e in enumerate(events):
-            v = np.asarray(e.node_labels[k]).reshape(-1)
-            n = min(len(v), L)
-            arr[i, :n] = v[:n]
+        vals = [np.asarray(e.node_labels[k]).reshape(-1) for e in events]
+        arr = native_pad_node_labels(vals, L)
+        if arr is None:
+            arr = np.zeros((B, L), dtype=np.float32)
+            for i, v in enumerate(vals):
+                n = min(len(v), L)
+                arr[i, :n] = v[:n]
         node_labels[k] = torch.from_numpy(arr)
 
     return EventBatch(
@@ -117,7 +131,7 @@ def collate_from_arrays(
         if length is not None
         else bucket_for_length(int(counts.max()), buckets)
     )
-    x, mask, n_pulses = pad_events(xs, length=L)
+    x, mask, n_pulses = _pad(xs, L)
 
     truth_cols = {k: truth_mat[:, i] for i, k in enumerate(truth_names)}
     # the per-event route's merge order: derived pid labels first, truth
@@ -195,8 +209,12 @@ class DataLoader:
     (:func:`collate_from_arrays`: two SQL queries, one detector pass,
     column labels) where the dataset, its graph definition and its
     custom labels allow it, else the Event route.  ``num_workers > 0``
-    runs whole batches on a pool of threads, in order.  ``stack_k > 1``
-    is not ported (it groups batches for the TPU runtime's transfers).
+    runs whole batches on a pool of threads, in order (each thread opens
+    its own SQLite connections).  ``stack_k > 1`` groups k batches of one
+    signature (shapes, label keys and dtypes) and yields them stacked on
+    the host as a :class:`~graphnet_tpu_torch.batch.StackedBatches`; at
+    the end of an epoch the batches left in each group follow singly, in
+    the JAX package's order.  ``len()`` counts batches either way.
     """
 
     def __init__(
@@ -213,11 +231,6 @@ class DataLoader:
         num_workers: int = 0,
         stack_k: int = 0,
     ):
-        if int(stack_k) > 1:
-            raise NotImplementedError(
-                "DataLoader(stack_k > 1) is not ported: it groups batches "
-                "for the TPU runtime's transfer cost"
-            )
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -240,6 +253,7 @@ class DataLoader:
         self.bucket_width = bucket_width
         self.drop_last = drop_last
         self.num_workers = num_workers
+        self.stack_k = int(stack_k)
         self._pool = None
         self._fast_ok: Optional[bool] = None
         self._lengths: Optional[np.ndarray] = None
@@ -378,10 +392,7 @@ class DataLoader:
         while inflight:
             yield inflight.popleft().result()
 
-    def __iter__(self) -> Iterator[EventBatch]:
-        self.buckets  # resolve "auto"
-        self._valid_slots = 0
-        self._total_slots = 0
+    def _plain(self) -> Iterator[EventBatch]:
         for res in self._results():
             if res is None:
                 continue
@@ -389,6 +400,32 @@ class DataLoader:
             self._valid_slots += valid
             self._total_slots += total
             yield batch
+
+    def __iter__(self) -> Iterator[EventBatch]:
+        self.buckets  # resolve "auto"
+        self._valid_slots = 0
+        self._total_slots = 0
+        if self.stack_k > 1:
+            yield from self._iter_stacked(self._plain())
+        else:
+            yield from self._plain()
+
+    def _iter_stacked(self, src: Iterator[EventBatch]) -> Iterator:
+        """Groups of ``stack_k`` batches of one signature, stacked; the
+        groups' leftovers singly at the end, group by group in the order
+        each group was (re)opened."""
+        k = self.stack_k
+        buf: Dict[tuple, List[EventBatch]] = {}
+        for batch in src:
+            key = batch.signature()
+            group = buf.setdefault(key, [])
+            group.append(batch)
+            if len(group) < k:
+                continue
+            del buf[key]
+            yield stack_batches(group)
+        for group in buf.values():
+            yield from group
 
     @property
     def padding_efficiency(self) -> float:

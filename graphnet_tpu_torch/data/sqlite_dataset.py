@@ -1,11 +1,14 @@
 """SQLite-backed dataset (counterpart of
-``graphnet_tpu/data/sqlite_dataset.py``), through Python's ``sqlite3``.
+``graphnet_tpu/data/sqlite_dataset.py``).
 
 Connections are per thread (``sqlite3`` connections are bound to the
 thread that opened them), so ``DataLoader(num_workers=N)``'s pool
 threads each open their own, and they are closed after set-up so that
-a forked worker opens its own too.  The JAX package's native SQLite
-fetch (``native/sqlite_fetch.cpp``) is not bound yet.
+a forked worker opens its own too.  The batched fetch runs its queries
+through the native fetch (``graphnet_tpu_torch/native.py``, one native
+read-only handle per thread, GIL released) and takes Python's
+``sqlite3`` where that is unavailable (several databases, no compiler)
+or a cell is not numeric.
 """
 
 from __future__ import annotations
@@ -18,6 +21,22 @@ import numpy as np
 
 from graphnet_tpu_torch.data.dataset import ColumnMissingException, Dataset
 from graphnet_tpu_torch.models.graphs.graph_definition import Event
+from graphnet_tpu_torch.native import sqlite_close, sqlite_fetch_f64, sqlite_open
+
+
+class _NativeHandle:
+    """A thread's native SQLite handle, closed when that thread's storage
+    drops it (a loader thread that ends) or by ``close``."""
+
+    def __init__(self, value: int):
+        self.value = value
+
+    def close(self) -> None:
+        sqlite_close(self.value)
+        self.value = None
+
+    def __del__(self):
+        self.close()
 
 
 class SQLiteDataset(Dataset):
@@ -54,6 +73,18 @@ class SQLiteDataset(Dataset):
         state = dict(self.__dict__)
         state.pop("_tls_store", None)
         return state
+
+    def _native_handle(self) -> Optional[int]:
+        """The calling thread's native SQLite handle for the batched
+        fetch; None where it is unavailable (several databases, no
+        compiler or ``libsqlite3``)."""
+        tls = self._tls
+        h = getattr(tls, "native_handle", None)
+        if h is None:
+            opened = (sqlite_open(self._path)
+                      if self._database_list is None else None)
+            h = tls.native_handle = _NativeHandle(opened) if opened else False
+        return h.value if h else None
 
     def _post_init(self) -> None:
         self._remove_missing_columns()
@@ -174,6 +205,10 @@ class SQLiteDataset(Dataset):
     def _close_connection(self) -> None:
         """Close the calling thread's connections."""
         tls = self._tls
+        h = getattr(tls, "native_handle", None)
+        if h:
+            h.close()
+            tls.native_handle = None
         if self._conn is not None:
             if self._database_list is None:
                 self._conn.close()
@@ -198,26 +233,11 @@ class SQLiteDataset(Dataset):
         """One ``WHERE event_no IN (...)`` query, grouped by event with a
         stable sort (the rows of an event keep the per-event query's
         order: both follow the table's scan order)."""
-        cols = ", ".join(columns)
-        sel = f" and {selection}" if selection else ""
-        in_list = ",".join(str(int(e)) for e in event_nos)
-        sql = (
-            f"SELECT {self._index_column}, {cols} FROM {table} "
-            f"WHERE {self._index_column} IN ({in_list}){sel}"
-        )
-        try:
-            rows = self._conn.execute(sql).fetchall()
-        except sqlite3.OperationalError as e:
-            if "no such column" in str(e):
-                raise ColumnMissingException(str(e)) from e
-            raise
-        # NULL or TEXT cells raise here, and the callers take the
-        # per-event route
-        arr = (
-            np.asarray(rows, dtype=np.float64)
-            if rows
-            else np.zeros((0, len(columns) + 1))
-        )
+        sql = self.batch_sql(table, columns, event_nos, selection)
+        ncols = len(columns) + 1
+        arr = self.rows_native(sql, ncols, len(event_nos))
+        if arr is None:
+            arr = self.rows_sqlite3(sql, ncols)
         grouped: Dict[int, np.ndarray] = {}
         if len(arr):
             order = np.argsort(arr[:, 0], kind="stable")
@@ -231,6 +251,49 @@ class SQLiteDataset(Dataset):
         for e in event_nos:
             grouped.setdefault(int(e), empty)
         return grouped
+
+    def batch_sql(
+        self,
+        table: str,
+        columns: List[str],
+        event_nos: List[int],
+        selection: Optional[str] = None,
+    ) -> str:
+        """The batched query of :meth:`_query_batch`: the index column
+        and ``columns`` of the events ``event_nos``."""
+        cols = ", ".join(columns)
+        sel = f" and {selection}" if selection else ""
+        in_list = ",".join(str(int(e)) for e in event_nos)
+        return (
+            f"SELECT {self._index_column}, {cols} FROM {table} "
+            f"WHERE {self._index_column} IN ({in_list}){sel}"
+        )
+
+    def rows_native(
+        self, sql: str, ncols: int, n_events: int
+    ) -> Optional[np.ndarray]:
+        """``sql``'s rows as ``[n, ncols]`` float64 through the native
+        fetch; None where it is unavailable or a cell is not numeric."""
+        handle = self._native_handle()
+        if handle is None:
+            return None
+        return sqlite_fetch_f64(handle, sql, ncols,
+                                cap_hint=max(4096, 128 * n_events))
+
+    def rows_sqlite3(self, sql: str, ncols: int) -> np.ndarray:
+        """``sql``'s rows as ``[n, ncols]`` float64 through ``sqlite3``
+        (the connection must be open).  A NULL or TEXT cell raises
+        ``TypeError`` or ``ValueError`` here, and the callers take the
+        per-event route."""
+        try:
+            rows = self._conn.execute(sql).fetchall()
+        except sqlite3.OperationalError as e:
+            if "no such column" in str(e):
+                raise ColumnMissingException(str(e)) from e
+            raise
+        if not rows:
+            return np.zeros((0, ncols))
+        return np.asarray(rows, dtype=np.float64)
 
     def _batched_ok(self, sequential_indices: List[int]) -> bool:
         """The batched queries carry neither several databases, node

@@ -16,9 +16,18 @@ each step from ``(seed + 1, step)``: the counterpart of the JAX
 Trainer's ``fold_in(PRNGKey(seed + 1), step)``, so a resumed run draws
 the masks an unbroken one draws.
 
+``steps_per_dispatch=k`` keeps the JAX Trainer's step order: batches
+are buffered per signature and each group of k runs as k optimiser
+steps in a row, the groups' leftovers one by one at the epoch's end; a
+:class:`~graphnet_tpu_torch.batch.StackedBatches` is copied to the
+device at once and runs as its k steps.  Each step is an ordinary step
+(its own generator seed, schedule step and SWA / EMA update), so the
+numbers equal k single steps in that order.  ``fit(prefetch=N)`` streams
+every epoch through one :class:`~graphnet_tpu_torch.data.prefetch.
+EpochPipeline`.
+
 Not ported: meshes and sharding (``mesh``, ``data_axis``,
-``model_axis``, ``param_sharding``), ``steps_per_dispatch`` and
-``fit(prefetch=...)``.
+``model_axis``, ``param_sharding``).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from graphnet_tpu_torch.batch import EventBatch
+from graphnet_tpu_torch.batch import EventBatch, StackedBatches
 from graphnet_tpu_torch.models.components import stochastic
 from graphnet_tpu_torch.models.standard_model import StandardModel
 from graphnet_tpu_torch.training.callbacks import (
@@ -94,6 +103,7 @@ class Trainer:
         ema_decay: float = 0.999,
         metric_logger: Optional[Any] = None,
         progress_bar: bool = False,
+        steps_per_dispatch: int = 1,
     ) -> None:
         """Args:
         model: the port model, already on its device.
@@ -120,10 +130,17 @@ class Trainer:
             or a wandb-style one with ``log(metrics, step=...)``.
         progress_bar: a tqdm bar over each epoch's batches (tqdm is
             imported only then).
+        steps_per_dispatch: ``fit`` runs the batches of one signature in
+            groups of this many steps, in the JAX Trainer's order (the
+            JAX Trainer runs a group in one device dispatch; here it is
+            a loop of ordinary steps).
         """
         if averaging not in (None, "swa", "ema"):
             raise ValueError(f"averaging must be None, swa or ema; got "
                              f"{averaging!r}")
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1; got "
+                             f"{steps_per_dispatch}")
         self.model = model
         self._factory = optimizer
         self._lr = learning_rate
@@ -135,6 +152,7 @@ class Trainer:
         self.ema_decay = ema_decay
         self.metric_logger = metric_logger
         self.progress_bar = progress_bar
+        self.steps_per_dispatch = steps_per_dispatch
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
         self.step = 0
@@ -231,6 +249,15 @@ class Trainer:
         self._update_averages()
         return loss.detach()
 
+    def train_steps(self, batches) -> torch.Tensor:
+        """One optimiser step per batch, in order: a list of batches of
+        one signature, or a :class:`StackedBatches` (copied to the
+        device at once, then stepped on views of it).  Returns the
+        ``[k]`` losses on the device."""
+        if isinstance(batches, StackedBatches):
+            batches = batches.to(self.device).unstack()
+        return torch.stack([self.train_step(b) for b in batches])
+
     def eval_step(self, batch: EventBatch) -> torch.Tensor:
         """The loss on ``batch``, without gradients (0-d, on the device)."""
         self.model.eval()
@@ -277,6 +304,7 @@ class Trainer:
         ckpt_best: bool = True,
         resume: bool = False,
         profile_dir: Optional[str] = None,
+        prefetch: int = 0,
     ) -> Dict[str, List[float]]:
         """Train for up to ``max_epochs`` over ``train_loader`` (an
         iterable of :class:`EventBatch` with ``len()``); returns the
@@ -300,6 +328,13 @@ class Trainer:
         average) and goes on from the epoch after it.  ``profile_dir``:
         a ``torch.profiler`` trace of the first epoch's steps, written
         there as ``trace.json``.
+
+        ``prefetch > 0`` streams every epoch through one
+        :class:`~graphnet_tpu_torch.data.prefetch.EpochPipeline`
+        (``prefetch`` items deep, from ``start_epoch`` on a resume): a
+        producer thread runs the loader and copies the batches to the
+        model's device, building epoch e+1's first batches while the
+        device finishes epoch e.
         """
         if use_default_schedule and self._schedule is None:
             steps_per_epoch = max(len(train_loader), 1)
@@ -326,6 +361,13 @@ class Trainer:
             start_epoch = self.load_train_state(last_ckpt) + 1
             logger.info("resumed from %s at epoch %d", last_ckpt, start_epoch)
 
+        pipeline = None
+        if prefetch:
+            from graphnet_tpu_torch.data.prefetch import EpochPipeline
+
+            pipeline = EpochPipeline(train_loader, max_epochs,
+                                     prefetch=prefetch, device=self.device,
+                                     start_epoch=start_epoch)
         profiler = None
         if profile_dir is not None:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -335,23 +377,40 @@ class Trainer:
             profiler.start()
         try:
             for epoch in range(start_epoch, max_epochs):
-                if hasattr(train_loader, "set_epoch"):
+                # the pipeline's producer calls set_epoch itself
+                if pipeline is None and hasattr(train_loader, "set_epoch"):
                     train_loader.set_epoch(epoch)
                 t0 = time.perf_counter()
                 losses, n_events = [], 0
-                iterator = train_loader
+                iterator = (pipeline.epoch() if pipeline is not None
+                            else train_loader)
                 if self.progress_bar:
                     from tqdm.auto import tqdm
 
-                    iterator = tqdm(train_loader, total=len(train_loader),
+                    iterator = tqdm(iterator, total=len(train_loader),
                                     desc=f"epoch {epoch}", unit="batch",
                                     leave=False)
+                groups: Dict[Any, List[EventBatch]] = {}
                 for i, batch in enumerate(iterator):
                     n_events += batch.batch_size
-                    loss = self.train_step(batch)
+                    if isinstance(batch, StackedBatches):
+                        losses.append(self.train_steps(batch))
+                        continue
+                    if self.steps_per_dispatch > 1:
+                        # buffered per signature, run k at a time
+                        key = batch.signature()
+                        group = groups.setdefault(key, [])
+                        group.append(batch)
+                        if len(group) < self.steps_per_dispatch:
+                            continue
+                        del groups[key]
+                        loss = self.train_steps(group)
+                    else:
+                        loss = self.train_step(batch)
                     losses.append(loss)
                     if (i + 1) % log_every_n_steps == 0:
-                        last, lr = float(loss), self._current_lr()
+                        last = float(loss.reshape(-1)[-1])
+                        lr = self._current_lr()
                         if self.progress_bar:
                             iterator.set_postfix(train_loss=f"{last:.4f}",
                                                  refresh=False)
@@ -362,8 +421,12 @@ class Trainer:
                         if np.isfinite(lr):
                             metrics["lr"] = lr
                         self._log_metrics(metrics, step=self.step)
+                # the groups' leftovers, one step each
+                for group in groups.values():
+                    losses.extend(self.train_step(b) for b in group)
                 # one host sync per epoch
-                train_loss = float(torch.stack(losses).mean())
+                train_loss = float(
+                    torch.cat([l.reshape(-1) for l in losses]).mean())
                 seconds = time.perf_counter() - t0
                 events_per_s = n_events / max(seconds, 1e-9)
                 history["train_loss"].append(train_loss)
@@ -420,6 +483,8 @@ class Trainer:
         finally:
             if profiler is not None:
                 profiler.stop()
+            if pipeline is not None:
+                pipeline.close()
         if self.averaging is not None and self._avg is not None:
             self._swap_in_average()
             best_state = None  # the average supersedes the best epoch
@@ -503,6 +568,16 @@ class Trainer:
         packages' ``DeploymentModule``s load."""
         with open(path, "wb") as f:
             pickle.dump(params_to_jax(self.model.state_dict()), f)
+
+    def save_model(self, directory: str) -> None:
+        """``model.yml`` and ``state_dict.pkl`` in ``directory``, as the
+        JAX Trainer writes them: both packages' ``DeploymentModule`` load
+        them."""
+        from graphnet_tpu_torch.utils.config import save_model_config
+
+        os.makedirs(directory, exist_ok=True)
+        save_model_config(self.model, os.path.join(directory, "model.yml"))
+        self.save_state_dict(os.path.join(directory, "state_dict.pkl"))
 
     def load_state_dict(self, path: str) -> None:
         """Load a ``state_dict.pkl`` of either package into the model;

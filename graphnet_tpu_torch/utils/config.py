@@ -71,6 +71,7 @@ def _register_framework_classes() -> None:
     import graphnet_tpu_torch.data.dataset as dataset_mod
     import graphnet_tpu_torch.models.detector.icecube  # noqa: F401
     import graphnet_tpu_torch.models.detector.liquido  # noqa: F401
+    import graphnet_tpu_torch.data.parquet_dataset as parquet_dataset
     import graphnet_tpu_torch.data.sqlite_dataset as sqlite_dataset
     import graphnet_tpu_torch.models.graphs.edges as edges
     import graphnet_tpu_torch.models.graphs.graph_definition as graph_definition
@@ -97,7 +98,7 @@ def _register_framework_classes() -> None:
     for mod in (graphs, graph_definition, nodes, edges, convnet, dynedge,
                 jinst, tito, icemix, particlenet, rnn_tito, node_rnn,
                 iseecube, sm, cls_tasks, rec_tasks, task_base, losses,
-                dataset_mod, sqlite_dataset, labels):
+                dataset_mod, sqlite_dataset, parquet_dataset, labels):
         for name, obj in vars(mod).items():
             if inspect.isclass(obj) and obj.__module__ == mod.__name__:
                 register_class(obj, name)

@@ -783,11 +783,12 @@ def from_reference_dataset_config(path: str) -> Any:
     nested ``graph_definition``): a plain selection gives one dataset, a
     ``{name: selection}`` dict ``{name: dataset}``, and a list of
     selection strings an :class:`EnsembleDataset`.  ``$GRAPHNET`` in a
-    path is the repository root.  SQLite files only: the Parquet dataset
-    is not ported yet (ROADMAP.md queue 1, item 11)."""
+    path is the repository root.  The backend follows the path: SQLite
+    for ``.db`` / ``.sqlite`` / ``.sqlite3``, Parquet otherwise."""
     import yaml
 
     from graphnet_tpu_torch.data.dataset import EnsembleDataset
+    from graphnet_tpu_torch.data.parquet_dataset import ParquetDataset
     from graphnet_tpu_torch.data.sqlite_dataset import SQLiteDataset
 
     with open(path) as f:
@@ -797,11 +798,9 @@ def from_reference_dataset_config(path: str) -> Any:
     data_path = cfg.pop("path")
     selection = cfg.pop("selection", None)
     first = data_path[0] if isinstance(data_path, list) else data_path
-    if not str(first).endswith((".db", ".sqlite", ".sqlite3")):
-        raise NotImplementedError(
-            f"{first}: the Parquet dataset is not ported yet (ROADMAP.md "
-            "queue 1, item 11); the port reads SQLite datasets"
-        )
+    cls = (SQLiteDataset
+           if str(first).endswith((".db", ".sqlite", ".sqlite3"))
+           else ParquetDataset)
 
     allowed = {
         "pulsemaps", "features", "truth", "node_truth", "index_column",
@@ -815,8 +814,8 @@ def from_reference_dataset_config(path: str) -> Any:
         warnings.warn(f"reference dataset config: ignored arguments {ignored}")
 
     def one(sel):
-        return SQLiteDataset(path=data_path, graph_definition=graph_definition,
-                             selection=sel, **kwargs)
+        return cls(path=data_path, graph_definition=graph_definition,
+                   selection=sel, **kwargs)
 
     def one_or_ensemble(sel):
         # only a list of selection strings is an ensemble (a list of

@@ -178,8 +178,15 @@ def test_dataloader_options():
     assert len(got) == len(exp) == 3
     for g, e in zip(got, exp):
         _assert_same_batch(g, e)
-    with pytest.raises(NotImplementedError, match="stack_k"):
-        DataLoader(ds, stack_k=2)
+    # stack_k groups batches of one shape (it raised before it was
+    # ported; tests/test_torch_pipeline.py holds it to the JAX loader)
+    stacked = list(DataLoader(ds, batch_size=16, buckets=(64, 128, 256),
+                              length_matching=False, drop_last=True,
+                              stack_k=2))
+    assert [type(b).__name__ for b in stacked] == [
+        "StackedBatches", "EventBatch"]
+    for g, e in zip(stacked[0].unstack() + stacked[1:], exp):
+        _assert_same_batch(g, e)
     # a string selection gives the JAX dataset's events; named selections
     # (a dict) belong in a dataset config
     selected = SQLiteDataset(

@@ -244,3 +244,35 @@ def test_example_matches_the_jax_example(name, tmp_path, monkeypatch, capsys):
     if name == "train_from_config":
         assert {"best", "last", "model.yml", "state_dict.pkl"} <= set(
             os.listdir(out_dir))
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("materialize_and_replay", []),
+    ("high_throughput_pipeline", ["--n-events", "24", "--batch-size", "4",
+                                  "--max-epochs", "1", "--stack-k", "2",
+                                  "--prefetch", "2"]),
+])
+def test_pipeline_example_runs_on_the_cpu(name, argv, tmp_path, monkeypatch,
+                                          capsys):
+    """The two input-pipeline examples' command lines (counterparts of
+    ``01_data/06_materialize_and_replay.py`` and
+    ``03_training/08_high_throughput_pipeline.py``) at a tiny size on the
+    CPU, their temporary files in ``tmp_path``: they train and print the
+    epochs' losses; the JAX examples' defaults; the GPU by default."""
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    example = importlib.import_module(f"graphnet_tpu_torch.examples.{name}")
+    assert example.parse_args([]).device == "cuda"
+    trainer = example.main(argv + ["--device", "cpu"])
+    assert trainer.step > 0
+    assert "train_loss per epoch" in capsys.readouterr().out
+    if name == "high_throughput_pipeline":
+        args = example.parse_args([])
+        assert (args.batch_size, args.n_events, args.stack_k,
+                args.prefetch) == (32, 512, 4, 4)
+        assert trainer.steps_per_dispatch == 2
+        assert os.path.exists(tmp_path / "graphnet_tpu_synth_prometheus_24_0.db")
+    else:
+        # the store's temporary directory was removed
+        assert not [f for f in os.listdir(tmp_path) if f.startswith("tmp")]

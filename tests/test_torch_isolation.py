@@ -1,7 +1,8 @@
 """The port stands alone: it imports no JAX, no flax and nothing of the
 JAX package (serving and a training step, of DynEdge, of TITO and of
 DeepIce, run without them), nothing builds a kernel at import time or on
-the CPU, and its entry points default to the GPU."""
+the CPU, no module starts a compiler when it is imported, and its entry
+points default to the GPU."""
 
 import ast
 import subprocess
@@ -168,6 +169,41 @@ def test_port_imports_and_runs_without_jax():
         text=True,
         timeout=300,
     )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_nothing_compiles_at_import():
+    """Importing every module of the port (the input pipeline's too:
+    ``native``, the datasets, the store and the prefetching loaders) runs
+    no compiler: ``graphnet_tpu_torch.native`` builds its host libraries
+    at their first call only."""
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, subprocess, sys
+        for name in ("jax", "flax", "graphnet_tpu"):
+            sys.modules[name] = None
+        def no_compiler(*args, **kwargs):
+            raise AssertionError(f"a process was started: {args}")
+        subprocess.run = subprocess.Popen = no_compiler
+        import graphnet_tpu_torch
+        for mod in pkgutil.walk_packages(
+            graphnet_tpu_torch.__path__, "graphnet_tpu_torch."
+        ):
+            importlib.import_module(mod.name)
+        from graphnet_tpu_torch import native
+        assert native._libs == {}, native._libs
+        for name in ("data.prefetch", "data.materialized", "data.samplers",
+                     "data.parquet_dataset", "datasets.synthetic",
+                     "training.utils", "examples.materialize_and_replay",
+                     "examples.high_throughput_pipeline"):
+            assert "graphnet_tpu_torch." + name in sys.modules, name
+        assert "pyarrow" not in sys.modules
+        print("ok")
+        """
+    )
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
 

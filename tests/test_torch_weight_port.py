@@ -404,12 +404,25 @@ def test_from_reference_dataset_config_matches_jax(selection, tmp_path):
 
 
 def test_parquet_dataset_config_is_not_ported(tmp_path):
+    """A Parquet dataset config builds the port's ParquetDataset (it
+    raised before the dataset was ported): the JAX package's events."""
+    from graphnet_tpu_torch.data.parquet_dataset import ParquetDataset
+
     cfg = {"path": "$GRAPHNET/data/examples/parquet/prometheus/merged",
-           "pulsemaps": ["total"], "features": ["t"], "truth": ["energy"]}
+           "graph_definition": {"class_name": "KNNGraph", "arguments": {
+               "detector": {"class_name": "Prometheus", "arguments": {}}}},
+           "pulsemaps": ["total"], "features": list(FEATURES.PROMETHEUS),
+           "truth": ["total_energy"], "truth_table": "mc_truth",
+           "selection": [3, 8]}
     path = tmp_path / "pq.yml"
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tport.from_reference_dataset_config(str(path))
+    got = tport.from_reference_dataset_config(str(path))
+    exp = jport.from_reference_dataset_config(str(path))
+    assert isinstance(got, ParquetDataset) and len(got) == len(exp) > 0
+    for i in range(len(exp)):
+        np.testing.assert_array_equal(got[i].x, exp[i].x)
+        assert float(got[i].labels["total_energy"]) == float(
+            exp[i].labels["total_energy"])
 
 
 # the five backbones as narrow GraphNeT configs would name them (RNN_TITO
