@@ -26,7 +26,10 @@ Phases, each printing one JSON line:
    16, 128, 512 and 1024, B=2 at L=4096, TITO's B=8 at L=1024, D=4 at
    L=4096, integer grids with exact ties, strided views of 7 feature
    columns, the query itself allowed, k = 1, 12 and 16, an all-masked
-   batch, and events whose centre the kernel sums serially);
+   batch, and events whose centre the kernel sums serially; since the
+   kernel takes k up to 32, k = 32 at B=128, L=128 for D = 3 and 4, one
+   event of 512, events of 20-33 nodes at L=33, the grids with and
+   without self, and k = 17 and 24);
 4. edgeconv: the fused EdgeConv forward kernel against its plain version
    (both layer shapes and H1=100, H2=72, add/max/mean, fp32 and bf16,
    k = 8, 1, 3, 12 and 64, events of 0, 1, 2, k and k+1 nodes at L = 48
@@ -222,8 +225,29 @@ Phases, each printing one JSON line:
    and peak memory and the gradients of the two; train_backbones_examples:
    the four training examples' command lines (``--device cuda``, one
    epoch);
+11c. edge_rules: the full-width DynEdge energy model (the train
+   phase's weights) behind each edge rule, ``KNNEdges``,
+   ``RadialEdges`` (``max_neighbours`` 32, radius 0.5 in the detector's
+   standardised units), ``MinkowskiKNNEdges`` and ``EuclideanEdges``,
+   evaluated by ``StandardModel`` before the backbone: every event of
+   the bundled database served through ``DeploymentModule`` on the card
+   against the CPU (flips explained, the CPU's graphs fed), the kNN
+   launches by k counted exactly (RadialEdges 1 at k = 32 and 4 at k =
+   8 a forward, the Minkowski and Euclidean rules' first graph in plain
+   PyTorch and 4 kNN launches), and 2 training steps (step 1 against the
+   CPU with its graphs fed); ``KNNEdges`` must equal the model without a
+   rule bit for bit; train_targets: the full-width DynEdge with the nine
+   other heads (their targets the database's truth columns, vertex and
+   interaction time drawn from a seed) trained 3 steps and served from
+   the port's ``model.yml`` + ``state_dict.pkl`` against the CPU, the
+   ``NormalizingFlow`` on log10 E with either transform and the
+   ``SphericalFlow`` on the direction trained 3 steps each (each flow's
+   ``log_prob`` on 101 targets against the CPU), and the energy model
+   trained on ``Uniform`` weights fitted into a copy of the database;
+   targets_examples: the two weight fitters' and the flow and multiclass
+   examples' command lines (one epoch on the card);
 12. times: each kernel, its plain version and its bound (the kNN at
-   B=128, L=128, at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
+   B=128, L=128 (also at k = 32), at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
    its profiled device time, the device work and host time of a call,
    beside an empty kernel's; ``torch.profiler`` must find one device
    kernel a kNN call there and nothing else, also on the unfused
@@ -689,6 +713,22 @@ def knn_cases(torch, rng, dev):
                      + (3, True))
     cases.append(("xyzt_B1_L4096",) + ragged_coords(torch, r, 1, 4096, 4000, dev, D=4)
                  + (K, True))
+    # k = 17-32 (RadialEdges' cap of 32 neighbours): the serving shape
+    # for D = 3 and 4, one event of 512, events of 20-33 nodes at L = 33
+    # (one key more than k, and fewer), the grids' exact ties, the query
+    # allowed, and k = 17 and 24 between
+    r32 = np.random.default_rng(SEED + 20)
+    for D in (3, 4):
+        cases.append((f"k32_B128_L128_D{D}",)
+                     + ragged_coords(torch, r32, 128, 128, 40, dev, D=D) + (32, True))
+    cases.append(("k32_B1_L512",) + ragged_coords(torch, r32, 1, 512, 512, dev)
+                 + (32, True))
+    cases.append(("k32_B6_L33",) + ragged_coords(torch, r32, 6, 33, 20, dev)
+                 + (32, True))
+    cases += [("grid_ties_k32",) + g + (32, True),
+              ("grid_ties_k32_with_self",) + g + (32, False)]
+    x, m = ragged_coords(torch, r32, 8, 64, 2, dev, D=4)
+    cases += [("k17_B8_L64_D4", x, m, 17, True), ("k24_B8_L64_D4", x, m, 24, True)]
     return cases
 
 
@@ -994,12 +1034,15 @@ def answer(gpu, requests, counters, expect):
     return answers, [c.launches for c in counters]
 
 
-def serve(torch, gpu, cpu, requests, counters, expect, dev, collate_events):
+def serve(torch, gpu, cpu, requests, counters, expect, dev, collate_events,
+          column_atol=0.0):
     """Phase 6: the serving path.  Every request goes through ``gpu`` with
     the launch counts checked per forward, then through ``cpu``; events
     that differ beyond rtol 1e-3 must be explained by kNN near-tie
     flips, and with the CPU run's adjacency fed to the card every layer
-    and every event must agree within 1e-3."""
+    and every event must agree within 1e-3.  A model of several columns
+    (``column_atol``) is held at rtol 1e-3 plus ``column_atol`` of each
+    column's largest magnitude, as a column may pass through 0."""
     store = []
     handles = _record(gpu, store)
     answers, launches = answer(gpu, requests, counters, expect)
@@ -1019,9 +1062,10 @@ def serve(torch, gpu, cpu, requests, counters, expect, dev, collate_events):
         got = answers[label]
         empty = np.array([e.n_pulses == 0 for e in evs])
         kept = np.flatnonzero(~empty)
-        assert got.shape == (len(evs), 1)
+        assert got.shape == (len(evs), len(gpu.prediction_columns))
         assert np.isnan(got[empty]).all() and np.isfinite(got[kept]).all()
-        close = np.isclose(got, ref, rtol=1e-3, atol=0.0)[:, 0] | empty
+        atol = column_atol * (np.abs(ref[kept]).max(axis=0) if kept.size else 0.0)
+        close = np.isclose(got, ref, rtol=1e-3, atol=atol).all(axis=1) | empty
         flip_events = np.zeros(len(evs), bool)
         flips = []
         for (gi, gm), (ci, cm) in zip(_adjacencies(rec[label]),
@@ -1049,13 +1093,16 @@ def serve(torch, gpu, cpu, requests, counters, expect, dev, collate_events):
                    for i, c in enumerate(_convs(gpu))]
         handles += _record(gpu, injected)
         with torch.inference_mode():
-            pred = gpu.model(batch.to(dev), inference=True)[0][0]
+            pred = torch.cat([p for p, _ in gpu.model(batch.to(dev),
+                                                      inference=True)], dim=1)
         for h in handles:
             h.remove()
         pred = pred[: len(kept)].float().cpu().numpy()
-        np.testing.assert_allclose(
-            pred, ref[kept], rtol=1e-3, atol=0.0,
-            err_msg=f"{label}: prediction with the CPU adjacency")
+        off = ~np.isclose(pred, ref[kept], rtol=1e-3, atol=atol)
+        assert not off.any(), (
+            f"{label}: prediction with the CPU adjacency: {int(off.sum())} "
+            f"entries beyond rtol 1e-3, the largest difference "
+            f"{float(np.abs(pred - ref[kept]).max())}")
         layer_err = []
         for g, c in zip(injected, store):
             e = float((g[2].cpu() - c[2]).abs().max()) / max(
@@ -1070,7 +1117,8 @@ def serve(torch, gpu, cpu, requests, counters, expect, dev, collate_events):
             "knn_flips_per_graph": flips,
             "layer_rel_err_with_cpu_adjacency": layer_err,
             "max_rel_err": float(np.max(
-                np.abs(got[kept] - ref[kept]) / np.abs(ref[kept]))),
+                np.abs(got[kept] - ref[kept])
+                / np.maximum(np.abs(ref[kept]), atol))),
         })
     return answers, launches, report
 
@@ -1121,11 +1169,12 @@ def serve_bf16(gpu16, requests, answers, counters, expect):
     return launches, report
 
 
-KNN_SHAPES = (  # label, B, L, D, shortest event: row 1's shapes on the path
-    ("B128_L128_D3", 128, 128, 3, 65),
-    ("B8_L1024_D4", TITO_B, TITO_L, 4, TITO_L),
-    ("B1_L128_D3", 1, 128, 3, 128),
-    ("B1_L512_D3", 1, 512, 3, 512),
+KNN_SHAPES = (  # label, B, L, D, shortest event, k: row 1's shapes on the path
+    ("B128_L128_D3", 128, 128, 3, 65, K),
+    ("B8_L1024_D4", TITO_B, TITO_L, 4, TITO_L, K),
+    ("B1_L128_D3", 1, 128, 3, 128, K),
+    ("B1_L512_D3", 1, 512, 3, 512, K),
+    ("B128_L128_D3_k32", 128, 128, 3, 65, 32),  # RadialEdges' graph
 )
 EMPTY_KERNEL = r"""
 #include <cuda_runtime.h>
@@ -1137,13 +1186,13 @@ extern "C" int empty_launch(void* stream) {
 """
 
 
-def knn_bound(m, D, peaks):
+def knn_bound(m, D, peaks, k=K):
     """Row 1's bound: ~10 flops a valid pair (12 for D=4) against every
     input read and output written once; ``(ms, "bytes" | "operations")``."""
     B, L = m.shape
     n = m.sum(1).double()
     flops = (10.0 if D == 3 else 12.0) * float((n * n).sum())
-    nbytes = B * L * (D * 4 + 1) + B * L * K * (4 + 1)
+    nbytes = B * L * (D * 4 + 1) + B * L * k * (4 + 1)
     t_b, t_o = nbytes / peaks["bytes"], flops / peaks["fp32"]
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -1203,13 +1252,13 @@ def knn_times(torch, knn, knn_plain, dev, peaks):
     """Row 1 at ``KNN_SHAPES``, inputs from a fixed seed: ``call_costs``
     of one call, its plain version's ms and its bound."""
     times = {}
-    for label, B, L, D, lo in KNN_SHAPES:
+    for label, B, L, D, lo, k in KNN_SHAPES:
         x, m = ragged_coords(torch, np.random.default_rng(SEED + 5), B, L, lo,
                              dev, D=D)
-        bound, by = knn_bound(m, D, peaks)
+        bound, by = knn_bound(m, D, peaks, k)
         times[label] = dict(
-            **call_costs(torch, lambda: knn(x, m, K), "knn_kernel"),
-            plain_ms=cuda_ms(torch, lambda: knn_plain(x, m, K), runs=5),
+            **call_costs(torch, lambda: knn(x, m, k), "knn_kernel"),
+            plain_ms=cuda_ms(torch, lambda: knn_plain(x, m, k), runs=5),
             bound_ms=bound, bound_by=by)
     return times
 
@@ -3769,6 +3818,520 @@ def example_clis(torch, device, counters, names, smi, tmp):
     return {"examples": report, "card": smi}
 
 
+# ------------------------------------------- the other targets and rules
+
+# RadialEdges' radius in the Prometheus detector's standardised units
+# (the bundled events' pulses lie a median 1.0 apart): some of each
+# node's 32 nearest lie within it and some beyond
+RADIUS = 0.5
+# kNN and EdgeConv launches a forward (forward, backward a step) of the
+# full-width DynEdge behind each edge rule: the rule's graph first (row
+# 1 at k = 32 for RadialEdges, plain PyTorch for the Minkowski and
+# Euclidean rules), then the 4 latent rebuilds
+RULE_LAUNCHES = {"KNNEdges": 5, "RadialEdges": 5, "MinkowskiKNNEdges": 4,
+                 "EuclideanEdges": 4}
+TARGET_GRID = 101  # log_prob grid of each flow
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def edge_rules():
+    """The four rules of the edge_rules phase, at the JAX defaults
+    (``RadialEdges``' ``max_neighbours=32``) but the radius."""
+    from graphnet_tpu_torch.models.graphs import edges
+
+    return [edges.KNNEdges(), edges.RadialEdges(radius=RADIUS),
+            edges.MinkowskiKNNEdges(), edges.EuclideanEdges()]
+
+
+def launches_of(names, knn, fwd=True):
+    """The launch vector of one DynEdge forward (``fwd``) or step with
+    ``knn`` kNN launches."""
+    counts = dict(knn=knn, edgeconv=4, edgeconv_bwd=0 if fwd else 4)
+    return [counts.get(n, 0) for n in names]
+
+
+def targets_dataset(path=None, **kwargs):
+    """The bundled database through ``KNNGraph(Prometheus())`` with the
+    flows' labels: ``log10_energy`` (example 06's) and the injection
+    ``direction``."""
+    from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
+    from graphnet_tpu_torch.data.constants import FEATURES as PF, TRUTH
+    from graphnet_tpu_torch.data.sqlite_dataset import SQLiteDataset
+    from graphnet_tpu_torch.examples.train_normalizing_flow import Log10Energy
+    from graphnet_tpu_torch.models.detector.prometheus import Prometheus
+    from graphnet_tpu_torch.models.graphs import KNNGraph
+    from graphnet_tpu_torch.training.labels import Direction
+
+    return SQLiteDataset(
+        path=path or EXAMPLE_SQLITE_DATA,
+        graph_definition=KNNGraph(detector=Prometheus()), pulsemaps="total",
+        features=PF.PROMETHEUS, truth=TRUTH.PROMETHEUS, truth_table="mc_truth",
+        labels={"log10_energy": Log10Energy(),
+                "direction": Direction(azimuth_key="injection_azimuth",
+                                       zenith_key="injection_zenith")},
+        **kwargs)
+
+
+def targets_batch(torch, dataset, rng):
+    """Every event of ``dataset`` in one batch (the bundled database: 50
+    events of 3-99 pulses, L=128), with a ``vertex`` (the injection
+    position and a time) and an ``interaction_time`` drawn from ``rng``:
+    the database has no interaction time."""
+    from graphnet_tpu_torch.data.dataloader import DataLoader
+
+    batch = next(iter(DataLoader(dataset, batch_size=len(dataset))))
+    B = batch.batch_size
+    t = torch.from_numpy(rng.normal(0.0, 10.0, B).astype(np.float32))
+    batch.labels["interaction_time"] = t
+    batch.labels["vertex"] = torch.stack(
+        [batch.labels[f"injection_position_{c}"].float() for c in "xyz"] + [t], 1)
+    return batch
+
+
+def nine_heads():
+    """The nine heads the port gained, each with a loss, on the truth
+    columns the database has (track and cascade from the primary lepton
+    and hadron; inelasticity from Bjorken y)."""
+    from graphnet_tpu_torch.models.task import reconstruction as rec
+    from graphnet_tpu_torch.training import loss_functions as lf
+    from graphnet_tpu_torch.utils.config import TRANSFORM_REGISTRY
+
+    h = dict(hidden_size=128)
+    return [
+        rec.AzimuthReconstructionWithKappa(
+            loss_function=lf.VonMisesFisher2DLoss(),
+            target_labels=("injection_azimuth",), **h),
+        rec.AzimuthReconstruction(loss_function=lf.MSELoss(),
+                                  target_labels=("injection_azimuth",), **h),
+        rec.EnergyReconstructionWithPower(
+            loss_function=lf.LogCoshLoss(), target_labels=("total_energy",),
+            transform_prediction_and_target=TRANSFORM_REGISTRY["log10"], **h),
+        rec.EnergyTCReconstruction(
+            loss_function=lf.LogCoshLoss(),
+            target_labels=("primary_lepton_1_energy", "primary_hadron_1_energy"),
+            **h),
+        rec.EnergyReconstructionWithUncertainty(
+            loss_function=lf.LogCoshLoss(), target_labels=("total_energy",), **h),
+        rec.VertexReconstruction(loss_function=lf.EuclideanDistanceLoss(),
+                                 target_labels=("vertex",), **h),
+        rec.PositionReconstruction(
+            loss_function=lf.EuclideanDistanceLoss(),
+            target_labels=tuple(f"injection_position_{c}" for c in "xyz"), **h),
+        rec.TimeReconstruction(loss_function=lf.MSELoss(),
+                               target_labels=("interaction_time",), **h),
+        rec.InelasticityReconstruction(loss_function=lf.MSELoss(),
+                                       target_labels=("injection_bjorkeny",), **h),
+    ]
+
+
+def scale_heads(torch, model, batch, peak=1.0):
+    """Scale each task head's affine map (a flow's conditioner input is
+    layer-normed and needs none) so that its largest output on ``batch``
+    is ``peak``: random DynEdge latents grow ~8x a layer and would
+    overflow the pow10 head."""
+    with torch.inference_mode():
+        latents = model.backbone(batch)
+        for task in model.tasks:
+            top = float(task.affine(latents).abs().max())
+            task.affine.weight.mul_(peak / top)
+            task.affine.bias.mul_(peak / top)
+
+
+def target_step(torch, make, Trainer, batch, counters, expect, dev, steps=3,
+                lr=1e-3):
+    """``steps`` Trainer steps of ``make(dev)`` on ``batch`` with the
+    launches of each step checked against ``expect``, every loss and
+    gradient finite and the last step's every gradient non-zero (a
+    flow's conditioner head starts at zero, so its first step reaches
+    that head alone); step 1 held against the CPU with the CPU's graphs
+    fed to the card: the loss within rtol 1e-3, each gradient within
+    1e-3 of its largest magnitude.  Returns the report, the models of
+    step 1 (CPU and fed card) and the CPU's graphs."""
+    cpu_model = make("cpu")
+    store = []
+    handles = record_adjacency(cpu_model, store)
+    cpu = run_steps(torch, Trainer(cpu_model), [batch])
+    for h in handles:
+        h.remove()
+    graphs = list(store)
+
+    on_card = batch.to(dev)
+    gpu_model = make(dev)
+    gpu_store = []
+    handles = record_adjacency(gpu_model, gpu_store)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    gpu = run_steps(torch, Trainer(gpu_model, learning_rate=lr),
+                    [on_card] * steps, counters)
+    sync(torch, dev)
+    step_s = (time.perf_counter() - t0) / steps
+    launches = [c.launches for c in counters]
+    for h in handles:
+        h.remove()
+    assert all(r == expect for r in gpu["rose"]), (gpu["rose"], expect)
+    assert np.isfinite(gpu["loss"]).all() and not any(gpu["nonfinite"]), gpu
+    assert not gpu["zero"][-1], f"zero gradients at step {steps}: {gpu['zero'][-1]}"
+
+    fed_model = make(dev)
+    handles = feed_adjacency(fed_model, graphs, dev)
+    fed_batch = replace(on_card, edges=graphs[0][0].to(dev),
+                        edge_mask=graphs[0][1].to(dev))
+    fed = run_steps(torch, Trainer(fed_model, learning_rate=lr), [fed_batch])
+    for h in handles:
+        h.remove()
+    np.testing.assert_allclose(fed["loss"], cpu["loss"], rtol=1e-3,
+                               err_msg="step-1 loss with the CPU's graphs")
+    grad_err = {}
+    for name, gc in cpu["grads1"].items():
+        e = float((fed["grads1"][name] - gc).abs().max())
+        scale = float(gc.abs().max())
+        assert e <= 1e-3 * scale, f"step-1 gradient of {name}: {e} vs max {scale}"
+        grad_err[name] = e / scale if scale else 0.0
+    flips = sum(int((((gi.cpu() != ci) & cm) | (gm.cpu() != cm)).sum())
+                for (gi, gm), (ci, cm) in zip(gpu_store, graphs))
+    return {
+        "B": batch.batch_size, "L": batch.max_length, "steps": steps,
+        "losses_card": gpu["loss"], "loss_cpu_step1": cpu["loss"][0],
+        "loss_card_cpu_graphs_step1": fed["loss"][0],
+        "launches_per_step": gpu["rose"], "step_ms": 1e3 * step_s,
+        "zero_grads_step1": len(gpu["zero"][0]),
+        "every_grad_finite_nonzero_last_step": True,
+        "knn_flips_vs_cpu_step1": flips,
+        "max_grad_rel_err_step1_cpu_graphs": max(grad_err.values()),
+    }, cpu_model, fed_model, graphs, launches
+
+
+def rule_model(rule, train_tree, device):
+    """The train phase's full-width DynEdge energy model (its weights and
+    ``LogCoshLoss`` on ``log10(total_energy)``) with ``rule`` evaluated
+    before the backbone."""
+    import torch
+
+    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.models.task.reconstruction import EnergyReconstruction
+    from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
+    from graphnet_tpu_torch.utils.jax_params import params_from_jax
+
+    model = StandardModel(
+        DynEdge(nb_inputs=NB_INPUTS),
+        [EnergyReconstruction(hidden_size=128, loss_function=LogCoshLoss(),
+                              target_labels=("total_energy",),
+                              transform_prediction_and_target=torch.log10)],
+        edge_definition=rule, device=device)
+    model.load_state_dict(params_from_jax(train_tree, model.state_dict()))
+    return model
+
+
+def edge_rule_phase(torch, rule, train_tree, events, batch, counters, names,
+                    dev, collate_events, smi):
+    """One rule of the edge_rules phase: the full-width DynEdge energy
+    model with ``rule`` served through ``DeploymentModule`` on the card
+    against the CPU (``serve``: flips explained, the CPU's graphs fed),
+    and trained (``target_step``), the launches of each forward and step
+    counted exactly.  ``KNNEdges`` must equal the model without a rule,
+    bit for bit, served and trained."""
+    from graphnet_tpu_torch.deployment.deployment_module import DeploymentModule
+    from graphnet_tpu_torch.training.trainer import Trainer
+
+    kind = type(rule).__name__
+    knn = RULE_LAUNCHES[kind]
+    longest = sorted(events, key=lambda e: -e.n_pulses)[:16]
+    requests = {f"db_all_{len(events)}": events, "db_longest_16": longest}
+
+    def module(device, with_rule=True):
+        m = rule_model(rule if with_rule else None, train_tree, device)
+        return DeploymentModule(m, m.state_dict(), device=device)
+
+    gpu = module(dev)
+    # the main path alone first: the kNN launches by k of its forwards
+    by_k = counters[0].launches_by_k
+    by_k.clear()
+    answer(gpu, requests, counters, launches_of(names, knn))
+    n = len(requests)
+    expect_k = ({32: n, K: 4 * n} if kind == "RadialEdges"
+                else {K: knn * n})
+    assert by_k == expect_k, f"{kind}: kNN launches by k {by_k}, not {expect_k}"
+    k32 = by_k.get(32, 0)
+    answers, _, report = serve(torch, gpu, module("cpu"), requests, counters,
+                               launches_of(names, knn), dev, collate_events)
+    t0 = time.perf_counter()
+    gpu(requests["db_longest_16"])
+    sync(torch, dev)
+    out = {"rule": kind, "rule_args": {k: v for k, v in vars(rule).items()},
+           "card": smi, "requests": report,
+           "knn_launches_by_k_serving": {str(k): v for k, v in expect_k.items()},
+           "knn_k32_launches_serving": k32,
+           "request_ms_longest_16": 1e3 * (time.perf_counter() - t0)}
+    step, _, _, _, launches = target_step(
+        torch, lambda d: rule_model(rule, train_tree, d), Trainer, batch,
+        counters, launches_of(names, knn, fwd=False), dev, steps=2)
+    out.update(step=step, launches_step=dict(zip(names, launches)))
+    if kind == "KNNEdges":
+        plain = module(dev, with_rule=False)
+        same = {label: bool(np.array_equal(plain(evs), answers[label],
+                                           equal_nan=True))
+                for label, evs in requests.items()}
+        assert all(same.values()), f"KNNEdges against no rule: {same}"
+        on_card = batch.to(dev)
+        grads = []
+        for with_rule in (True, False):
+            m = rule_model(rule if with_rule else None, train_tree, dev)
+            loss = m.loss_from_batch(m(on_card), on_card)
+            loss.backward()
+            grads.append([loss.detach()] + [p.grad for p in m.parameters()])
+        assert all(torch.equal(a, b) for a, b in zip(*grads)), (
+            "KNNEdges: loss or gradients differ from the model without a rule")
+        out["bit_equal_to_no_rule"] = {"answers": same, "loss_and_grads": True}
+    return out
+
+
+def nine_head_model(torch, device, batch, tmp):
+    """The full-width DynEdge with the nine heads: built on the CPU from
+    the seed, each head scaled to unit peak on ``batch``, then dumped by
+    the port as ``model.yml`` + ``state_dict.pkl`` in ``tmp``; returns the
+    two paths."""
+    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.utils.config import save_model_config
+    from graphnet_tpu_torch.utils.jax_params import params_to_jax
+
+    model = StandardModel(DynEdge(nb_inputs=NB_INPUTS), nine_heads(),
+                          seed=SEED, device="cpu")
+    scale_heads(torch, model, batch)
+    yml, pkl = os.path.join(tmp, "model.yml"), os.path.join(tmp, "state_dict.pkl")
+    save_model_config(model, yml)
+    with open(pkl, "wb") as f:
+        pickle.dump(params_to_jax(model.state_dict()), f)
+    return yml, pkl
+
+
+def flow_grid(torch, flow, batch, kind):
+    """``log p`` of every event of ``batch`` at ``TARGET_GRID`` targets,
+    ``[TARGET_GRID, B]``: log10 E in [-1, 4] for a NormalizingFlow, unit
+    vectors along a spiral over the sphere for a SphericalFlow.  The
+    conditioner runs once (``log_prob`` = the density of the conditioner's
+    parameters at the target)."""
+    from graphnet_tpu_torch.models.normalizing_flow import anchor_directions
+
+    with torch.no_grad():
+        B = batch.batch_size
+        if kind == "spherical":
+            mu, kappa, log_w = flow.mixture_params(batch)
+            dirs = torch.from_numpy(anchor_directions(TARGET_GRID)).to(mu.device)
+            return torch.stack([flow._log_prob_from_params(
+                mu, kappa, log_w, d.expand(B, 3)) for d in dirs]).cpu().numpy()
+        raw = flow._raw(batch)
+        grid = np.linspace(-1.0, 4.0, TARGET_GRID, dtype=np.float32)
+        return torch.stack([-flow._nllh(raw, torch.full(
+            (B, 1), float(g), device=raw.device)) for g in grid]).cpu().numpy()
+
+
+def flow_model(kind, device):
+    """``NormalizingFlow`` on log10 E (example 06's, full-width DynEdge),
+    with either transform, or ``SphericalFlow`` on the direction."""
+    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+    from graphnet_tpu_torch.models.normalizing_flow import (
+        NormalizingFlow,
+        SphericalFlow,
+    )
+
+    if kind == "spherical":
+        return SphericalFlow(DynEdge(nb_inputs=NB_INPUTS), seed=SEED,
+                             device=device)
+    return NormalizingFlow(DynEdge(nb_inputs=NB_INPUTS), nb_targets=1,
+                           target_labels=("log10_energy",), transform=kind,
+                           seed=SEED, device=device)
+
+
+def train_targets(torch, batch, events, counters, names, dev, smi, tmp):
+    """The train_targets phase: the nine-head model trained (step 1
+    against the CPU) and served from the port's ``model.yml`` +
+    ``state_dict.pkl`` through ``DeploymentModule`` against the CPU; the
+    three flows trained, each flow's ``log_prob`` on ``TARGET_GRID``
+    targets against the CPU; and the energy model trained on ``Uniform``
+    weights fitted into a copy of the database.  Yields one report a
+    group."""
+    from graphnet_tpu_torch.data.dataloader import collate_events
+    from graphnet_tpu_torch.deployment.deployment_module import DeploymentModule
+    from graphnet_tpu_torch.training.trainer import Trainer
+    from graphnet_tpu_torch.utils.config import load_model
+    from graphnet_tpu_torch.utils.jax_params import load_jax_state_dict
+
+    fwd, step = launches_of(names, 5), launches_of(names, 5, fwd=False)
+    t0 = time.perf_counter()
+    yml, pkl = nine_head_model(torch, "cpu", batch, tmp)
+
+    def make_heads(device):
+        m = load_model(yml, device=device)
+        m.load_state_dict(load_jax_state_dict(pkl, m.state_dict()))
+        return m
+
+    # the random backbone's latents reach ~1e4 (sum pooling), so a step
+    # of 1e-3 a parameter moves the pow10 head out of float32's range
+    report, _, _, _, _ = target_step(torch, make_heads, Trainer, batch, counters,
+                                     step, dev, lr=1e-5)
+    gpu = DeploymentModule(yml, pkl, device=dev)
+    cpu = DeploymentModule(yml, pkl, device="cpu")
+    longest = sorted(events, key=lambda e: -e.n_pulses)[:16]
+    requests = {f"db_all_{len(events)}": events, "db_longest_16": longest}
+    _, served, rep = serve(torch, gpu, cpu, requests, counters, fwd, dev,
+                           collate_events, column_atol=1e-3)
+    yield {"group": "nine_heads", "heads": gpu.prediction_columns, "card": smi,
+           **report, "served": rep,
+           "launches_serving": dict(zip(names, served)),
+           "seconds": time.perf_counter() - t0}
+
+    for kind in ("sinh_arcsinh", "spline", "spherical"):
+        t0 = time.perf_counter()
+        rep, cpu_flow, fed_flow, _, launches = target_step(
+            torch, lambda d: flow_model(kind, d), Trainer, batch, counters,
+            step, dev)
+        # after step 1 on both: the CPU's grid, its graphs fed to the card
+        on_card = batch.to(dev)
+        grid_graphs = []
+        handles = record_adjacency(cpu_flow, grid_graphs)
+        ref = flow_grid(torch, cpu_flow, batch, kind)
+        for h in handles:
+            h.remove()
+        handles = feed_adjacency(fed_flow, grid_graphs, dev)
+        fed_batch = replace(on_card, edges=grid_graphs[0][0].to(dev),
+                            edge_mask=grid_graphs[0][1].to(dev))
+        got = flow_grid(torch, fed_flow, fed_batch, kind)
+        for h in handles:
+            h.remove()
+        assert np.isfinite(got).all() and got.shape == (TARGET_GRID, batch.batch_size)
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        assert err <= 1e-3, f"{kind}: log_prob grid off the CPU by {err} of its max"
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            fed_flow.eval()
+            if kind == "spherical":
+                md = fed_flow.mean_direction(on_card)
+                assert torch.allclose(md.norm(dim=1), torch.ones_like(md[:, 0]))
+            else:
+                draws = fed_flow.sample(on_card, torch.Generator(device=dev)
+                                        .manual_seed(SEED), n_samples=16)
+                assert draws.shape == (batch.batch_size, 16, 1)
+                assert bool(torch.isfinite(draws).all())
+        assert [c.launches for c in counters] == fwd
+        yield {"group": f"flow_{kind}", "card": smi, **rep,
+               "log_prob_grid_rel_err": err, "grid": TARGET_GRID,
+               "launches": dict(zip(names, launches)),
+               "seconds": time.perf_counter() - t0}
+
+    yield weighted_run(torch, counters, names, dev, smi, tmp, step)
+
+
+def weighted_run(torch, counters, names, dev, smi, tmp, step):
+    """``Uniform`` weights of log10 injection energy fitted into a copy of
+    the database, read back through ``loss_weight_table`` /
+    ``loss_weight_column`` and weighting the energy head's loss (the
+    train phase's model, as a task's ``loss_weight``): a few steps, every
+    batch's weights those of the table."""
+    import sqlite3
+
+    from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
+    from graphnet_tpu_torch.data.dataloader import DataLoader
+    from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
+    from graphnet_tpu_torch.models.standard_model import StandardModel
+    from graphnet_tpu_torch.models.task.reconstruction import EnergyReconstruction
+    from graphnet_tpu_torch.training.loss_functions import LogCoshLoss
+    from graphnet_tpu_torch.training.trainer import Trainer
+    from graphnet_tpu_torch.training.weight_fitting import Uniform
+
+    t0 = time.perf_counter()
+    db = os.path.join(tmp, "weighted.db")
+    shutil.copy(EXAMPLE_SQLITE_DATA, db)
+    table = Uniform(db, truth_table="mc_truth").fit(
+        bins=np.arange(0, 5, 0.1), variable="injection_energy",
+        transform=np.log10, add_to_database=True)
+    col = "injection_energy_uniform_weight"
+    fit_s = time.perf_counter() - t0
+    ds = targets_dataset(db, loss_weight_table=col, loss_weight_column=col)
+    loader = DataLoader(ds, batch_size=16, shuffle=True, seed=SEED)
+    with sqlite3.connect(db) as con:
+        stored = dict(con.execute(f"select event_no, {col} from {col}").fetchall())
+    model = StandardModel(
+        DynEdge(nb_inputs=NB_INPUTS),
+        [EnergyReconstruction(hidden_size=128, loss_function=LogCoshLoss(),
+                              target_labels=("total_energy",),
+                              transform_prediction_and_target=torch.log10,
+                              loss_weight=col)], seed=SEED, device=dev)
+    first = next(iter(DataLoader(ds, batch_size=len(ds))))
+    scale_heads(torch, model, first.to(dev))
+    trainer = Trainer(model)
+    losses, rose = [], []
+    for batch in loader:
+        w = batch.labels[col].numpy()
+        ids = batch.labels["event_no"].numpy().astype(int)
+        assert np.array_equal(w, np.float32([stored[i] for i in ids])), (
+            "batch weights differ from the fitted table")
+        before = [c.launches for c in counters]
+        losses.append(float(trainer.train_step(batch)))
+        rose.append([c.launches - b for c, b in zip(counters, before)])
+    assert all(r == step for r in rose), rose
+    assert np.isfinite(losses).all()
+    nonzero = [n for n, p in model.named_parameters()
+               if p.grad is not None and bool(p.grad.any())]
+    assert len(nonzero) == len(list(model.parameters()))
+    return {"group": "weighted_uniform", "card": smi, "weight_column": col,
+            "weights_fitted": len(table[col]),
+            "weight_range": [float(np.nanmin(table[col])),
+                             float(np.nanmax(table[col]))],
+            "fit_seconds": fit_s, "steps": len(losses), "losses": losses,
+            "launches_per_step": rose,
+            "seconds": time.perf_counter() - t0}
+
+
+def targets_examples(torch, device, counters, names, smi, tmp):
+    """The four examples of the other targets on ``device`` (in this
+    process): the two weight fitters (into copies in ``tmp``; the bundled
+    database left as it was) and the flow and multiclass trainings for
+    one epoch, each with 5 kNN launches for each 4 EdgeConv forward
+    launches (one DynEdge forward each) and 4 EdgeConv backward launches
+    a step."""
+    import importlib
+    import sqlite3
+
+    from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
+
+    with sqlite3.connect(EXAMPLE_SQLITE_DATA) as con:
+        tables = con.execute("select name from sqlite_master").fetchall()
+    report = []
+    for name in ("fit_uniform_weights", "fit_bjoern_low_weights",
+                 "train_normalizing_flow", "train_multiclass_from_configs"):
+        example = importlib.import_module(f"graphnet_tpu_torch.examples.{name}")
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        if name.startswith("fit_"):
+            table = example.main(["--output", os.path.join(tmp, name + ".db")])
+            steps, rows = 0, len(next(iter(table.values())))
+            assert np.isfinite(list(table.values())[-1]).all()
+        else:
+            out = example.main(["--device", str(device), "--max-epochs", "1"])
+            trainer = out["trainer"] if isinstance(out, dict) else out
+            steps, rows = trainer.step, None
+            assert steps > 0
+        seconds = time.perf_counter() - t0
+        launches = dict(zip(names, [c.launches for c in counters]))
+        if steps:
+            assert 4 * launches["knn"] == 5 * launches["edgeconv"] and (
+                launches["edgeconv_bwd"] == 4 * steps), (name, launches)
+        report.append({"example": name, "seconds": seconds, "steps": steps,
+                       "rows": rows, "launches": launches})
+    with sqlite3.connect(EXAMPLE_SQLITE_DATA) as con:
+        assert con.execute("select name from sqlite_master").fetchall() == tables
+    return {"examples": report, "card": smi}
+
+
 # ------------------------------------------------------- the input pipeline
 
 PIPELINE_EVENTS = 512
@@ -5142,6 +5705,32 @@ def main() -> int:
           "seconds": round(time.perf_counter() - t0, 2)})
     shutil.rmtree(tmp)
 
+    # 7g-targets. the full-width DynEdge behind each edge rule, served and
+    # trained; the nine other heads, the three flows and a weighted run
+    # on the bundled database; the four examples of those targets
+    targets_t0 = time.perf_counter()
+    tdata = targets_dataset()
+    tevents = [tdata[i] for i in range(len(tdata))]
+    tbatch = targets_batch(torch, tdata, np.random.default_rng(SEED + 21))
+    rule_k32 = 0
+    for rule in edge_rules():
+        t0 = time.perf_counter()
+        report = edge_rule_phase(torch, rule, train_tree, tevents, tbatch,
+                                 counters, names, dev, collate_events, smi)
+        rule_k32 += report["knn_k32_launches_serving"]
+        emit({"phase": "edge_rules", **report,
+              "seconds": round(time.perf_counter() - t0, 2)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    for report in train_targets(torch, tbatch, tevents, counters, names, dev,
+                                smi, tmp):
+        emit({"phase": "train_targets", **report})
+    t0 = time.perf_counter()
+    report = targets_examples(torch, "cuda", counters, names, smi, tmp)
+    shutil.rmtree(tmp)
+    emit({"phase": "targets_examples", **report,
+          "seconds": round(time.perf_counter() - t0, 2),
+          "targets_phases_seconds": round(time.perf_counter() - targets_t0, 2)})
+
     # 7h. the micro-batching queue over the energy model from its file
     t0 = time.perf_counter()
     qrng = np.random.default_rng(SEED + 13)
@@ -5305,6 +5894,13 @@ def main() -> int:
              replaces="graphnet_tpu/ops/knn_pallas.py:35",
              launches=launches_s[0], launches_per="TITO forward: 1 (D=4)",
              max_abs_err=knn_err, **row1("B8_L1024_D4"), library_ms=None),
+        dict(name="knn_k32", row="1", route="cuda",
+             source="graphnet_tpu_torch/csrc/knn.cu",
+             replaces="graphnet_tpu/ops/knn_pallas.py:35",
+             launches=rule_k32,
+             launches_per="RadialEdges DynEdge forward: 1 at k = 32 (D=3), "
+             "then 4 at k = 8",
+             max_abs_err=knn_err, **row1("B128_L128_D3_k32"), library_ms=None),
         dict(name="edgeconv_fwd", row="2", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:66",

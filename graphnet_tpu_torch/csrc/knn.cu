@@ -6,7 +6,7 @@
 // the query itself are never chosen; k nearest in ascending distance
 // with ties to the lower key index; edge_mask = "a real key was chosen"
 // and the query is valid.  D is 3 (DynEdge's xyz) or 4 (TITO's xyzt) and
-// k is 1-16, both template parameters.
+// k is 1-32 (RadialEdges' default cap is 32), both template parameters.
 //
 // What bounds it on the H100: neither bytes nor FLOPs.  At the serving
 // shape (B=128, L=128, k=8, D=3) it reads 0.2 MB, writes 0.65 MB and
@@ -53,9 +53,11 @@
 // of a warp, strided (lane s takes keys s, s+S, ...); S, a power of two
 // up to 32, is chosen from B*L so that B*L*S lanes come to 64 x 1024
 // (B=128, L=128: 4; B=8, L=1024: 8; one event of 512 nodes: 32) while
-// each lane keeps at least 8 keys.  S is a run-time argument: it sets
+// each lane keeps at least max(8, k) keys (a lane's list is k long, so a
+// lane with fewer keys would hold mostly padding, and every merge round
+// costs k registers of each list).  S is a run-time argument: it sets
 // only loop bounds and the merge's rounds, and as a template parameter
-// it would multiply the 32 instantiations by six.
+// it would multiply the 64 instantiations by six.
 //
 // Each lane keeps its own sorted top-k in registers (knn.cuh's
 // topk_insert, keys in ascending index order, so ties stay with the
@@ -63,7 +65,9 @@
 // butterfly rounds: two sorted lists, padded to a power of two P >= k,
 // are merged by the elementwise minimum of one and the other reversed (a
 // bitonic sequence holding the P smallest) and a bitonic half-cleaner
-// network, all on registers.  Strided keys interleave the lanes'
+// network, all on registers.  The partner's entries are shuffled in as
+// the minimum reads them, so a merge holds two lists of P pairs, not
+// three (at k = 32, 128 registers instead of 192).  Strided keys interleave the lanes'
 // indices, so the merge compares (distance, index) pairs; both partners
 // end with the same list.  A key is one 16-byte shared-memory read for
 // D=3, (cx, cy, cz, |c|^2), and a 16-byte plus a 4-byte read for D=4; an
@@ -85,7 +89,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxL = 8192;
 constexpr int kTargetLanes = 64 * 1024;
-constexpr int kMinKeysPerLane = 8;
+constexpr int kMinKeysPerLane = 8;  // raised to k above 8
 
 __host__ __device__ constexpr int pow2_at_least(int k) {
   int p = 1;
@@ -104,22 +108,16 @@ template <int K>
 __device__ __forceinline__ void merge_lists(float (&bd)[K], int (&bi)[K],
                                             int o) {
   constexpr int P = pow2_at_least(K);
-  float od[K];
-  int oi[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    od[i] = __shfl_xor_sync(0xffffffffu, bd[i], o);
-    oi[i] = __shfl_xor_sync(0xffffffffu, bi[i], o);
-  }
   float md[P];
   int mi[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const int r = P - 1 - i;
+    const int r = P - 1 - i;  // a compile-time index once unrolled
     const float ad = i < K ? bd[i] : __int_as_float(0x7f800000);
     const int ai = i < K ? bi[i] : 0x7fffffff;
-    const float cd = r < K ? od[r] : __int_as_float(0x7f800000);
-    const int ci = r < K ? oi[r] : 0x7fffffff;
+    const float cd = r < K ? __shfl_xor_sync(0xffffffffu, bd[r], o)
+                           : __int_as_float(0x7f800000);
+    const int ci = r < K ? __shfl_xor_sync(0xffffffffu, bi[r], o) : 0x7fffffff;
     const bool a = before(ad, ai, cd, ci);
     md[i] = a ? ad : cd;
     mi[i] = a ? ai : ci;
@@ -317,12 +315,12 @@ knn_kernel(const float* __restrict__ coords, long long sb, long long sl,
 }
 
 // Lanes a query: the smallest power of two S <= 32 with B*L*S >=
-// kTargetLanes, at most L / kMinKeysPerLane (and at least 1).
-int lanes_per_query(int B, int L) {
+// kTargetLanes, at most L / max(kMinKeysPerLane, k) (and at least 1).
+int lanes_per_query(int B, int L, int k) {
   int s = 1;
   const long long queries = (long long)B * L;
-  while (s < 32 && queries * s < kTargetLanes &&
-         2 * s * kMinKeysPerLane <= L) {
+  const int keys = k > kMinKeysPerLane ? k : kMinKeysPerLane;
+  while (s < 32 && queries * s < kTargetLanes && 2 * s * keys <= L) {
     s *= 2;
   }
   return s;
@@ -333,7 +331,7 @@ cudaError_t launch(const float* coords, long long sb, long long sl,
                    const uint8_t* mask, long long mb, int B, int L,
                    int exclude_self, int32_t* idx, uint8_t* em,
                    cudaStream_t stream) {
-  const int S = lanes_per_query(B, L);
+  const int S = lanes_per_query(B, L, K);
   const long long lanes = ((long long)L * S + 31) / 32 * 32;
   const int threads = lanes < kThreads ? (int)lanes : kThreads;
   const int tiles = (L + threads / S - 1) / (threads / S);
@@ -362,6 +360,10 @@ cudaError_t launch_k(const float* x, long long sb, long long sl,
     KNN_CASE(5) KNN_CASE(6) KNN_CASE(7) KNN_CASE(8)
     KNN_CASE(9) KNN_CASE(10) KNN_CASE(11) KNN_CASE(12)
     KNN_CASE(13) KNN_CASE(14) KNN_CASE(15) KNN_CASE(16)
+    KNN_CASE(17) KNN_CASE(18) KNN_CASE(19) KNN_CASE(20)
+    KNN_CASE(21) KNN_CASE(22) KNN_CASE(23) KNN_CASE(24)
+    KNN_CASE(25) KNN_CASE(26) KNN_CASE(27) KNN_CASE(28)
+    KNN_CASE(29) KNN_CASE(30) KNN_CASE(31) KNN_CASE(32)
 #undef KNN_CASE
     default:
       return cudaErrorInvalidValue;

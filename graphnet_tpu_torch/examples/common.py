@@ -1,10 +1,14 @@
-"""What the training examples share: the ``--device`` and ``--seed``
-arguments and a prediction table printed without pandas (which the GPU
-host may lack)."""
+"""What the examples share: the ``--device`` and ``--seed`` arguments,
+a prediction table and a weight table printed without pandas (which the
+GPU host may lack), and a copy of a database for the weight fitters to
+write into."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+import shutil
+import tempfile
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -41,3 +45,22 @@ def print_predictions(trainer, loader, attributes: Sequence[str] = (),
         print("  ".join(f"{v:>16.6g}" for v in row))
     print(f"[{len(table)} rows x {len(columns)} columns]")
     return table
+
+
+def copy_database(path: str, output: Optional[str] = None) -> str:
+    """A copy of the database at ``output`` (a new temporary file by
+    default), for the fitters to write their tables into."""
+    if output is None:
+        fd, output = tempfile.mkstemp(suffix=".db")
+        os.close(fd)
+    shutil.copy(path, output)
+    return output
+
+
+def print_table(table: Dict[str, np.ndarray], rows: int = 5) -> None:
+    """The head of a weight table (a dict of columns), without pandas."""
+    columns: Sequence[str] = list(table)
+    print("  ".join(f"{c:>32}" for c in columns))
+    for i in range(min(rows, len(table[columns[0]]))):
+        print("  ".join(f"{table[c][i]:>32.6g}" for c in columns))
+    print(f"[{len(table[columns[0]])} rows x {len(columns)} columns]")

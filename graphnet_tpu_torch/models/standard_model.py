@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -25,9 +26,11 @@ class StandardModel(nn.Module):
     ``tasks_1``, ..., the JAX package's parameter names.
 
     ``edge_definition`` is the JAX field of that name, in its place after
-    ``tasks``: ``None`` (every configuration passes it so) leaves the
-    backbone to build its own graph.  An edge rule evaluated before the
-    backbone is not ported yet and raises ``NotImplementedError``.
+    ``tasks``: an edge rule (:mod:`~graphnet_tpu_torch.models.graphs.
+    edges`) evaluated on the batch's device before the backbone, whenever
+    the batch carries no edges; the backbones that read ``batch.edges``
+    (DynEdge, DynEdgeJINST, DynEdgeTITO, ConvNet, ParticleNeT) then take
+    its graph.  ``None`` leaves the backbone to build its own graph.
 
     ``eval()`` is the counterpart of the JAX package's
     ``deterministic_clone``: the stochastic layers of a backbone built
@@ -44,13 +47,8 @@ class StandardModel(nn.Module):
         device: DeviceLike = "cuda",
     ):
         super().__init__()
-        if edge_definition is not None:
-            raise NotImplementedError(
-                "StandardModel(edge_definition=...) with an edge rule is not "
-                "ported yet (ROADMAP.md queue 1, item 8); pass None to let "
-                "the backbone build its graph"
-            )
         dev = resolve_device(device)
+        self.edge_definition = edge_definition
         self.backbone = backbone
         self.n_tasks = len(tasks)
         for i, task in enumerate(tasks):
@@ -65,6 +63,9 @@ class StandardModel(nn.Module):
     def forward(
         self, batch: EventBatch, inference: bool = False
     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        if self.edge_definition is not None and batch.edges is None:
+            idx, edge_mask = self.edge_definition.build(batch.x, batch.mask)
+            batch = replace(batch, edges=idx, edge_mask=edge_mask)
         latents = self.backbone(batch)
         return [task(latents, inference=inference) for task in self.tasks]
 

@@ -142,3 +142,65 @@ def knn_graph(
     from graphnet_tpu_torch.ops.knn_cuda import knn_graph_cuda
 
     return knn_graph_cuda(coords, mask, k, exclude_self)
+
+
+def chosen_sq_dists(
+    coords: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor
+) -> torch.Tensor:
+    """``[B, L, k]`` squared distances of the pairs ``(i, idx[i])``, centred
+    by :func:`event_centre` and in :func:`sq_dists`' arithmetic, so each
+    equals its entry of :func:`pairwise_sq_dists` bit for bit without the
+    ``[B, L, L]`` matrix (``BIG`` where either node is invalid)."""
+    c = coords.float() - event_centre(coords, mask)[:, None, :]
+    B, L, D = c.shape
+    k = idx.shape[-1]
+    flat = idx.long().reshape(B, L * k, 1)
+    nb = torch.gather(c, 1, flat.expand(-1, -1, D)).reshape(B, L, k, D)
+    q = c[:, :, None, :]
+    sq_q, sq_n = q[..., 0] * q[..., 0], nb[..., 0] * nb[..., 0]
+    cross = q[..., 0] * nb[..., 0]
+    for d in range(1, D):
+        sq_q = sq_q + q[..., d] * q[..., d]
+        sq_n = sq_n + nb[..., d] * nb[..., d]
+        cross = cross + q[..., d] * nb[..., d]
+    d2 = ((sq_q + sq_n) - 2.0 * cross).clamp_min(0.0)
+    nb_valid = torch.gather(mask, 1, flat[..., 0]).reshape(B, L, k)
+    return torch.where(mask[:, :, None] & nb_valid, d2, BIG)
+
+
+def radius_graph(
+    coords: torch.Tensor, mask: torch.Tensor, r: float, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Neighbours within radius ``r``, at most ``k`` a node (the JAX
+    package's ``radius_graph``): :func:`knn_graph` at ``k`` (the kNN kernel
+    on the card), then ``d2 <= r^2`` on the chosen pairs."""
+    idx, edge_mask = knn_graph(coords, mask, k, exclude_self=True)
+    d2 = chosen_sq_dists(coords, mask, idx)
+    return idx, edge_mask & (d2 <= r * r)
+
+
+def minkowski_knn_graph(
+    coords_xyzt: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    c: float = 0.299792458,
+    space_coords: Tuple[int, int, int] = (0, 1, 2),
+    time_coord: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kNN under the signed pseudo-metric ``|dx|^2 - (c dt)^2`` (the JAX
+    package's ``minkowski_knn_graph``): the plain ``[B, L, L]`` values,
+    ranked signed (no clamping), the ``k`` smallest by a stable sort, so
+    ties go to the lower index.  The sums run over the coordinates in
+    order, one rounding per product and per sum."""
+    xyz = coords_xyzt[..., list(space_coords)].float()
+    t = coords_xyzt[..., time_coord].float() * c
+    sq = xyz[..., 0] * xyz[..., 0]
+    cross = xyz[:, :, None, 0] * xyz[:, None, :, 0]
+    for d in range(1, xyz.shape[-1]):
+        sq = sq + xyz[..., d] * xyz[..., d]
+        cross = cross + xyz[:, :, None, d] * xyz[:, None, :, d]
+    sq = sq - t * t
+    cross = cross - t[:, :, None] * t[:, None, :]
+    d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * cross
+    valid = mask[:, :, None] & mask[:, None, :]
+    return select_knn(torch.where(valid, d2, BIG), mask, k, exclude_self=True)

@@ -27,7 +27,7 @@ import torch
 from graphnet_tpu_torch.ops import library
 from graphnet_tpu_torch.ops.knn import knn_graph_plain
 
-MAX_K = 16
+MAX_K = 32  # csrc/knn.cu instantiates k = 1-32
 MAX_L = 8192  # csrc/knn.cu holds a whole event in shared memory
 DIMS = (3, 4)  # coordinate counts the kernel is built for (xyz, xyzt)
 _NAME = "knn"
@@ -96,7 +96,8 @@ def knn_graph_cuda(
     """``(idx [B, L, k] int32, edge_mask [B, L, k] bool)`` of the ``k``
     nearest valid nodes of each node; see :func:`~graphnet_tpu_torch.ops.
     knn.knn_graph` for the contract.  Counts its kernel launches in
-    ``knn_graph_cuda.launches``."""
+    ``knn_graph_cuda.launches``, and by ``k`` in
+    ``knn_graph_cuda.launches_by_k``."""
     return knn_graph_op(coords, mask, k, exclude_self)
 
 
@@ -120,6 +121,8 @@ def _knn_cuda(coords, mask, k, exclude_self):
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     knn_graph_cuda.launches += 1
+    by_k = knn_graph_cuda.launches_by_k
+    by_k[k] = by_k.get(k, 0) + 1
     return idx, em
 
 
@@ -130,6 +133,7 @@ def _knn_fake(coords, mask, k, exclude_self):
 
 
 knn_graph_cuda.launches = 0
+knn_graph_cuda.launches_by_k = {}
 # the coordinates may be a strided view (coordinate_view): the schema
 # takes any strides, and the CUDA implementation checks them
 knn_graph_op = library.define(

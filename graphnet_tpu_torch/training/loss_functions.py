@@ -1,13 +1,16 @@
 """Loss functions (counterpart of ``graphnet_tpu/training/
 loss_functions.py``).
 
-Ported so far: the base class, the regression losses (``MSELoss``,
-``RMSELoss``, ``LogCoshLoss``), the classification losses the repo's
-configs name (``CrossEntropyLoss``, ``BinaryCrossEntropyLoss``) and the
-von Mises-Fisher losses (``VonMisesFisherLoss``,
-``VonMisesFisher2DLoss``, ``VonMisesFisher3DLoss``) with the normaliser
-``log C_m(kappa)`` for m = 2 and 3, computed on the device.  General m
-(the JAX package's ``log_iv_series``) waits for a model that needs it.
+Every loss of the JAX module: the base class, the regression losses
+(``MSELoss``, ``RMSELoss``, ``LogCoshLoss``, ``EuclideanDistanceLoss``),
+the classification losses (``CrossEntropyLoss``,
+``BinaryCrossEntropyLoss``), the von Mises-Fisher losses
+(``VonMisesFisherLoss``, ``VonMisesFisher2DLoss``,
+``VonMisesFisher3DLoss``) and the weighted sums (``EnsembleLoss``,
+``RMSEVonMisesFisher3DLoss``).  The vMF normaliser ``log C_m(kappa)`` is
+computed on the device: m = 2 through ``i0e``, m = 3 in closed form,
+any other m through the log-space series of ``log I_nu``
+(:func:`log_iv_series`).
 """
 
 from __future__ import annotations
@@ -132,6 +135,22 @@ class BinaryCrossEntropyLoss(LossFunction):
 
 
 # ------------------------------------------------------------ log C_m(k)
+def log_iv_series(
+    nu: float, kappa: torch.Tensor, n_terms: int = 256
+) -> torch.Tensor:
+    """``log I_nu(kappa)`` by the ascending series in log space:
+    ``logsumexp_j((2j + nu) log(k/2) - lgamma(j + 1) - lgamma(j + nu +
+    1))``, in float32; reliable for ``kappa`` up to a few hundred (the vMF
+    switch is at 100)."""
+    kappa = torch.as_tensor(kappa, dtype=torch.float32)
+    safe = torch.clamp_min(kappa, 1e-30)
+    j = torch.arange(n_terms, dtype=torch.float32, device=kappa.device)
+    log_half_k = torch.log(safe / 2.0)
+    log_terms = ((2.0 * j + nu) * log_half_k[..., None]
+                 - torch.lgamma(j + 1.0) - torch.lgamma(j + nu + 1.0))
+    return torch.logsumexp(log_terms, dim=-1)
+
+
 def _log_sinh_over_x(x: torch.Tensor) -> torch.Tensor:
     """Stable ``log(sinh(x)/x)`` for x >= 0 (series below 0.1)."""
     small = x < 0.1
@@ -143,15 +162,16 @@ def _log_sinh_over_x(x: torch.Tensor) -> torch.Tensor:
 
 def log_cmk_exact(m: int, kappa: torch.Tensor) -> torch.Tensor:
     """``log C_m(kappa) = (m/2-1) log k - log I_{m/2-1}(k) - (m/2)
-    log(2 pi)``, for m = 2 (through ``i0e``) and m = 3 (closed form)."""
+    log(2 pi)``: m = 2 through ``i0e``, m = 3 in closed form, other m
+    through :func:`log_iv_series` (in float32)."""
     if m == 2:
         return -(torch.log(torch.special.i0e(kappa)) + kappa) - _LOG_2PI
     if m == 3:
         return -math.log(4.0 * math.pi) - _log_sinh_over_x(kappa)
-    raise NotImplementedError(
-        f"log C_m for m={m}: only m = 2 and 3 are ported (the general-m "
-        "series is not)"
-    )
+    nu = m / 2.0 - 1.0
+    safe = torch.clamp_min(kappa, 1e-30)
+    return (nu * torch.log(safe) - log_iv_series(nu, kappa)
+            - (m / 2.0) * _LOG_2PI)
 
 
 def log_cmk_approx(m: int, kappa: torch.Tensor) -> torch.Tensor:
@@ -175,6 +195,21 @@ def log_cmk(
         log_cmk_exact(m, kappa_lo),
         log_cmk_approx(m, kappa) - offset,
     )
+
+
+def bessel_ratio(m: int, kappa: torch.Tensor) -> torch.Tensor:
+    """``I_{m/2}(k) / I_{m/2-1}(k)``, the derivative of ``-log C_m`` in
+    ``kappa``."""
+    kappa = torch.as_tensor(kappa, dtype=torch.float32)
+    if m == 2:
+        return torch.special.i1e(kappa) / torch.special.i0e(kappa)
+    if m == 3:
+        small = kappa < 1e-3
+        safe = torch.where(small, 1.0, kappa)
+        return torch.where(small, kappa / 3.0,
+                           1.0 / torch.tanh(safe) - 1.0 / safe)
+    return torch.exp(log_iv_series(m / 2.0, kappa)
+                     - log_iv_series(m / 2.0 - 1.0, kappa))
 
 
 class VonMisesFisherLoss(LossFunction):
@@ -212,3 +247,54 @@ class VonMisesFisher3DLoss(VonMisesFisherLoss):
         kappa = prediction[:, 3]
         p = kappa[:, None] * prediction[:, :3]
         return self._evaluate(p, target)
+
+
+class EuclideanDistanceLoss(LossFunction):
+    """``|p[:, :3] - t[:, :3]|``."""
+
+    def _forward(self, prediction, target):
+        return torch.sqrt(
+            ((prediction[:, :3] - target[:, :3]) ** 2).sum(dim=1))
+
+
+class EnsembleLoss(LossFunction):
+    """Weighted sum of losses, each on its slice of the prediction's
+    columns (``prediction_keys``; all columns by default)."""
+
+    @save_config
+    def __init__(
+        self,
+        loss_functions: List[LossFunction],
+        loss_factors: Optional[List[float]] = None,
+        prediction_keys: Optional[List[List[int]]] = None,
+    ):
+        if loss_factors is None:
+            loss_factors = [1.0] * len(loss_functions)
+        if len(loss_functions) != len(loss_factors):
+            raise ValueError(
+                f"{len(loss_functions)} loss functions but "
+                f"{len(loss_factors)} factors")
+        self._loss_functions = loss_functions
+        self._factors = loss_factors
+        self._prediction_keys = prediction_keys
+
+    def _forward(self, prediction, target):
+        keys = self._prediction_keys
+        if keys is None:
+            keys = [list(range(prediction.shape[1]))] * len(self._loss_functions)
+        elements = 0.0
+        for fac, fn, key in zip(self._factors, self._loss_functions, keys):
+            elements = elements + fac * fn._forward(prediction[:, key], target)
+        return elements
+
+
+class RMSEVonMisesFisher3DLoss(EnsembleLoss):
+    """RMSE of the direction plus ``vmfs_factor`` times the 3D vMF loss."""
+
+    @save_config
+    def __init__(self, vmfs_factor: float = 0.05):
+        super().__init__(
+            loss_functions=[RMSELoss(), VonMisesFisher3DLoss()],
+            loss_factors=[1.0, vmfs_factor],
+            prediction_keys=[[0, 1, 2], [0, 1, 2, 3]],
+        )

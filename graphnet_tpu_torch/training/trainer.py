@@ -1,5 +1,9 @@
-"""Trainer: fit, validate and predict a StandardModel on one device
-(counterpart of ``graphnet_tpu/training/trainer.py``).
+"""Trainer: fit, validate and predict a model on one device (counterpart
+of ``graphnet_tpu/training/trainer.py``).  The model is a
+:class:`~graphnet_tpu_torch.models.standard_model.StandardModel` or any
+module with its contract (:class:`TrainableModel`): a
+:class:`~graphnet_tpu_torch.models.normalizing_flow.NormalizingFlow` or
+``SphericalFlow``, whose forward returns one array, the per-event NLLH.
 
 The JAX Trainer's single-device path: one optimiser step per batch,
 Adam with eps 1e-3 and the canonical piecewise-linear schedule, early
@@ -36,14 +40,14 @@ import logging
 import os
 import pickle
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Protocol,
+                    Sequence)
 
 import numpy as np
 import torch
 
 from graphnet_tpu_torch.batch import EventBatch, StackedBatches
 from graphnet_tpu_torch.models.components import stochastic
-from graphnet_tpu_torch.models.standard_model import StandardModel
 from graphnet_tpu_torch.training.callbacks import (
     EarlyStopping,
     Schedule,
@@ -59,6 +63,34 @@ logger = logging.getLogger(__name__)
 OptimizerFactory = Callable[
     [Iterable[torch.nn.Parameter]], torch.optim.Optimizer
 ]
+
+
+class TrainableModel(Protocol):
+    """What the Trainer reads of its model (an ``nn.Module``): ``model(
+    batch, inference=...)`` returns per-task ``(prediction,
+    regularisation)`` pairs or one array (a density's per-event NLLH);
+    ``loss_from_batch(outputs, batch)`` the loss; ``prediction_labels``
+    and ``tasks`` (each with ``node_level``) name the predictions."""
+
+    def loss_from_batch(self, outputs: Any, batch: EventBatch) -> torch.Tensor:
+        ...
+
+    @property
+    def prediction_labels(self) -> List[str]:
+        ...
+
+    @property
+    def tasks(self) -> Sequence[Any]:
+        ...
+
+
+def prediction_arrays(outputs: Any) -> List[torch.Tensor]:
+    """The predictions of a forward's outputs: each task's prediction, or
+    the one array of a model that returns one (``[B]`` made ``[B, 1]``),
+    as the JAX Trainer's ``predict_step``."""
+    if isinstance(outputs, torch.Tensor):
+        return [outputs if outputs.dim() > 1 else outputs[:, None]]
+    return [pred for pred, _ in outputs]
 
 
 def clip_by_global_norm(
@@ -88,11 +120,11 @@ def _save(payload: Dict[str, Any], path: str) -> None:
 
 
 class Trainer:
-    """Fit / validate / predict a :class:`StandardModel`."""
+    """Fit / validate / predict a :class:`TrainableModel`."""
 
     def __init__(
         self,
-        model: StandardModel,
+        model: TrainableModel,
         optimizer: Optional[OptimizerFactory] = None,
         learning_rate: float = 1e-3,
         schedule: Optional[Schedule] = None,
@@ -499,10 +531,11 @@ class Trainer:
         per_task: Optional[List[List[np.ndarray]]] = None
         with torch.inference_mode():
             for batch in loader:
-                outs = self.model(batch.to(self.device), inference=True)
+                outs = prediction_arrays(
+                    self.model(batch.to(self.device), inference=True))
                 if per_task is None:
                     per_task = [[] for _ in outs]
-                for chunks, (pred, _) in zip(per_task, outs):
+                for chunks, pred in zip(per_task, outs):
                     chunks.append(pred.float().cpu().numpy())
         if per_task is None:
             raise ValueError("empty loader")
@@ -532,9 +565,8 @@ class Trainer:
             for batch in loader:
                 outs = [
                     pred.float().cpu().numpy()
-                    for pred, _ in self.model(
-                        batch.to(self.device), inference=True
-                    )
+                    for pred in prediction_arrays(self.model(
+                        batch.to(self.device), inference=True))
                 ]
                 if node_level:
                     mask = batch.mask.cpu().numpy()

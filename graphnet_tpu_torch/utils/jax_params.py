@@ -24,6 +24,10 @@ module names, so the map is mechanical:
   keeps its name; every other ``scale`` is a layer norm's.  The port's layer norms name theirs
   ``weight``, so a port parameter named ``scale`` is never a norm's.
 
+A density model's conditioner (``NormalizingFlow`` and
+``SphericalFlow``: ``cond_norm``, ``cond_0``, ``cond_1``) carries over by
+the same rules.
+
 Unpickling needs no JAX: the pickle holds numpy arrays only.
 :func:`params_to_jax` is the inverse map, for writing the same pickle.
 """

@@ -628,6 +628,25 @@ def port_state_dict(model: torch.nn.Module,
     return _PORTERS[name](state_dict, model.state_dict())
 
 
+# the frozen batch-norm statistics of ported ConvNet (bn_mean, bn_var)
+# and ParticleNeT (MaskedBatchNorm's mean, var) models
+FROZEN_STATISTICS = ("bn_mean", "bn_var", "mean", "var")
+
+
+def frozen_stat_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
+    """The weight-decay mask (True = decay) of every entry of ``model``'s
+    ``state_dict``, False for the frozen batch-norm statistics: the JAX
+    package's ``frozen_stat_decay_mask`` of the same model's parameter
+    tree, by the port's names.
+
+    The port keeps those statistics as buffers, which no optimizer
+    steps, so a plain ``torch.optim.AdamW(model.parameters())`` already
+    leaves them as they are.  The mask is for a caller that builds
+    parameter groups by name (decay where True)."""
+    return {name: name.rsplit(".", 1)[-1] not in FROZEN_STATISTICS
+            for name in model.state_dict()}
+
+
 # ------------------------------------------- GraphNeT config translation
 # the transforms GraphNeT's zoo configs and examples write as lambdas,
 # matched as strings (never evaluated), by registered transform name

@@ -213,18 +213,20 @@ def test_dynedge_zoo_files_name_include_dynedge(name, tmp_path):
 
 
 def test_unported_class_is_named(tmp_path):
-    """A file naming a class the port does not have yet raises a KeyError
-    that names it."""
-    detector = _file_dict("knn_graph_icecube86.yml")["arguments"]["detector"]
-    d = {"class_name": "GraphDefinition", "arguments": {
-        "detector": detector,
-        "edge_definition": {"__model__": {
-            "class_name": "RadialEdges",
-            "arguments": {"radius": 50.0, "columns": [0, 1, 2],
-                          "max_neighbours": 32}}}}}
-    path = tmp_path / "radial_edges.yml"
+    """A file naming a class the port does not have raises a KeyError
+    that names it.  Every public class of the JAX registry is ported;
+    the one it lacks is the JAX NodeRNN's private flax cell
+    ``_ResetGRUCell`` (the port's NodeRNN steps ``torch.gru_cell``)."""
+    from graphnet_tpu.utils import config as jax_config
+
+    jax_config._register_framework_classes()
+    config._register_framework_classes()
+    assert set(jax_config.CLASS_REGISTRY) - set(config.CLASS_REGISTRY) == {
+        "_ResetGRUCell"}
+    d = {"class_name": "_ResetGRUCell", "arguments": {"features": 16}}
+    path = tmp_path / "gru_cell.yml"
     path.write_text(yaml.safe_dump(d, sort_keys=False))
-    with pytest.raises(KeyError, match="RadialEdges"):
+    with pytest.raises(KeyError, match="_ResetGRUCell"):
         config.load_model(str(path), device="cpu")
 
 

@@ -282,8 +282,8 @@ def test_knn_on_a_strided_view_equals_a_contiguous_copy():
 def test_knn_launch_checks_refuse_what_the_kernel_does_not_take():
     """``check_launch``, the CUDA wrapper's validation, raises without
     launching: a last stride other than 1, a non-bool mask, D outside
-    {3, 4}, k outside [1, 16], L above the shared-memory limit, and
-    (checked last) tensors that are not on a CUDA device."""
+    {3, 4}, k outside [1, min(32, L)], L above the shared-memory limit,
+    and (checked last) tensors that are not on a CUDA device."""
     from graphnet_tpu_torch.ops.knn_cuda import MAX_L, check_launch
 
     x = torch.zeros(2, 16, 6)
@@ -302,6 +302,12 @@ def test_knn_launch_checks_refuse_what_the_kernel_does_not_take():
     for k in (0, 17):
         with pytest.raises(ValueError, match="k="):
             check_launch(x[..., :3], mask, k)
+    x64, mask64 = torch.zeros(2, 64, 3), torch.ones(2, 64, dtype=torch.bool)
+    with pytest.raises(ValueError, match=r"k=33 must lie in \[1, min\(32"):
+        check_launch(x64, mask64, 33)
+    for k in (17, 32):  # taken: only the device is refused
+        with pytest.raises(ValueError, match="CUDA device"):
+            check_launch(x64, mask64, k)
     big = torch.zeros(1, MAX_L + 1, 3)
     with pytest.raises(ValueError, match="L <="):
         check_launch(big, torch.ones(1, MAX_L + 1, dtype=torch.bool), 8)

@@ -232,8 +232,12 @@ def test_log_cmk_matches_jax_across_the_switch(m):
             np.asarray(getattr(jlf, name)(m, jnp.asarray(KAPPAS))),
             rtol=1e-5, atol=1e-5, err_msg=name,
         )
-    with pytest.raises(NotImplementedError):
-        tlf.log_cmk_exact(5, torch.from_numpy(KAPPAS))
+    # other m take the log I_nu series (m = 5 here, more in
+    # tests/test_torch_targets.py)
+    np.testing.assert_allclose(
+        tlf.log_cmk_exact(5, torch.from_numpy(KAPPAS)).numpy(),
+        np.asarray(jlf.log_cmk_exact(5, jnp.asarray(KAPPAS))),
+        rtol=2e-4, atol=1e-5, err_msg="log_cmk_exact(5)")
 
 
 def test_direction_task_and_vmf3d_loss_match_jax():

@@ -251,13 +251,60 @@ def test_edge_definition_none_keeps_the_model():
                                atol=2e-5 * np.abs(j_pred).max())
 
 
-@pytest.mark.parametrize("rule", ["port_knn", "jax_minkowski"])
-def test_edge_definition_rule_raises_not_implemented(rule):
-    """An edge rule evaluated before the backbone is not ported: the port
-    refuses it rather than ignore it."""
-    edges = KNNEdges() if rule == "port_knn" else JaxMinkowskiKNNEdges()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        _energy_model(edge_definition=edges)
+def test_edge_definition_knn_equals_the_model_without_a_rule():
+    """``edge_definition=KNNEdges()`` builds the graph the backbone
+    builds itself: the same answers, bit for bit."""
+    _, tbs = _batches(11, [5])
+    plain, ruled = _energy_model(), _energy_model(edge_definition=KNNEdges())
+    ruled.load_state_dict(plain.state_dict())
+    (p, _), = plain(tbs[0])
+    (q, _), = ruled(tbs[0])
+    assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("rule", ["knn", "minkowski"])
+def test_edge_definition_rule_matches_jax(rule):
+    """An edge rule evaluated before the backbone, on the JAX model's
+    parameters: the port's predictions, loss and gradients against the
+    JAX StandardModel with the same rule (rtol 2e-4)."""
+    from graphnet_tpu.models.graphs.edges import KNNEdges as JaxKNNEdges
+    from graphnet_tpu_torch.models.graphs.edges import MinkowskiKNNEdges
+
+    jbs, tbs = _batches(12, [6])
+    jrule, trule = ((JaxKNNEdges(), KNNEdges()) if rule == "knn"
+                    else (JaxMinkowskiKNNEdges(), MinkowskiKNNEdges()))
+    jmodel = JaxStandardModel(
+        backbone=JaxDynEdge(nb_inputs=4, **NARROW),
+        tasks=(JaxEnergy(loss_function=jlf.LogCoshLoss(),
+                         target_labels=("total_energy",)),),
+        edge_definition=jrule,
+    )
+    params = jax.device_get(jmodel.init(jax.random.PRNGKey(1), jbs[0]))
+    model = StandardModel(
+        DynEdge(nb_inputs=4, **NARROW),
+        [EnergyReconstruction(hidden_size=8, loss_function=tlf.LogCoshLoss(),
+                              target_labels=("total_energy",))],
+        edge_definition=trule, device="cpu")
+    model.load_state_dict(params_from_jax(params, model.state_dict()))
+
+    def jloss(p):
+        return jmodel.loss_from_batch(jmodel.apply(p, jbs[0]), jbs[0])
+
+    j_val, j_grad = jax.value_and_grad(jloss)(params)
+    j_pred = np.asarray(jmodel.apply(params, jbs[0])[0][0])
+    out = model(tbs[0])
+    loss = model.loss_from_batch(out, tbs[0])
+    loss.backward()
+    pred = out[0][0].detach().numpy()
+    np.testing.assert_allclose(pred, j_pred, rtol=2e-4,
+                               atol=2e-5 * np.abs(j_pred).max())
+    np.testing.assert_allclose(float(loss.detach()), float(j_val), rtol=2e-4)
+    exp = params_from_jax(jax.device_get(j_grad), model.state_dict())
+    for name, p in model.named_parameters():
+        e = exp[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), e, rtol=2e-4,
+                                   atol=2e-4 * max(np.abs(e).max(), 1e-30),
+                                   err_msg=name)
 
 
 # -------------------------------------------------------------- Trainer

@@ -95,10 +95,11 @@ def main(argv=None) -> int:
     build.build(["knn", "edgeconv", "edgeconv_knn", "edgeconv_bwd"])
     dev = torch.device("cuda")
     cpu_ms = {}
-    for label, B, L, D, lo in cs.KNN_SHAPES:
+    for label, B, L, D, lo, *k in cs.KNN_SHAPES:  # a tree before k = 32: no k
+        k = k[0] if k else cs.K
         x, m = cs.ragged_coords(torch, np.random.default_rng(cs.SEED + 5), B, L, lo,
                                 "cpu", D=D)
-        cpu_ms[label] = 1e3 * cs.host_s(lambda: knn_graph_plain(x, m, cs.K), runs=5)
+        cpu_ms[label] = 1e3 * cs.host_s(lambda: knn_graph_plain(x, m, k), runs=5)
     result = {
         "label": args.label, "tree": args.tree, "card": smi,
         "knn": cs.knn_times(torch, knn_graph_cuda, knn_graph_plain, dev, peaks),
