@@ -29,7 +29,11 @@ Phases, each printing one JSON line:
    batch, and events whose centre the kernel sums serially; since the
    kernel takes k up to 32, k = 32 at B=128, L=128 for D = 3 and 4, one
    event of 512, events of 20-33 nodes at L=33, the grids with and
-   without self, and k = 17 and 24);
+   without self, and k = 17 and 24; since the rounds kernel takes k
+   past 32 and L past 8192, k = 48 at B=128, L=128 for D = 3 and 4, k =
+   33 and 64, the grids at k = 40 with and without self, all masked and
+   the serial centre at k = 40, a view at k = 40, one event of 12288
+   nodes, two of 9000 (D=4) and one of 8193 at k = 48);
 4. edgeconv: the fused EdgeConv forward kernel against its plain version
    (both layer shapes and H1=100, H2=72, add/max/mean, fp32 and bf16,
    k = 8, 1, 3, 12 and 64, events of 0, 1, 2, k and k+1 nodes at L = 48
@@ -246,8 +250,30 @@ Phases, each printing one JSON line:
    trained on ``Uniform`` weights fitted into a copy of the database;
    targets_examples: the two weight fitters' and the flow and multiclass
    examples' command lines (one epoch on the card);
+11d. parallel: training across processes
+   (``graphnet_tpu_torch.parallel.dryrun``, two processes sharing the
+   card over gloo, as NCCL refuses two ranks on one device): one full
+   training step through ``Trainer(mesh=..., param_sharding=...)`` of
+   the full-width DynEdge under DP and FSDP (B=8, L=64), DP x graph
+   (B=4, L=128, and one event of 12288 nodes on the rounds kernel),
+   and of the full-width DynEdgeTITO under TP (B=2, L=32; its attention
+   and feed-forward layers sharded, the flash kernels on each process's
+   4 heads); the shapes are the dry run's and differ from the JAX dry
+   run's (its docstring says why); a line a layout with its processes
+   and backend, its loss against the one-process step (rtol 1e-5, 1e-4
+   on a graph axis), each gradient against the one-process step's
+   (within 1e-3 of each parameter's largest, ``dryrun.GRAD_TOL``: a gate
+   whose pre-activation lies within fp32 rounding of 0 can be set one
+   way on one side and the other way on the other, which moves one
+   edge's share of a gradient), the
+   launches of rows 1-3 and 5a-c per process and step (DynEdge 5 / 4 /
+   4, TITO 4 of each flash kernel), on a graph axis the input
+   neighbours of each process's rows equal to the unsharded event's,
+   and each process's host seconds of a second step; FSDP's loss DP's;
 12. times: each kernel, its plain version and its bound (the kNN at
-   B=128, L=128 (also at k = 32), at TITO's B=8, L=1024 and at B=1, L = 128 and 512, with
+   B=128, L=128 (also at k = 32 and, on the rounds kernel, k = 48), at
+   TITO's B=8, L=1024, at B=1, L = 128 and 512 and, on the rounds
+   kernel, at B=1, L=12288, with
    its profiled device time, the device work and host time of a call,
    beside an empty kernel's; ``torch.profiler`` must find one device
    kernel a kNN call there and nothing else, also on the unfused
@@ -470,6 +496,21 @@ ICE_D64_STEPS = 2
 # the fp32 phase holds the same model within 1e-4 (1.0e-6 read).
 # NVIDIA H100 80GB HBM3, 700 W
 ICE_D64_BF16_TRAIN = dict(ICE_BF16_TRAIN, loss_rtol=1.2e-2)
+# the parallel phase: graphnet_tpu_torch.parallel.dryrun's layouts, two
+# processes on the one card (gloo: NCCL refuses two ranks on one device,
+# and gloo carries every collective of the layouts on CUDA tensors;
+# tools/collectives_probe.py), each
+# layout's launches a process and step: DynEdge 5 kNN, 4 EdgeConv
+# forward and 4 backward (on a graph axis too: each process builds the
+# whole gathered event's graphs); TITO 1 kNN, 4 EdgeConv (max), 4 of
+# each flash kernel on its local heads; graph_long's events of
+# PARALLEL_LONG_L nodes run every kNN on the rounds kernel
+PARALLEL_LAYOUTS = ("dp", "graph", "graph_long", "fsdp", "tp")
+PARALLEL_LONG_L = 12288
+PARALLEL_DYNEDGE = dict(knn=5, edgeconv=4, edgeconv_bwd=4, flash_fwd=0,
+                        flash_bwd_dq=0, flash_bwd_dkv=0)
+PARALLEL_TITO = dict(knn=1, edgeconv=4, edgeconv_bwd=4, flash_fwd=4,
+                     flash_bwd_dq=4, flash_bwd_dkv=4)
 
 
 def kernel_name(mangled):
@@ -729,6 +770,32 @@ def knn_cases(torch, rng, dev):
               ("grid_ties_k32_with_self",) + g + (32, False)]
     x, m = ragged_coords(torch, r32, 8, 64, 2, dev, D=4)
     cases += [("k17_B8_L64_D4", x, m, 17, True), ("k24_B8_L64_D4", x, m, 24, True)]
+    # the rounds kernel (k > 32 or L > 8192): k = 48 at the serving shape
+    # for D = 3 and 4, k = 64 and 33, the grids' exact ties at k = 40 with
+    # and without self, all masked, the serial centre, a view, and one
+    # event of 12288 nodes (B=1), two of 9000 (D=4) and one of 8193 at k
+    # = 48
+    rr = np.random.default_rng(SEED + 23)
+    for D in (3, 4):
+        cases.append((f"k48_B128_L128_D{D}",)
+                     + ragged_coords(torch, rr, 128, 128, 40, dev, D=D) + (48, True))
+    x, m = ragged_coords(torch, rr, 8, 64, 2, dev, D=4)
+    cases += [("k64_B8_L64_D4", x, m, 64, True), ("k33_B8_L64_D4", x, m, 33, True)]
+    cases += [("grid_ties_k40",) + g + (40, True),
+              ("grid_ties_k40_with_self",) + g + (40, False)]
+    x, m = ragged_coords(torch, rr, 4, 64, 64, dev)
+    cases.append(("all_masked_k40_B4_L64", x, torch.zeros_like(m), 40, True))
+    for D in (3, 4):
+        cases.append((f"serial_centre_k40_D{D}",) + tie_centre_events(torch, rr, dev, D)
+                     + (40, True))
+    wide, mw = ragged_coords(torch, rr, 4, 128, 64, dev, D=7)
+    cases.append(("view_2_5_of_7_columns_k40", wide[..., 2:5], mw, 40, True))
+    cases.append(("B1_L12288",) + ragged_coords(torch, rr, 1, 12288, 12000, dev)
+                 + (K, True))
+    cases.append(("xyzt_B2_L9000",) + ragged_coords(torch, rr, 2, 9000, 8000, dev, D=4)
+                 + (K, True))
+    cases.append(("k48_B1_L8193",) + ragged_coords(torch, rr, 1, 8193, 8193, dev)
+                 + (48, True))
     return cases
 
 
@@ -1175,6 +1242,10 @@ KNN_SHAPES = (  # label, B, L, D, shortest event, k: row 1's shapes on the path
     ("B1_L128_D3", 1, 128, 3, 128, K),
     ("B1_L512_D3", 1, 512, 3, 512, K),
     ("B128_L128_D3_k32", 128, 128, 3, 65, 32),  # RadialEdges' graph
+    # the rounds kernel: k past 32, and an event past 8192 nodes (the
+    # DP x graph step's kNN, on the whole gathered event)
+    ("B128_L128_D3_k48", 128, 128, 3, 65, 48),
+    ("B1_L12288_D3", 1, PARALLEL_LONG_L, 3, PARALLEL_LONG_L - 288, K),
 )
 EMPTY_KERNEL = r"""
 #include <cuda_runtime.h>
@@ -4862,6 +4933,36 @@ class SmokeDeployer(Deployer):
                     module(events))
 
 
+def parallel_phase(nproc=2, device="cuda", layouts=PARALLEL_LAYOUTS,
+                   width="full", long_l=PARALLEL_LONG_L):
+    """The parallel phase: ``dryrun.launch`` of each layout (one full
+    training step through ``Trainer(mesh=..., param_sharding=...)``,
+    each against the one-process step), then the checks: every report
+    ``ok``, each process's launches in the step as ``PARALLEL_DYNEDGE`` /
+    ``PARALLEL_TITO`` (and on graph_long every kNN the rounds kernel's),
+    FSDP's loss DP's.  Returns the reports, without the bulky graphs."""
+    from graphnet_tpu_torch.parallel import dryrun
+
+    reports = dryrun.launch(nproc, device, ",".join(layouts), width=width,
+                            long_l=long_l, timeout=600, threads=2)
+    by = {r["layout"]: r for r in reports}
+    for r in reports:
+        assert r["ok"], f"parallel {r['layout']}: {r}"
+        expect = dict(PARALLEL_TITO if r["model"] == "tito"
+                      else PARALLEL_DYNEDGE)
+        expect["knn_rounds"] = expect["knn"] if r["L"] > 8192 else 0
+        for rank, got in enumerate(r["launches_per_rank"]):
+            if device == "cuda":
+                assert got == expect, (
+                    f"parallel {r['layout']} rank {rank}: launches {got}, "
+                    f"expected {expect}")
+        r["launches_expected_per_rank"] = expect
+    if "dp" in by and "fsdp" in by:
+        assert abs(by["fsdp"]["loss"] - by["dp"]["loss"]) <= 1e-5 * max(
+            1.0, abs(by["dp"]["loss"])), (by["fsdp"]["loss"], by["dp"]["loss"])
+    return reports
+
+
 def deployer_phase(module, rng, tmp):
     """DEPLOY_FILES ``.npz`` files of DEPLOY_EVENTS events each (1-512
     pulses, some files with a 0-pulse event) served by SmokeDeployer in
@@ -5762,6 +5863,18 @@ def main() -> int:
     del emodule, config_modules
     shutil.rmtree(tmp)
 
+    # 7j. training across processes: the dry run's layouts, two processes
+    # sharing the card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    parallel = parallel_phase()
+    for report in parallel:
+        emit({"phase": "parallel", "card": smi, **report})
+    graph_long = next(r for r in parallel if r["layout"] == "graph_long")
+    rounds_launches = sum(l["knn_rounds"] for l in graph_long["launches_per_rank"])
+    emit({"phase": "parallel_done", "fsdp_equals_dp": True,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
     # 8. times
     t0 = time.perf_counter()
     times = kernel_times(torch, ops, rng, dev, peaks)
@@ -5901,6 +6014,21 @@ def main() -> int:
              launches_per="RadialEdges DynEdge forward: 1 at k = 32 (D=3), "
              "then 4 at k = 8",
              max_abs_err=knn_err, **row1("B128_L128_D3_k32"), library_ms=None),
+        dict(name="knn_rounds_k48", row="1", route="cuda",
+             source="graphnet_tpu_torch/csrc/knn.cu",
+             replaces="graphnet_tpu/ops/knn_pallas.py:35",
+             launches=rounds_launches,
+             launches_per="the rounds kernel (k > 32 or L > 8192) on the "
+             f"DP x graph step at L = {PARALLEL_LONG_L}: 5 a process, D=3, "
+             "k = 8 (no main path asks k > 32 yet)",
+             max_abs_err=knn_err, **row1("B128_L128_D3_k48"), library_ms=None),
+        dict(name="knn_rounds_L12288", row="1", route="cuda",
+             source="graphnet_tpu_torch/csrc/knn.cu",
+             replaces="graphnet_tpu/ops/knn_pallas.py:35",
+             launches=rounds_launches,
+             launches_per=f"DP x graph step at L = {PARALLEL_LONG_L}: 5 a "
+             "process (each builds the whole gathered event's graph)",
+             max_abs_err=knn_err, **row1("B1_L12288_D3"), library_ms=None),
         dict(name="edgeconv_fwd", row="2", route="cuda",
              source="graphnet_tpu_torch/csrc/edgeconv.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:66",

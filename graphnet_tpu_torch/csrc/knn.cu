@@ -6,7 +6,9 @@
 // the query itself are never chosen; k nearest in ascending distance
 // with ties to the lower key index; edge_mask = "a real key was chosen"
 // and the query is valid.  D is 3 (DynEdge's xyz) or 4 (TITO's xyzt) and
-// k is 1-32 (RadialEdges' default cap is 32), both template parameters.
+// k is 1-32 (RadialEdges' default cap is 32), both template parameters,
+// for events of at most 8192 nodes; every other k (up to L) and L take
+// the rounds path at the end of this note.
 //
 // What bounds it on the H100: neither bytes nor FLOPs.  At the serving
 // shape (B=128, L=128, k=8, D=3) it reads 0.2 MB, writes 0.65 MB and
@@ -77,6 +79,23 @@
 // Distances use the non-fused __fmul_rn/__fadd_rn intrinsics of knn.cuh
 // in the plain version's order, so both give bit-identical distances and
 // the same neighbours.
+//
+// The rounds path: k > 32 or L > 8192.  Past those limits a lane's list
+// no longer fits in registers, or the event no longer fits in shared
+// memory, so a second kernel (knn_kernel_rounds) takes every other shape
+// with the same arithmetic.  Each block first sums its event's centre by
+// the rule above, reading the event from memory (the serial fallback
+// reads it in index order from memory too).  Then k rounds: round r picks
+// the least (distance, index) pair above round r - 1's pick, so the k
+// picks come out in top_k's order with ties to the lower index, as the
+// JAX package's streaming select does (k rounds of min, argmin, mask).
+// In each round the keys stream through shared memory in tiles of
+// kRoundTile, centred (__fsub_rn) and squared (dot_rn) as they arrive,
+// the block's queries each split over S lanes as above; the S lanes'
+// candidates are reduced by warp shuffles.  Nothing of size L^2 or L*k
+// waits in shared memory, so L is bounded only by the grid.  The work is
+// k times the distances of one pass; the first path stays the one for
+// k <= 32, L <= 8192, so their launches and bits do not change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -370,10 +389,227 @@ cudaError_t launch_k(const float* x, long long sb, long long sl,
   }
 }
 
+constexpr int kRoundTile = 2048;  // keys a tile of the rounds kernel
+
+// Lanes a query in the rounds kernel: the smallest power of two S <= 32
+// with B*L*S >= kTargetLanes, while each lane keeps at least
+// kMinKeysPerLane keys of the event (and at least 1 lane).
+int round_lanes(int B, int L) {
+  int s = 1;
+  const long long queries = (long long)B * L;
+  while (s < 32 && queries * s < kTargetLanes &&
+         2 * s * kMinKeysPerLane <= L) {
+    s *= 2;
+  }
+  return s;
+}
+
+// One block: the queries tile * (blockDim.x / S) .. + blockDim.x / S - 1
+// of event blockIdx.x / tiles, k rounds each.  Dynamic shared memory:
+// kRoundTile float4 keys (cx, cy, cz, |c|^2 | ct) and, for D=4,
+// kRoundTile floats |c|^2.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+knn_kernel_rounds(const float* __restrict__ coords, long long sb,
+                  long long sl, const uint8_t* __restrict__ mask,
+                  long long mb, int L, int k, int tiles, int S,
+                  int exclude_self, int32_t* __restrict__ idx_out,
+                  uint8_t* __restrict__ em_out) {
+  extern __shared__ float4 key[];  // [kRoundTile]
+  float* ksq = reinterpret_cast<float*>(key + kRoundTile);  // D=4 only
+  __shared__ double s_sum[kWarps][D];
+  __shared__ int s_n[kWarps], s_last[kWarps], s_lo[kWarps][D],
+      s_hi[kWarps][D];
+  __shared__ float s_centre[D];
+  __shared__ int s_nk;
+
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const float* ev = coords + b * sb;
+  const uint8_t* m = mask + b * mb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  // 1. the centre: each thread's float64 sums, count, exponent range and
+  // last valid node over its strided share of the event, in memory
+  double sum[D];
+  int lo[D], hi[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    sum[d] = 0.0;
+    lo[d] = 255;
+    hi[d] = 0;
+  }
+  int n = 0, last = -1;
+  for (int j = tid; j < L; j += blockDim.x) {
+    if (m[j] == 0) continue;
+    ++n;
+    last = j;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float c = __ldg(ev + j * sl + d);
+      sum[d] += (double)c;
+      if (c != 0.f) {
+        const int e = exponent_of(c);
+        lo[d] = min(lo[d], e);
+        hi[d] = max(hi[d], e);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      sum[d] += __shfl_xor_sync(0xffffffffu, sum[d], o);
+      lo[d] = min(lo[d], __shfl_xor_sync(0xffffffffu, lo[d], o));
+      hi[d] = max(hi[d], __shfl_xor_sync(0xffffffffu, hi[d], o));
+    }
+    n += __shfl_xor_sync(0xffffffffu, n, o);
+    last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      s_sum[warp][d] = sum[d];
+      s_lo[warp][d] = lo[d];
+      s_hi[warp][d] = hi[d];
+    }
+    s_n[warp] = n;
+    s_last[warp] = last;
+  }
+  __syncthreads();
+  n = 0;
+  last = -1;
+  for (int w = 0; w < nwarps; ++w) {
+    n += s_n[w];
+    last = max(last, s_last[w]);
+  }
+  if (tid < D) {
+    const int d = tid;
+    double s = 0.0;
+    int l = 255, h = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      s += s_sum[w][d];
+      l = min(l, s_lo[w][d]);
+      h = max(h, s_hi[w][d]);
+    }
+    const int clog = n > 1 ? 32 - __clz(n - 1) : 0;
+    if (h < 255 && h - l + 24 + clog <= 53) {
+      s += 0.0;
+    } else {  // the serial sum, in index order
+      s = 0.0;
+      for (int j = 0; j <= last; ++j) {
+        if (m[j] != 0) s += (double)__ldg(ev + j * sl + d);
+      }
+    }
+    s_centre[d] = (float)(s / (double)max(n, 1));
+  }
+  if (tid == 0) s_nk = last + 1;  // keys past the last valid node: none
+  __syncthreads();
+  const int nk = s_nk;
+  float centre[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) centre[d] = s_centre[d];
+
+  // 2. this thread's query, centred as its keys will be
+  const int slot = tid / S, s = tid - slot * S;
+  const int q = tile * (blockDim.x / S) + slot;
+  const bool qvalid = q < L && m[q] != 0;
+  float qc[4] = {0.f, 0.f, 0.f, 0.f};
+  float qsq = 0.f;
+  if (qvalid) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) qc[d] = __fsub_rn(__ldg(ev + q * sl + d), centre[d]);
+    qsq = dot_rn<D>(qc, qc);
+  }
+  const int self = exclude_self ? q : -1;
+
+  // 3. k rounds, each the least (d, j) above the previous round's pick
+  float pd = -__int_as_float(0x7f800000);
+  int pj = -1;
+  const size_t base = ((size_t)b * L + q) * k;
+  for (int r = 0; r < k; ++r) {
+    float bd = kBig;
+    int bj = 0x7fffffff;
+    for (int t0 = 0; t0 < nk; t0 += kRoundTile) {
+      const int tn = min(kRoundTile, nk - t0);
+      __syncthreads();  // the previous tile is read by all
+      for (int i = tid; i < tn; i += blockDim.x) {
+        const int j = t0 + i;
+        const bool v = m[j] != 0;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          c[d] = v ? __fsub_rn(__ldg(ev + j * sl + d), centre[d]) : 0.f;
+        }
+        const float sq = v ? dot_rn<D>(c, c) : __int_as_float(0x7f800000);
+        if constexpr (D == 3) {
+          key[i] = make_float4(c[0], c[1], c[2], sq);
+        } else {
+          key[i] = make_float4(c[0], c[1], c[2], c[3]);
+          ksq[i] = sq;
+        }
+      }
+      __syncthreads();
+      if (qvalid) {
+        for (int i = s; i < tn; i += S) {
+          const int j = t0 + i;
+          const float4 kv = key[i];
+          const float kc[4] = {kv.x, kv.y, kv.z, kv.w};
+          const float d = sq_dist(qsq, D == 3 ? kv.w : ksq[i],
+                                  dot_rn<D>(qc, kc));
+          if (j != self && d < kBig && before(pd, pj, d, j) &&
+              before(d, j, bd, bj)) {
+            bd = d;
+            bj = j;
+          }
+        }
+      }
+    }
+    // the S lanes' least pair, on every lane of the query
+    for (int o = 1; o < S; o <<= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+      const int oj = __shfl_xor_sync(0xffffffffu, bj, o);
+      if (before(od, oj, bd, bj)) {
+        bd = od;
+        bj = oj;
+      }
+    }
+    const bool found = bd < kBig;
+    if (q < L && s == 0) {
+      idx_out[base + r] = found ? bj : 0;
+      em_out[base + r] = (qvalid && found && bd < kBig * 0.5f) ? 1 : 0;
+    }
+    pd = bd;
+    pj = bj;
+  }
+}
+
+template <int D>
+cudaError_t launch_rounds(const float* coords, long long sb, long long sl,
+                          const uint8_t* mask, long long mb, int B, int L,
+                          int k, int exclude_self, int32_t* idx, uint8_t* em,
+                          cudaStream_t stream) {
+  const int S = round_lanes(B, L);
+  const int per = kThreads / S;
+  const long long tiles = (L + per - 1) / per;
+  if ((long long)B * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t bytes = (size_t)kRoundTile * (D == 3 ? 16 : 20);
+  knn_kernel_rounds<D><<<(unsigned)(B * tiles), kThreads, bytes, stream>>>(
+      coords, sb, sl, mask, mb, L, k, (int)tiles, S, exclude_self, idx, em);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// Whether a call of (L, k) takes the rounds kernel (k > 32 or L > 8192).
+extern "C" int knn_uses_rounds(int L, int k) {
+  return k > 32 || L > kMaxL ? 1 : 0;
+}
+
 // One kNN graph launch on `stream` of CUDA device `device` (made current
-// for the launch if it is not).  coords: float32 [B, L, D] with element
+// for the launch if it is not): knn_kernel for k <= 32 and L <= 8192,
+// knn_kernel_rounds otherwise.  coords: float32 [B, L, D] with element
 // strides (sb, sl, 1); mask: bool [B, L] with strides (mb, 1); idx int32
 // and em bool [B, L, k], contiguous.  Returns the CUDA error code.
 extern "C" int knn_graph_launch(const void* coords, long long sb,
@@ -382,7 +618,7 @@ extern "C" int knn_graph_launch(const void* coords, long long sb,
                                 void* idx, void* em, int device,
                                 void* stream) {
   if (B == 0 || L == 0) return 0;
-  if (L > kMaxL) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > L) return (int)cudaErrorInvalidValue;
   int current = device;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -392,10 +628,15 @@ extern "C" int knn_graph_launch(const void* coords, long long sb,
   int32_t* i = static_cast<int32_t*>(idx);
   uint8_t* e = static_cast<uint8_t*>(em);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool rounds = knn_uses_rounds(L, k) != 0;
   if (D == 3) {
-    err = launch_k<3>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s);
+    err = rounds
+              ? launch_rounds<3>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s)
+              : launch_k<3>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s);
   } else if (D == 4) {
-    err = launch_k<4>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s);
+    err = rounds
+              ? launch_rounds<4>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s)
+              : launch_k<4>(x, sb, sl, m, mb, B, L, k, exclude_self, i, e, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -42,6 +42,8 @@ from graphnet_tpu_torch.ops.rel_flash_attention import (
 from graphnet_tpu_torch.ops.rel_flash_attention_cuda import rel_flash_attention
 from graphnet_tpu_torch.models.components import stochastic
 from graphnet_tpu_torch.models.components.stochastic import Dropout
+from graphnet_tpu_torch.parallel import tensor_parallel
+from graphnet_tpu_torch.parallel.graph_sharding import current_graph_axis
 
 # opt-in switch for the fused EdgeConv + kNN kernel (the JAX package's
 # default, off): where it holds (EdgeConv.uses_fused_knn) each DynEdge
@@ -81,6 +83,17 @@ def linear(
         return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor,
+                 dtype: Optional[torch.dtype], tp) -> torch.Tensor:
+    """A row-parallel ``layer(x)``: this process's input features times
+    its weight shard, all-reduced over the model axis, then the
+    (replicated) bias, in ``dtype`` as :func:`linear`."""
+    w = layer.weight if dtype is None else layer.weight.to(dtype)
+    y = tensor_parallel.reduce_from_tp(
+        torch.matmul(x if dtype is None else x.to(dtype), w.t()), tp)
+    return y + (layer.bias if dtype is None else layer.bias.to(dtype))
 
 
 def lecun_normal_(
@@ -239,6 +252,7 @@ class EdgeConv(nn.Module):
         would change the coordinates the kNN sees, so it is out."""
         return (
             FUSE_CONV_KNN
+            and current_graph_axis() is None
             and 0 < self.knn_k <= KNN_MAX_K
             and self.knn_subset is not None
             and self.knn_subset[1] - self.knn_subset[0] in KNN_DIMS
@@ -248,10 +262,15 @@ class EdgeConv(nn.Module):
             and self.uses_kernel
         )
 
-    def linear_terms(self, x: torch.Tensor):
+    def linear_terms(self, x: torch.Tensor, axis=None):
         """The linearised first layer's two per-node terms ``(a, b)``: an
-        edge's pre-activation is ``a_i + b_j``."""
+        edge's pre-activation is ``a_i + b_j``.  Under node sharding
+        (``axis``, ``parallel/graph_sharding.py``) ``x`` is this process's
+        rows: the input is all-gathered once, in the compute dtype, so
+        ``a`` covers the local rows and ``b`` every node of the event."""
         a = linear(self.self_dense, x, self.dtype)  # x_i @ (W1 - W2) + bias
+        if axis is not None:
+            x = axis.gather(x if self.dtype is None else x.to(self.dtype))
         b = linear(self.nbr_dense, x, self.dtype)  # x_j @ W2
         return a, b
 
@@ -262,7 +281,8 @@ class EdgeConv(nn.Module):
         edge_mask: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
     ):
-        a, b = self.linear_terms(x)
+        axis = current_graph_axis()
+        a, b = self.linear_terms(x, axis)
         if self.two_layer:
             w2, b2 = self.out_kernel, self.out_bias
             if self.dtype is not None:
@@ -275,11 +295,17 @@ class EdgeConv(nn.Module):
                     sub_lo=lo, sub_hi=hi,
                 )
             if self.uses_kernel:
-                out = fused_edgeconv(
-                    a, b, idx, edge_mask, w2, b2,
-                    aggr="add" if self.aggr == "mean" else self.aggr,
-                    slope=_KERNEL_SLOPES[self.activation],
-                )
+                kernel = dict(aggr="add" if self.aggr == "mean" else self.aggr,
+                              slope=_KERNEL_SLOPES[self.activation])
+                if axis is None:
+                    out = fused_edgeconv(a, b, idx, edge_mask, w2, b2, **kernel)
+                else:
+                    # the whole event, the other processes' rows padding
+                    # nodes (no valid edge), whose blocks exit at once
+                    L = b.shape[1]
+                    out = axis.local_rows(fused_edgeconv(
+                        axis.pad_rows(a, L), b, axis.pad_rows(idx, L),
+                        axis.pad_rows(edge_mask, L), w2, b2, **kernel))
                 if self.aggr == "mean":
                     n = edge_mask.sum(dim=2, keepdim=True).clamp_min(1)
                     out = out / n
@@ -342,11 +368,28 @@ class DynEdgeConv(nn.Module):
         if isinstance(res, tuple):
             return res
         x = res
-        new_idx, new_edge_mask = knn_graph(
+        new_idx, new_edge_mask = sharded_knn_graph(
             coordinate_view(x, self.features_subset), mask,
             k=self.nb_neighbors,
         )
         return x, new_idx, new_edge_mask
+
+
+def sharded_knn_graph(
+    coords: torch.Tensor, mask: torch.Tensor, k: int, knn=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``knn`` (this module's :func:`knn_graph` by default), also under
+    node sharding (``parallel/graph_sharding.py``): the coordinates and
+    the mask are all-gathered, row 1 builds the whole event's graph, and
+    this process keeps its query rows (global key indices), the
+    unsharded event's neighbours bit for bit."""
+    knn = knn_graph if knn is None else knn
+    axis = current_graph_axis()
+    if axis is None:
+        return knn(coords, mask, k=k)
+    idx, edge_mask = knn(axis.gather_const(coords), axis.gather_const(mask),
+                         k=k)
+    return axis.local_rows(idx), axis.local_rows(edge_mask)
 
 
 def dense_attention(
@@ -412,9 +455,11 @@ class MultiHeadAttention(nn.Module):
         self.qkv = nn.Linear(embed_dim, 3 * embed_dim)
         self.out = nn.Linear(embed_dim, embed_dim)
         self.attn_dropout = Dropout(dropout_rate, deterministic)
+        # the model axis once parallel.tensor_parallel shards qkv and out
+        self.tp = None
 
     def uses_flash(self, attn_bias: Optional[torch.Tensor] = None) -> bool:
-        head_dim = self.qkv.in_features // self.num_heads
+        head_dim = self.out.out_features // self.num_heads
         return (attn_bias is None and not self.attn_dropout.active
                 and flash_supported(head_dim))
 
@@ -427,18 +472,27 @@ class MultiHeadAttention(nn.Module):
         B, L, D = x.shape
         H = self.num_heads
         hd = D // H
+        if self.tp is not None:
+            # this process's heads (parallel/tensor_parallel.py)
+            H, D = H // self.tp.n, D // self.tp.n
+            x = tensor_parallel.copy_to_tp(x, self.tp)
         q, k, v = linear(self.qkv, x, self.dtype).split(D, dim=-1)
 
         def heads(t):
             return t.reshape(B, L, H, hd).transpose(1, 2)
 
         q, k, v = heads(q), heads(k), heads(v)
+        if self.tp is not None and self.attn_dropout.active:
+            raise NotImplementedError(
+                "attention dropout in a tensor-parallel attention layer")
         if self.uses_flash(attn_bias):
             out = flash_attention(q, k, v, key_padding_mask)
         else:
             out = dense_attention(q, k, v, key_padding_mask, attn_bias,
                                   self.attn_dropout)
         out = out.transpose(1, 2).reshape(B, L, D)
+        if self.tp is not None:
+            return row_parallel(self.out, out, self.dtype, self.tp)
         return linear(self.out, out, self.dtype)
 
 
@@ -471,14 +525,25 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
         self.drop = Dropout(dropout_rate, deterministic)
+        # the model axis once parallel.tensor_parallel shards the FFN
+        self.tp = None
 
     def forward(
         self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         h = self.drop(self.mha(x, key_padding_mask))
         x = layer_norm(self.norm1, x + h, None)
-        h = self.drop(self.activation(linear(self.linear1, x, self.dtype)))
-        h = self.drop(linear(self.linear2, h, self.dtype))
+        if self.tp is not None:
+            if self.drop.active:
+                raise NotImplementedError(
+                    "dropout inside a tensor-parallel feed-forward layer")
+            h = linear(self.linear1, tensor_parallel.copy_to_tp(x, self.tp),
+                       self.dtype)
+            h = row_parallel(self.linear2, self.activation(h), self.dtype,
+                             self.tp)
+        else:
+            h = self.drop(self.activation(linear(self.linear1, x, self.dtype)))
+            h = self.drop(linear(self.linear2, h, self.dtype))
         return layer_norm(self.norm2, x + h, None)
 
 

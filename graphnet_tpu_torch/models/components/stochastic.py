@@ -14,6 +14,12 @@ mode, so ``eval()`` is the counterpart of the JAX package's
 Because every mask comes through :func:`keep_mask`, a caller can record
 the masks of one run and feed them to another (another device, the JAX
 package) by replacing this module's ``keep_mask`` from outside.
+
+Across processes (:func:`global_rows`, which the Trainer installs under
+a mesh) a mask over the batch is this process's rows of the mask the
+whole global batch would draw, as the JAX package's fold-in over the
+global batch draws it; every process seeds the same generator, so a
+mask over replicated tensors is the same on each.
 """
 
 from __future__ import annotations
@@ -30,6 +36,21 @@ from torch import nn
 # one-element list so a function given for it is called once; none outside
 _GENERATOR: contextvars.ContextVar[Optional[list]] = (
     contextvars.ContextVar("stochastic_generator", default=None))
+# (first row, local rows, global rows) of this process's batch
+_ROWS: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "stochastic_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_rows(first: int, local: int, total: int) -> Iterator[None]:
+    """Inside the block, a mask whose leading dimension is the local
+    batch (``local`` events) is drawn for the whole global batch of
+    ``total`` events and cut to rows ``first .. first + local - 1``."""
+    token = _ROWS.set((first, local, total))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
 
 
 @contextlib.contextmanager
@@ -70,7 +91,16 @@ def keep_mask(
         )
     if not isinstance(slot[0], torch.Generator):
         slot[0] = slot[0]()
-    u = torch.rand(tuple(shape), generator=slot[0], device=device)
+    from graphnet_tpu_torch.parallel.graph_sharding import current_graph_axis
+
+    if current_graph_axis() is not None:
+        raise NotImplementedError("stochastic layers under node sharding")
+    shape, rows = tuple(shape), _ROWS.get()
+    if rows is not None and shape and shape[0] == rows[1] != rows[2]:
+        first, local, total = rows
+        u = torch.rand((total,) + shape[1:], generator=slot[0], device=device)
+        return u[first:first + local] < keep_prob
+    u = torch.rand(shape, generator=slot[0], device=device)
     return u < keep_prob
 
 

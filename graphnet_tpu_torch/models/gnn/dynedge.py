@@ -15,15 +15,19 @@ from typing import Optional, Tuple
 import torch
 
 from graphnet_tpu_torch.batch import EventBatch
-from graphnet_tpu_torch.models.components.layers import MLP, DynEdgeConv
+from graphnet_tpu_torch.models.components.layers import (
+    MLP,
+    DynEdgeConv,
+    sharded_knn_graph,
+)
 from graphnet_tpu_torch.models.gnn.gnn import GNN, resolve_compute_dtype
 from graphnet_tpu_torch.ops.gather_reduce import (
     broadcast_to_nodes,
     global_pool,
     homophily,
-    masked_mean,
 )
 from graphnet_tpu_torch.ops.knn import coordinate_view, knn_graph
+from graphnet_tpu_torch.parallel.graph_sharding import current_graph_axis
 from graphnet_tpu_torch.utils.config import save_config
 
 DEFAULT_DYNEDGE_LAYER_SIZES: Tuple[Tuple[int, ...], ...] = (
@@ -133,9 +137,11 @@ class DynEdge(GNN):
         edge_mask: torch.Tensor,
         n_pulses: torch.Tensor,
     ) -> torch.Tensor:
-        """Masked feature means + homophily of xyzt + log10(n_pulses)."""
-        homs = homophily(idx, edge_mask, x[..., :4])
-        means = masked_mean(x, mask)
+        """Masked feature means + homophily of xyzt + log10(n_pulses);
+        under node sharding over every process's rows of the event."""
+        axis = current_graph_axis()
+        homs = homophily(idx, edge_mask, x[..., :4], axis=axis)
+        means = global_pool(x, mask, "mean", axis=axis)
         logn = torch.log10(n_pulses.clamp_min(1).to(x.dtype))[:, None]
         return torch.cat([means, homs, logn], dim=-1)
 
@@ -147,9 +153,9 @@ class DynEdge(GNN):
         if batch.edges is not None:
             idx, edge_mask = batch.edges, batch.edge_mask
         else:
-            idx, edge_mask = knn_graph(
+            idx, edge_mask = sharded_knn_graph(
                 coordinate_view(x, self.features_subset), mask,
-                k=self.nb_neighbours,
+                k=self.nb_neighbours, knn=knn_graph,
             )
 
         global_variables = self._global_variables(
@@ -174,7 +180,8 @@ class DynEdge(GNN):
             return x
 
         if self.global_pooling_schemes:
-            x = global_pool(x, mask, self.global_pooling_schemes)
+            x = global_pool(x, mask, self.global_pooling_schemes,
+                            axis=current_graph_axis())
             if self.add_global_variables_after_pooling:
                 x = torch.cat([x, global_variables], dim=-1)
 

@@ -15,9 +15,10 @@ _POS = 1e30
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``[B, L, D] gathered at [B, L, k] -> [B, L, k, D]``."""
-    B, L, D = x.shape
-    k = idx.shape[2]
+    """``[B, L, D] gathered at [B, Lq, k] -> [B, Lq, k, D]`` (``Lq`` is
+    ``L``, or fewer query rows indexing all ``L``: a node shard's)."""
+    B, _, D = x.shape
+    L, k = idx.shape[1], idx.shape[2]
     flat = idx.reshape(B, L * k, 1).long().expand(B, L * k, D)
     return torch.gather(x, 1, flat).reshape(B, L, k, D)
 
@@ -86,11 +87,36 @@ POOLS = {
 }
 
 
-def global_pool(x: torch.Tensor, mask: torch.Tensor, schemes) -> torch.Tensor:
+def sharded_pool(x: torch.Tensor, mask: torch.Tensor, scheme: str,
+                 axis) -> torch.Tensor:
+    """One pooling scheme of node-sharded events (``x [B, Ls, D]``, this
+    process's rows) reduced across the ``graph`` axis ``axis``
+    (:class:`~graphnet_tpu_torch.parallel.graph_sharding.GraphAxis`):
+    sums, means over the whole event's count, and max / min with the
+    gradient on the process holding the extreme."""
+    if scheme in ("sum", "add"):
+        return axis.sum(masked_sum(x, mask))
+    n = axis.sum_const(mask.sum(dim=1, keepdim=True).to(x.dtype))
+    if scheme == "mean":
+        return axis.sum(masked_sum(x, mask)) / n.clamp_min(1)
+    if scheme in ("max", "min"):
+        largest = scheme == "max"
+        r = torch.where(mask[..., None], x, _NEG if largest else _POS)
+        r = r.amax(dim=1) if largest else r.amin(dim=1)
+        return torch.where(n > 0, axis.extreme(r, largest), 0.0)
+    raise NotImplementedError(f"pooling {scheme!r} under node sharding")
+
+
+def global_pool(x: torch.Tensor, mask: torch.Tensor, schemes,
+                axis=None) -> torch.Tensor:
     """Concat of pooled features per scheme, ``[B, len(schemes)*D]``; a
-    bare string means one scheme."""
+    bare string means one scheme.  ``axis``: the ``graph`` axis of
+    node-sharded events (:func:`sharded_pool`)."""
     if isinstance(schemes, str):
         schemes = (schemes,)
+    if axis is not None:
+        return torch.cat([sharded_pool(x, mask, s, axis) for s in schemes],
+                         dim=-1)
     return torch.cat([POOLS[s](x, mask) for s in schemes], dim=-1)
 
 
@@ -100,7 +126,8 @@ def broadcast_to_nodes(g: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def homophily(
-    idx: torch.Tensor, edge_mask: torch.Tensor, values: torch.Tensor
+    idx: torch.Tensor, edge_mask: torch.Tensor, values: torch.Tensor,
+    axis=None,
 ) -> torch.Tensor:
     """Fraction of valid edges whose endpoints share a value, per event.
 
@@ -109,14 +136,22 @@ def homophily(
         edge_mask: ``[B, L, k]`` valid-edge mask.
         values: ``[B, L]`` per-node scalar, or ``[B, L, C]``.
 
+        axis: the ``graph`` axis of node-sharded events (``values``,
+            ``idx`` this process's rows, ``idx`` global): the neighbours'
+            values are all-gathered and the counts summed across it.
+
     Returns:
         ``[B]`` (scalar input) or ``[B, C]``.
     """
     single = values.dim() == 2
     if single:
         values = values[..., None]
-    vj = gather_neighbors(values, idx)  # [B, L, k, C]
+    keys = values if axis is None else axis.gather_const(values)
+    vj = gather_neighbors(keys, idx)  # [B, L, k, C]
     same = (values[:, :, None, :] == vj) & edge_mask[..., None]
-    n_edges = edge_mask.sum(dim=(1, 2)).clamp_min(1)
-    hom = same.sum(dim=(1, 2)).to(values.dtype) / n_edges[:, None]
+    n_edges = edge_mask.sum(dim=(1, 2))
+    n_same = same.sum(dim=(1, 2))
+    if axis is not None:
+        n_edges, n_same = axis.sum_const(n_edges), axis.sum_const(n_same)
+    hom = n_same.to(values.dtype) / n_edges.clamp_min(1)[:, None]
     return hom[..., 0] if single else hom

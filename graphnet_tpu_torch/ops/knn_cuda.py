@@ -4,7 +4,10 @@ Replaces ``graphnet_tpu/ops/knn_pallas.py:_knn_kernel`` (entry
 ``knn_graph_pallas``).  The kernel is ``csrc/knn.cu``; its header note
 says what bounds it on the H100 (launch latency at the serving shape),
 how it centres the coordinates itself and how it splits each query's
-keys across the lanes of a warp.
+keys across the lanes of a warp.  Its second kernel, the rounds path,
+takes ``k > 32`` and ``L > 8192`` (any ``k`` up to ``L``, any ``L``) in
+the same arithmetic: ``k`` rounds of the least (distance, index) pair
+above the previous pick, keys streamed through shared memory in tiles.
 
 :func:`knn_graph_cuda` calls the operator
 ``torch.ops.graphnet_tpu_torch.knn_graph`` (:mod:`~graphnet_tpu_torch.
@@ -27,8 +30,11 @@ import torch
 from graphnet_tpu_torch.ops import library
 from graphnet_tpu_torch.ops.knn import knn_graph_plain
 
-MAX_K = 32  # csrc/knn.cu instantiates k = 1-32
-MAX_L = 8192  # csrc/knn.cu holds a whole event in shared memory
+# csrc/knn.cu's first kernel instantiates k = 1-32 and holds a whole
+# event of at most MAX_L nodes in shared memory; every other (k, L) takes
+# its rounds kernel (uses_rounds)
+MAX_K = 32
+MAX_L = 8192
 DIMS = (3, 4)  # coordinate counts the kernel is built for (xyz, xyzt)
 _NAME = "knn"
 _launch = None  # the C entry, once its signature is declared
@@ -57,12 +63,20 @@ def _check_shapes(coords: torch.Tensor, mask: torch.Tensor) -> None:
         raise TypeError(f"mask must be bool, got {mask.dtype}")
 
 
+def uses_rounds(L: int, k: int) -> bool:
+    """Whether a call of ``(L, k)`` takes ``csrc/knn.cu``'s rounds kernel
+    (``k > MAX_K`` or ``L > MAX_L``), the rule of its C entry
+    ``knn_uses_rounds``."""
+    return k > MAX_K or L > MAX_L
+
+
 def check_launch(coords: torch.Tensor, mask: torch.Tensor, k: int) -> None:
-    """Raise on what the kernel does not take: shapes, types, ``D``
+    """Raise on what the kernels do not take: shapes, types, ``D``
     outside :data:`DIMS`, a last dimension of stride other than 1 (of the
-    coordinates or the mask), ``k`` outside ``[1, min(MAX_K, L)]``,
-    ``L > MAX_L``, and tensors that are not on one CUDA device (checked
-    last, so the other rules can be tested on the CPU)."""
+    coordinates or the mask), ``k`` outside ``[1, L]``, and tensors that
+    are not on one CUDA device (checked last, so the other rules can be
+    tested on the CPU).  Any ``k`` up to ``L`` and any ``L`` are taken:
+    past ``MAX_K`` or ``MAX_L`` the rounds kernel answers."""
     _check_shapes(coords, mask)
     B, L, D = coords.shape
     if D not in DIMS:
@@ -76,10 +90,8 @@ def check_launch(coords: torch.Tensor, mask: torch.Tensor, k: int) -> None:
             "the kNN kernel reads rows whose last dimension has stride 1; "
             f"got coords strides {coords.stride()}, mask {mask.stride()}"
         )
-    if not 1 <= k <= min(MAX_K, L):
-        raise ValueError(f"k={k} must lie in [1, min({MAX_K}, L={L})]")
-    if L > MAX_L:
-        raise ValueError(f"the kNN kernel takes L <= {MAX_L}, got {L}")
+    if not 1 <= k <= L:
+        raise ValueError(f"k={k} must lie in [1, L={L}]")
     if coords.device.type != "cuda" or mask.device != coords.device:
         raise ValueError(
             f"coords on {coords.device} and mask on {mask.device}: both "
@@ -96,8 +108,9 @@ def knn_graph_cuda(
     """``(idx [B, L, k] int32, edge_mask [B, L, k] bool)`` of the ``k``
     nearest valid nodes of each node; see :func:`~graphnet_tpu_torch.ops.
     knn.knn_graph` for the contract.  Counts its kernel launches in
-    ``knn_graph_cuda.launches``, and by ``k`` in
-    ``knn_graph_cuda.launches_by_k``."""
+    ``knn_graph_cuda.launches``, by ``k`` in
+    ``knn_graph_cuda.launches_by_k``, and those of the rounds kernel
+    (:func:`uses_rounds`) also in ``knn_graph_cuda.launches_rounds``."""
     return knn_graph_op(coords, mask, k, exclude_self)
 
 
@@ -121,6 +134,7 @@ def _knn_cuda(coords, mask, k, exclude_self):
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     knn_graph_cuda.launches += 1
+    knn_graph_cuda.launches_rounds += int(uses_rounds(L, k))
     by_k = knn_graph_cuda.launches_by_k
     by_k[k] = by_k.get(k, 0) + 1
     return idx, em
@@ -134,6 +148,7 @@ def _knn_fake(coords, mask, k, exclude_self):
 
 knn_graph_cuda.launches = 0
 knn_graph_cuda.launches_by_k = {}
+knn_graph_cuda.launches_rounds = 0
 # the coordinates may be a strided view (coordinate_view): the schema
 # takes any strides, and the CUDA implementation checks them
 knn_graph_op = library.define(

@@ -282,9 +282,11 @@ def test_knn_on_a_strided_view_equals_a_contiguous_copy():
 def test_knn_launch_checks_refuse_what_the_kernel_does_not_take():
     """``check_launch``, the CUDA wrapper's validation, raises without
     launching: a last stride other than 1, a non-bool mask, D outside
-    {3, 4}, k outside [1, min(32, L)], L above the shared-memory limit,
-    and (checked last) tensors that are not on a CUDA device."""
-    from graphnet_tpu_torch.ops.knn_cuda import MAX_L, check_launch
+    {3, 4}, k outside [1, L], and (checked last) tensors that are not on
+    a CUDA device.  k past 32 and L past the first kernel's
+    shared-memory limit are taken (the rounds kernel answers them): only
+    the device is refused there."""
+    from graphnet_tpu_torch.ops.knn_cuda import MAX_L, check_launch, uses_rounds
 
     x = torch.zeros(2, 16, 6)
     mask = torch.ones(2, 16, dtype=torch.bool)
@@ -303,14 +305,24 @@ def test_knn_launch_checks_refuse_what_the_kernel_does_not_take():
         with pytest.raises(ValueError, match="k="):
             check_launch(x[..., :3], mask, k)
     x64, mask64 = torch.zeros(2, 64, 3), torch.ones(2, 64, dtype=torch.bool)
-    with pytest.raises(ValueError, match=r"k=33 must lie in \[1, min\(32"):
-        check_launch(x64, mask64, 33)
-    for k in (17, 32):  # taken: only the device is refused
+    with pytest.raises(ValueError, match=r"k=65 must lie in \[1, L=64\]"):
+        check_launch(x64, mask64, 65)
+    for k in (17, 32, 33, 64):  # taken: only the device is refused
         with pytest.raises(ValueError, match="CUDA device"):
             check_launch(x64, mask64, k)
     big = torch.zeros(1, MAX_L + 1, 3)
-    with pytest.raises(ValueError, match="L <="):
+    with pytest.raises(ValueError, match="CUDA device"):
         check_launch(big, torch.ones(1, MAX_L + 1, dtype=torch.bool), 8)
+    # the rules still refuse a bad D, dtype or stride at L > MAX_L
+    big_mask = torch.ones(1, MAX_L + 1, dtype=torch.bool)
+    with pytest.raises(ValueError, match="D in"):
+        check_launch(torch.zeros(1, MAX_L + 1, 5), big_mask, 8)
+    with pytest.raises(TypeError, match="float32"):
+        check_launch(big.double(), big_mask, 8)
+    with pytest.raises(ValueError, match="stride"):
+        check_launch(torch.zeros(1, MAX_L + 1, 6)[..., ::2], big_mask, 8)
+    assert [uses_rounds(64, k) for k in (32, 33)] == [False, True]
+    assert [uses_rounds(L, 8) for L in (MAX_L, MAX_L + 1)] == [False, True]
     with pytest.raises(ValueError, match="CUDA device"):
         check_launch(x[..., 1:4], mask, 8)
 
