@@ -164,6 +164,28 @@ Phases, each printing one JSON line:
    B_d64 is not exported (its kernels are the same operators at head
    dim 64, and each program would carry its weights, about four times
    the default DeepIce's);
+   serve_deepice_chunked, train_deepice_chunked: the zoo's DeepIce B_d32
+   (hidden 768, 24 heads of 32) with the rel kernels off
+   (``rel_flash="never"``) and its biased block in 4 query tiles
+   (``rel_bias_chunks=4``), on both routes of ``rel_bias_cache`` (the
+   pair tensor cached once a forward, "always", or rebuilt a tile at a
+   time, "never"): the DeepIce requests in fp32 and bf16 and one fp32
+   training step on the DeepIce batch, each route held against the
+   dense route (``rel_bias_chunks=1``, the same weights) on the card and
+   against the CPU on a few events, at serve_deepice's and
+   train_deepice's tolerances; 15 flash forward launches a forward (15
+   dq and dkv more a step) and none of the rel kernels.  Then each
+   route's ms and peak memory (``torch.cuda.max_memory_allocated``)
+   serving and training at B=16, L=768 and at B=4, L=3072, beside the
+   card's name and power limit: what sets ``rel_bias_cache="auto"``'s
+   limit (``models/gnn/icemix.py:REL_CACHE_AUTO_BYTES``);
+   curated: the curated ``TestDataset`` over the bundled SQLite
+   database feeding the training example's full-width DynEdge through
+   ``Trainer.fit`` with the fused EdgeConv + kNN off (rows 1-3, the
+   launches of every step and validation forward), step 1 held against
+   the CPU as train_sqlite holds it; and whether pandas, pyarrow and
+   h5py import on the host (the file conversion needs them; it is held
+   on the CPU by the tests, not here);
 11b. serve_config: six model files (``SERVE_CONFIGS``: DynEdge energy,
    TITO direction, the zoo's DeepIce B_d32, and the QUESO energy
    (IdentityTask, log10 / pow10), zenith and node-level pulse cleaner),
@@ -313,6 +335,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib
 import json
 import os
 import pickle
@@ -414,6 +437,20 @@ MODELS = os.path.join(ROOT, "configs", "models")
 ICE_D64_FILE = os.path.join(MODELS, "zoo", "kaggle_icemix", "B_d64",
                             "model.yml")
 ICE_D64_HIDDEN, ICE_D64_HD = 768, 64
+# the chunked DeepIce phases: the zoo's B_d32 (hidden 768, 24 heads of
+# 32, depth 12 + 4 BlockRel, n_rel 1) with the rel kernels off and its
+# biased block in CHUNKED_CHUNKS query tiles, on each route of
+# rel_bias_cache (the pair tensor cached once a forward, or rebuilt a
+# tile at a time); held against the same weights on the dense route
+# (rel_bias_chunks 1) on the card and against the CPU, at serve_deepice's
+# and train_deepice's tolerances.  Then each route's ms and peak memory
+# serving and training at CHUNKED_SHAPES (B, L): the second puts several
+# GB in the cached tensor
+ICE_D32_FILE = os.path.join(MODELS, "zoo", "kaggle_icemix", "B_d32",
+                            "model.yml")
+CHUNKED_CHUNKS = 4
+CHUNKED_ROUTES = ("always", "never")
+CHUNKED_SHAPES = ((ICE_B, ICE_L), (4, 3072))
 # the queue's and the deployer's model
 ENERGY_FILE = os.path.join(MODELS, "dynedge_energy_prometheus.yml")
 # the serve_config phase: (label, model file under configs/models); each
@@ -1885,6 +1922,7 @@ def train_sqlite(torch, build, Trainer, counters, step_expect, fwd_expect,
     from graphnet_tpu_torch.models.components import layers
 
     first = steps[0]
+    fused = layers.FUSE_CONV_KNN
     layers.FUSE_CONV_KNN = False
     try:
         cpu_model = build("cpu", seed)[1]
@@ -1896,7 +1934,7 @@ def train_sqlite(torch, build, Trainer, counters, step_expect, fwd_expect,
         for h in hooks:
             h.remove()
     finally:
-        layers.FUSE_CONV_KNN = True
+        layers.FUSE_CONV_KNN = fused
     grad_err, grad_abs, failed = {}, {}, []
     for name, gc in cpu["grads1"].items():
         e = float((first["grads"][name] - gc).abs().max())
@@ -1957,6 +1995,35 @@ def sqlite_example(device, seed):
 
     return train_dynedge.build(train_dynedge.parse_args(
         ["--device", str(device), "--batch-size", "16", "--seed", str(seed)]))
+
+
+def curated_example(device, seed):
+    """The curated ``TestDataset`` over the bundled SQLite database
+    (``KNNGraph(Prometheus())``, batches of 16, the train loader
+    shuffled with ``seed``) and the training example's full-width
+    DynEdge on ``device``."""
+    from graphnet_tpu_torch.datasets.test_dataset import TestDataset
+    from graphnet_tpu_torch.models.detector.prometheus import Prometheus
+    from graphnet_tpu_torch.models.graphs import KNNGraph
+
+    datamodule = TestDataset(
+        KNNGraph(detector=Prometheus()), backend="sqlite",
+        train_dataloader_kwargs={"batch_size": 16, "seed": seed},
+        validation_dataloader_kwargs={"batch_size": 16})
+    return datamodule, sqlite_example(device, seed)[1]
+
+
+def host_imports():
+    """Whether pandas, pyarrow and h5py import on this host (the file
+    conversion needs them; training from SQLite does not)."""
+    found = {}
+    for mod in ("pandas", "pyarrow", "h5py"):
+        try:
+            importlib.import_module(mod)
+            found[mod] = True
+        except ImportError:
+            found[mod] = False
+    return found
 
 
 def shuffle_seed():
@@ -2998,6 +3065,169 @@ def rel_times(torch, rc, rp, rel_flash_attention, encoder, dense, dev, peaks,
 
 
 # ------------------------------------------------ serving from files
+
+
+def chunked_model(device, compute_dtype=None, cache="auto", tree=None):
+    """The zoo's B_d32 from its file with ``rel_flash="never"``, its
+    biased block in ``CHUNKED_CHUNKS`` query tiles on route ``cache``
+    (``rel_bias_cache``), with the JAX-layout ``tree``'s weights."""
+    from graphnet_tpu_torch.utils.config import ModelConfig, build
+    from graphnet_tpu_torch.utils.jax_params import params_from_jax
+
+    spec = ModelConfig.load(ICE_D32_FILE)
+    spec.arguments["backbone"]["__model__"]["arguments"].update(
+        compute_dtype=compute_dtype, rel_flash="never",
+        rel_bias_chunks=CHUNKED_CHUNKS, rel_bias_cache=cache)
+    model = build(spec, seed=SEED, device=device)
+    assert not model.backbone.sandwich_0.attn.uses_rel_kernel(ICE_HD)
+    if tree is not None:
+        model.load_state_dict(params_from_jax(tree, model.state_dict()))
+    return model
+
+
+def set_route(model, route):
+    """Switch a :func:`chunked_model` to ``route``: "dense"
+    (``rel_bias_chunks`` 1: the pair tensor materialised, one tile), or
+    ``CHUNKED_CHUNKS`` tiles on the ``rel_bias_cache`` route "always"
+    (cached) or "never" (rebuilt a tile at a time).  Returns it."""
+    bb = model.backbone
+    bb.rel_bias_chunks = 1 if route == "dense" else CHUNKED_CHUNKS
+    for i in range(bb.depth_rel):
+        getattr(bb, f"sandwich_{i}").attn.rel_chunks = bb.rel_bias_chunks
+    if route != "dense":
+        bb.rel_bias_cache = route
+    return model
+
+
+def direction_errors(got, ref):
+    """The largest error of the unit direction's components and of
+    kappa (relative) over the events."""
+    return max(float(np.abs(got[:, :3] - ref[:, :3]).max()),
+               float((np.abs(got[:, 3] - ref[:, 3]) / np.abs(ref[:, 3])).max()))
+
+
+def serve_chunked(torch, module, pkl, requests, held, counters, expect,
+                  dtype=None, tol=1e-3):
+    """Phase: DeepIce serving on the chunked bias path through ``module``
+    (``DeploymentModule``), each route of ``CHUNKED_ROUTES`` with
+    ``expect`` launches a forward (counts set to 0 before each route),
+    against the dense route on the card on every event and against the
+    CPU (the cached route) on the ``held`` events, each within ``tol``
+    as in :func:`serve_direction`.  Returns each route's launches and
+    the report."""
+    gpu = module(chunked_model("cuda", dtype, "always"), pkl)
+    cpu = module(chunked_model("cpu", dtype, "always"), pkl, device="cpu")
+    ref = {label: cpu([evs[i] for i in held[label]])
+           for label, evs in requests.items()}
+    del cpu
+    set_route(gpu.model, "dense")
+    dense, _ = answer(gpu, requests, counters, expect)
+    launches, report = {}, []
+    for route in CHUNKED_ROUTES:
+        set_route(gpu.model, route)
+        assert gpu.model.backbone.caches_rel_bias(ICE_B, ICE_SERVE_L) == (
+            route == "always")
+        answers, launches[route] = answer(gpu, requests, counters, expect)
+        for label, evs in requests.items():
+            got = answers[label]
+            empty = np.array([e.n_pulses == 0 for e in evs])
+            assert np.isnan(got[empty]).all() and np.isfinite(got[~empty]).all()
+            worst = {"dense": direction_errors(got[~empty], dense[label][~empty]),
+                     "cpu": direction_errors(got[held[label]], ref[label])}
+            assert max(worst.values()) <= tol, (route, label, worst)
+            report.append({"route": route, "request": label,
+                           "events": len(evs), "held_events": held[label],
+                           "max_err_against_dense_card": worst["dense"],
+                           "max_err_against_cpu": worst["cpu"]})
+    return launches, report
+
+
+def train_chunked(torch, Trainer, tree, batch, held, counters, expect, dev,
+                  loss_rtol=1e-4, grad_tol=1e-4):
+    """Phase: one fp32 training step of DeepIce on the chunked bias path,
+    each route of ``CHUNKED_ROUTES`` on ``batch`` with ``expect``
+    launches (counts set to 0 before), every gradient finite and
+    non-zero; then the step on ``held`` against the dense route on the
+    card and against the CPU (the cached route): the loss within
+    ``loss_rtol``, each gradient within ``grad_tol`` of its max.  Each
+    step starts from ``tree``'s weights."""
+    cpu = run_steps(torch, Trainer(chunked_model("cpu", None, "always",
+                                                 tree=tree)), [held])
+    model = chunked_model(dev, None, "always", tree=tree)
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+
+    def step(route, batches, counts=()):
+        model.load_state_dict(start)
+        return run_steps(torch, Trainer(set_route(model, route)), batches,
+                         counts)
+
+    dense = step("dense", [held.to(dev)])
+    launches, report = {}, {}
+    for route in CHUNKED_ROUTES:
+        for c in counters:
+            c.launches = 0
+        full = step(route, [batch.to(dev)], counters)
+        launches[route] = [c.launches for c in counters]
+        assert full["rose"] == [expect], full["rose"]
+        assert not full["nonfinite"][0] and not full["zero"][0], (
+            full["nonfinite"], full["zero"])
+        card = step(route, [held.to(dev)])
+        row = {"loss_card": full["loss"][0]}
+        for against, ref in (("dense_card", dense), ("cpu", cpu)):
+            loss_err = abs(card["loss"][0] - ref["loss"][0]) / abs(ref["loss"][0])
+            grads = _grad_errors(card, ref, "max")
+            worst = max(grads, key=grads.get)
+            assert loss_err <= loss_rtol and grads[worst] <= grad_tol, (
+                route, against, loss_err, worst, grads[worst])
+            row[f"held_loss_rel_err_{against}"] = loss_err
+            row[f"max_grad_rel_err_{against}"] = grads[worst]
+            row[f"worst_grad_param_{against}"] = worst
+        report[route] = row
+    return launches, {"B": batch.batch_size, "L": batch.max_length,
+                      "held_B": held.batch_size, "routes": report,
+                      "every_grad_finite_nonzero": True}
+
+
+def chunked_costs(torch, make_batch, Trainer, tree, dev,
+                  shapes=CHUNKED_SHAPES, runs=3):
+    """Each route's ms (CUDA events, median of ``runs``) and peak memory
+    (``torch.cuda.max_memory_allocated`` over one call, and above the
+    memory held before it) of a forward under ``no_grad`` and of a
+    training step, at each ``(B, L)`` of ``shapes`` in fp32: the dense
+    route, and the chunked routes cached and rebuilt.  Also the cached
+    pair tensor's bytes."""
+    rng = np.random.default_rng(SEED + 30)
+    model = chunked_model(dev, None, "always", tree=tree)
+    out = {}
+    for B, L in shapes:
+        arrays = ice_events(rng, [L] * B)
+        batch = make_batch(arrays, labels={"direction": unit_vectors(rng, B)},
+                           length=L).to(dev)
+        row = {"cache_bytes_fp32": B * L * L * ICE_HD * 4}
+        for route in ("dense",) + CHUNKED_ROUTES:
+            trainer = Trainer(set_route(model, route))
+
+            def serve():
+                with torch.no_grad():
+                    model(batch)
+
+            for mode, fn in (("serve", serve),
+                             ("step", lambda: trainer.train_step(batch))):
+                fn()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                row[f"{route}_{mode}"] = {
+                    "ms": cuda_ms(torch, fn, runs=runs, warmup=0),
+                    "peak_bytes": peak, "peak_above_start_bytes": peak - base}
+            del trainer
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+        out[f"B{B}_L{L}"] = row
+    return out
 
 
 def calibrate_heads(torch, model, requests, collate_events, peak=2.0):
@@ -5728,6 +5958,61 @@ def main() -> int:
           "launches": dict(zip(names, launches_dt16)),
           "seconds": round(time.perf_counter() - t0, 2)})
 
+    # 7f'. the zoo's DeepIce B_d32 on the chunked bias path (rel kernels
+    # off, 4 query tiles), both routes of rel_bias_cache: the DeepIce
+    # requests served in fp32 and bf16, one fp32 training step on the
+    # DeepIce batch; 15 flash launches a forward, none of the rel kernels
+    chunked_fwd, chunked_step = [0, 0, 0, 15, 0, 0, 0, 0, 0, 0], [0, 0, 0, 15, 15, 15, 0, 0, 0, 0]
+    t0 = time.perf_counter()
+    d32_tree = ice_jax_layout_tree(np.random.default_rng(SEED + 31),
+                                   chunked_model("cpu"), params_to_jax)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    d32_pkl = os.path.join(tmp, "state_dict.pkl")
+    with open(d32_pkl, "wb") as f:
+        pickle.dump(d32_tree, f)
+    launches_c, report = serve_chunked(torch, DeploymentModule, d32_pkl,
+                                       ice_requests, held, counters,
+                                       chunked_fwd)
+    t_serve = time.perf_counter()
+    launches_c16, report16 = serve_chunked(
+        torch, DeploymentModule, d32_pkl, ice_requests,
+        {k: v[:1] for k, v in held.items()}, counters, chunked_fwd,
+        "bfloat16", ICE_BF16_SERVE_TOL)
+    emit({"phase": "serve_deepice_chunked", "card": smi,
+          "chunks": CHUNKED_CHUNKS, "requests": {"float32": report,
+                                                 "bfloat16": report16},
+          "launches": {"float32": {r: dict(zip(names, l))
+                                   for r, l in launches_c.items()},
+                       "bfloat16": {r: dict(zip(names, l))
+                                    for r, l in launches_c16.items()},
+                       "forwards_per_route": len(ice_requests)},
+          "seconds_fp32": round(t_serve - t0, 2),
+          "seconds": round(time.perf_counter() - t0, 2)})
+    os.remove(d32_pkl)
+    os.rmdir(tmp)
+    t0 = time.perf_counter()
+    launches_ct, report = train_chunked(torch, Trainer, d32_tree, ice_batch,
+                                        held_batch(1), counters, chunked_step,
+                                        dev, **ICE_FP32_TRAIN)
+    chunked_report = chunked_costs(torch, make_batch, Trainer, d32_tree, dev)
+    emit({"phase": "train_deepice_chunked", "card": smi, "dtype": "float32",
+          "chunks": CHUNKED_CHUNKS, **report,
+          "launches": {r: dict(zip(names, l)) for r, l in launches_ct.items()},
+          "costs_fp32": chunked_report,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
+    # 7f''. the curated TestDataset (SQLite) feeding the training
+    # example's full-width DynEdge through Trainer.fit, the fused EdgeConv
+    # + kNN off: rows 1-3; step 1 held against the CPU
+    t0 = time.perf_counter()
+    report, launches_cu = train_sqlite(torch, curated_example, Trainer,
+                                       counters, dynedge_step, dynedge_fwd,
+                                       dev, shuffle_seed())
+    emit({"phase": "curated", "dtype": "float32", "dataset": "TestDataset",
+          "backend": "sqlite", **report, "host_imports": host_imports(),
+          "launches": dict(zip(names, launches_cu)),
+          "seconds": round(time.perf_counter() - t0, 2)})
+
     # 7g. models served from their files: load_model on the card, random
     # weights through save_model's state_dict.pkl, DeploymentModule(
     # model.yml, state_dict.pkl) on the card against the same on the CPU
@@ -6067,6 +6352,9 @@ def main() -> int:
              **times_fused["edgeconv_knn_bf16"], library_ms=None),
     ]
     f32, b16 = flash[f"L{TITO_L}_float32"], flash[f"L{TITO_L}_bfloat16"]
+    # the chunked DeepIce phases' launches of rows 5a-c by route (bf16
+    # serves only); their forward: 15 a forward, their step 15 each
+    chunked = {"": (launches_c, launches_ct), "_bf16": (launches_c16, {})}
     for key, fwd, bwd, t, err, bwd_e in (
         ("", launches_s, launches_tt, f32, flash_err["float32"],
          flash_bwd_err["float32"]),
@@ -6074,16 +6362,19 @@ def main() -> int:
          flash_bwd_err["bfloat16"]),
     ):
         lib_bwd = t["bwd_total"]["library_ms"]
+        c_fwd, c_step = chunked[key]
         kernels += [
             dict(name="flash_fwd" + key, route="cuda", row="5a",
                  source="graphnet_tpu_torch/csrc/flash_attention.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:71",
                  launches=fwd[3], launches_per="TITO forward: 4",
+                 launches_deepice_chunked={r: l[3] for r, l in c_fwd.items()},
                  max_abs_err=err, **t["fwd"]),
             dict(name="flash_bwd_dq" + key, route="cuda", row="5b",
                  source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:128",
                  launches=bwd[4], launches_per="TITO training step: 4",
+                 launches_deepice_chunked={r: l[4] for r, l in c_step.items()},
                  max_abs_err=bwd_e, library_ms=lib_bwd,
                  library_note="SDPA backward: dq, dk and dv in one call",
                  **t["bwd_dq"]),
@@ -6091,6 +6382,7 @@ def main() -> int:
                  source="graphnet_tpu_torch/csrc/flash_attention_bwd.cu",
                  replaces="graphnet_tpu/ops/flash_attention.py:155",
                  launches=bwd[5], launches_per="TITO training step: 4",
+                 launches_deepice_chunked={r: l[5] for r, l in c_step.items()},
                  max_abs_err=bwd_e, library_ms=lib_bwd,
                  library_note="SDPA backward: dq, dk and dv in one call",
                  **t["bwd_dkv"]),

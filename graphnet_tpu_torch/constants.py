@@ -17,3 +17,7 @@ EXAMPLE_DATA_DIR = os.path.join(DATA_DIR, "examples")
 EXAMPLE_SQLITE_DATA = os.path.join(
     EXAMPLE_DATA_DIR, "sqlite", "prometheus", "prometheus-events.db"
 )
+EXAMPLE_PARQUET_DATA = os.path.join(
+    EXAMPLE_DATA_DIR, "parquet", "prometheus", "merged"
+)
+CONFIG_DIR = os.path.join(GRAPHNET_ROOT_DIR, "configs")

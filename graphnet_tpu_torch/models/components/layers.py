@@ -20,6 +20,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from graphnet_tpu_torch.ops.edgeconv_cuda import (
     KNN_DIMS,
@@ -690,8 +691,11 @@ class AttentionRel(nn.Module):
       q is already scaled) where its kernels take the head dim, else the
       dense path.
 
-    The chunked and cached paths of the JAX package (``rel_chunks > 1``)
-    are not ported: they raise unless the rel kernels run.
+    With ``rel_chunks > 1`` and no rel kernel the biased path runs per
+    query tile (:meth:`_chunked_rel`, the JAX package's chunked and
+    cached paths): from ``rel_source`` each tile rebuilds its own pair
+    features, from ``rel_pos_bias`` it slices the cached tensor.  The
+    rel kernels ignore ``rel_chunks``, as in the JAX package.
     """
 
     def __init__(
@@ -752,14 +756,16 @@ class AttentionRel(nn.Module):
                 out = out.reshape(B, L, D)
                 out = out if self.dtype is None else out.to(self.dtype)
                 return linear(self.proj, out, self.dtype)
-            rel_pos_bias = encoder(x0)
-        if rel_pos_bias is not None and self.rel_chunks > 1:
-            raise NotImplementedError(
-                "the chunked and cached relative-bias paths (rel_chunks > 1) "
-                "are not ported; use the rel kernels (rel_flash auto or "
-                "always) or rel_chunks=1"
-            )
-        if rel_pos_bias is None and flash_supported(hd):
+            if self.rel_chunks > 1:
+                out = self._chunked_rel(q, k, v, key_padding_mask,
+                                        rel_source=rel_source)
+            else:
+                out = _dense_rel_attention(q, k, v, key_padding_mask,
+                                           encoder(x0))
+        elif rel_pos_bias is not None and self.rel_chunks > 1:
+            out = self._chunked_rel(q, k, v, key_padding_mask,
+                                    rel_cached=rel_pos_bias)
+        elif rel_pos_bias is None and flash_supported(hd):
             out = flash_attention(q, k, v, key_padding_mask, scale=1.0)
             out = out.transpose(1, 2)
         else:
@@ -767,6 +773,47 @@ class AttentionRel(nn.Module):
         out = out.reshape(B, L, D)
         out = out if self.dtype is None else out.to(self.dtype)
         return linear(self.proj, out, self.dtype)
+
+    def _chunked_rel(self, q, k, v, key_padding_mask, rel_source=None,
+                     rel_cached=None) -> torch.Tensor:
+        """The biased path over ``n = max(1, min(rel_chunks, L))`` query
+        tiles of ``ceil(L / n)`` rows, each the dense path's math on its
+        own rows.  A tile's pair features ``[B, tq, L, hd]`` are sliced
+        from ``rel_cached`` or rebuilt by ``encoder(x0, x0[:, s:e])``
+        from ``rel_source = (encoder, x0)``.  Under autograd each tile
+        runs again in the backward (``torch.utils.checkpoint``), so its
+        ``[B, H, tq, L]`` logits and weights, and a rebuilt tile's pair
+        features, live one tile at a time: the chunks cut the biased
+        block's peak memory in training as in serving.  Returns ``[B, L,
+        H, hd]`` in v's dtype."""
+        L = q.shape[2]
+        n = max(1, min(self.rel_chunks, L))
+        tq = -(-L // n)
+        # split, not sliced: the backward joins the tiles' gradients in
+        # one concatenation instead of a full-size buffer a tile
+        q_tiles = q.split(tq, dim=2)
+        rel_tiles = (rel_cached.split(tq, dim=1) if rel_cached is not None
+                     else [None] * len(q_tiles))
+        outs = []
+        for i, (qt, rel) in enumerate(zip(q_tiles, rel_tiles)):
+            s, e = i * tq, min((i + 1) * tq, L)
+            if rel is not None:
+                fn, args = _dense_rel_attention, (rel,)
+            else:
+                fn, args = _rebuilt_rel_tile, (*rel_source, s, e)
+            if torch.is_grad_enabled():
+                outs.append(checkpoint(fn, qt, k, v, key_padding_mask, *args,
+                                       use_reentrant=False))
+            else:
+                outs.append(fn(qt, k, v, key_padding_mask, *args))
+        return torch.cat(outs, dim=1)
+
+
+def _rebuilt_rel_tile(q, k, v, key_padding_mask, encoder, x0, s, e):
+    """The dense path on query rows ``s:e`` (``q`` already cut to them)
+    with their pair features rebuilt by ``encoder(x0, x0[:, s:e])``."""
+    return _dense_rel_attention(q, k, v, key_padding_mask,
+                                encoder(x0, x0[:, s:e]))
 
 
 class _TransformerBlock(nn.Module):

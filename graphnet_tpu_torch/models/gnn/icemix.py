@@ -10,7 +10,10 @@ features take half the width and a nested DynEdge's node latents
 rel kernels wherever their gate holds (``rel_flash`` "auto", or its
 alias "always"), on both devices; with "never", or where the gate fails, the
 pair tensor ``[B, L, L, head_size]`` is materialised once and the dense
-path runs.  The other blocks' attention runs through the flash kernels.
+path runs, or with ``rel_bias_chunks > 1`` the biased attention runs per
+query tile on a cached pair tensor or on pair features rebuilt per tile
+(``rel_bias_cache``).  The other blocks' attention runs through the
+flash kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +33,14 @@ from graphnet_tpu_torch.models.components.layers import Block, BlockRel
 from graphnet_tpu_torch.models.gnn.dynedge import DynEdge
 from graphnet_tpu_torch.models.gnn.gnn import GNN, resolve_compute_dtype
 from graphnet_tpu_torch.utils.config import save_config
+
+
+# the largest pair tensor that rel_bias_cache="auto" caches, from fp32
+# training steps of the zoo's B_d32 on an H100 (PERF.md): the cached
+# route beat the rebuilt one by 3.6-13 % up to 302 MB (B=16, L <= 384)
+# in two runs; from 537 MB the two were within 2 % either way, and the
+# cached route's peak is higher at every size
+REL_CACHE_AUTO_BYTES = 400e6
 
 
 class DeepIce(GNN):
@@ -53,10 +64,15 @@ class DeepIce(GNN):
     only torch's default generators, not the explicit one they come
     from).
 
-    Not ported yet (it raises ``NotImplementedError``):
-    ``rel_bias_chunks > 1`` where the rel kernels do not run (the
-    chunked and cached bias paths).  Where they run, ``rel_bias_chunks`` and ``rel_bias_cache``
-    are ignored, as in the JAX package; so is ``rel_bias_cache`` with
+    ``rel_bias_chunks > 1`` where the rel kernels do not run splits the
+    biased attention into that many query tiles.  ``rel_bias_cache``
+    then says where a tile's pair features come from: "always" slices a
+    tensor ``[B, L, L, head_size]`` materialised once a forward,
+    "never" rebuilds each tile's rows (in the backward too), and
+    "auto" caches when that tensor takes at most
+    :data:`REL_CACHE_AUTO_BYTES` (:meth:`caches_rel_bias`).  Where the
+    rel kernels run, ``rel_bias_chunks`` and ``rel_bias_cache`` are
+    ignored, as in the JAX package; so is ``rel_bias_cache`` with
     ``rel_bias_chunks == 1`` (the dense path materialises the pair
     tensor once).  ``dynedge_args`` is read only with
     ``include_dynedge``.
@@ -122,13 +138,7 @@ class DeepIce(GNN):
                 hidden_dim, num_heads, rel_chunks=rel_bias_chunks,
                 rel_flash=rel_flash, dtype=dtype,
             ))
-        if n_rel > 0 and depth_rel > 0:
-            uses_kernel = self.sandwich_0.attn.uses_rel_kernel(head_size)
-            if rel_bias_chunks > 1 and not uses_kernel:
-                raise NotImplementedError(
-                    "rel_bias_chunks > 1 without the rel kernels (the "
-                    "chunked and cached bias paths) is not ported yet"
-                )
+        self.rel_bias_chunks = rel_bias_chunks
         self.cls_token = nn.Parameter(torch.zeros(1, hidden_dim))
         for i in range(depth):
             setattr(self, f"blocks_{i}", Block(
@@ -139,6 +149,18 @@ class DeepIce(GNN):
     @property
     def nb_outputs(self) -> int:
         return self.hidden_dim
+
+    def caches_rel_bias(self, B: int, L: int) -> bool:
+        """Whether the chunked biased blocks slice a cached pair tensor
+        (``B * L * L * head_size`` values, 2 bytes each under bfloat16,
+        else 4) rather than rebuild each tile's: "always", "never", or
+        under "auto" the tensor's bytes against
+        :data:`REL_CACHE_AUTO_BYTES`.  Read only with ``rel_bias_chunks >
+        1`` where the rel kernels do not run."""
+        if self.rel_bias_cache != "auto":  # any other word rebuilds, as in JAX
+            return self.rel_bias_cache == "always"
+        size = 2 if self.rel_pos.dtype == torch.bfloat16 else 4
+        return B * L * L * self.rel_pos.seq_length * size <= REL_CACHE_AUTO_BYTES
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """The cls token: N(0, 1), the LeCun normal of a ``[1, D]``
@@ -156,7 +178,9 @@ class DeepIce(GNN):
             x = torch.cat([x, node_latents.to(x.dtype)], dim=2)
         rel_pos_bias = rel_source = None
         if self.n_rel > 0 and self.depth_rel > 0:
-            if self.sandwich_0.attn.uses_rel_kernel(self.rel_pos.seq_length):
+            if self.sandwich_0.attn.uses_rel_kernel(self.rel_pos.seq_length) \
+                    or (self.rel_bias_chunks > 1
+                        and not self.caches_rel_bias(x0.shape[0], x0.shape[1])):
                 rel_source = (self.rel_pos, x0)
             else:  # materialised once, shared by the biased blocks
                 rel_pos_bias = self.rel_pos(x0)

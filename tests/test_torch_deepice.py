@@ -2,8 +2,8 @@
 a narrow model's latents, predictions and gradients on both relative-bias
 paths (the JAX kernels in Pallas interpret mode), also with the nested
 DynEdge (``include_dynedge``), ``Trainer.fit``, ``DeploymentModule``, the
-parameter carry-over at full width and the options that are not
-ported."""
+parameter carry-over at full width and the options (the chunked
+bias path against the JAX package's)."""
 
 import copy
 import functools
@@ -286,8 +286,8 @@ def test_deepice_options_not_ported_raise():
     assert DeepIce(remat=True, **NARROW).remat
     assert not BlockRel(32, 2, drop_path=0.1).dp1.active
     assert Block(32, 2, drop_path=0.1, deterministic=False).dp2.active
-    with pytest.raises(NotImplementedError, match="chunked"):
-        DeepIce(rel_flash="never", rel_bias_chunks=4, **NARROW)
+    # the chunked bias path is ported: the JAX DeepIce's latents
+    _chunked_latents_match_jax(rel_flash="never", rel_bias_chunks=4)
     # with the rel kernels the chunk count is ignored, as in the JAX package
     DeepIce(rel_flash="auto", rel_bias_chunks=4, **NARROW)
     with pytest.raises(ValueError, match="rel_flash"):
@@ -400,12 +400,29 @@ def test_zoo_config_with_dynedge_is_not_ported(name):
     assert bf16.dyn_edge.compute_dtype == "bfloat16"
 
 
+def _chunked_latents_match_jax(**kw):
+    """A narrow DeepIce built with ``kw`` and the JAX DeepIce on the same
+    parameters: latents within rtol / atol 2e-5 on a ragged batch with
+    an empty event."""
+    jbs, tbs = _batches(3, [[70, 0, 9]])
+    jmodel = JaxDeepIce(**{**NARROW, **kw})
+    params = _random_tree(
+        jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jbs[0]), 4)
+    model = DeepIce(**{**NARROW, **kw})
+    model.load_state_dict(params_from_jax(params["params"],
+                                          model.state_dict()))
+    with torch.no_grad():
+        lat = model(tbs[0]).numpy()
+    np.testing.assert_allclose(lat, np.asarray(jmodel.apply(params, jbs[0])),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_deepice_accepts_rel_bias_cache():
     for cache in ("auto", "always", "never"):
         DeepIce(rel_bias_cache=cache, **NARROW)  # ignored with the kernels
-    with pytest.raises(NotImplementedError, match="chunked"):
-        DeepIce(rel_flash="never", rel_bias_chunks=4, rel_bias_cache="always",
-                **NARROW)
+        # the chunked path takes each setting, as the JAX package does
+        _chunked_latents_match_jax(rel_flash="never", rel_bias_chunks=4,
+                                   rel_bias_cache=cache)
 
 
 # ----------------------------------------------- Trainer and deployment

@@ -276,3 +276,76 @@ def test_pipeline_example_runs_on_the_cpu(name, argv, tmp_path, monkeypatch,
     else:
         # the store's temporary directory was removed
         assert not [f for f in os.listdir(tmp_path) if f.startswith("tmp")]
+
+
+# ------------------------------------------------------- data examples
+DATA_EXAMPLES = {
+    # port module: the JAX example under examples/
+    "read_dataset": "01_data/01_read_dataset.py",
+    "ensemble_dataset": "01_data/02_ensemble_dataset.py",
+    "convert_parquet_to_sqlite": "01_data/03_convert_parquet_to_sqlite.py",
+    "compare_sqlite_and_parquet": "01_data/04_compare_sqlite_and_parquet.py",
+    "plot_feature_distributions": "01_data/05_plot_feature_distributions.py",
+    "convert_h5": "04_liquido/01_convert_h5.py",
+    "convert_prometheus": "05_prometheus/01_convert_prometheus.py",
+}
+
+
+def _jax_data_example(path):
+    spec = importlib.util.spec_from_file_location(
+        "jax_data_example",
+        os.path.join(GRAPHNET_ROOT_DIR, "examples", path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", list(DATA_EXAMPLES))
+def test_data_example_matches_the_jax_example(name, tmp_path, monkeypatch,
+                                              capsys):
+    """The data examples against the JAX ones on the CPU: what the
+    readers print, line for line; the conversions' databases, exactly
+    (``tests/test_torch_dataconverter.py``'s comparison); the plotted
+    feature matrix, bit for bit the JAX dataset's, and both figures
+    written."""
+    import tempfile
+    from pathlib import Path
+
+    from tests.test_torch_dataconverter import assert_same_sqlite
+
+    jax_example = _jax_data_example(DATA_EXAMPLES[name])
+    example = importlib.import_module(f"graphnet_tpu_torch.examples.{name}")
+    if name.startswith("convert"):
+        (tmp_path / "jax").mkdir()
+        monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "jax"))
+        jax_example.main()
+        (exp,) = [p for p in (tmp_path / "jax").iterdir()]
+        got = Path(example.main(["--output", str(tmp_path / "port")]))
+        if name == "convert_parquet_to_sqlite":
+            got, exp = got.parent.parent, exp
+        files = sorted(p.relative_to(exp) for p in exp.rglob("*.db"))
+        assert files and files == sorted(p.relative_to(got)
+                                         for p in got.rglob("*.db"))
+        for f in files:
+            assert_same_sqlite(got / f, exp / f)
+    elif name == "plot_feature_distributions":
+        from graphnet_tpu.utils.config import load_dataset as jax_load_dataset
+
+        jax_example.main(str(tmp_path / "jax.png"))
+        x = example.main(["--output", str(tmp_path / "port.png")])
+        ds = jax_load_dataset(os.path.join(
+            GRAPHNET_ROOT_DIR, "configs", "datasets",
+            "training_example_data_sqlite.yml"))
+        if isinstance(ds, dict):
+            ds = sorted(ds.items())[0][1]
+        exp = np.concatenate([np.asarray(ds[i].x) for i in range(len(ds))])
+        np.testing.assert_array_equal(x, exp)
+        for f in ("jax.png", "port.png"):
+            assert (tmp_path / f).stat().st_size > 0
+    else:
+        capsys.readouterr()
+        jax_example.main()
+        exp = capsys.readouterr().out
+        example.main()
+        got = capsys.readouterr().out
+        assert got == exp and got.strip()

@@ -238,3 +238,61 @@ def test_entry_points_default_to_the_gpu():
             build()
         # the model was left where it was
         assert np.all([p.device.type == "cpu" for p in model.parameters()])
+
+
+def test_data_modules_import_without_pandas_pyarrow_h5py():
+    """As on the GPU host, which has no pandas: with pandas, pyarrow and
+    h5py blocked (and JAX), every module of the port's ``data``,
+    ``datasets``, ``utils`` and ``examples`` imports; the curated
+    ``TestDataset`` reads the bundled SQLite database into batches; a
+    conversion asks for pandas only when it runs."""
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        for name in ("jax", "flax", "graphnet_tpu", "pandas", "pyarrow",
+                     "h5py"):
+            sys.modules[name] = None
+        import graphnet_tpu_torch
+        names = []
+        for sub in ("data", "datasets", "utils", "examples"):
+            pkg = importlib.import_module("graphnet_tpu_torch." + sub)
+            for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+                importlib.import_module(mod.name)
+                names.append(mod.name)
+        for name in ("data.dataconverter", "data.pre_configured",
+                     "data.sqlite_utilities", "data.curated_datamodule",
+                     "data.extractors.liquido", "data.readers.prometheus_reader",
+                     "data.writers.parquet_writer", "datasets.test_dataset",
+                     "datasets.prometheus_datasets", "utils.logging",
+                     "utils.imports", "utils.maths",
+                     "examples.convert_prometheus", "examples.convert_h5",
+                     "examples.plot_feature_distributions"):
+            assert "graphnet_tpu_torch." + name in names, name
+        from graphnet_tpu_torch.datasets import TestDataset
+        from graphnet_tpu_torch.models.detector.prometheus import Prometheus
+        from graphnet_tpu_torch.models.graphs import KNNGraph
+        ds = TestDataset(KNNGraph(detector=Prometheus()),
+                         train_dataloader_kwargs={"batch_size": 8})
+        batch = next(iter(ds.train_dataloader()))
+        assert batch.batch_size == 8
+        from graphnet_tpu_torch.data import sqlite_utilities as su
+        from graphnet_tpu_torch.constants import EXAMPLE_SQLITE_DATA
+        assert len(su.get_event_numbers(EXAMPLE_SQLITE_DATA, "mc_truth")) == 50
+        from graphnet_tpu_torch.utils.imports import has_torch_package
+        assert has_torch_package()
+        import tempfile
+        from graphnet_tpu_torch.examples import convert_prometheus
+        with tempfile.TemporaryDirectory() as out:
+            try:
+                convert_prometheus.main(["--output", out])
+            except ImportError as e:
+                assert "pandas" in str(e), e
+            else:
+                raise AssertionError("converted without pandas")
+        print("ok")
+        """
+    )
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
