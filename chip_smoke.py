@@ -218,6 +218,24 @@ Phases, each printing one JSON line:
    subclass (``SmokeDeployer``) over 8 ``.npz`` files of events, in one
    process and in 2 spawned workers that each build the module from its
    files: the same answers, bit for bit;
+   serve_i3, serve_i3_cleaner, serve_i3_deployer: the zoo's QUESO models
+   inside the IceTray chain, on the tests' stand-in for IceTray
+   (``tests/tools_torch_icetray``, put on ``sys.path``): an
+   IceCube-Upgrade-shaped GCD made from a seed (a sensor at each pulse
+   position of the bundled database) and physics frames of 0-700 pulses
+   (ZOO_LENGTHS, from ``zoo_raw_pulses``); ``total_neutrino_energy``
+   (full width, a ported GraphNeT-layout checkpoint with random
+   weights, saved and loaded from its files) through
+   ``I3InferenceModule`` on the card and on the CPU: each frame's
+   ``I3Double`` within rtol 1e-3 (kNN flips explained), 5 kNN and 4
+   EdgeConv launches a frame with pulses and none without, and the host
+   ms of one frame's inference at 99, 400 and 700 pulses;
+   ``SplitInIcePulses_cleaner`` through ``I3PulseCleanerModule`` (its
+   threshold the median of the CPU's probabilities): the per-pulse
+   probabilities held the same way, the cleaned pulse maps equal but
+   for pulses within 1e-3 of the threshold (counted); ``I3Deployer``
+   with both modules over 4 stand-in ``.i3`` files in one process and in
+   2 spawned workers: the same written frames, byte for byte;
    serve_backbones: GraphNeT's other five backbones at its default
    widths (``backbone_model``: DynEdgeJINST, ConvNet, ParticleNeT,
    ISeeCube, RNN_TITO), each from a GraphNeT-layout checkpoint ported
@@ -292,6 +310,13 @@ Phases, each printing one JSON line:
    4, TITO 4 of each flash kernel), on a graph axis the input
    neighbours of each process's rows equal to the unsharded event's,
    and each process's host seconds of a second step; FSDP's loss DP's;
+   parallel_done also prints each layout's collectives as counted in
+   each process (``dryrun.CollectiveTape``: DDP's gradient all-reduce
+   read from its reducer's buckets, node sharding's all-gathers, all-reduces and
+   reduce-scatter; bytes and calls) and the ``CollectiveProfile`` built
+   from those counts (DP's gradient all-reduce, the DP x graph step's
+   all-gathers) beside ``dynedge_headline_profile`` of the DP model's
+   parameters, whose all-reduce bytes the count must equal;
 12. times: each kernel, its plain version and its bound (the kNN at
    B=128, L=128 (also at k = 32 and, on the rounds kernel, k = 48), at
    TITO's B=8, L=1024, at B=1, L = 128 and 512 and, on the rounds
@@ -334,6 +359,7 @@ exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import importlib
 import json
@@ -520,6 +546,15 @@ ISEECUBE_LENGTHS = (0, 1, 9, 26, 50, 80, 99, 128)
 QUEUE_EVENTS, QUEUE_THREADS, QUEUE_MAX_BATCH = 256, 8, 32
 # the deployer phase: .npz files of events, events a file, workers
 DEPLOY_FILES, DEPLOY_EVENTS, DEPLOY_WORKERS = 8, 16, 2
+# the serve_i3 phase: the tests' IceTray stand-in, the zoo models it
+# serves (QUESO: 5 kNN and 4 EdgeConv a non-empty frame), its stand-in
+# .i3 files and workers, the frames whose inference is timed and the
+# timed repeats of each
+I3_STANDIN = os.path.join(ROOT, "tests", "tools_torch_icetray")
+I3_ENERGY = "queso/total_neutrino_energy"
+I3_CLEANER = "queso/SplitInIcePulses_cleaner"
+I3_FILES, I3_WORKERS = 4, 2
+I3_TIMED, I3_RUNS = (99, 400, 700), 5
 # its training steps a phase, fewer than the default DeepIce's 3 (each
 # step at B=16, L=768 is ~4x the default's flops)
 ICE_D64_STEPS = 2
@@ -5193,6 +5228,39 @@ def parallel_phase(nproc=2, device="cuda", layouts=PARALLEL_LAYOUTS,
     return reports
 
 
+def collective_profiles(reports):
+    """The port's ``CollectiveProfile`` from the parallel phase's counted
+    collectives (rank 0's): the DP step's gradient all-reduce (DDP's
+    buckets) and the DP x graph step's all-gathers (node sharding's),
+    beside ``dynedge_headline_profile`` of the DP model's parameters:
+    each process's DDP bytes must be its fp32 gradient, 4 bytes a
+    parameter."""
+    from dataclasses import asdict
+
+    from graphnet_tpu_torch.parallel.scaling_model import (
+        CollectiveProfile,
+        dynedge_headline_profile,
+    )
+
+    by = {r["layout"]: r for r in reports}
+    dp, graph = by["dp"], by["graph"]
+    for r in (dp, graph):
+        for got in r["collective_bytes_per_rank"]:
+            assert got["ddp_grad"] == 4 * r["n_params"], (r["layout"], got)
+    counted = CollectiveProfile(
+        grad_allreduce_bytes=dp["collective_bytes_per_rank"][0]["ddp_grad"],
+        halo_allgather_bytes=graph["collective_bytes_per_rank"][0]["all_gather"])
+    headline = dynedge_headline_profile(dp["n_params"])
+    return {"n_params_dp": dp["n_params"],
+            "graph_shape": [graph["B"], graph["L"]],
+            "collective_profile_counted": asdict(counted),
+            "collective_profile_headline": asdict(headline),
+            "collective_bytes_rank0": {
+                r["layout"]: r["collective_bytes_per_rank"][0] for r in reports},
+            "collective_calls_rank0": {
+                r["layout"]: r["collective_calls_per_rank"][0] for r in reports}}
+
+
 def deployer_phase(module, rng, tmp):
     """DEPLOY_FILES ``.npz`` files of DEPLOY_EVENTS events each (1-512
     pulses, some files with a 0-pulse event) served by SmokeDeployer in
@@ -5226,6 +5294,277 @@ def deployer_phase(module, rng, tmp):
             "workers": DEPLOY_WORKERS, "identical_files": len(one),
             "one_process_s": walls[1],
             f"{DEPLOY_WORKERS}_workers_s": walls[DEPLOY_WORKERS]}
+
+
+def i3_standin():
+    """The tests' IceTray stand-in (``tests/tools_torch_icetray``: an
+    ``icecube`` package and ``I3Tray``) on ``sys.path``, where the
+    deployer's spawned workers find it too; returns its frame maker."""
+    if I3_STANDIN not in sys.path:
+        sys.path.insert(0, I3_STANDIN)
+    import i3_standin_frames
+
+    return i3_standin_frames
+
+
+def i3_standin_off():
+    """Takes the stand-in off ``sys.path`` and its modules out of
+    ``sys.modules`` (as the tests' ``icetray`` fixture does), so that
+    IceTray is absent again for the later phases and their processes."""
+    while I3_STANDIN in sys.path:
+        sys.path.remove(I3_STANDIN)
+    for name in list(sys.modules):
+        if name.split(".")[0] in ("icecube", "I3Tray", "i3_standin_frames"):
+            del sys.modules[name]
+
+
+def i3_frames(F, rng, pool, tmp):
+    """An IceCube-Upgrade-shaped GCD file (``F.fake_gcd``: a sensor at
+    each distinct position of the pulse pool) and one physics frame a
+    ZOO_LENGTHS entry: the pulses of :func:`zoo_raw_pulses` on the
+    sensors at their positions, with its times and charges.  Returns the
+    GCD file's path and the frames."""
+    positions = np.unique(pool[:, :3], axis=0)
+    gcd, keys = F.fake_gcd(rng, positions)
+    sensor = {tuple(p): i for i, p in enumerate(positions)}
+    path = os.path.join(tmp, "gcd.i3.gz")
+    F.write_i3(path, gcd)
+    frames = []
+    for raw in zoo_raw_pulses(rng, ["dom_x", "dom_y", "dom_z", "dom_time",
+                                    "charge"], pool, ZOO_LENGTHS):
+        doms = [sensor[tuple(r[:3])] for r in raw]
+        frames.append(F.physics_frame(rng, keys, doms, raw[:, 3], raw[:, 4]))
+    return path, frames
+
+
+def i3_modules(torch, directory, gcd_path, frames, F, device, rng, tmp):
+    """A maker of I3 modules serving the zoo directory: the model built
+    by ``load_model`` on ``device``, a GraphNeT-layout checkpoint with
+    random weights ported into it (as :func:`serve_zoo`), its heads
+    scaled by :func:`calibrate_heads` over the frames' events, saved with
+    ``save_model``; ``make(cls, device, **kwargs)`` builds ``cls``
+    (``I3InferenceModule`` or ``I3PulseCleanerModule``) from those files
+    with the directory's graph definition."""
+    from graphnet_tpu_torch.data.dataloader import collate_events
+    from graphnet_tpu_torch.data.extractors.icecube import (
+        I3FeatureExtractorIceCubeUpgrade,
+    )
+    from graphnet_tpu_torch.deployment.icecube import I3InferenceModule
+    from graphnet_tpu_torch.examples.port_pretrained import (
+        graphnet_state_dict,
+    )
+    from graphnet_tpu_torch.utils.config import load_model, save_model
+    from graphnet_tpu_torch.utils.weight_port import port_state_dict
+
+    model_path = os.path.join(ZOO_DIR, directory, "model.yml")
+    gd = load_model(os.path.join(ZOO_DIR, directory, "graph_definition.yml"))
+    model = load_model(model_path, device=device, seed=SEED)
+    model.load_state_dict(port_state_dict(model, graphnet_state_dict(model, rng)))
+
+    out = os.path.join(tmp, directory.replace("/", "_"))
+    pkl = os.path.join(out, "state_dict.pkl")
+
+    def make(cls, dev, model_config=model_path, state_dict=pkl, **kwargs):
+        m = cls(pulsemap_extractor=I3FeatureExtractorIceCubeUpgrade(F.PULSEMAP),
+                model_config=model_config, state_dict=state_dict,
+                gcd_file=gcd_path, model_name="queso", device=dev, **kwargs)
+        m.set_graph_definition(gd)
+        return m
+
+    probe = make(I3InferenceModule, device, model, model.state_dict())
+    calibrate_heads(torch, model, {"frames": [probe._event(f) for f in frames]},
+                    collate_events)
+    save_model(model, out)
+    return make
+
+
+def i3_pulses(frame, F):
+    return sum(len(p) for p in frame[F.PULSEMAP].values())
+
+
+def i3_pass(torch, module, frames, read, F, counters=(), expect=()):
+    """Each frame (a copy) through ``read(module, copy)``: its answers,
+    each conv's recorded graphs (:func:`_record`) and the frame copies;
+    the launches each frame adds must be ``expect`` (none for a frame
+    without pulses)."""
+    answers, records, outs = [], [], []
+    for frame in frames:
+        out = copy.deepcopy(frame)
+        store = []
+        handles = _record(module, store)
+        before = [c.launches for c in counters]
+        answers.append(read(module, out))
+        rose = [c.launches - b for c, b in zip(counters, before)]
+        for h in handles:
+            h.remove()
+        want = list(expect) if i3_pulses(frame, F) else [0] * len(expect)
+        assert rose == want, (
+            f"a frame of {i3_pulses(frame, F)} pulses launched {rose}, "
+            f"not {want}")
+        records.append(store)
+        outs.append(out)
+    return answers, records, outs
+
+
+def i3_held(torch, got, exp, rec_got, rec_exp, n_pulses):
+    """Each frame's answers (an ``I3Double`` row, or a row a pulse)
+    within CONFIG_RTOL of the CPU's, as :func:`serve_config_dynedge`
+    holds them: an entry beyond it must come with a kNN graph of the
+    frame that differs between the devices.  Returns the report and the
+    frames with such flips."""
+    rows = [np.atleast_2d(g) for g in got], [np.atleast_2d(c) for c in exp]
+    col_max = np.max(np.abs(np.concatenate(
+        [c for c, n in zip(rows[1], n_pulses) if n])), axis=0)
+    worst, beyond, flipped, unexplained = 0.0, 0, set(), []
+    for i, (g, c, n) in enumerate(zip(*rows, n_pulses)):
+        assert g.shape == c.shape, (i, g.shape, c.shape)
+        if not n:
+            assert np.isnan(g).all() and np.isnan(c).all()
+            continue
+        assert np.isfinite(g).all(), f"frame {i}: not finite"
+        if graph_flips(torch, rec_got[i], rec_exp[i], {0: (0, 0, n)}):
+            flipped.add(i)
+        err = float(np.max(np.abs(g - c) / np.maximum(
+            np.abs(c), CONFIG_FLOOR * col_max)))
+        worst = max(worst, err)
+        if err > CONFIG_RTOL:
+            beyond += 1
+            if i not in flipped:
+                unexplained.append((i, n, err))
+    assert not unexplained, (
+        f"frames differ from the CPU with no kNN flip (frame, pulses, "
+        f"error): {unexplained}")
+    return {"frames": len(n_pulses), f"frames_beyond_rtol_{CONFIG_RTOL}":
+            beyond, "frames_with_knn_flips": len(flipped),
+            "max_rel_err": worst}, flipped
+
+
+def i3_doubles(module, frame):
+    assert module(frame) is True
+    return np.array([frame[f"queso_{c}"].value
+                     for c in module.prediction_columns])
+
+
+def i3_kept(frame, cleaned, F):
+    """Whether each pulse of the frame's pulse map (in its order) is in
+    the cleaned map."""
+    return np.array([p in cleaned.get(key, ()) for key, pulses in
+                     frame[F.PULSEMAP].items() for p in pulses], bool)
+
+
+def serve_i3(torch, device, rng, pool, counters, names, expect, smi, tmp):
+    """Phase serve_i3: the zoo's QUESO models inside the I3 chain, on the
+    tests' IceTray stand-in: frames of ZOO_LENGTHS pulses
+    (:func:`i3_frames`); ``total_neutrino_energy`` through
+    ``I3InferenceModule`` on ``device`` and on the CPU (each frame's
+    ``I3Double`` held by :func:`i3_held`, ``expect`` launches a frame
+    with pulses, none without); ``SplitInIcePulses_cleaner`` through
+    ``I3PulseCleanerModule`` (its threshold the median of the CPU's
+    pulse probabilities): the probabilities held the same way, the
+    cleaned pulse maps equal but for pulses whose probability lies within
+    CONFIG_RTOL of the threshold (counted) or in a frame whose kNN graph
+    flipped; ``I3Deployer`` with both modules over I3_FILES files, in one
+    process and in I3_WORKERS spawned workers: the same written frames,
+    byte for byte; the host ms of one frame's inference.  Returns the
+    phase's three reports."""
+    from graphnet_tpu_torch.deployment.icecube import (
+        I3Deployer,
+        I3InferenceModule,
+        I3PulseCleanerModule,
+    )
+
+    F = i3_standin()
+    gcd_path, frames = i3_frames(F, rng, pool, tmp)
+    n_pulses = [i3_pulses(f, F) for f in frames]
+    make = i3_modules(torch, I3_ENERGY, gcd_path, frames, F, device, rng, tmp)
+    gpu, cpu = make(I3InferenceModule, device), make(I3InferenceModule, "cpu")
+    for c in counters:
+        c.launches = 0
+    got, rec_g, _ = i3_pass(torch, gpu, frames, i3_doubles, F, counters, expect)
+    launches = [c.launches for c in counters]
+    exp, rec_c, _ = i3_pass(torch, cpu, frames, i3_doubles, F)
+    held, _ = i3_held(torch, got, exp, rec_g, rec_c, n_pulses)
+    ms = {}
+    for n in I3_TIMED:
+        frame = frames[ZOO_LENGTHS.index(n)]
+        copies = [copy.deepcopy(frame) for _ in range(I3_RUNS + 1)]
+        ms[f"{n}_pulses"] = 1e3 * host_s(lambda: gpu(copies.pop()),
+                                         runs=I3_RUNS, warmup=1)
+    energy = {"model": I3_ENERGY, "module": "I3InferenceModule",
+              "pulses": n_pulses, "columns": gpu.prediction_columns,
+              **held, "launches": dict(zip(names, launches)),
+              "frames_with_pulses": sum(1 for n in n_pulses if n),
+              "host_ms_per_frame": ms, "card": smi}
+
+    make = i3_modules(torch, I3_CLEANER, gcd_path, frames, F, device, rng, tmp)
+    probs = lambda m, f: m.probabilities(f)  # noqa: E731
+    pc, rec_cc, _ = i3_pass(torch, make(I3PulseCleanerModule, "cpu",
+                                        pulsemap=F.PULSEMAP), frames, probs, F)
+    threshold = float(np.median(np.concatenate([p[:, 0] for p in pc])))
+    cgpu, ccpu = (make(I3PulseCleanerModule, d, pulsemap=F.PULSEMAP,
+                       threshold=threshold) for d in (device, "cpu"))
+    for c in counters:
+        c.launches = 0
+    pg, rec_cg, _ = i3_pass(torch, cgpu, frames, probs, F, counters, expect)
+    held_c, flipped = i3_held(torch, pg, pc, rec_cg, rec_cc, n_pulses)
+    key = f"{F.PULSEMAP}_queso_cleaned"
+    clean = lambda m, f: (m(f), f[key])[1]  # noqa: E731
+    cleaned_g, _, _ = i3_pass(torch, cgpu, frames, clean, F, counters, expect)
+    launches_c = [c.launches for c in counters]
+    cleaned_c, _, _ = i3_pass(torch, ccpu, frames, clean, F)
+    tol = CONFIG_RTOL * max(threshold, CONFIG_FLOOR)
+    near = differing = in_flips = kept = 0
+    for i, (frame, g, c, p) in enumerate(zip(frames, cleaned_g, cleaned_c, pc)):
+        kg, kc = i3_kept(frame, g, F), i3_kept(frame, c, F)
+        assert np.array_equal(kc, p[:, 0] > threshold), f"frame {i}"
+        kept += int(kg.sum())
+        diff = kg != kc
+        is_near = np.abs(p[:, 0] - threshold) <= tol
+        near += int(is_near.sum())
+        differing += int(diff.sum())
+        bad = diff & ~is_near
+        if bad.any():
+            assert i in flipped, (
+                f"frame {i}: {int(bad.sum())} pulses cleaned apart from the "
+                "CPU, none near the threshold and no kNN flip")
+            in_flips += int(bad.sum())
+    cleaner = {"model": I3_CLEANER, "module": "I3PulseCleanerModule",
+               "threshold": threshold, "pulses": n_pulses,
+               **{f"probabilities_{k}": v for k, v in held_c.items()},
+               "pulses_kept": kept, "pulses_total": sum(n_pulses),
+               "pulses_cleaned_apart_from_cpu": differing,
+               f"pulses_within_{CONFIG_RTOL}_of_threshold": near,
+               "pulses_apart_in_flipped_frames": in_flips,
+               "launches": dict(zip(names, launches_c)),
+               "forwards": 2 * sum(1 for n in n_pulses if n), "card": smi}
+
+    files = {}
+    walls = {}
+    for workers in (1, I3_WORKERS):
+        paths = []
+        for i in range(I3_FILES):
+            path = os.path.join(tmp, f"i3_{workers}", f"run{i}.i3.gz")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            F.write_i3(path, [fr for f in frames[i::I3_FILES]
+                              for fr in (type(f)("Q"), f)])
+            paths.append(path)
+        t0 = time.perf_counter()
+        I3Deployer([gpu, cgpu], gcd_file=gcd_path, n_workers=workers).run(paths)
+        walls[workers] = time.perf_counter() - t0
+        files[workers] = [open(p.replace(".i3", "_graphnet_tpu.i3"), "rb").read()
+                          for p in paths]
+    assert files[1] == files[I3_WORKERS], (
+        "the workers wrote other frames than one process")
+    written = [f for b in files[1] for f in pickle.loads(b) if f.Stop == "P"]
+    assert len(written) == len(frames)
+    assert all(f"queso_{gpu.prediction_columns[0]}" in f and key in f
+               for f in written)
+    deployer = {"files": I3_FILES, "frames": len(written),
+                "workers": I3_WORKERS, "modules": 2,
+                "identical_files": len(files[1]),
+                "one_process_s": walls[1],
+                f"{I3_WORKERS}_workers_s": walls[I3_WORKERS]}
+    return energy, cleaner, deployer
 
 
 def export_phase(torch, module, requests, counters, expect, tmp, host=(),
@@ -6148,6 +6487,21 @@ def main() -> int:
     del emodule, config_modules
     shutil.rmtree(tmp)
 
+    # 7i'. IceTray: the QUESO zoo models inside the I3 chain (the tests'
+    # stand-in for IceTray): I3InferenceModule and I3PulseCleanerModule
+    # on the card against the CPU, I3Deployer with spawned workers
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    i3_energy, i3_cleaner, i3_deployer = serve_i3(
+        torch, "cuda", np.random.default_rng(SEED + 23), pool, counters,
+        names, ZOO_LAUNCHES[I3_ENERGY], smi, tmp)
+    emit({"phase": "serve_i3", **i3_energy})
+    emit({"phase": "serve_i3_cleaner", **i3_cleaner})
+    emit({"phase": "serve_i3_deployer", **i3_deployer,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    shutil.rmtree(tmp)
+    i3_standin_off()
+
     # 7j. training across processes: the dry run's layouts, two processes
     # sharing the card
     t0 = time.perf_counter()
@@ -6158,6 +6512,7 @@ def main() -> int:
     graph_long = next(r for r in parallel if r["layout"] == "graph_long")
     rounds_launches = sum(l["knn_rounds"] for l in graph_long["launches_per_rank"])
     emit({"phase": "parallel_done", "fsdp_equals_dp": True,
+          **collective_profiles(parallel),
           "seconds": round(time.perf_counter() - t0, 2)})
 
     # 8. times
@@ -6286,6 +6641,7 @@ def main() -> int:
              source="graphnet_tpu_torch/csrc/knn.cu",
              replaces="graphnet_tpu/ops/knn_pallas.py:35",
              launches=launches[0], launches_per="DynEdge forward: 5 (D=3)",
+             launches_serve_i3=i3_energy["launches"]["knn"],
              max_abs_err=knn_err, **row1("B128_L128_D3"), library_ms=None),
         dict(name="knn_xyzt", row="1", route="cuda",
              source="graphnet_tpu_torch/csrc/knn.cu",
@@ -6318,6 +6674,7 @@ def main() -> int:
              source="graphnet_tpu_torch/csrc/edgeconv.cu",
              replaces="graphnet_tpu/ops/edgeconv_pallas.py:66",
              launches=launches[1], launches_per="serving forward: 4",
+             launches_serve_i3=i3_energy["launches"]["edgeconv"],
              max_abs_err=ec_err["float32"],
              **times["edgeconv_fwd"], library_ms=None),
         dict(name="edgeconv_fwd_bf16", row="2", route="cuda",

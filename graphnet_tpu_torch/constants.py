@@ -21,3 +21,4 @@ EXAMPLE_PARQUET_DATA = os.path.join(
     EXAMPLE_DATA_DIR, "parquet", "prometheus", "merged"
 )
 CONFIG_DIR = os.path.join(GRAPHNET_ROOT_DIR, "configs")
+PRETRAINED_MODEL_DIR = os.path.join(CONFIG_DIR, "models", "zoo")

@@ -1,6 +1,5 @@
-"""Extractor base class (counterpart of
-``graphnet_tpu/data/extractors/extractor.py``; its ``CombinedExtractor``,
-which only the IceTray extractors use, is not ported yet)."""
+"""Extractor base class and ``CombinedExtractor`` (counterpart of
+``graphnet_tpu/data/extractors/extractor.py``)."""
 
 from __future__ import annotations
 
@@ -24,3 +23,24 @@ class Extractor(Logger):
 
     def __call__(self, data: Any):
         raise NotImplementedError
+
+
+class CombinedExtractor(Extractor):
+    """Several extractors' columns in one table.  They must all give
+    columns of one level (all per event or all per pulse); ``set_gcd`` is
+    passed on to those that take it (the IceTray extractors)."""
+
+    def __init__(self, extractors: list, extractor_name: str):
+        super().__init__(extractor_name=extractor_name)
+        self._extractors = list(extractors)
+
+    def set_gcd(self, i3_file: str, gcd_file: Any = None) -> None:
+        for extractor in self._extractors:
+            if hasattr(extractor, "set_gcd"):
+                extractor.set_gcd(i3_file, gcd_file)
+
+    def __call__(self, data: Any):
+        output: dict = {}
+        for extractor in self._extractors:
+            output.update(extractor(data))
+        return output

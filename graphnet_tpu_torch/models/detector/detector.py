@@ -132,9 +132,12 @@ def make_detector(
     string_id: str,
     sensor_id: str,
     fmap: Dict[str, Callable],
+    module: str,
     doc: str = "",
 ) -> type:
-    """Create and register a Detector subclass from a scaling table."""
+    """Create and register a Detector subclass from a scaling table.  The
+    class belongs to ``module``, the module that binds its name, so it
+    pickles by reference."""
     cls = type(
         name,
         (Detector,),
@@ -145,6 +148,7 @@ def make_detector(
             "sensor_id_column": sensor_id,
             "_feature_map": fmap,
             "__doc__": doc or f"Detector definition for {name}.",
+            "__module__": module,
         },
     )
     _DETECTOR_REGISTRY[name] = cls

@@ -29,6 +29,7 @@ IceCube86 = make_detector(
         "pmt_area": affine(0.05),
         "hlc": identity(),
     },
+    module=__name__,
 )
 
 IceCubeKaggle = make_detector(
@@ -46,6 +47,7 @@ IceCubeKaggle = make_detector(
         "charge": log10_scale(3.0),
         "auxiliary": identity(),
     },
+    module=__name__,
 )
 
 IceCubeDeepCore = make_detector(
@@ -66,6 +68,7 @@ IceCubeDeepCore = make_detector(
         "pmt_area": affine(0.05),
         "hlc": identity(),
     },
+    module=__name__,
 )
 
 IceCubeUpgrade = make_detector(
@@ -93,4 +96,5 @@ IceCubeUpgrade = make_detector(
         "dom_type": affine(130.0),
         "hlc": identity(),
     },
+    module=__name__,
 )

@@ -17,4 +17,5 @@ LiquidO_v1 = make_detector(
         "sipm_z": affine(1000.0),
         "t": affine(500.0),
     },
+    module=__name__,
 )

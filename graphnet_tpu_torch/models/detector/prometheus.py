@@ -24,6 +24,7 @@ def _prometheus(name, geometry_file, xy_scale, z_scale, z_offset=0.0):
             "sensor_pos_z": affine(z_scale, z_offset),
             "t": affine(_T_SCALE),
         },
+        module=__name__,
     )
 
 

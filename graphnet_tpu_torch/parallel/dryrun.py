@@ -44,7 +44,9 @@ step are reported (entries beyond ``PARAM_RTOL`` / ``PARAM_ATOL``), not
 checked: at full width the random model's gradients are large (losses
 ~1e6 at L = 12288), and Adam moves an entry whose gradient is rounding
 noise around 0 by up to the learning rate either way.  Each process
-counts its kernel launches (rows 1-3, 5a-c) in the step, then times a
+counts its kernel launches (rows 1-3, 5a-c) and the bytes and calls of
+its collectives (``CollectiveTape``: DDP's gradient all-reduce, node
+sharding's all-gathers) in the step, then times a
 second step (no recording, host clock, after a device
 synchronisation).  ``--audit-kernels`` holds every call of rows 2 and 3
 in both steps against its plain version on the CPU and, for row 3,
@@ -251,6 +253,83 @@ class KernelAudit:
         self.ec.edgeconv_fwd_op, self.ec.edgeconv_bwd_op = self.saved
 
 
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter", "reduce_scatter_tensor", "broadcast")
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def collective_bytes(op: str, args, kwargs) -> int:
+    """The bytes one call of ``op`` hands the group: an all-reduce's or a
+    broadcast's tensor, an all-gather's whole gathered output, a
+    reduce-scatter's whole input (the sizes the ring formulas of
+    ``parallel/scaling_model.py`` take)."""
+    def arg(i, name):
+        return args[i] if len(args) > i else kwargs[name]
+
+    if op in ("all_reduce", "broadcast"):
+        return _nbytes(arg(0, "tensor"))
+    if op == "all_gather":
+        return sum(_nbytes(t) for t in arg(0, "tensor_list"))
+    if op == "all_gather_into_tensor":
+        return _nbytes(arg(0, "output_tensor"))
+    if op == "reduce_scatter":
+        return sum(_nbytes(t) for t in arg(1, "input_list"))
+    return _nbytes(arg(1, "input"))  # reduce_scatter_tensor
+
+
+class CollectiveTape:
+    """Counts the bytes and calls of each collective of a step in this
+    process: ``torch.distributed``'s collectives, wrapped while the tape
+    is on (node sharding's all-gathers, all-reduces and reduce-scatter,
+    tensor parallelism's all-reduces), and DDP's gradient buckets,
+    read as ``ddp_grad`` by :meth:`count_ddp` from the reducer itself
+    (it all-reduces each bucket once a step; no comm hook is put in its
+    way, so a later step runs DDP's own reducer).  FSDP2's
+    all-gather and reduce-scatter are counted where its version calls
+    these functions (torch 2.11 on CUDA tensors does, one of each a
+    step; torch 2.13 over gloo on the CPU calls neither)."""
+
+    def __init__(self):
+        self.bytes: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
+        self._on = False
+
+    def _wrap(self, op, fn):
+        def call(*args, **kwargs):
+            if self._on:
+                self.bytes[op] = self.bytes.get(op, 0) + collective_bytes(
+                    op, args, kwargs)
+                self.calls[op] = self.calls.get(op, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.saved = {op: getattr(dist, op) for op in COLLECTIVES}
+        for op, fn in self.saved.items():
+            setattr(dist, op, self._wrap(op, fn))
+        self._on = True
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        self._on = False
+        for op, fn in self.saved.items():
+            setattr(dist, op, fn)
+
+    def count_ddp(self, ddp):
+        """Records one step of ``ddp``'s gradient all-reduce: the bytes
+        of its reducer's buckets and one call a bucket."""
+        buckets = [b.buffer() for b in ddp.reducer._get_zeros_like_grad_buckets()]
+        self.bytes["ddp_grad"] = sum(b.numel() * b.element_size() for b in buckets)
+        self.calls["ddp_grad"] = len(buckets)
+
+
 def _near_zero_gates(args, da_diff) -> Dict:
     """Of row 3's call ``args`` (CPU tensors): the node whose ``da``
     differs most, and the smallest ``|z|`` and ``|pre2|`` over its valid
@@ -288,13 +367,16 @@ def run_layout(layout: str, device, width: str, long_l: int,
     # FSDP2 shards leaves of 2^10 elements and more, as the JAX dry run
     trainer = Trainer(model, mesh=mesh, param_sharding=spec["sharding"],
                       fsdp_min_size=2**10)
+    comms = CollectiveTape()
     counters = _counters()
     for c in counters.values():
         c.launches = 0
     rounds0 = counters["knn"].launches_rounds
     audit = KernelAudit() if audit_kernels else contextlib.nullcontext()
-    with GraphTape() as tape, audit:
+    with GraphTape() as tape, audit, comms:
         loss = trainer.train_step(batch)
+    if isinstance(trainer._forward, torch.nn.parallel.DistributedDataParallel):
+        comms.count_ddp(trainer._forward)
     launches = {n: c.launches for n, c in counters.items()}
     launches["knn_rounds"] = counters["knn"].launches_rounds - rounds0
     grads = {k: v.detach().clone() for k, v in trainer._full_state(
@@ -315,6 +397,7 @@ def run_layout(layout: str, device, width: str, long_l: int,
     reports = [None] * world
     dist.all_gather_object(reports, dict(
         rank=rank, local_loss=float(loss), launches=launches, first=first,
+        collective_bytes=comms.bytes, collective_calls=comms.calls,
         audit=audit.errors if audit_kernels else None,
         seconds=round(seconds, 4), graphs=[tuple(t.numpy() for t in g)
                                            for g in tape.graphs]))
@@ -352,6 +435,9 @@ def run_layout(layout: str, device, width: str, long_l: int,
         params_entries_beyond_tol=params_off,
         params_max_abs_diff=params_max,
         launches_per_rank=[r["launches"] for r in reports],
+        n_params=sum(p.numel() for p in ref_model.parameters()),
+        collective_bytes_per_rank=[r["collective_bytes"] for r in reports],
+        collective_calls_per_rank=[r["collective_calls"] for r in reports],
         second_step_seconds_per_rank=[r["seconds"] for r in reports])
     report["finite"] = bool(np.isfinite(mean_loss)
                             and all(np.isfinite(r["local_loss"]) for r in reports))

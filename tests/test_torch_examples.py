@@ -36,6 +36,7 @@ from graphnet_tpu_torch.utils import config
 from graphnet_tpu_torch.ops.knn import knn_graph_plain
 from graphnet_tpu_torch.utils.jax_params import params_from_jax
 from tests.test_torch_data import JaxLatentGraphs
+from tests.tools_torch_icetray import icetray  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -349,3 +350,80 @@ def test_data_example_matches_the_jax_example(name, tmp_path, monkeypatch,
         example.main()
         got = capsys.readouterr().out
         assert got == exp and got.strip()
+
+
+# ----------------------------------------------------- IceTray examples
+@pytest.mark.parametrize("name", ["convert_i3_files", "deploy_i3_modules"])
+def test_icetray_example_without_icetray(name, capsys):
+    """Without IceTray the two IceTray examples (counterparts of
+    ``07_icetray/01_convert_i3_files.py`` and ``02_deploy_i3_modules.py``)
+    say so and return; the deployment serves on the GPU by default, the
+    conversion runs on the host and takes no device."""
+    from graphnet_tpu_torch.utils.imports import has_icecube_package
+
+    assert not has_icecube_package()
+    example = importlib.import_module(f"graphnet_tpu_torch.examples.{name}")
+    assert getattr(example.parse_args([]), "device", None) == (
+        "cuda" if name == "deploy_i3_modules" else None)
+    assert example.main([]) is None
+    assert "icetray is not installed" in capsys.readouterr().out
+
+
+def _standin_inputs(F, tmp_path, pulsemap):
+    """A GCD file and a folder of two stand-in files (frames of 0-40
+    pulses, the pulse map also as ``pulsemap``)."""
+    rng = np.random.default_rng(2)
+    gcd, keys = F.fake_gcd(rng, rng.normal(0.0, 150.0, (40, 3)))
+    gcd_path = tmp_path / "gcd.i3.gz"
+    F.write_i3(gcd_path, gcd)
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    for i, lengths in enumerate(((0, 12, 40), (7,))):
+        frames = F.random_frames(rng, keys, lengths)
+        for f in frames:
+            if f.Stop == "P" and pulsemap != F.PULSEMAP:
+                f[pulsemap] = f[F.PULSEMAP]
+        F.write_i3(raw / f"run{i}.i3.gz", frames)
+    return str(gcd_path), str(raw)
+
+
+@pytest.mark.parametrize("backend", ["sqlite", "parquet"])
+def test_convert_i3_example_on_the_standin(backend, tmp_path, icetray):
+    from tests.test_torch_dataconverter import _files
+
+    gcd, raw = _standin_inputs(icetray, tmp_path, "SRTInIcePulses")
+    example = importlib.import_module(
+        "graphnet_tpu_torch.examples.convert_i3_files")
+    out = example.main([backend, "--input-dir", raw, "--gcd-rescue", gcd,
+                        "--outdir", str(tmp_path / "out")])
+    files = _files(out)
+    assert any(f.startswith("merged") for f in files), files
+    if backend == "sqlite":
+        import sqlite3
+
+        with sqlite3.connect(os.path.join(out, "merged", "merged.db")) as c:
+            n = c.execute("SELECT COUNT(*) FROM SRTInIcePulses").fetchone()[0]
+            events = c.execute("SELECT COUNT(*) FROM truth").fetchone()[0]
+        assert (n, events) == (12 + 40 + 7, 4)
+
+
+def test_deploy_i3_example_on_the_standin(tmp_path, icetray):
+    """The deployment example on the stand-in with ``--device cpu``: the
+    zoo's full-width QUESO energy model (weights saved by
+    ``save_model``) writes an energy ``I3Double`` into every physics
+    frame, NaN for the 0-pulse one."""
+    example = importlib.import_module(
+        "graphnet_tpu_torch.examples.deploy_i3_modules")
+    model = config.load_model(os.path.join(example.ZOO_MODEL, "model.yml"),
+                              device="cpu", seed=0)
+    config.save_model(model, str(tmp_path / "model"))
+    gcd, raw = _standin_inputs(icetray, tmp_path, icetray.PULSEMAP)
+    written = example.main([
+        "--input-dir", raw, "--gcd-file", gcd, "--device", "cpu",
+        "--state-dict", str(tmp_path / "model" / "state_dict.pkl")])
+    assert len(written) == 2
+    values = [f["graphnet_tpu_deployment_example_energy"].value
+              for path in written for f in icetray.read_i3(path)
+              if f.Stop == "P"]
+    assert len(values) == 4 and np.isnan(values[0])
+    assert not np.isnan(values[1:]).any()

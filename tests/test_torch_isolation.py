@@ -227,15 +227,47 @@ def test_entry_points_default_to_the_gpu():
             **kw,
         )
 
+    from graphnet_tpu_torch.data.extractors.icecube import (
+        I3FeatureExtractorIceCubeUpgrade,
+    )
+    from graphnet_tpu_torch.deployment.icecube import (
+        I3Deployer,
+        I3InferenceModule,
+        I3PulseCleanerModule,
+    )
+
     model = build(device="cpu")
+
+    def i3_modules(**kw):
+        common = dict(model_config=model, state_dict=model.state_dict(),
+                      gcd_file="gcd.i3.gz", **kw)
+        extractor = I3FeatureExtractorIceCubeUpgrade("SplitInIcePulses")
+        return [I3InferenceModule(pulsemap_extractor=extractor, **common),
+                I3PulseCleanerModule(pulsemap="SplitInIcePulses",
+                                     pulsemap_extractor=extractor, **common)]
+
+    cpu = i3_modules(device="cpu")
+    deployer = I3Deployer(cpu, gcd_file="gcd.i3.gz", n_workers=2)
+    assert [m.device.type for m in deployer._modules] == ["cpu", "cpu"]
     if torch.cuda.is_available():
         assert DeploymentModule(model, model.state_dict()).device.type == "cuda"
         assert next(build().parameters()).device.type == "cuda"
+        assert [m.device.type for m in I3Deployer(
+            i3_modules(), "gcd.i3.gz")._modules] == ["cuda", "cuda"]
+        model.to("cpu")
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeploymentModule(model, model.state_dict())
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+        for cls in (I3InferenceModule, I3PulseCleanerModule):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                I3Deployer([cls(
+                    pulsemap_extractor=I3FeatureExtractorIceCubeUpgrade("P"),
+                    model_config=model, state_dict=model.state_dict(),
+                    gcd_file="gcd.i3.gz",
+                    **({"pulsemap": "P"} if cls is I3PulseCleanerModule
+                       else {}))], "gcd.i3.gz")
         # the model was left where it was
         assert np.all([p.device.type == "cpu" for p in model.parameters()])
 

@@ -292,3 +292,21 @@ def test_fsdp_equals_dp(layouts):
     reports, _ = layouts
     np.testing.assert_allclose(reports["fsdp"]["loss"], reports["dp"]["loss"],
                                rtol=LOSS_RTOL)
+
+
+def test_counted_collectives_match_the_scaling_profile(layouts):
+    """DDP's gradient all-reduce, counted in each process by the dry
+    run's ``CollectiveTape`` (the reducer's buckets), moves exactly the bytes that
+    ``scaling_model.dynedge_headline_profile`` gives for the model's
+    parameters; TP's all-reduces are counted too."""
+    from graphnet_tpu_torch.parallel.scaling_model import (
+        dynedge_headline_profile,
+    )
+
+    reports, _ = layouts
+    dp = reports["dp"]
+    profile = dynedge_headline_profile(dp["n_params"])
+    assert dp["collective_bytes_per_rank"] == [
+        {"ddp_grad": profile.grad_allreduce_bytes}] * 2
+    assert all(c["all_reduce"] > 0
+               for c in reports["tp"]["collective_calls_per_rank"])

@@ -340,3 +340,15 @@ def dryrun_make(events, L):
     labels = {"total_energy": np.full(n, 100.0, np.float32),
               "direction": np.tile(np.float32([0, 0, 1]), (n, 1))}
     return make_batch(events, labels=labels, length=L)
+
+
+@pytest.mark.parametrize("layout", GRAPH_LAYOUTS)
+def test_graph_step_counts_its_collectives(graph_runs, layout):
+    """Each process of a DP x graph step gathers node rows (all-gather
+    bytes counted) and all-reduces the whole model's fp32 gradient
+    through DDP."""
+    reports, _ = graph_runs
+    r = reports[layout]
+    for got in r["collective_bytes_per_rank"]:
+        assert got["ddp_grad"] == 4 * r["n_params"]
+        assert got["all_gather"] > 0
