@@ -31,6 +31,7 @@ from graphnet_tpu_torch.batch import (
 )
 from graphnet_tpu_torch.models.graphs.graph_definition import Event
 from graphnet_tpu_torch.native import native_pad_events, native_pad_node_labels
+from graphnet_tpu_torch.utils.tracing import span
 
 
 def _pad(xs: List[np.ndarray], L: int):
@@ -320,17 +321,19 @@ class DataLoader:
             self._fast_ok = False
             return None
         self._fast_ok = True
-        out = gba(idxs)
+        with span("graphnet.loader.fetch"):
+            out = gba(idxs)
         if out is None:
             return None
         features_list, truth_mat = out
-        xs = gd.build_x_batched(features_list)
-        if xs is None:
-            return None
-        res = collate_from_arrays(
-            xs, ds._truth, truth_mat, ds, buckets=self.buckets,
-            min_pulses=self.min_pulses,
-        )
+        with span("graphnet.loader.collate"):
+            xs = gd.build_x_batched(features_list)
+            if xs is None:
+                return None
+            res = collate_from_arrays(
+                xs, ds._truth, truth_mat, ds, buckets=self.buckets,
+                min_pulses=self.min_pulses,
+            )
         return (None, 0, 0) if res is None else res
 
     @property
@@ -350,23 +353,26 @@ class DataLoader:
     ) -> Optional[Tuple[EventBatch, int, int]]:
         """Fetch, build and collate one batch: ``(batch, valid_slots,
         total_slots)``, or None when every event was dropped."""
-        fast = self._try_fast(idxs)
-        if fast is not None:
-            batch, valid, total = fast
-            return None if batch is None else (batch, valid, total)
-        events = self._fetch(idxs)
-        batch = collate_events(
-            events, buckets=self.buckets, min_pulses=self.min_pulses
-        )
-        if batch is None:
-            return None
-        L = batch.max_length
-        valid = sum(
-            min(e.n_pulses, L)
-            for e in events
-            if e.n_pulses >= self.min_pulses
-        )
-        return batch, valid, batch.batch_size * L
+        with span("graphnet.loader.batch"):
+            fast = self._try_fast(idxs)
+            if fast is not None:
+                batch, valid, total = fast
+                return None if batch is None else (batch, valid, total)
+            with span("graphnet.loader.fetch"):
+                events = self._fetch(idxs)
+            with span("graphnet.loader.collate"):
+                batch = collate_events(
+                    events, buckets=self.buckets, min_pulses=self.min_pulses
+                )
+            if batch is None:
+                return None
+            L = batch.max_length
+            valid = sum(
+                min(e.n_pulses, L)
+                for e in events
+                if e.n_pulses >= self.min_pulses
+            )
+            return batch, valid, batch.batch_size * L
 
     def _results(self) -> Iterator[Optional[Tuple[EventBatch, int, int]]]:
         if self.num_workers <= 0:

@@ -22,6 +22,7 @@ from graphnet_tpu_torch.models.graphs.graph_definition import Event
 from graphnet_tpu_torch.models.standard_model import StandardModel
 from graphnet_tpu_torch.utils.config import load_model
 from graphnet_tpu_torch.utils.jax_params import load_jax_state_dict
+from graphnet_tpu_torch.utils.tracing import span
 
 
 class DeploymentModule:
@@ -76,12 +77,17 @@ class DeploymentModule:
     def _predict(self, events: List[Event]):
         """Collate, pad the batch axis, run the model; returns the
         per-task outputs trimmed to the real events, on the host."""
-        batch = collate_events(events, min_pulses=1)
+        with span("graphnet.deploy.collate"):
+            batch = collate_events(events, min_pulses=1)
         n_real = batch.batch_size
-        batch = self._pad_batch_size(batch).to(self.device)
-        with torch.inference_mode():
+        with span("graphnet.deploy.pad"):
+            batch = self._pad_batch_size(batch)
+        with span("graphnet.deploy.h2d"):
+            batch = batch.to(self.device)
+        with span("graphnet.deploy.forward"), torch.inference_mode():
             outs = self.model(batch, inference=True)
-        return [pred[:n_real].float().cpu().numpy() for pred, _ in outs]
+        with span("graphnet.deploy.d2h"):
+            return [pred[:n_real].float().cpu().numpy() for pred, _ in outs]
 
     def __call__(
         self, events: Union[Event, List[Event]]
@@ -97,22 +103,23 @@ class DeploymentModule:
         """
         if isinstance(events, Event):
             events = [events]
-        node_level = [t.node_level for t in self.model.tasks]
-        if any(node_level):
-            if not all(node_level):
-                raise NotImplementedError(
-                    "DeploymentModule cannot mix node-level and "
-                    "graph-level tasks in one model"
-                )
-            return self._call_node_level(events)
-        kept = [i for i, e in enumerate(events) if e.n_pulses >= 1]
-        full = np.full(
-            (len(events), len(self.prediction_columns)), np.nan, np.float32
-        )
-        if kept:
-            outs = self._predict([events[i] for i in kept])
-            full[kept] = np.concatenate(outs, axis=1)
-        return full
+        with span("graphnet.deploy.request"):
+            node_level = [t.node_level for t in self.model.tasks]
+            if any(node_level):
+                if not all(node_level):
+                    raise NotImplementedError(
+                        "DeploymentModule cannot mix node-level and "
+                        "graph-level tasks in one model"
+                    )
+                return self._call_node_level(events)
+            kept = [i for i, e in enumerate(events) if e.n_pulses >= 1]
+            full = np.full(
+                (len(events), len(self.prediction_columns)), np.nan, np.float32
+            )
+            if kept:
+                outs = self._predict([events[i] for i in kept])
+                full[kept] = np.concatenate(outs, axis=1)
+            return full
 
     def _call_node_level(self, events: List[Event]) -> List[np.ndarray]:
         ncols = len(self.prediction_columns)

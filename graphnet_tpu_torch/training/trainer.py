@@ -79,6 +79,7 @@ from graphnet_tpu_torch.utils.jax_params import (
     load_jax_state_dict,
     params_to_jax,
 )
+from graphnet_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -572,32 +573,39 @@ class Trainer:
         under a mesh, this process's part of it); returns the loss as a
         0-d tensor on the device (no host sync; under a mesh this
         process's loss, whose mean over the processes is the step's)."""
-        if self.optimizer is None:
-            self.init(batch)
-        batch, rows = self._split(batch)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        # seeded at the step's first draw: a model with no stochastic
-        # layer on never seeds it
-        with stochastic.use_generator(self.step_generator), \
-                self._step_context(rows):
-            loss = self.model.loss_from_batch(self._forward(batch), batch)
-            loss.backward()
-        if self._manual:
-            self._sync_manual()
-        if self.clip_grad_norm is not None:
-            if self.mesh is None:
-                clip_by_global_norm(
-                    list(self.model.parameters()), self.clip_grad_norm
-                )
-            else:
-                self._clip(self.clip_grad_norm)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        self.step += 1
-        self._update_averages()
-        return loss.detach()
+        with span("graphnet.trainer.step"):
+            if self.optimizer is None:
+                self.init(batch)
+            with span("graphnet.trainer.h2d"):
+                batch, rows = self._split(batch)
+            self.model.train()
+            with span("graphnet.trainer.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            # seeded at the step's first draw: a model with no stochastic
+            # layer on never seeds it
+            with stochastic.use_generator(self.step_generator), \
+                    self._step_context(rows):
+                with span("graphnet.trainer.forward"):
+                    loss = self.model.loss_from_batch(self._forward(batch),
+                                                      batch)
+                with span("graphnet.trainer.backward"):
+                    loss.backward()
+            with span("graphnet.trainer.optimizer"):
+                if self._manual:
+                    self._sync_manual()
+                if self.clip_grad_norm is not None:
+                    if self.mesh is None:
+                        clip_by_global_norm(
+                            list(self.model.parameters()), self.clip_grad_norm
+                        )
+                    else:
+                        self._clip(self.clip_grad_norm)
+                self.optimizer.step()
+                if self.scheduler is not None:
+                    self.scheduler.step()
+                self.step += 1
+                self._update_averages()
+            return loss.detach()
 
     def train_steps(self, batches) -> torch.Tensor:
         """One optimiser step per batch, in order: a list of batches of
@@ -679,7 +687,8 @@ class Trainer:
         exists (parameters, optimiser state, step, epoch and the
         average) and goes on from the epoch after it.  ``profile_dir``:
         a ``torch.profiler`` trace of the first epoch's steps, written
-        there as ``trace.json``.
+        there as ``trace.json``, with the program's spans
+        (:mod:`graphnet_tpu_torch.utils.tracing`).
 
         ``prefetch > 0`` streams every epoch through one
         :class:`~graphnet_tpu_torch.data.prefetch.EpochPipeline`

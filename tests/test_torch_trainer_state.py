@@ -158,7 +158,7 @@ def test_jsonlines_records_match_jax_keys(tmp_path):
 
 def test_wandb_style_logger_profile_and_progress_bar(tmp_path, monkeypatch):
     """A ``.log``-only logger gets the metrics; ``profile_dir`` gets a
-    trace of the first epoch; ``progress_bar`` wraps each epoch's
+    trace of the first epoch, with the Trainer's spans; ``progress_bar`` wraps each epoch's
     batches in tqdm (a stand-in module here)."""
     _, train = _batches(3, [4, 5])
     calls, bars = [], []
@@ -190,4 +190,6 @@ def test_wandb_style_logger_profile_and_progress_bar(tmp_path, monkeypatch):
     assert [b.kw["desc"] for b in bars] == ["epoch 0", "epoch 1"]
     assert all("train_loss" in b.postfix for b in bars)
     with open(tmp_path / "profile" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert {"graphnet.trainer.step", "graphnet.trainer.forward"} <= names
