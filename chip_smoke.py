@@ -751,6 +751,17 @@ def ragged_coords(torch, rng, B, L, lo, dev, D=3):
     return x.to(dev), mask.to(dev)
 
 
+def queso_coords(torch, rng, B, L, dev, D=3):
+    """``[B, L, D]`` float32 coordinates and a mask whose lengths follow
+    the QUESO training cell's law: a log-normal of median 48 and log-sigma
+    1, rounded and clipped to ``[2, L]``; at L = 512 most of a batch's
+    slots are padding."""
+    x = torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32))
+    n = np.clip(np.rint(48.0 * np.exp(rng.standard_normal(B))), 2, L)
+    mask = torch.arange(L)[None, :] < torch.from_numpy(n.astype(np.int64))[:, None]
+    return x.to(dev), mask.to(dev)
+
+
 def grid_events(torch, rng, dev):
     """Two events of integer grid points in shuffled order (4 x 4 x 4 and
     2 x 2 x 4, L=64): every distance is exact, so many ties are exact and
@@ -1536,7 +1547,10 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
     must give the same bits.  Cases: both layer shapes of DynEdge and
     widths that are no multiple of the kernel's tiles (H1=100, H2=72);
     add, max and mean; k = 8, 1, 12 (no divisor of the 64 rows of a
-    block) and 64; a 1-node and an all-masked event, L = 512 and 4096."""
+    block) and 64; a 1-node and an all-masked event, L = 512 and 4096;
+    QUESO's training shape (B = 512, L = 512, lengths by its cell's law,
+    so most blocks hold only padding) in fp32, add and max; fp32 widths
+    past the 128-row edge kernel's (H1 > 352)."""
     x, m = ragged_coords(torch, rng, B, L, L // 2, dev)
     main = ops["knn_plain"](x, m, K)
     xt, mt = ragged_coords(torch, rng, 3, 16, 16, dev)
@@ -1551,6 +1565,7 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
     g_k1 = ops["knn_plain"](*ragged_coords(torch, rng, 8, 64, 32, dev), 1)
     g_k12 = ops["knn_plain"](*ragged_coords(torch, rng, 8, 64, 32, dev), 12)
     g_k64 = ops["knn_plain"](*ragged_coords(torch, rng, 2, 96, 70, dev), 64)
+    g_queso = ops["knn_plain"](*queso_coords(torch, rng, 512, 512, dev), K)
     f32, b16 = torch.float32, torch.bfloat16
     cases = []
     for h1, h2 in shapes:
@@ -1574,7 +1589,14 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
               ("k12_B8_L64", g_k12, 100, 72, b16, "add", 0.0, False),
               ("k12_B8_L64", g_k12, 128, 256, b16, "max", 0.01, False),
               ("k64_B2_L96", g_k64, 128, 256, f32, "add", 0.0, False),
-              ("k64_B2_L96", g_k64, 336, 256, b16, "max", 0.01, False)]
+              ("k64_B2_L96", g_k64, 336, 256, b16, "max", 0.01, False),
+              # fp32 widths past the 128-row edge kernel's (the 64-row
+              # kernel)
+              ("k12_B8_L64", g_k12, 384, 256, f32, "max", 0.01, False),
+              ("k64_B2_L96", g_k64, 360, 136, f32, "add", 0.0, False)]
+    for h1, h2 in shapes:
+        cases += [("queso_B512_L512", g_queso, h1, h2, f32, "add", 0.0, False),
+                  ("queso_B512_L512", g_queso, h1, h2, f32, "max", 0.01, False)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     report = []
     for label, (idx, em), h1, h2, dtype, aggr, slope, mean in cases:
@@ -1617,12 +1639,16 @@ def check_edgeconv_bwd(torch, ops, rng, dev, B=128, L=128,
 
 
 def check_max_routing(torch, ops, rng, dev, B=64, L=16, k=8,
-                      shapes=((128, 256), (336, 256), (100, 72))):
+                      shapes=((128, 256), (336, 256), (100, 72)),
+                      dtypes=("float32", "bfloat16"), spread=False):
     """Phase: under max aggregation the EdgeConv backward kernel (row 3)
     routes each (node, column) gradient to the edge whose message won in
     the forward kernel (row 2), at planted near-ties and exact ties, with
-    nothing zeroed.  Node 0 of each event has k private neighbours (nodes
-    1..k, no other edge is valid), whose b rows are one row, each
+    nothing zeroed.  Node p of each event (0, or with ``spread`` drawn
+    from the whole event, so that it falls in either forward block of a
+    128-row backward block and at every rotation of W2's tiles) has k
+    private neighbours (nodes p+1..p+k, no other edge is valid), whose b
+    rows are one row, each
     neighbour's with a few components moved by one rounding of the dtype
     or not at all (an exact copy), so every column's messages tie or lie
     within roundings of each other.  The output gradient is one-hot in
@@ -1633,16 +1659,21 @@ def check_max_routing(torch, ops, rng, dev, B=64, L=16, k=8,
     max, and the full forward's output must be that max, bit for bit.
     Both dtypes, both DynEdge layer shapes and widths that are no
     multiple of the kernels' tiles."""
-    f32, b16 = torch.float32, torch.bfloat16
     report = []
-    for dtype in (f32, b16):
+    ev = torch.arange(B, device=dev)
+    for dtype in (getattr(torch, d) for d in dtypes):
         eps = float(torch.finfo(dtype).eps)
         for h1, h2 in shapes:
-            gen = torch.Generator(device=dev).manual_seed(h1 + h2 + (dtype == b16))
+            gen = torch.Generator(device=dev).manual_seed(
+                h1 + h2 + (dtype == torch.bfloat16))
+            pos = torch.zeros(B, dtype=torch.long, device=dev)
+            if spread:
+                pos = torch.from_numpy(rng.integers(0, L - k, B)).to(dev)
+            nbr = pos[:, None] + 1 + torch.arange(k, device=dev)[None]
             idx = torch.zeros(B, L, k, dtype=torch.int32, device=dev)
-            idx[:, 0] = torch.arange(1, k + 1, dtype=torch.int32, device=dev)
+            idx[ev, pos] = nbr.int()
             em = torch.zeros(B, L, k, dtype=torch.bool, device=dev)
-            em[:, 0] = True
+            em[ev, pos] = True
             a = torch.randn(B, L, h1, device=dev, generator=gen).to(dtype)
             base = torch.randn(B, 1, h1, device=dev, generator=gen)
             # neighbour e's row: base with about two components moved by
@@ -1652,31 +1683,33 @@ def check_max_routing(torch, ops, rng, dev, B=64, L=16, k=8,
             step *= torch.rand(B, k, h1, device=dev, generator=gen) < 3.0 / h1
             step *= (torch.rand(B, k, 1, device=dev, generator=gen) > 0.33)
             b = torch.zeros(B, L, h1, device=dev)
-            b[:, 1:k + 1] = base * (1 + eps * step)
+            b[ev[:, None], nbr] = base * (1 + eps * step)
             b = b.to(dtype)
             w2 = (torch.randn(h1, h2, device=dev, generator=gen) / h1 ** 0.5).to(dtype)
             b2 = (torch.randn(h2, device=dev, generator=gen) * 0.1).to(dtype)
             col = torch.from_numpy(rng.integers(0, h2, B)).to(dev)
             g = torch.zeros(B, L, h2, device=dev)
-            g[torch.arange(B, device=dev), 0, col] = 1.0
+            g[ev, pos, col] = 1.0
             kw = dict(aggr="max", slope=0.01)
             _, db, _, _ = ops["edgeconv_bwd"](a, b, idx, em, w2, b2, g, **kw)
-            nz = db[:, 1:k + 1].abs().sum(dim=2) > 0  # [B, k]
+            nz = db[ev[:, None], nbr].abs().sum(dim=2) > 0  # [B, k]
             assert bool((nz.sum(dim=1) == 1).all()), (
                 f"H1={h1} {dtype}: db is not non-zero at exactly one "
                 "neighbour of each event")
             routed = nz.int().argmax(dim=1)
             # each edge's own message: B * k events, one valid edge each
             one = torch.eye(k, dtype=torch.bool, device=dev).repeat(B, 1)
+            rows, prep = torch.arange(B * k, device=dev), pos.repeat_interleave(k)
             em1 = torch.zeros(B * k, L, k, dtype=torch.bool, device=dev)
-            em1[:, 0] = one
+            em1[rows, prep] = one
             rep = [t.repeat_interleave(k, dim=0) for t in (a, b, idx)]
             msg = ops["edgeconv"](rep[0], rep[1], rep[2], em1, w2, b2, **kw)
-            msg = msg[:, 0].reshape(B, k, h2)
-            full = ops["edgeconv"](a, b, idx, em, w2, b2, **kw)[:, 0]
+            msg = msg[rows, prep].reshape(B, k, h2)
+            del rep, em1
+            full = ops["edgeconv"](a, b, idx, em, w2, b2, **kw)[ev, pos]
             assert torch.equal(full, msg.amax(dim=1)), (
                 f"H1={h1} {dtype}: the forward's max is not its edges' max")
-            vals = msg[torch.arange(B, device=dev), :, col]  # [B, k]
+            vals = msg[ev, :, col]  # [B, k]
             top = vals.amax(dim=1, keepdim=True)
             winner = (vals == top).int().argmax(dim=1)
             second = torch.where(vals == top, -torch.inf, vals).amax(dim=1)
@@ -1687,7 +1720,7 @@ def check_max_routing(torch, ops, rng, dev, B=64, L=16, k=8,
                 "to another edge than the forward's winner")
             report.append({
                 "dtype": str(dtype).replace("torch.", ""), "H1": h1, "H2": h2,
-                "k": k, "events": B,
+                "k": k, "events": B, "L": L, "spread": spread,
                 "exact_ties_at_max": int(((vals == top).sum(dim=1) > 1).sum()),
                 "within_2_eps_of_max": int((gap <= 2 * eps).sum()),
                 "routed_to_winner": B - wrong})
@@ -2150,13 +2183,16 @@ def dynedge_switch_times(torch, layers, gpu, gpu16, serving, single, trainer,
 
 
 def bwd_times(torch, ops, rng, dev, peaks, B=128, L=128,
-              shapes=((128, 256), (336, 256))):
+              shapes=((128, 256), (336, 256)), queso=False):
     """Phase 8b: the backward kernel and its plain version at the
-    training shape, with its bound: 3 products of 2*E*H1*H2 flops over
-    the E valid edges, against every input read and output written once;
-    at H1=336 also each launch's device time over one call
-    (``torch.profiler``)."""
-    x, m = ragged_coords(torch, rng, B, L, 65, dev)
+    training shape (``queso``: lengths by the QUESO training cell's law),
+    with its bound: 3 products of 2*E*H1*H2 flops over the E valid edges,
+    against every input read and output written once; the device time of
+    a call (``torch.profiler``, every launch of the call); at H1=336
+    also each launch's device time over one call."""
+    coords = queso_coords if queso else (
+        lambda torch, rng, B, L, dev: ragged_coords(torch, rng, B, L, 65, dev))
+    x, m = coords(torch, rng, B, L, dev)
     idx, em = ops["knn"](x, m, K)
     n_edges = float(em.sum())
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -2178,6 +2214,9 @@ def bwd_times(torch, ops, rng, dev, peaks, B=128, L=128,
             key = f"H1_{h1}_{str(dtype).replace('torch.', '')}"
             times[key] = dict(
                 ms=cuda_ms(torch, lambda: ops["edgeconv_bwd"](*args)),
+                device_ms=device_profile(
+                    torch, lambda: ops["edgeconv_bwd"](*args),
+                    calls=5)["device_ms"] / 5,
                 plain_ms=cuda_ms(torch, lambda: ops["edgeconv_bwd_plain"](*args)),
                 bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="bytes" if t_b >= t_o else "operations",
@@ -5731,6 +5770,7 @@ def main() -> int:
     from graphnet_tpu_torch.ops import flash_attention_cuda as fa
     from graphnet_tpu_torch.models.components import layers
     from graphnet_tpu_torch.ops.edgeconv_cuda import (
+        BWD_ROUTES,
         fused_edgeconv,
         fused_edgeconv_bwd,
         fused_edgeconv_bwd_plain,
@@ -5811,15 +5851,20 @@ def main() -> int:
             flash_ptxas.append(row)
     emit({"phase": "build_flash", "kernels": flash_ptxas})
     emit({"phase": "build_rel", "kernels": rel_build_report(build, logs)})
-    # row 3: each kernel of the backward; the edge kernel's dynamic
-    # shared memory at DynEdge's H1=336, H2=256, k=8
+    # row 3: each kernel of the backward; each edge kernel's dynamic
+    # shared memory at DynEdge's H1=336, H2=256, k=8 on its route (the
+    # 128-row fp32 kernel, ecf::bwd_edge, is no template)
     smem = build.load("edgeconv_bwd").edgeconv_bwd_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
     bwd_ptxas = ptxas_table(logs["edgeconv_bwd"], "_Z")
     for row in bwd_ptxas:
-        if row["kernel"].startswith("bwd_edge"):
+        name = row["kernel"]
+        if name.startswith("bwd_edge"):
+            route = ("bf16" if "bf16" in name else "fp32_rows64"
+                     if "<" in name else "fp32_rows128")
+            row["route"] = route
             row["dynamic_smem_bytes_H1_336_H2_256_k8"] = smem(
-                336, 256, K, int("bf16" in row["kernel"]))
+                336, 256, K, BWD_ROUTES.index(route))
     emit({"phase": "build_edgeconv_bwd", "kernels": bwd_ptxas})
     # rows 2 and 4: each kernel's registers and spills, and at H1 = 128
     # and 336 its dynamic shared memory and blocks an SM (row 4 at L=128,
@@ -5869,6 +5914,9 @@ def main() -> int:
     # 5a. row 3's max routing against row 2's winners, near-ties kept
     t0 = time.perf_counter()
     report = check_max_routing(torch, ops, np.random.default_rng(SEED + 9), dev)
+    report += check_max_routing(
+        torch, ops, np.random.default_rng(SEED + 10), dev, B=512, L=512,
+        shapes=((128, 256), (336, 256)), dtypes=("float32",), spread=True)
     emit({"phase": "edgeconv_bwd_route", "cases": report,
           "seconds": round(time.perf_counter() - t0, 2)})
 
@@ -6519,6 +6567,8 @@ def main() -> int:
     t0 = time.perf_counter()
     times = kernel_times(torch, ops, rng, dev, peaks)
     times_bwd = bwd_times(torch, ops, rng, dev, peaks)
+    times_bwd_queso = bwd_times(torch, ops, rng, dev, peaks, B=512, L=512,
+                                queso=True)
     times_fused = fused_knn_times(torch, ops, rng, dev, peaks)
     assert_one_knn_kernel({**times["knn"], **{
         key: t for key, t in times_fused.items() if key.endswith("_knn_of_out_view")}})
@@ -6576,6 +6626,7 @@ def main() -> int:
     emit({
         "phase": "times", "card": smi, "kernels": times,
         "edgeconv_bwd_B128_L128": times_bwd,
+        "edgeconv_bwd_B512_L512": times_bwd_queso,
         "serving_B128_L128": {
             "fp32_events_per_s": 128 / host_s(lambda: gpu(serving)),
             "bf16_events_per_s": 128 / host_s(lambda: gpu16(serving)),

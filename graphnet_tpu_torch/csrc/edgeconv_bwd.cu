@@ -28,31 +28,40 @@
 // give the same bits (no floating-point atomics).  Six launches (seven
 // in fp32, which first transposes W2):
 //
-//   1. bwd_edge, one block of 64 edge rows (64/k whole nodes of one
-//      event, as the forward; fewer rows when k does not divide 64).
-//      The neighbours' b rows and the nodes' a rows come in by cp.async
-//      and become the messages (and their z > 0 bits) in shared memory;
-//      pre2 = msgs.W2 + b2 over W2 tiles streamed through a ring of
-//      cp.async stages; the routing gives gm, which replaces the
-//      messages; g_z = (gm.W2^T) * act'(z) a pass of columns at a time
-//      over the ring again; da sums each node's k rows of g_z in order.
-//      Only what crosses blocks leaves: the gm rows (for dW2), the g_z
-//      rows in the compute type (for db), the block's partial of db2.
-//      A block of padding nodes (no valid edge) writes its zeros and
-//      stops.
-//   2. bwd_dw2: dW2 = msgs^T gm in 128 x 128 tiles, split over slices of
-//      at most 1024 edge rows; each slice streams its valid edges' a, b
-//      and gm rows through a ring of cp.async stages and forms msgs from
-//      a and b where it reads them.  sum_partials adds the slices'
-//      partials and sum_partials_long the db2 partials, each in a fixed
-//      order.
+//   1. the edge kernel: pre2 = msgs.W2 + b2 recomputed from the gathered
+//      rows, the routing gives gm, g_z = (gm.W2^T) * act'(z), and da sums
+//      each node's rows of g_z in order.  Only what crosses blocks
+//      leaves: the gm rows (for dW2), the g_z rows in the compute type
+//      (for db), the block's partial of db2.  A block of padding nodes
+//      (no valid edge) writes its zeros and stops.  Three routes (the
+//      wrapper's bwd_route, from H1, H2 and the dtype):
+//      - bf16: bwd_edge<bf16_t> below, a block of 64 edge rows (64/k
+//        whole nodes of one event, as the forward; fewer rows when k does
+//        not divide 64).  The neighbours' b rows and the nodes' a rows
+//        come in by cp.async and become the messages (and their z > 0
+//        bits) in shared memory; pre2 over W2 tiles streamed through a
+//        ring of cp.async stages into fp32 in shared memory; the routing
+//        replaces the messages by gm; g_z a pass of columns at a time
+//        over the ring again.  The message build, the W2 tiles and the
+//        pre2 product are the forward's code (edgeconv_tiles.cuh), in the
+//        same tile order, so pre2 is the forward's, bit for bit.
+//      - fp32 up to H1 = 352, H2 = 256 (every DynEdge layer): ecf::bwd_edge
+//        (edgeconv_bwd_f32.cuh), a block of two forward blocks' 128 rows
+//        on 16 warps, pre2 in registers in the forward's tile order.
+//      - wider fp32: bwd_edge<float>, the bf16 kernel's design with 8 x 8
+//        and 8 x 4 register tiles over W2 and W2^T.
+//   2. dW2 = msgs^T gm split over slices of at most 1024 edge rows, each
+//      slice's valid edges streamed through a ring of cp.async stages,
+//      msgs formed from their a and b rows where they land: bf16 in
+//      128 x 128 tiles (bwd_dw2), fp32 in 128 x 256 tiles (ecf::dw2),
+//      where a slice with no valid edge (most of a batch padded to a long
+//      bucket) writes no partial and is not summed.  sum_partials (or
+//      sum_used_partials) adds the slices' partials and sum_partials_long
+//      the db2 partials, each in a fixed order.
 //   3. db: bwd_csr, one block per event, builds the reverse (CSR) index
-//      of incoming edges, ordered by edge id; bwd_db, one block per
-//      node, sums the g_z rows of its incoming edges in that order.
-//
-// The message build, the W2 tiles and the pre2 product are the
-// forward's code (edgeconv_tiles.cuh), in the same tile order, so pre2
-// here is the forward's, bit for bit.
+//      of incoming edges, ordered by edge id; bwd_db (bf16, a block a
+//      node) or bwd_db_f32 (a warp a node) sums the g_z rows of its
+//      incoming edges in that order.
 //
 // What bounds it on the H100: operations.  It does three products of
 // 2*E*H1*H2 flops (E valid edges): about 3x the forward's.  At DynEdge's
@@ -60,15 +69,20 @@
 // valid that is ~51 GFLOP: 0.76 ms on the fp32 CUDA cores, 0.05 ms on
 // the bf16 tensor cores.  bf16 runs the products on the tensor cores
 // (mma.sync.m16n8k16 with ldmatrix fragments; mma_bf16.cuh), fp32 on the
-// CUDA cores in full fp32 (no TF32) with 8 x 8 and 8 x 4 register
-// micro-tiles.  The products run well below both rates, and with one
-// block an SM (the edge kernel's shared memory) nothing overlaps the
-// routing, the g_z epilogues and the message staging (PERF.md §6).
+// CUDA cores in full fp32 (no TF32).  The 64-row design holds one block
+// of 8 warps an SM (its shared memory) and streams all of W2 twice for
+// every 64 rows: in fp32 its products ran at about a third of the rate.
+// So the fp32 kernels of edgeconv_bwd_f32.cuh hold 16 warps an SM, let
+// each W2 tile serve 128 rows, keep pre2 in registers, leave nothing but
+// FMAs and shared-memory reads in their products' loops, and write the
+// gm rows from the routing threads a line at a time; their note says
+// the rest (PERF.md §6 gives the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edgeconv_bwd_f32.cuh"
 #include "edgeconv_tiles.cuh"
 #include "mma_bf16.cuh"
 
@@ -623,66 +637,11 @@ __device__ __forceinline__ void dw2_store(const float (&acc)[2][8][4],
       }
 }
 
-// fp32: msgs = act(a + b) in place of the a rows, 8 a thread; then 8 x 8
-// outputs a thread, rows ty * 4 + i and 64 + ty * 4 + i, columns
-// likewise by tx, float4 reads of the msgs and gm stages
-__device__ __forceinline__ void dw2_msgs(float* as, const float* bs, int ld,
-                                         float slope) {
-  constexpr int kPer = 8, kCpr = kTile / kPer;
-  for (int i = threadIdx.x; i < Cfg<float>::kStage * kCpr; i += kThreads) {
-    const int at = (i / kCpr) * ld + (i % kCpr) * kPer;
-    float x[8], y[8];
-    load8(x, as + at);
-    load8(y, bs + at);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) x[u] = act(x[u] + y[u], slope);
-    store8(as + at, x);
-  }
-}
-
-__device__ __forceinline__ void dw2_step(float (&acc)[8][8], const float* ms,
-                                         const float*, const float* gs,
-                                         int ld, float) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int q = 0; q < Cfg<float>::kStage; ++q) {
-    const float4 a0 = ld4(ms + q * ld + ty * 4);
-    const float4 a1 = ld4(ms + q * ld + 64 + ty * 4);
-    const float4 b0 = ld4(gs + q * ld + tx * 4);
-    const float4 b1 = ld4(gs + q * ld + 64 + tx * 4);
-    const float ai[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bj[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void dw2_store(const float (&acc)[8][8],
-                                          float* out, int h0, int c0, int H1,
-                                          int H2) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int h = h0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (h < H1 && c < H2) out[(size_t)h * H2 + c] = acc[i][j];
-    }
-  }
-}
-
 template <typename T>
 struct Dw2Acc;
 template <>
 struct Dw2Acc<bf16_t> {
   using type = float[2][8][4];
-};
-template <>
-struct Dw2Acc<float> {
-  using type = float[8][8];
 };
 
 template <typename T>
@@ -768,10 +727,6 @@ __global__ void __launch_bounds__(kThreads)
                 (s + S - 1) * kSt, nv, h0, c0, H1, H2p, k);
     cp_async_commit();
     T* buf = ring + (s % S) * 3 * kBuf;
-    if constexpr (sizeof(T) == 4) {
-      dw2_msgs(buf, buf + kBuf, kLd, slope);
-      __syncthreads();
-    }
     dw2_step(acc, buf, buf + kBuf, buf + 2 * kBuf, kLd, slope);
   }
   dw2_store(acc, part + (size_t)blockIdx.z * H1 * H2, h0, c0, H1, H2);
@@ -785,6 +740,39 @@ __global__ void sum_partials(const float* __restrict__ part, long long S,
   float s = 0.0f;
   for (long long q = 0; q < S; ++q) s += part[q * n + i];
   out[i] = s;
+}
+
+// The same over the slices `used` marks, in order of s (fp32): a block
+// first lists a chunk's marked slices in order (a warp's ballots), then
+// each thread sums its i over them.
+__global__ void __launch_bounds__(256)
+    sum_used_partials(const float* __restrict__ part,
+                      const int* __restrict__ used, long long S, long long n,
+                      float* __restrict__ out) {
+  constexpr int kList = 2048;
+  __shared__ int list[kList];
+  __shared__ int count;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float s = 0.0f;
+  for (long long q0 = 0; q0 < S; q0 += kList) {
+    if (threadIdx.x < 32) {
+      int base = 0;
+      for (int j = 0; j < kList; j += 32) {
+        const long long q = q0 + j + threadIdx.x;
+        const bool f = q < S && used[q];
+        const unsigned m = __ballot_sync(0xffffffffu, f);
+        if (f)
+          list[base + __popc(m & ((1u << threadIdx.x) - 1))] = j + threadIdx.x;
+        base += __popc(m);
+      }
+      if (threadIdx.x == 0) count = base;
+    }
+    __syncthreads();
+    if (i < n)
+      for (int j = 0; j < count; ++j) s += part[(q0 + list[j]) * n + i];
+    __syncthreads();  // the list is read before the next chunk's
+  }
+  if (i < n) out[i] = s;
 }
 
 // The same sum for a long S: one block per i, each thread a fixed
@@ -876,6 +864,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// db[j] = sum of the g_z rows (fp32) of j's incoming edges, in edge
+// order, as bwd_db's: a warp a node, 8 nodes a block, 4 columns a lane.
+__global__ void __launch_bounds__(256)
+    bwd_db_f32(const float* __restrict__ gz, const int* __restrict__ offs,
+               const int* __restrict__ list, float* __restrict__ db, int L,
+               int k, int H1) {
+  const int j = blockIdx.x * 8 + threadIdx.x / 32, ev = blockIdx.y;
+  if (j >= L) return;
+  const int* o = offs + (size_t)ev * (L + 1);
+  const int p0 = o[j], p1 = o[j + 1];
+  const int* lst = list + (size_t)ev * L * k;
+  const float* gE = gz + (size_t)ev * L * k * H1;
+  for (int h = 4 * (threadIdx.x % 32); h < H1; h += 128) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = p0; p < p1; ++p)
+      s = ecf::add4(s, ecf::ld4(gE + (size_t)lst[p] * H1 + h));
+    ecf::st4(db + ((size_t)ev * L + j) * H1 + h, s);
+  }
+}
+
 // db[j] = sum of the g_z rows (compute type) of j's incoming edges, in
 // edge order.
 template <typename T>
@@ -896,12 +904,18 @@ __global__ void bwd_db(const T* __restrict__ gz, const int* __restrict__ offs,
 
 }  // namespace
 
+// The backward's routes (the C entry's `route`, the wrapper's
+// bwd_route): 0 fp32 with the 64-row edge kernel, 1 bf16, 2 fp32 with
+// the 128-row edge kernel of edgeconv_bwd_f32.cuh.
+enum Route { kF32Rows64 = 0, kBf16 = 1, kF32Rows128 = 2 };
+
 // Shared memory of the edge kernel and of the CSR kernel, in bytes (the
 // wrapper checks both against the card's limit before launching).
 extern "C" long long edgeconv_bwd_smem_bytes(int H1, int H2, int k,
-                                             int bf16) {
-  return (long long)(bf16 ? edge_layout<bf16_t>(H1, H2, k).total
-                          : edge_layout<float>(H1, H2, k).total);
+                                             int route) {
+  if (route == kF32Rows128) return (long long)ecf::layout(H1).total;
+  return (long long)(route == kBf16 ? edge_layout<bf16_t>(H1, H2, k).total
+                                    : edge_layout<float>(H1, H2, k).total);
 }
 
 extern "C" long long edgeconv_bwd_csr_smem_bytes(int L) {
@@ -914,18 +928,76 @@ extern "C" long long edgeconv_bwd_csr_smem_bytes(int L) {
     if (e_ != cudaSuccess) return e_;                    \
   } while (0)
 
-// Every kernel of the backward, in order, for compute type T.
+// What follows the edge kernel, in order, for compute type T: dW2 over S
+// slices and the sums of its partials (fp32: ecf::dw2, which marks the
+// slices that hold a valid edge in `used`, summed alone) and of the edge
+// blocks' db2 partials, then db through the reverse index (fp32: a warp
+// a node).
+template <typename T>
+static cudaError_t launch_tail(const T* a, const T* b, const int32_t* idx,
+                               const uint8_t* em, float* db, float* dw2,
+                               float* db2, const T* gm, const T* gz,
+                               float* dw2_part, int* used,
+                               const float* db2_part, long long edge_blocks,
+                               int* offs, int* list, int B, int L, int H1,
+                               int H2, int H2p, int k, int S, float slope,
+                               cudaStream_t s) {
+  static size_t conf_dw2 = 0, conf_csr = 0;
+  const int E = B * L * k;
+  cudaError_t err;
+  const int chunk = (E + S - 1) / S;
+  if (chunk > kChunk) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    const dim3 tiles((H1 + ecf::kDwH - 1) / ecf::kDwH,
+                     (H2 + ecf::kDwC - 1) / ecf::kDwC, S);
+    err = ec::allow_smem((const void*)ecf::dw2, ecf::dw2_smem(), &conf_dw2);
+    if (err != cudaSuccess) return err;
+    ecf::dw2<<<tiles, ecf::kDwThreads, ecf::dw2_smem(), s>>>(
+        a, b, idx, em, gm, dw2_part, used, E, chunk, L, H1, H2, H2p, k, slope);
+  } else {
+    const dim3 tiles((H1 + kTile - 1) / kTile, (H2 + kTile - 1) / kTile, S);
+    err = ec::allow_smem((const void*)bwd_dw2<T>, dw2_smem_bytes<T>(),
+                         &conf_dw2);
+    if (err != cudaSuccess) return err;
+    bwd_dw2<T><<<tiles, kThreads, dw2_smem_bytes<T>(), s>>>(
+        a, b, idx, em, gm, dw2_part, E, chunk, L, H1, H2, H2p, k, slope);
+  }
+  CHECK_LAUNCH();
+  const long long n_w = (long long)H1 * H2;
+  const unsigned w_blocks = (unsigned)((n_w + 255) / 256);
+  if (used)
+    sum_used_partials<<<w_blocks, 256, 0, s>>>(dw2_part, used, S, n_w, dw2);
+  else
+    sum_partials<<<w_blocks, 256, 0, s>>>(dw2_part, S, n_w, dw2);
+  CHECK_LAUNCH();
+  sum_partials_long<<<H2, kThreads, 0, s>>>(db2_part, edge_blocks, H2, db2);
+  CHECK_LAUNCH();
+
+  const size_t csr_smem = (size_t)edgeconv_bwd_csr_smem_bytes(L);
+  err = ec::allow_smem((const void*)bwd_csr, csr_smem, &conf_csr);
+  if (err != cudaSuccess) return err;
+  bwd_csr<<<B, kThreads, csr_smem, s>>>(idx, em, L, k, offs, list);
+  CHECK_LAUNCH();
+  if constexpr (sizeof(T) == 4)
+    bwd_db_f32<<<dim3((L + 7) / 8, B), 256, 0, s>>>(gz, offs, list, db, L, k,
+                                                    H1);
+  else
+    bwd_db<T><<<dim3(L, B), 128, 0, s>>>(gz, offs, list, db, L, k, H1);
+  return cudaGetLastError();
+}
+
+// Every kernel of the backward, in order, for compute type T with the
+// 64-row edge kernel.
 template <typename T>
 static cudaError_t launch(const T* a, const T* b, const int32_t* idx,
                           const uint8_t* em, const T* w2, const T* b2,
                           const float* g, float* da, float* db, float* dw2,
                           float* db2, T* w2t, T* gm, T* gz, float* dw2_part,
-                          float* db2_part, int* offs, int* list, int B, int L,
-                          int H1, int H2, int k, int S, float slope,
-                          int aggr_max, cudaStream_t s) {
-  static size_t conf_edge = 0, conf_dw2 = 0, conf_csr = 0;
+                          int* used, float* db2_part, int* offs, int* list,
+                          int B, int L, int H1, int H2, int k, int S,
+                          float slope, int aggr_max, cudaStream_t s) {
+  static size_t conf_edge = 0;
   const int tl = kRows / k;
-  const int E = B * L * k;
   const EdgeLayout lay = edge_layout<T>(H1, H2, k);
   cudaError_t err;
 
@@ -941,51 +1013,59 @@ static cudaError_t launch(const T* a, const T* b, const int32_t* idx,
       a, b, idx, em, w2, w2t, b2, g, gm, gz, da, db2_part, L, H1, H2, k, tl,
       slope, aggr_max);
   CHECK_LAUNCH();
+  // 2. dW2, db2 and db
+  return launch_tail<T>(a, b, idx, em, db, dw2, db2, gm, gz, dw2_part, used,
+                        db2_part, (long long)grid.x * B, offs, list, B, L, H1,
+                        H2, lay.H2p, k, S, slope, s);
+}
 
-  // 2. dW2 split over S slices of the edge rows, then dW2 and db2
-  const int chunk = (E + S - 1) / S;
-  if (chunk > kChunk) return cudaErrorInvalidValue;
-  const dim3 tiles((H1 + kTile - 1) / kTile, (H2 + kTile - 1) / kTile, S);
-  err = ec::allow_smem((const void*)bwd_dw2<T>, dw2_smem_bytes<T>(),
-                       &conf_dw2);
+// The same in fp32 with the 128-row edge kernel (H1 <= 368, H2 <= 256).
+static cudaError_t launch_rows128(const float* a, const float* b,
+                                  const int32_t* idx, const uint8_t* em,
+                                  const float* w2, const float* b2,
+                                  const float* g, float* da, float* db,
+                                  float* dw2, float* db2, float* w2t,
+                                  float* gm, float* gz, float* dw2_part,
+                                  int* used, float* db2_part, int* offs,
+                                  int* list, int B, int L, int H1, int H2,
+                                  int k, int S, float slope, int aggr_max,
+                                  cudaStream_t s) {
+  static size_t conf_edge = 0;
+  const int tl = kRows / k;  // the forward's nodes a block; two here
+  const size_t smem = ecf::layout(H1).total;
+  if (H2 > ecf::kPreC || smem > 232448) return cudaErrorInvalidValue;
+  transpose<float><<<(H1 * H2 + 255) / 256, 256, 0, s>>>(w2, w2t, H1, H2);
+  CHECK_LAUNCH();
+  const dim3 grid((L + 2 * tl - 1) / (2 * tl), B);
+  cudaError_t err =
+      ec::allow_smem((const void*)ecf::bwd_edge, smem, &conf_edge);
   if (err != cudaSuccess) return err;
-  bwd_dw2<T><<<tiles, kThreads, dw2_smem_bytes<T>(), s>>>(
-      a, b, idx, em, gm, dw2_part, E, chunk, L, H1, H2, lay.H2p, k, slope);
+  ecf::bwd_edge<<<grid, ecf::kThreads, smem, s>>>(
+      a, b, idx, em, w2, w2t, b2, g, gm, gz, da, db2_part, L, H1, H2, k, tl,
+      slope, aggr_max);
   CHECK_LAUNCH();
-  const long long n_w = (long long)H1 * H2;
-  sum_partials<<<(unsigned)((n_w + 255) / 256), 256, 0, s>>>(dw2_part, S, n_w,
-                                                              dw2);
-  CHECK_LAUNCH();
-  sum_partials_long<<<H2, kThreads, 0, s>>>(db2_part, (long long)grid.x * B,
-                                            H2, db2);
-  CHECK_LAUNCH();
-
-  // 3. db through the reverse index
-  const size_t csr_smem = (size_t)edgeconv_bwd_csr_smem_bytes(L);
-  err = ec::allow_smem((const void*)bwd_csr, csr_smem, &conf_csr);
-  if (err != cudaSuccess) return err;
-  bwd_csr<<<B, kThreads, csr_smem, s>>>(idx, em, L, k, offs, list);
-  CHECK_LAUNCH();
-  bwd_db<T><<<dim3(L, B), 128, 0, s>>>(gz, offs, list, db, L, k, H1);
-  return cudaGetLastError();
+  return launch_tail<float>(a, b, idx, em, db, dw2, db2, gm, gz, dw2_part,
+                            used, db2_part, (long long)grid.x * B, offs, list,
+                            B, L, H1, H2, ecf::kPreC, k, S, slope, s);
 }
 
 // H1 and H2 multiples of 8; every pointer 16-byte aligned.  Scratch (all
 // from the wrapper): w2t [H2, H1] (used in fp32), gm_buf [B*L*k, H2p]
 // (H2 rounded up to a pre2 column chunk: 128 in bf16, 256 in fp32) and
-// gz_buf [B*L*k, H1], all of a's type;
-// dw2_part [S, H1, H2] with S >= B*L*k / 1024, db2_part [blocks, H2]
-// float; offs [B, L+1], list [B, L*k] int32.  blocks = B * ceil(L /
-// (64/k)).
+// gz_buf [B*L*k, H1], all of a's type; dw2_part [S, H1, H2] with S >=
+// B*L*k / 1024 float, dw2_used [S] int32 (read in fp32); db2_part
+// [blocks, H2] float; offs [B, L+1], list [B, L*k] int32.  blocks = B *
+// ceil(L / (64/k)), and half that (rounded up a event) on route 2.
 extern "C" int edgeconv_bwd_launch(
     const void* a, const void* b, const void* idx, const void* em,
     const void* w2, const void* b2, const void* g, void* da, void* db,
     void* dw2, void* db2, void* w2t, void* gm_buf, void* gz_buf,
-    void* dw2_part, void* db2_part, void* offs, void* list, int B, int L,
-    int H1, int H2, int k, int S, float slope, int aggr_max, int bf16,
-    void* stream) {
+    void* dw2_part, void* dw2_used, void* db2_part, void* offs, void* list,
+    int B, int L, int H1, int H2, int k, int S, float slope, int aggr_max,
+    int route, void* stream) {
   if (B == 0 || L == 0) return 0;
-  if (k < 1 || k > kRows || S < 1 || H1 % 8 || H2 % 8)
+  if (k < 1 || k > kRows || S < 1 || H1 % 8 || H2 % 8 || route < 0 ||
+      route > kF32Rows128)
     return (int)cudaErrorInvalidValue;
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const uint8_t* m = static_cast<const uint8_t*>(em);
@@ -993,23 +1073,24 @@ extern "C" int edgeconv_bwd_launch(
   float* f[6] = {static_cast<float*>(da),       static_cast<float*>(db),
                  static_cast<float*>(dw2),      static_cast<float*>(db2),
                  static_cast<float*>(dw2_part), static_cast<float*>(db2_part)};
+  int* used = static_cast<int*>(dw2_used);
   int* o = static_cast<int*>(offs);
   int* lst = static_cast<int*>(list);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
+  if (route == kBf16) {
     using T = bf16_t;
     return (int)launch<T>(
         static_cast<const T*>(a), static_cast<const T*>(b), ix, m,
         static_cast<const T*>(w2), static_cast<const T*>(b2), gf, f[0], f[1],
         f[2], f[3], static_cast<T*>(w2t), static_cast<T*>(gm_buf),
-        static_cast<T*>(gz_buf), f[4], f[5], o, lst, B, L, H1, H2, k, S, slope,
-        aggr_max, s);
+        static_cast<T*>(gz_buf), f[4], nullptr, f[5], o, lst, B, L, H1, H2,
+        k, S, slope, aggr_max, s);
   }
   using T = float;
-  return (int)launch<T>(
-      static_cast<const T*>(a), static_cast<const T*>(b), ix, m,
-      static_cast<const T*>(w2), static_cast<const T*>(b2), gf, f[0], f[1],
-      f[2], f[3], static_cast<T*>(w2t), static_cast<T*>(gm_buf),
-      static_cast<T*>(gz_buf), f[4], f[5], o, lst, B, L, H1, H2, k, S, slope,
-      aggr_max, s);
+  auto* run = route == kF32Rows128 ? &launch_rows128 : &launch<T>;
+  return (int)run(static_cast<const T*>(a), static_cast<const T*>(b), ix, m,
+                  static_cast<const T*>(w2), static_cast<const T*>(b2), gf,
+                  f[0], f[1], f[2], f[3], static_cast<T*>(w2t),
+                  static_cast<T*>(gm_buf), static_cast<T*>(gz_buf), f[4], used,
+                  f[5], o, lst, B, L, H1, H2, k, S, slope, aggr_max, s);
 }

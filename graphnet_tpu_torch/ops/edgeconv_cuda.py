@@ -59,6 +59,10 @@ _ROWS = 64  # edge rows per block of both kernels
 # the backward's pre2 column chunk (csrc/edgeconv_bwd.cu, Cfg): the gm
 # rows' padding
 _BWD_COLS = {torch.bfloat16: 128, torch.float32: 256}
+# the backward's routes, in the order of the C entry's `route`: fp32 with
+# the 64-row edge kernel, bf16, fp32 with the 128-row edge kernel
+# (csrc/edgeconv_bwd_f32.cuh)
+BWD_ROUTES = ("fp32_rows64", "bf16", "fp32_rows128")
 
 
 def _act(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -224,7 +228,7 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.edgeconv_bwd_launch
     if fn.argtypes is None:  # first use: declare the C signature
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 18 + [I] * 6 + [ctypes.c_float, I, I, P]
+        fn.argtypes = [P] * 19 + [I] * 6 + [ctypes.c_float, I, I, P]
         fn.restype = ctypes.c_int
         lib.edgeconv_bwd_smem_bytes.argtypes = [I, I, I, I]
         lib.edgeconv_bwd_smem_bytes.restype = ctypes.c_longlong
@@ -415,6 +419,34 @@ def _fwd_knn_cuda(a, b, idx, edge_mask, nmask, w2, b2, aggr, slope, knn_k,
     return out, nidx, nem
 
 
+def _rows128_smem(H1: int) -> int:
+    """Shared memory of the 128-row fp32 edge kernel in bytes
+    (``edgeconv_bwd_f32.cuh``, ``ecf::layout``): the messages (k-major,
+    132 floats a row), or pre2 and gm (256 rows) with the staging of 64
+    g_z columns; two ring slots; the z > 0 bits; the slots' indices and
+    flags and the row blocks' flags."""
+    h1p, h1g = -(-H1 // 16) * 16, -(-H1 // 128) * 128
+    region = max(h1p * 132 * 4, 256 * 132 * 4 + 128 * 68 * 4)
+    return region + 2 * 32 * 132 * 4 + 128 * (h1g // 8) + 128 * 5 + 4 * 4
+
+
+def bwd_route(H1: int, H2: int, k: int, dtype: torch.dtype) -> str:
+    """The backward's route for these widths (padded to multiples of 8
+    as the kernels take them), ``k`` and compute dtype: "bf16" (the
+    tensor-core kernel), else "fp32_rows128" where the 128-row fp32 edge
+    kernel takes the shape (H2 <= 256 and its shared memory within the
+    card's), else "fp32_rows64".  Every k in [1, 64] fits both fp32
+    kernels alike."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} must lie in [1, {MAX_K}]")
+    if dtype == torch.bfloat16:
+        return "bf16"
+    H1, H2 = -(-H1 // 8) * 8, -(-H2 // 8) * 8
+    if H2 <= 256 and _rows128_smem(H1) <= HOPPER_SMEM_OPTIN:
+        return "fp32_rows128"
+    return "fp32_rows64"
+
+
 def _dw2_splits(n_edges: int) -> int:
     """Slices of the edge rows in the split-K dW2 product: at most 1024
     rows each (the kernel's bound; at B=128, L=128, k=8 the 128 partials
@@ -427,20 +459,26 @@ def bwd_scratch_plan(
 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """The backward kernel's scratch, in the order of its C entry: name
     -> (shape, dtype).  In the compute dtype: W2 transposed (read by the
-    fp32 kernel), the gm rows (the routed, gated output gradient, for
+    fp32 kernels), the gm rows (the routed, gated output gradient, for
     dW2), zero-padded to a multiple of 128 (bf16) or 256 (fp32) columns,
     and the g_z rows (for db); as float32 the dW2 partials of the split
-    over the edge rows and the per-block db2 partials; as int32 the
-    reverse (CSR) index of each event's edges."""
+    over the edge rows, as int32 which of them hold a valid edge (read in
+    fp32), as float32 the per-block db2 partials (a block is two of the
+    forward's on route "fp32_rows128"); as int32 the reverse (CSR) index
+    of each event's edges."""
     n_edges = B * L * k
     H2p = -(-H2 // _BWD_COLS[dtype]) * _BWD_COLS[dtype]
-    blocks = B * -(-L // (_ROWS // k))
+    nodes = _ROWS // k * (2 if bwd_route(H1, H2, k, dtype) == "fp32_rows128"
+                          else 1)
+    blocks = B * -(-L // nodes)
+    splits = _dw2_splits(n_edges)
     f32, i32 = torch.float32, torch.int32
     return {
         "w2t": ((H2, H1), dtype),
         "gm": ((n_edges, H2p), dtype),
         "gz": ((n_edges, H1), dtype),
-        "dw2_part": ((_dw2_splits(n_edges), H1, H2), f32),
+        "dw2_part": ((splits, H1, H2), f32),
+        "dw2_used": ((splits,), i32),
         "db2_part": ((blocks, H2), f32),
         "offs": ((B, L + 1), i32),
         "list": ((B, L * k), i32),
@@ -449,19 +487,23 @@ def bwd_scratch_plan(
 
 @functools.lru_cache(maxsize=64)
 def _bwd_layout(lib, dev, B, L, H1, H2, k, dtype):
-    """For one call's shapes, checked once: the byte offset of each part
-    of :func:`bwd_scratch_plan` in one allocation (256-byte aligned), its
-    size, and the dW2 slices."""
-    _check_smem(
-        lib.edgeconv_bwd_smem_bytes(H1, H2, k, int(dtype == torch.bfloat16)),
-        dev, f"H1={H1}, H2={H2}, k={k}")
+    """For one call's shapes, checked once: the route, the byte offset of
+    each part of :func:`bwd_scratch_plan` in one allocation (256-byte
+    aligned), its size, and the dW2 slices."""
+    route = bwd_route(H1, H2, k, dtype)
+    smem = lib.edgeconv_bwd_smem_bytes(H1, H2, k, BWD_ROUTES.index(route))
+    if route == "fp32_rows128" and smem != _rows128_smem(H1):
+        raise RuntimeError(
+            f"the 128-row edge kernel needs {smem} bytes of shared memory, "
+            f"the wrapper counted {_rows128_smem(H1)}")
+    _check_smem(smem, dev, f"H1={H1}, H2={H2}, k={k}")
     _check_smem(lib.edgeconv_bwd_csr_smem_bytes(L), dev, f"L={L}")
     plan = bwd_scratch_plan(B, L, H1, H2, k, dtype)
     starts, total = [], 0
     for shape, dt in plan.values():
         starts.append(total)
         total += -(-math.prod(shape) * dt.itemsize // 256) * 256
-    return starts, total, plan["dw2_part"][0][0]
+    return route, starts, total, plan["dw2_part"][0][0]
 
 
 def fused_edgeconv_bwd(
@@ -482,8 +524,9 @@ def fused_edgeconv_bwd(
     The operator ``edgeconv_bwd``: tensors on the CPU take
     :func:`fused_edgeconv_bwd_plain`; CUDA tensors launch
     ``csrc/edgeconv_bwd.cu`` (six kernels, seven in fp32, counted as one
-    call in ``fused_edgeconv_bwd.launches``) with the scratch of
-    :func:`bwd_scratch_plan`.
+    call in ``fused_edgeconv_bwd.launches`` and in its route's entry of
+    ``fused_edgeconv_bwd.launches_by_route``, :func:`bwd_route`) with the
+    scratch of :func:`bwd_scratch_plan`.
     """
     return edgeconv_bwd_op(a, b, idx, edge_mask, w2, b2, g, aggr, slope)
 
@@ -501,9 +544,9 @@ def _bwd_cuda(a, b, idx, edge_mask, w2, b2, g, aggr, slope):
             pa, pb, idx, edge_mask, pw2, pb2, pg, aggr, slope)
         return tuple(t.contiguous() for t in (
             da[..., :H1], db[..., :H1], dw2[:H1, :H2], db2[:H2]))
-    bf16 = int(a.dtype == torch.bfloat16)
     lib = _bwd_lib()
-    starts, total, splits = _bwd_layout(lib, dev, B, L, H1, H2, k, a.dtype)
+    route, starts, total, splits = _bwd_layout(lib, dev, B, L, H1, H2, k,
+                                               a.dtype)
     f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         args = [aligned16(t) for t in (a, b, idx, edge_mask, w2, b2)]
@@ -517,17 +560,19 @@ def _bwd_cuda(a, b, idx, edge_mask, w2, b2, g, aggr, slope):
             *(t.data_ptr() for t in outs),
             *(scratch.data_ptr() + s for s in starts),
             B, L, H1, H2, k, splits, float(slope),
-            int(aggr == "max"), bf16, stream,
+            int(aggr == "max"), BWD_ROUTES.index(route), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"edgeconv backward kernel launch failed: CUDA error {err}"
         )
     fused_edgeconv_bwd.launches += 1
+    fused_edgeconv_bwd.launches_by_route[route] += 1
     return outs
 
 
 fused_edgeconv_bwd.launches = 0
+fused_edgeconv_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class _FusedEdgeConv(torch.autograd.Function):

@@ -640,21 +640,25 @@ def test_fused_edgeconv_max_tie_routes_to_first_edge():
 def test_fused_edgeconv_bwd_scratch_plan(dtype):
     """The CUDA backward's scratch at DynEdge's training shape (B=128,
     L=128, k=8, H1=336, H2=256): W2^T, the gm rows padded to the kernel's
-    column chunk and the g_z rows in the compute dtype, fp32 partials,
-    int32 reverse index; under the ~0.5 GB of the nine-launch design
-    (msgs, gm and g_z rows in fp32), and each dW2 slice at most 1024
-    rows."""
+    column chunk and the g_z rows in the compute dtype, fp32 partials and
+    the flags of the dW2 slices that hold a valid edge, int32 reverse
+    index; under the ~0.5 GB of the nine-launch design (msgs, gm and g_z
+    rows in fp32), and each dW2 slice at most 1024 rows.  fp32 takes the
+    128-row edge kernel: a db2 partial per two of the forward's blocks."""
     from graphnet_tpu_torch.ops.edgeconv_cuda import bwd_scratch_plan
 
     plan = bwd_scratch_plan(128, 128, 336, 256, 8, dtype)
     E, H2p = 128 * 128 * 8, 256
-    assert list(plan) == ["w2t", "gm", "gz", "dw2_part", "db2_part", "offs",
-                          "list"]
+    pairs = dtype == torch.float32  # the 128-row edge kernel
+    assert list(plan) == ["w2t", "gm", "gz", "dw2_part", "dw2_used",
+                          "db2_part", "offs", "list"]
     assert plan["w2t"] == ((256, 336), dtype)
     assert plan["gm"] == ((E, H2p), dtype)
     assert plan["gz"] == ((E, 336), dtype)
     assert plan["dw2_part"] == ((128, 336, 256), torch.float32)
-    assert plan["db2_part"] == ((128 * 16, 256), torch.float32)
+    assert plan["dw2_used"] == ((128,), torch.int32)
+    assert plan["db2_part"] == ((128 * (8 if pairs else 16), 256),
+                                torch.float32)
     assert plan["offs"] == ((128, 129), torch.int32)
     assert plan["list"] == ((128, 1024), torch.int32)
     total = sum(np.prod(shape) * dt.itemsize for shape, dt in plan.values())
@@ -665,9 +669,40 @@ def test_fused_edgeconv_bwd_scratch_plan(dtype):
     chunk = 128 if dtype == torch.bfloat16 else 256
     odd = bwd_scratch_plan(3, 100, 104, 72, 12, dtype)
     assert odd["gm"] == ((3 * 100 * 12, chunk), dtype)
-    assert odd["db2_part"][0] == (3 * 20, 72)
+    assert odd["db2_part"][0] == (3 * (10 if pairs else 20), 72)
     n_slices = odd["dw2_part"][0][0]
     assert -(-3 * 100 * 12 // n_slices) <= 1024
+    assert odd["dw2_used"][0] == (n_slices,)
+
+
+@pytest.mark.parametrize("k", [1, 8, 12, 32, 64])
+def test_fused_edgeconv_bwd_route(k):
+    """The backward's route from (H1, H2, k, dtype): QUESO's four layer
+    shapes (conv 0 at (128, 256), convs 1-3 at (336, 256)) take the
+    128-row fp32 edge kernel at every k, whose shared memory the wrapper
+    counts as the kernel's layout does (218,000 bytes at H1 = 336); bf16
+    keeps the tensor-core kernel; widths past the 128-row kernel's (H1
+    past 352, H2 past 256) take the 64-row fp32 kernel."""
+    from graphnet_tpu_torch.ops.edgeconv_cuda import (
+        HOPPER_SMEM_OPTIN,
+        _rows128_smem,
+        bwd_route,
+    )
+
+    f32, b16 = torch.float32, torch.bfloat16
+    for h1, h2 in ((128, 256), (336, 256), (336, 256), (336, 256)):
+        assert bwd_route(h1, h2, k, f32) == "fp32_rows128"
+        assert bwd_route(h1, h2, k, b16) == "bf16"
+    assert (_rows128_smem(128), _rows128_smem(336)) == (206480, 218000)
+    # widths that are no multiple of 8 are routed as the kernels take them
+    assert bwd_route(100, 72, k, f32) == "fp32_rows128"
+    assert bwd_route(352, 256, k, f32) == "fp32_rows128"
+    assert _rows128_smem(352) <= HOPPER_SMEM_OPTIN < _rows128_smem(360)
+    assert bwd_route(360, 256, k, f32) == "fp32_rows64"
+    assert bwd_route(336, 264, k, f32) == "fp32_rows64"
+    assert bwd_route(512, 512, k, b16) == "bf16"
+    with pytest.raises(ValueError, match="k="):
+        bwd_route(336, 256, 65, f32)
 
 
 def test_fused_edgeconv_bwd_checks_inputs_and_counts_nothing_on_cpu():
